@@ -12,6 +12,10 @@ Phases, one JSON line each:
                  masks; CUDA-event times of kernel, plain version and the
                  PyTorch library yardstick at the main path's two shapes
                  (N=321 with a bf16 stream, N=361 with an fp32 stream).
+     q8_kernel -- the same for the int8 and fused-projection instantiations
+                 (ln_qkv with an int8 payload, fp32 qkv_attention,
+                 proj_residual) and the compositions #4, #5 and #6: bf16
+                 compute under the KERNEL_* rule, fp32 compute under F32_*.
   3. track    -- UVLTrack-B (experiments/uvltrack/baseline_base.yaml, full
                  width, seeded random weights) tracks a synthetic 720p
                  sequence in BBOX, then NLBBOX mode: FPS at batch 1, p50/p90
@@ -20,9 +24,19 @@ Phases, one JSON line each:
                  the "plain" backend; the per-frame kernel-vs-plain box
                  difference from a shared state (paired_ab); each layer's
                  time (layer_times) and the card's busy share from
-                 torch.profiler (device_profile).
+                 torch.profiler (device_profile). Then the same two cells
+                 with TPU.WEIGHT_QUANT=int8 (B-BBOX-Q8, B-NLBBOX-Q8), the
+                 launches counted per instantiation.
+     fused_proj -- UVLTRACK_FUSED_PROJ=1 on the bf16 and the int8 model,
+                 BBOX, 16 frames: 12 proj_residual launches per forward,
+                 kernel vs plain through paired_ab.
+     q8_drift -- the int8 tracker against the bf16 one, each frame stepped
+                 from the bf16 tracker's state: per-frame IoU and the share
+                 of frames on the same cell (reported, not gated: the
+                 weights are random).
   4. reference -- one step's model outputs on the card against the same
-                 weights and inputs on the CPU (cpu_reference).
+                 weights and inputs on the CPU (cpu_reference), for the bf16
+                 and the int8 model.
 Then the {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failure raises: no ok line, exit 1.
 Without a CUDA card, or outside a checkout, it exits 2 and prints no result.
@@ -32,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -56,6 +71,18 @@ KERNEL_RTOL = 2e-2
 AB_BOX_REL, AB_TIE = 1e-2, 0.05
 # card (kernels, bf16) against the same port on the CPU (plain versions, bf16)
 REF_ATOL, REF_RTOL = 3e-2, 3e-2
+# bf16-compute instantiations of the int8 / fused-projection kernels: the
+# KERNEL_* rule, with the absolute term of their outputs' scale (the
+# post-residual stream, |out| about 1 to 4, takes ln_qkv's 2e-2; the
+# projection alone, out of proj_residual on a zero stream, |proj| about 0.1
+# on average and below 0.4 for 99% of elements, takes two bf16 steps at
+# 0.25-0.5, the relative term covering its few larger values)
+Q8_KERNEL_ATOL = {"ln_qkv": KERNEL_ATOL["ln_qkv"], "qkv_attention": KERNEL_ATOL["qkv_attention"],
+                  "proj_residual": 2e-2, "proj": 2e-3}
+# fp32-compute instantiations against their fp32 plain versions: fp32 sums in
+# another order, and the hi/lo bf16 passes keep 2^-17 of each operand:
+# |kernel - plain| <= F32_ATOL + F32_RTOL*|plain|
+F32_ATOL, F32_RTOL = 2e-4, 2e-4
 
 
 def emit(obj) -> None:
@@ -85,6 +112,11 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
 
 
 def bound(flops: float, nbytes: float):
+    """(bound ms, what binds) for `flops` of bf16 tensor-core operations and
+    `nbytes` moved. An fp32-accurate product is counted as the bf16 passes
+    the card needs for it at the least: two for fp32 x bf16-exact operands
+    (bf16 or int8 weights: hi/lo halves of the fp32 side), three for
+    fp32 x fp32 (hi.hi + hi.lo + lo.hi); the callers multiply."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
@@ -210,6 +242,222 @@ def kernel_phase(dev, seed: int):
     return worst, times["N361_fp32x_flag0"]
 
 
+def q8_kernel_phase(dev, seed: int):
+    """Every int8 and fused-projection instantiation against its plain
+    version on the card, over the grid of kernel_phase, then CUDA-event
+    times at the main path's two shapes. Returns ({name: worst error},
+    {shape: {name: times}})."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+    from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
+    from uvltrack_tpu_torch.ops import quant
+
+    c, heads, f = 768, 12, 3 * 768
+    rng = np.random.default_rng(seed + 1)
+
+    def case(n, kind, x_dtype):
+        def arr(a):
+            return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+        x = arr(rng.normal(size=(1, n, c))).to(x_dtype)
+        g, be = arr(1 + 0.1 * rng.normal(size=c)), arr(0.1 * rng.normal(size=c))
+        w = arr(rng.normal(size=(f, c)) / np.sqrt(c)).to(torch.bfloat16)
+        wp = arr(rng.normal(size=(c, c)) / np.sqrt(c)).to(torch.bfloat16)
+        wb, bp = arr(0.02 * rng.normal(size=f)), arr(0.02 * rng.normal(size=c))
+        kb = arr(np.where(key_mask(n, kind, rng), -1e10, 0.0))
+        # the model's path: int8 payloads quantized from the bf16 weights
+        return x, g, be, w, wb, wp, bp, kb, quant.quantize_weight(w), quant.quantize_weight(wp)
+
+    def checks(x, g, be, w, wb, wp, bp, kb, wq, wpq):
+        """{name: (kernel fn, plain fn, tolerance key or None for fp32)}"""
+        xt = "fp32" if x.dtype == torch.float32 else "bf16"
+        f32 = xt == "fp32"
+        qkv = lqa.ln_qkv_q8(x, g, be, wq.q, wq.scale, wb)
+        attn = lqa.qkv_attention(qkv, kb, heads)
+        a16 = attn.to(torch.bfloat16)
+        out = {
+            f"ln_qkv[{xt}x-int8w]": (
+                lambda: lqa.ln_qkv_q8(x, g, be, wq.q, wq.scale, wb),
+                lambda: lqa.ln_qkv_q8_plain(x, g, be, wq.q, wq.scale, wb),
+                None if f32 else "ln_qkv"),
+            f"proj_residual[{xt}x-{xt}a-int8w]": (
+                lambda: lqp.proj_residual(x, attn, wpq.q, bp, wpq.scale),
+                lambda: lqp.proj_residual_plain(x, attn, wpq, bp),
+                None if f32 else "proj_residual"),
+            # bf16 A and Wp: exact products, so an fp32 x is fp32-accurate
+            f"proj_residual[{xt}x-bf16a-bf16w]": (
+                lambda: lqp.proj_residual(x, a16, wp, bp),
+                lambda: lqp.proj_residual_plain(x, a16, wp, bp),
+                None if f32 else "proj_residual"),
+            f"#5 ln_qkv_attention_q8[{xt}x]": (
+                lambda: lqa.ln_qkv_attention_q8(x, g, be, wq.q, wq.scale, wb, kb, heads),
+                lambda: lqa.ln_qkv_attention_q8_plain(x, g, be, wq.q, wq.scale, wb, kb, heads),
+                None if f32 else "qkv_attention"),
+            f"#6 ln_qkv_attn_proj_q8[{xt}x]": (
+                lambda: lqp.ln_qkv_attn_proj_q8(x, g, be, wq.q, wq.scale, wb, wpq.q, wpq.scale,
+                                                bp, kb, heads),
+                lambda: lqp.ln_qkv_attn_proj_q8_plain(x, g, be, wq.q, wq.scale, wb, wpq.q,
+                                                      wpq.scale, bp, kb, heads),
+                None if f32 else "proj_residual"),
+            # #4 computes in bf16 whatever x is
+            f"#4 ln_qkv_attn_proj[{xt}x]": (
+                lambda: lqp.ln_qkv_attn_proj(x, g, be, w, wb, wp, bp, kb, heads),
+                lambda: lqp.ln_qkv_attn_proj_plain(x, g, be, w, wb, wp, bp, kb, heads),
+                "proj_residual"),
+        }
+        if f32:
+            out["qkv_attention[fp32]"] = (lambda: lqa.qkv_attention(qkv, kb, heads),
+                                          lambda: lqa.qkv_attention_plain(qkv, kb, heads), None)
+        return out
+
+    def proj_only(x, g, be, w, wb, wp, bp, kb, wq, wpq):
+        """Each proj_residual instantiation on a zero residual stream, where
+        out = cast_x(A . Wp^T (* scale) + b_proj) exactly: the epilogue held at
+        the projection's own scale, which the post-residual checks above
+        cannot resolve in bf16 (the residual add rounds at |x|'s scale)."""
+        xt = "fp32" if x.dtype == torch.float32 else "bf16"
+        tol_key = None if xt == "fp32" else "proj"
+        z = torch.zeros_like(x)
+        attn = lqa.qkv_attention(lqa.ln_qkv_q8(x, g, be, wq.q, wq.scale, wb), kb, heads)
+        a16 = attn.to(torch.bfloat16)
+        return {
+            f"proj_residual[{xt}x-{xt}a-int8w] proj only": (
+                lambda: lqp.proj_residual(z, attn, wpq.q, bp, wpq.scale),
+                lambda: lqp.proj_residual_plain(z, attn, wpq, bp), tol_key),
+            f"proj_residual[{xt}x-bf16a-bf16w] proj only": (
+                lambda: lqp.proj_residual(z, a16, wp, bp),
+                lambda: lqp.proj_residual_plain(z, a16, wp, bp), tol_key),
+        }
+
+    def err(tol_key, a, b):
+        a, b = a.float(), b.float()
+        if tol_key is None:
+            ok = ((a - b).abs() <= F32_ATOL + F32_RTOL * b.abs()).all()
+        else:
+            ok = ((a - b).abs() <= Q8_KERNEL_ATOL[tol_key] + KERNEL_RTOL * b.abs()).all()
+        return float((a - b).abs().max()), bool(ok)
+
+    worst, proj_abs_max = {}, 0.0
+    for n in (48, 321, 361, 681):
+        for kind in ("flag0", "flag2", "open"):
+            for x_dtype in (torch.bfloat16, torch.float32):
+                args = case(n, kind, x_dtype)
+                for name, (kern, plain, tol_key) in {**checks(*args),
+                                                     **proj_only(*args)}.items():
+                    got = kern()
+                    torch.cuda.synchronize()
+                    want = plain()
+                    if got.dtype != want.dtype or got.shape != want.shape:
+                        raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} vs plain "
+                                             f"{want.dtype}{tuple(want.shape)}")
+                    e, ok = err(tol_key, got, want)
+                    if not ok:
+                        raise AssertionError(f"{name} N={n} mask={kind}: max abs err {e} "
+                                             "over tolerance")
+                    worst[name] = max(worst.get(name, 0.0), e)
+                    if name.endswith("proj only"):
+                        proj_abs_max = max(proj_abs_max, float(want.float().abs().max()))
+    emit({"phase": "q8_kernel_check", "shapes_N": [48, 321, 361, 681],
+          "masks": ["flag0", "flag2", "open"], "x_dtypes": ["bf16", "fp32"],
+          "proj_only_abs_max": proj_abs_max,
+          "tolerance": {"bf16 compute": {k: f"|kernel-plain| <= {a} + {KERNEL_RTOL}*|plain|"
+                                         for k, a in Q8_KERNEL_ATOL.items()},
+                        "fp32 compute": f"|kernel-plain| <= {F32_ATOL} + {F32_RTOL}*|plain|"},
+          "max_abs_err": worst})
+
+    def work(name, n, xb):
+        """(bf16-pass operations, bytes): each input read once, each output
+        written once; fp32-accurate products counted in bf16 passes (bound)."""
+        f32 = xb == 4
+        ln_params = 2 * c * 4 + f * 4  # LN scale/bias, qkv bias
+        pre = (2 * n * c * f * (2 if f32 else 1),
+               n * c * xb + f * c + f * 4 + ln_params)  # + int8 W and its scale
+        att = (4 * heads * n * n * 64 * (3 if f32 else 1), n * 4)  # + key bias
+        prj_q8 = (2 * n * c * c * (2 if f32 else 1), c * c + c * 4 + c * 4)
+        prj16 = (2 * n * c * c, c * c * 2 + c * 4)
+        if name.startswith("ln_qkv["):
+            return pre[0], pre[1] + n * f * xb
+        if name == "qkv_attention[fp32]":
+            return att[0], n * f * 4 + att[1] + n * c * 4
+        if name.startswith("proj_residual") and name.endswith("int8w]"):
+            return prj_q8[0], prj_q8[1] + 3 * n * c * xb  # x, A in x's dtype, out
+        if name.startswith("proj_residual"):
+            return prj16[0], prj16[1] + 2 * n * c * xb + n * c * 2  # x, out; bf16 A
+        if name.startswith("#5"):
+            return pre[0] + att[0], pre[1] + att[1] + n * c * xb
+        if name.startswith("#6"):
+            return pre[0] + att[0] + prj_q8[0], pre[1] + att[1] + prj_q8[1] + n * c * xb
+        # #4: bf16 weights, bf16 compute
+        return (2 * n * c * f + 4 * heads * n * n * 64 + 2 * n * c * c,
+                n * c * xb + f * c * 2 + ln_params + n * 4 + prj16[1] + n * c * xb)
+
+    def library(name, x, g, be, w, wb, wp, bp, kb, wq, wpq):
+        """One PyTorch call computing the same function where there is one
+        (SDPA for the fp32 attention); else the nearest composition of
+        library calls, named in `library` (dense weights dequantized before
+        the timing)."""
+        n = x.shape[1]
+        mask = kb.to(x.dtype)[:, None, None, :]
+        wpd = wpq.materialize(x.dtype)
+
+        def sdpa(t):
+            q, k, v = t.view(1, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask.to(t.dtype))
+
+        qkv = lqa.ln_qkv_q8(x, g, be, wq.q, wq.scale, wb)
+        attn = lqa.qkv_attention(qkv, kb, heads)
+        wqd = wq.materialize(x.dtype)
+        if name == "qkv_attention[fp32]":
+            return lambda: sdpa(qkv), "SDPA"
+        if name.startswith("proj_residual") and name.endswith("int8w]"):
+            return lambda: torch.add(x, F.linear(attn, wpd, bp.to(x.dtype))), \
+                "F.linear + add, 2 calls"
+        if name.startswith("proj_residual"):
+            a16 = attn.to(torch.bfloat16)
+            return lambda: torch.add(x, F.linear(a16, wp, bp.to(torch.bfloat16))), \
+                "F.linear + add, 2 calls"
+
+        def ln(dt):
+            return F.layer_norm(x.float(), (c,), g, be, 1e-6).to(dt)
+
+        if name.startswith("#5"):
+            return lambda: sdpa(F.linear(ln(x.dtype), wqd, wb.to(x.dtype))), \
+                "LN + linear + SDPA, 3 calls"
+        if name.startswith("#6"):
+            return lambda: torch.add(x, F.linear(sdpa(F.linear(ln(x.dtype), wqd, wb.to(x.dtype)))
+                                                 .transpose(1, 2).reshape(1, n, c), wpd,
+                                                 bp.to(x.dtype))), \
+                "LN + linear + SDPA + linear + add, 5 calls"
+        if name.startswith("#4"):
+            b16 = torch.bfloat16
+            return lambda: torch.add(x, F.linear(sdpa(F.linear(ln(b16), w, wb.to(b16)))
+                                                 .transpose(1, 2).reshape(1, n, c), wp,
+                                                 bp.to(b16))), \
+                "LN + linear + SDPA + linear + add, 5 calls"
+        return None, "none (no one call)"
+
+    def timed(n, kind, x_dtype):
+        args = case(n, kind, x_dtype)
+        xb = args[0].element_size()
+        out = {}
+        for name, (kern, plain, _) in checks(*args).items():
+            lib, lib_what = library(name, *args)
+            b_ms, b_by = bound(*work(name, n, xb))
+            out[name] = {"ms": cuda_time_ms(kern), "plain_ms": cuda_time_ms(plain),
+                         "library_ms": cuda_time_ms(lib) if lib else None,
+                         "library": lib_what, "bound_ms": b_ms, "bound_by": b_by}
+        return out
+
+    times = {"N321_bf16x_open": timed(321, "open", torch.bfloat16),
+             "N361_fp32x_flag0": timed(361, "flag0", torch.float32)}
+    emit({"phase": "q8_kernel_times", "timer": "CUDA events, mean of 200 back-to-back "
+          "launches after 20 warm-up (L2-warm)", "times": times})
+    return worst, times
+
+
 # ------------------------------------------------------------------ phase 3
 def frame_work(model, nt: int) -> dict:
     """Operations and weight bytes of one tracked frame, from the shapes:
@@ -233,9 +481,13 @@ def frame_work(model, nt: int) -> dict:
     for tower in towers:
         for m in tower.modules():
             if isinstance(m, torch.nn.Conv2d):
-                flops += 2 * cells * m.weight[0].numel() * m.out_channels
+                kh, kw = m.kernel_size
+                flops += 2 * cells * m.in_channels * kh * kw * m.out_channels
     used = [bb.vit.blocks, bb.vit.patch_embed, *towers]
     wbytes = sum(p.numel() * p.element_size() for mod in used for p in mod.parameters())
+    # int8 payloads and their scales (weight-only int8) are buffers
+    wbytes += sum(b.numel() * b.element_size() for mod in used
+                  for name, b in mod.named_buffers() if name.endswith(("weight_q", "weight_scale")))
     return {"frame_gflops": flops / 1e9, "kernel1_gflops": kernel1 / 1e9,
             "frame_weight_bytes": wbytes,
             "frame_bound_ms": bound(flops, wbytes)[0], "frame_bound_by": bound(flops, wbytes)[1]}
@@ -334,12 +586,15 @@ def paired_ab(tracker, frames, info):
                          f"within {AB_TIE:.0%} of the max in both maps"}
 
 
-def track_phase(mode: str, model, cfg, frames, boxes, tokenizer, language):
+def track_phase(mode: str, model, cfg, frames, boxes, tokenizer, language,
+                expect=None, label: str = ""):
+    """One cell: `expect` gives the launches per backbone forward of each
+    kernel instantiation, when the caller checks them (build.instantiation_counts)."""
     import numpy as np
     import torch
 
     from uvltrack_tpu_torch.ops import attention
-    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+    from uvltrack_tpu_torch.ops import build
     from uvltrack_tpu_torch.track.tracker import Tracker
 
     cfg.TEST.MODE = mode
@@ -367,18 +622,22 @@ def track_phase(mode: str, model, cfg, frames, boxes, tokenizer, language):
     # in turns, plain / kernel / kernel / plain: one card, one call
     plain, plat, _, plain_remines = run("plain")
     torch.cuda.reset_peak_memory_stats()
-    lqa.reset_launch_counts()
+    resident = torch.cuda.memory_allocated()  # every model on the card, this one's included
+    build.reset_launch_counts()
     res, lat, init_s, remines = run("cuda")
-    counts = lqa.launch_counts()
+    counts = build.launch_counts()
+    inst = build.instantiation_counts()
     forwards = len(frames)  # initialize's backbone pass + one per tracked frame
     peak = torch.cuda.max_memory_allocated()
     _, lat2, _, _ = run("cuda")
     _, plat2, _, _ = run("plain")
     lat, plat = np.concatenate([lat, lat2]), np.concatenate([plat, plat2])
-    if lqa.launch_counts() != {k: 2 * v for k, v in counts.items()}:
+    if build.launch_counts() != {k: 2 * v for k, v in counts.items()}:
         raise AssertionError("the plain backend launched a kernel")
-    if counts != {"ln_qkv": 12 * forwards, "qkv_attention": 12 * forwards}:
+    if counts != {"ln_qkv": 12 * forwards, "qkv_attention": 12 * forwards, "proj_residual": 0}:
         raise AssertionError(f"launches {counts} != 12 x {forwards} backbone forwards")
+    if expect is not None and inst != {k: v * forwards for k, v in expect.items()}:
+        raise AssertionError(f"launches {inst} != {expect} x {forwards} backbone forwards")
     if not np.isfinite(res).all() or res.shape != (len(frames) - 1, 5):
         raise AssertionError("non-finite or misshapen tracker output")
     if remines < len(res) // int(cfg.TEST.UPDATE_INTERVAL):
@@ -388,14 +647,16 @@ def track_phase(mode: str, model, cfg, frames, boxes, tokenizer, language):
     layers = layer_times(tracker, frames)
     busy = device_profile(tracker, frames, info)
     attention.force_backend(None)
-    emit({"phase": f"track_{mode}", "frames": len(res), "frame_hw": list(frames[0].shape[:2]),
+    emit({"phase": f"track_{mode}{label}", "frames": len(res),
+          "frame_hw": list(frames[0].shape[:2]),
           "timer": "host clock per track() call, ending in the box read-back; two runs "
                    "of the sequence per backend, in turns plain/kernel/kernel/plain",
           "tracked_fps": len(lat) / float(lat.sum()),
           "latency_ms_p50": float(np.percentile(lat, 50) * 1e3),
           "latency_ms_p90": float(np.percentile(lat, 90) * 1e3),
-          "init_s": init_s, "peak_mem_bytes": int(peak),
-          "launches": counts, "backbone_forwards": forwards,
+          "init_s": init_s, "peak_mem_bytes": int(peak), "resident_at_start_bytes": int(resident),
+          "launches": counts, "launches_by_instantiation": inst,
+          "backbone_forwards": forwards,
           "remines": remines, "plain_remines": plain_remines,
           "plain_fps": len(plat) / float(plat.sum()),
           "plain_latency_ms_p50": float(np.percentile(plat, 50) * 1e3),
@@ -404,10 +665,10 @@ def track_phase(mode: str, model, cfg, frames, boxes, tokenizer, language):
           "free_running_box_diff_px_max": float(np.abs(res[:, :4] - plain[:, :4]).max()),
           "score_range": [float(res[:, 4].min()), float(res[:, 4].max())],
           "layer_ms": layers, "device_profile": busy})
-    return counts
+    return inst
 
 
-def reference_phase(model, cfg, frames, boxes):
+def reference_phase(model, cfg, frames, boxes, label: str = ""):
     """One tracking step's model outputs on the card (kernel backend, bf16)
     against the same weights and inputs on the CPU, where every wrapper takes
     its plain version, the path that the CPU tests hold against the JAX
@@ -419,7 +680,7 @@ def reference_phase(model, cfg, frames, boxes):
     import torch
 
     from uvltrack_tpu_torch.ops import attention
-    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+    from uvltrack_tpu_torch.ops import build
     from uvltrack_tpu_torch.track.pipeline import sample_target_device
     from uvltrack_tpu_torch.track.tracker import Tracker
 
@@ -431,10 +692,10 @@ def reference_phase(model, cfg, frames, boxes):
                                      t.search_size)
     args = (t.template, search, t.txt, t.text_mask, t.state.prompt, t.flag)
     keys = ("cls_score_test", "bbox_map", "cont_score")
-    before = lqa.launch_counts()
+    before = build.launch_counts()
     with torch.no_grad():
         card = model.forward_test_cached(*args)
-        launched = lqa.launch_counts() != before
+        launched = build.launch_counts() != before
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cpu = copy.deepcopy(model).cpu().forward_test_cached(*(a.cpu() for a in args))
@@ -456,7 +717,8 @@ def reference_phase(model, cfg, frames, boxes):
             o["cont_score"].float().cpu(), -1)[..., 0]
         return int(merged.argmax())
 
-    emit({"phase": "cpu_reference", "what": "forward_test_cached, one BBOX step, full width",
+    emit({"phase": f"cpu_reference{label}",
+          "what": "forward_test_cached, one BBOX step, full width",
           "max_abs_err": errs, "same_argmax_cell": cell(card) == cell(cpu),
           "tolerance": f"|card-cpu| <= {REF_ATOL} + {REF_RTOL}*|cpu|", "cpu_s": cpu_s})
 
@@ -539,6 +801,93 @@ def device_profile(tracker, frames, info, n: int = 16):
                      "ms_per_frame": dev_us(e) / n / 1e3} for e in top]}
 
 
+def fused_proj_phase(label: str, model, cfg, frames, boxes, expect):
+    """UVLTRACK_FUSED_PROJ=1 (read at call time by ops/attention.py): BBOX
+    over len(frames)-1 frames on the kernel backend, its launches per
+    instantiation (expect: per backbone forward) and host-clock FPS, then
+    the kernel-vs-plain paired_ab (the plain backend composes the branch)."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.track.tracker import Tracker
+
+    cfg.TEST.MODE = "BBOX"
+    tracker = Tracker(cfg, model)
+    info = {"init_bbox": boxes[0]}
+    os.environ["UVLTRACK_FUSED_PROJ"] = "1"
+    try:
+        attention.force_backend("cuda")
+        tracker.initialize(frames[0], info)  # warm-up
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        tracker.initialize(frames[0], info)
+        lat = []
+        for f in frames[1:]:
+            t = time.perf_counter()
+            tracker.track(f)
+            lat.append(time.perf_counter() - t)
+        inst = build.instantiation_counts()
+        attention.force_backend(None)
+        forwards = len(frames)
+        if inst != {k: v * forwards for k, v in expect.items()}:
+            raise AssertionError(f"fused_proj {label}: launches {inst} != {expect} x {forwards}")
+        ab = paired_ab(tracker, frames, info)
+    finally:
+        del os.environ["UVLTRACK_FUSED_PROJ"]
+        attention.force_backend(None)
+    lat = np.asarray(lat)
+    emit({"phase": f"fused_proj_{label}", "frames": len(lat), "backbone_forwards": forwards,
+          "launches_by_instantiation": inst, "tracked_fps": len(lat) / float(lat.sum()),
+          "latency_ms_p50": float(np.percentile(lat, 50) * 1e3), "ab_per_frame": ab})
+    return inst
+
+
+def drift_phase(model_fp, cfg_fp, model_q8, cfg_q8, frames, boxes):
+    """The int8 tracker against the bf16 one on the kernel backend, each
+    frame stepped by both from the bf16 tracker's state (prompt, box, best
+    features), which then goes on: per-frame IoU of the two boxes and the
+    share of frames whose merged maps peak on the same cell. Reported, not
+    gated: with random weights the maps are near-flat and int8 noise may
+    move the peak."""
+    import numpy as np
+
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.track.tracker import Tracker
+
+    cfg_fp.TEST.MODE = cfg_q8.TEST.MODE = "BBOX"
+    tf, tq = Tracker(cfg_fp, model_fp), Tracker(cfg_q8, model_q8)
+    info = {"init_bbox": boxes[0]}
+    attention.force_backend("cuda")
+    try:
+        tf.initialize(frames[0], info)
+        tq.initialize(frames[0], info)
+        ious, same = [], 0
+        for f in frames[1:]:
+            st = tf.state
+            a = tf.track_debug(f)
+            tq.state = st
+            b = tq.track_debug(f)
+            ious.append(box_iou(a["target_bbox"], b["target_bbox"]))
+            same += int(a["merged_map"].argmax() == b["merged_map"].argmax())
+    finally:
+        attention.force_backend(None)
+    ious = np.asarray(ious)
+    emit({"phase": "q8_drift", "frames": len(ious), "same_cell_share": same / len(ious),
+          "iou_mean": float(ious.mean()), "iou_min": float(ious.min()),
+          "iou_p10": float(np.percentile(ious, 10)),
+          "frames_iou_below_0.7": int((ious < 0.7).sum())})
+
+
+def box_iou(a, b) -> float:
+    """IoU of two [x, y, w, h] boxes."""
+    iw = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
+    ih = max(0.0, min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1]))
+    inter = iw * ih
+    return inter / (a[2] * a[3] + b[2] * b[3] - inter)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -573,42 +922,107 @@ def main() -> int:
                       for n, r in recs.items()}})
 
     worst, times = kernel_phase(dev, args.seed)
+    q8_worst, q8_times = q8_kernel_phase(dev, args.seed)
 
     from uvltrack_tpu_torch.config import load_cfg
     from uvltrack_tpu_torch.core.tokenizer import BertTokenizer
     from uvltrack_tpu_torch.models.uvltrack import build_model, prepare_inference_model
+    from uvltrack_tpu_torch.ops import quant
 
-    cfg = load_cfg(str(REPO / "experiments/uvltrack/baseline_base.yaml"))
-    # random weights score far below a trained model's 0.5 gate; opening it
-    # makes the score-gated re-mine run on its schedule (frames 20, 40, 60)
-    cfg.TEST.THRESHOLD = -1.0
+    def config(weight_quant: str = ""):
+        cfg = load_cfg(str(REPO / "experiments/uvltrack/baseline_base.yaml"))
+        # random weights score far below a trained model's 0.5 gate; opening it
+        # makes the score-gated re-mine run on its schedule (frames 20, 40, 60)
+        cfg.TEST.THRESHOLD = -1.0
+        cfg.TPU.WEIGHT_QUANT = weight_quant
+        return cfg
+
+    cfg = config()
+    nt = int(cfg.MODEL.BACKBONE.LANGUAGE.BERT.MAX_QUERY_LEN)
     t0 = time.perf_counter()
     model = prepare_inference_model(cfg, build_model(cfg, device=dev, seed=args.seed))
     emit({"phase": "model", "config": "experiments/uvltrack/baseline_base.yaml",
           "params": sum(p.numel() for p in model.parameters()),
-          "build_s": time.perf_counter() - t0,
-          **frame_work(model, int(cfg.MODEL.BACKBONE.LANGUAGE.BERT.MAX_QUERY_LEN))})
+          "build_s": time.perf_counter() - t0, **frame_work(model, nt)})
     frames, boxes = synthetic_sequence(args.frames, args.seed)
     language = "the red checkered box moving left"
     vocab = REPO / "build" / "chip_smoke" / "vocab.txt"
     write_vocab(vocab, language.split(), args.seed)
-    launches = {"ln_qkv": 0, "qkv_attention": 0}
+    # launches per instantiation over every path run (each counted from 0)
+    launches = {}
+
+    def add(inst):
+        for k, v in inst.items():
+            launches[k] = launches.get(k, 0) + v
+
+    per_fwd_fp = {"ln_qkv[bf16x-bf16w]": 6, "ln_qkv[fp32x-bf16w]": 6, "qkv_attention[bf16]": 12}
     for mode in ("BBOX", "NLBBOX"):
-        counts = track_phase(mode, model, cfg, frames, boxes, BertTokenizer(str(vocab)),
-                             language)
-        for k in launches:
-            launches[k] += counts[k]
+        add(track_phase(mode, model, cfg, frames, boxes, BertTokenizer(str(vocab)), language,
+                        expect=per_fwd_fp))
     reference_phase(model, cfg, frames, boxes)
 
-    sources = {"ln_qkv": ("uvltrack_tpu_torch/csrc/ln_qkv.cu", f"{TPU_KERNEL}:167"),
-               "qkv_attention": ("uvltrack_tpu_torch/csrc/qkv_attention.cu",
-                                 f"{TPU_KERNEL}:119")}
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": worst[name], **times[name]}
-               for name, (src, replaces) in sources.items()]
+    # weight-only int8: the same cells, the same seed
+    cfg_q8 = config("int8")
+    t0 = time.perf_counter()
+    model_q8 = prepare_inference_model(cfg_q8, build_model(cfg_q8, device=dev, seed=args.seed))
+    emit({"phase": "model_q8", "config": "experiments/uvltrack/baseline_base.yaml, "
+          "TPU.WEIGHT_QUANT=int8", "quantized_tensors": quant.count_quantized(model_q8),
+          "bytes_saved_per_bf16_read": quant.quantized_bytes_saved(model_q8),
+          "build_s": time.perf_counter() - t0, **frame_work(model_q8, nt)})
+    if quant.count_quantized(model_q8) != 56:
+        raise AssertionError(f"{quant.count_quantized(model_q8)} tensors quantized, not 56")
+    per_fwd_q8 = {"ln_qkv[bf16x-int8w]": 6, "ln_qkv[fp32x-int8w]": 6,
+                  "qkv_attention[bf16]": 6, "qkv_attention[fp32]": 6}
+    for mode in ("BBOX", "NLBBOX"):
+        add(track_phase(mode, model_q8, cfg_q8, frames, boxes, BertTokenizer(str(vocab)),
+                        language, expect=per_fwd_q8, label="_q8"))
+    fused = frames[:17]
+    add(fused_proj_phase("bf16", model, cfg, fused, boxes, dict(
+        per_fwd_fp, **{"proj_residual[bf16x-bf16a-bf16w]": 6,
+                       "proj_residual[fp32x-bf16a-bf16w]": 6})))
+    add(fused_proj_phase("q8", model_q8, cfg_q8, fused, boxes, dict(
+        per_fwd_q8, **{"proj_residual[bf16x-bf16a-int8w]": 6,
+                       "proj_residual[fp32x-fp32a-int8w]": 6})))
+    drift_phase(model, cfg, model_q8, cfg_q8, frames, boxes)
+    reference_phase(model_q8, cfg_q8, frames, boxes, label="_q8")
+
+    src = "uvltrack_tpu_torch/csrc"
+    n321, n361 = q8_times["N321_bf16x_open"], q8_times["N361_fp32x_flag0"]
+    # (name, source, TPU kernel line, launches, worst error, times at the
+    # instantiation's main-path shape)
+    rows = [
+        ("ln_qkv", f"{src}/ln_qkv.cu", 167,
+         launches.get("ln_qkv[bf16x-bf16w]", 0) + launches.get("ln_qkv[fp32x-bf16w]", 0),
+         worst["ln_qkv"], times["ln_qkv"]),
+        ("qkv_attention", f"{src}/qkv_attention.cu", 119,
+         launches.get("qkv_attention[bf16]", 0), worst["qkv_attention"], times["qkv_attention"]),
+    ]
+    for name, line, shape in (("ln_qkv[bf16x-int8w]", 433, n321),
+                              ("ln_qkv[fp32x-int8w]", 433, n361),
+                              ("qkv_attention[fp32]", 433, n361),
+                              ("proj_residual[bf16x-bf16a-bf16w]", 291, n321),
+                              ("proj_residual[fp32x-bf16a-bf16w]", 291, n361),
+                              ("proj_residual[bf16x-bf16a-int8w]", 489, n321),
+                              ("proj_residual[fp32x-fp32a-int8w]", 489, n361)):
+        source = f"{src}/{name.split('[')[0]}.cu"
+        t = {k: v for k, v in shape[name].items() if k != "library"}
+        rows.append((name, source, line, launches.get(name, 0), q8_worst[name], t))
+    kernels = [{"name": name, "route": "cuda", "source": source,
+                "replaces": f"{TPU_KERNEL}:{line}", "launches": n, "max_abs_err": err, **t}
+               for name, source, line, n, err, t in rows]
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on their paths: {idle}")
     emit({"phase": "composition", "name": "ln_qkv_attention (ln_qkv + qkv_attention)",
           "replaces": f"{TPU_KERNEL}:167", "max_abs_err": worst["ln_qkv_attention"],
           **times["ln_qkv_attention"], "library": "F.layer_norm + F.linear + SDPA"})
+    for num, line in (("#5", 433), ("#4", 291), ("#6", 489)):
+        for shape in (n321, n361):
+            for name, t in shape.items():
+                if name.startswith(num):
+                    emit({"phase": "composition", "name": name,
+                          "replaces": f"{TPU_KERNEL}:{line}", "max_abs_err": q8_worst[name],
+                          **t})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from uvltrack_tpu_torch.ops import attention as tattn
+from uvltrack_tpu_torch.ops import build
 from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
 
 ATOL, RTOL = 5e-5, 5e-4
@@ -128,14 +129,14 @@ def test_fast_variance_clamps_at_zero():
 
 
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
-    lqa.reset_launch_counts()
+    build.reset_launch_counts()
     x, g, be, w, wb, kb = _ln_case(130, seed=2)
     args = (_t(x), _t(g), _t(be), _t(w.T), _t(wb))
     qkv = lqa.ln_qkv(*args)
     torch.testing.assert_close(qkv, lqa.ln_qkv_plain(*args), rtol=0, atol=0)
     out = lqa.qkv_attention(qkv, _t(kb), 4)
     torch.testing.assert_close(out, lqa.qkv_attention_plain(qkv, _t(kb), 4), rtol=0, atol=0)
-    assert lqa.launch_counts() == {"ln_qkv": 0, "qkv_attention": 0}
+    assert build.launch_counts() == {"ln_qkv": 0, "qkv_attention": 0, "proj_residual": 0}
 
 
 @pytest.mark.parametrize("n", [21, 130])
@@ -234,14 +235,13 @@ _IMPORT = re.compile(r"^\s*(import jax|from jax|import flax|from flax|"
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "uvltrack_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    assert {"quant.py", "ln_qkv_attn_proj.py", "ln_qkv_attention.py"} <= {p.name for p in files}
     offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
                  for p in files for m in _IMPORT.finditer(p.read_text())]
     assert offenders == []
 
 
 def test_kernel_sources_ship_with_the_package():
-    from uvltrack_tpu_torch.ops import build
-
     for name in build.SOURCES:
         src = (build.CSRC / f"{name}.cu").read_text()
         assert "extern \"C\" int uvl_" in src and "cudaGetLastError" in src
@@ -283,11 +283,11 @@ def _gpu_case(n, mask, x_dtype, dev, c=768, seed=0, b=1):
 @pytest.mark.parametrize("n", [48, 321, 361, 681])
 def test_cuda_kernels_match_plain(cuda, n, mask, x_dtype):
     x, g, be, w, wb, kb = _gpu_case(n, mask, x_dtype, cuda)
-    lqa.reset_launch_counts()
+    build.reset_launch_counts()
     qkv = lqa.ln_qkv(x, g, be, w, wb)
     out = lqa.qkv_attention(qkv, kb, 12)
     torch.cuda.synchronize()
-    assert lqa.launch_counts() == {"ln_qkv": 1, "qkv_attention": 1}
+    assert build.launch_counts() == {"ln_qkv": 1, "qkv_attention": 1, "proj_residual": 0}
     qkv_ref = lqa.ln_qkv_plain(x, g, be, w, wb)
     torch.testing.assert_close(qkv.float(), qkv_ref.float(), atol=GPU_ATOL, rtol=GPU_RTOL)
     # the attention kernel on the same qkv, then the composition (#1)
@@ -315,18 +315,18 @@ def test_cuda_kernels_match_plain_per_batch_element(cuda):
 def test_cuda_dispatch_launches_on_the_cuda_backend_only(cuda):
     x, g, be, w, wb, kb = _gpu_case(361, "tail", torch.bfloat16, cuda)
     bias = kb[:, None, None, :]
-    lqa.reset_launch_counts()
+    build.reset_launch_counts()
     try:
         tattn.force_backend("plain")
         tattn.attention_ln_qkv_core(x, g, be, w, wb, 12, bias, torch.bfloat16)
-        assert lqa.launch_counts()["ln_qkv"] == 0
+        assert build.launch_counts()["ln_qkv"] == 0
         tattn.force_backend("cuda")
         tattn.attention_ln_qkv_core(x, g, be, w, wb, 12, bias, torch.bfloat16)
         tattn.attention_ln_qkv_core(x[:, :40], g, be, w, wb, 12, bias[..., :40],
                                     torch.bfloat16)  # N < 128: plain
     finally:
         tattn.force_backend(None)
-    assert lqa.launch_counts() == {"ln_qkv": 1, "qkv_attention": 1}
+    assert build.launch_counts() == {"ln_qkv": 1, "qkv_attention": 1, "proj_residual": 0}
 
 
 @pytest.mark.gpu
@@ -352,7 +352,7 @@ from uvltrack_tpu_torch.models.bert import BertConfig
 from uvltrack_tpu_torch.models.head import MABH
 from uvltrack_tpu_torch.models.mufe import MUFE
 from uvltrack_tpu_torch.models.uvltrack import UVLTrack, cast_inference_params, init_model
-from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+from uvltrack_tpu_torch.ops import build
 
 dev = {dev!r}
 bert = BertConfig(vocab_size=100, hidden_size=128, num_layers=2, num_heads=2,
@@ -375,7 +375,7 @@ with torch.no_grad():
     prompt = model.forward_prompt_init(template, search, ids, mask, tmask, cmask, flag)
     out = model.forward_test(template, search, ids, mask, prompt, flag)
 assert torch.isfinite(out["bbox_map"].float()).all()
-print(lqa.launch_counts())
+print(build.launch_counts())
 """
 
 
@@ -387,4 +387,4 @@ def test_model_built_without_build_model_launches_the_kernels(cuda):
                          cwd=REPO, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     counts = ast.literal_eval(out.stdout.strip().splitlines()[-1])
-    assert counts == {"ln_qkv": 8, "qkv_attention": 8}
+    assert counts == {"ln_qkv": 8, "qkv_attention": 8, "proj_residual": 0}

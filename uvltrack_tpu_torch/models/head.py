@@ -11,7 +11,8 @@ from template+context features, splitting the background at the 0.25 CDF
 Module names follow the reference (conv_cls.{0..3}.{0 conv, 1 bn}, conv_cls.4
 the final 1x1 conv; prompter.query_embed / mlp / logit_scale). Convs run
 NCHW inside the towers; the head's inputs and outputs keep the JAX package's
-token layouts. The int8 branch of QConv waits for the int8 slice.
+token layouts. A tower conv quantized by prepare_inference_model takes
+QConv's int8 branch (`_conv`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import is_quantized, weight_of
 from .bert import dense
 from .mufe import l2_normalize, select_by_flag
 
@@ -28,9 +30,18 @@ NEG_INF = -1e20
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    """flax Conv / QConv at the compute dtype: operands and bias in dtype,
-    the convolution and the bias add each round to it."""
-    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), padding=conv.padding)
+    """flax Conv / QConv at the compute dtype. fp weight: operands and bias
+    in dtype, the convolution and the bias add each round to it. int8
+    weight (QConv :57-63): the dtype-cast input against the int8 payload
+    with an fp32 result, then * scale + bias in fp32 and one rounding to
+    dtype. The fp32 convolution runs on the upcast values, which are exact
+    in fp32 (and in TF32, cuDNN's default on the card, for a bf16 input)."""
+    w = weight_of(conv)
+    if is_quantized(w):
+        y = F.conv2d(x.to(dtype).float(), w.q.float(), padding=conv.padding)
+        y = y * w.scale[None, :, None, None] + conv.bias.float()[None, :, None, None]
+        return y.to(dtype)
+    y = F.conv2d(x.to(dtype), w.to(dtype), padding=conv.padding)
     return y + conv.bias.to(dtype)[None, :, None, None]
 
 

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops import attention
+from ..ops import attention, quant
 from .bert import bert_config_from_type
 from .head import MABH
 from .mufe import MUFE
@@ -82,13 +82,18 @@ def cast_inference_params(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
 
 
 def prepare_inference_model(cfg, model: nn.Module) -> nn.Module:
-    """The inference weight prep of prepare_inference_variables: the bf16
-    cast per cfg.TPU.COMPUTE_DTYPE (int8 waits for its slice)."""
-    if cfg.TPU.WEIGHT_QUANT:
-        raise NotImplementedError("TPU.WEIGHT_QUANT=int8 lands with the port's "
-                                  "int8 slice")
+    """The inference weight prep of prepare_inference_variables, in place:
+    the bf16 cast per cfg.TPU.COMPUTE_DTYPE, then weight-only int8 per
+    cfg.TPU.WEIGHT_QUANT (ops/quant.py quantize_vit_params at its default
+    min_dim, from the cast values). Idempotent: the Tracker calls it again
+    on a prepared model, and a quantized weight is left as it is."""
     if str(cfg.TPU.COMPUTE_DTYPE) == "bfloat16":
         cast_inference_params(model)
+    wq = str(cfg.TPU.WEIGHT_QUANT or "")
+    if wq:
+        if wq != "int8":
+            raise ValueError(f"TPU.WEIGHT_QUANT={wq!r}: only 'int8'")
+        quant.quantize_vit_params(model)
     return model.eval()
 
 

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import attention_block_core, key_padding_bias, ln_mlp_core
+from ..ops.quant import weight_of
 
 
 def sincos_1d(embed_dim: int, pos: np.ndarray) -> np.ndarray:
@@ -54,7 +55,9 @@ class Attention(nn.Module):
 class VitBlock(nn.Module):
     """Pre-LN block: x += proj(attn(LN1 x)); x += mlp(LN2 x). The LN and
     Linear modules hold parameters only; the math is ops/attention.py's, so
-    the attention half reaches the CUDA kernel on the "cuda" backend."""
+    the attention half reaches the CUDA kernels on the "cuda" backend. The
+    four Linear weights go as they are held: bf16/fp32 tensors, or int8
+    QuantizedTensors after prepare_inference_model (weight_of)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32):
@@ -69,12 +72,12 @@ class VitBlock(nn.Module):
         bias = key_padding_bias(key_masked) if key_masked is not None else None
         a = self.attn
         x = attention_block_core(
-            x, self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
-            a.proj.weight, a.proj.bias, a.num_heads, bias,
+            x, self.norm1.weight, self.norm1.bias, weight_of(a.qkv), a.qkv.bias,
+            weight_of(a.proj), a.proj.bias, a.num_heads, bias,
             compute_dtype=self.dtype)
         m = self.mlp
         return x + ln_mlp_core(x, self.norm2.weight, self.norm2.bias,
-                               m.fc1.weight, m.fc1.bias, m.fc2.weight,
+                               weight_of(m.fc1), m.fc1.bias, weight_of(m.fc2),
                                m.fc2.bias, compute_dtype=self.dtype)
 
 

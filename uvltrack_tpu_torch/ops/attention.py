@@ -2,18 +2,28 @@
 uvltrack_tpu/ops/attention.py).
 
 Backends: "plain" (the JAX package's "xla": composed PyTorch math) and
-"cuda" (its "pallas": the hand-written kernels of ops/ln_qkv_attention.py),
-which is the default. build_model sets the backend from
-cfg.TPU.USE_PALLAS_ATTENTION; force_backend pins it process-wide
-(chip_smoke.py's plain-vs-kernel A/B), and force_backend(None) goes back to
-the backend set_backend chose last.
+"cuda" (its "pallas": the hand-written kernels of ops/ln_qkv_attention.py
+and ops/ln_qkv_attn_proj.py), which is the default. build_model sets the
+backend from cfg.TPU.USE_PALLAS_ATTENTION; force_backend pins it
+process-wide (chip_smoke.py's plain-vs-kernel A/B), and force_backend(None)
+goes back to the backend set_backend chose last.
 
-On the "cuda" backend, attention_ln_qkv_core takes the kernels for a CUDA
-tensor with N >= 128 (the JAX package's min_seq_len gate), and the plain
-math otherwise: CPU tensors and BERT's 40-token layers. The kernels take bf16
-weights only, so an fp32 model on the card raises there; it runs on the
-"plain" backend. The fused proj/MLP/int8 kernels of the JAX package are not
-on the tracking path and are not ported yet (ROADMAP.md).
+On the "cuda" backend, a CUDA tensor with N >= 128 (the JAX package's
+min_seq_len gate) takes the kernels; CPU tensors and BERT's 40-token layers
+take the plain math. attention_ln_qkv_core runs kernel #1 for bf16 weights
+and #5 for int8 ones (ops/quant.py QuantizedTensor); attention_block_core
+runs #4 or #6 instead when UVLTRACK_FUSED_PROJ=1 (read at call time, default
+off) and the qkv and proj weights are both fp or both int8, as the JAX
+package gates them. The bf16 kernels take bf16 weights only, so an fp32
+model on the card raises there; it runs on the "plain" backend. The JAX
+package's VMEM caps (UVLTRACK_FUSED_VMEM_MB) bound a TPU resource that the
+port's tiled kernels do not have, and are not ported. Kernel #7 (the opt-in
+fused MLP) is not ported yet (ROADMAP.md).
+
+Precision of the int8 path: the q8 kernels compute in x's dtype, so on the
+card the fp32 joint blocks run their attention prefix in fp32; the plain
+math (the JAX package's XLA fallback) computes in the compute dtype, bf16.
+Each side follows its own oracle.
 
 Semantics of the reference blocks: scores = q.k^T * scale + additive key
 bias (-1e10 at masked ViT keys, lib/models/backbones/block.py:47-61; BERT
@@ -22,10 +32,14 @@ bias (-1e10 at masked ViT keys, lib/models/backbones/block.py:47-61; BERT
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
 from . import ln_qkv_attention as lqa
+from . import ln_qkv_attn_proj as lqp
+from .quant import is_quantized, quant_dot
 
 _BACKENDS = ("plain", "cuda")
 _CONFIGURED = "cuda"  # set_backend's last choice
@@ -86,16 +100,24 @@ def plain_attention(q, k, v, bias=None):
     return torch.matmul(probs, v)
 
 
+def _on_kernels(x: torch.Tensor) -> bool:
+    return _BACKEND == "cuda" and x.is_cuda and x.shape[1] >= MIN_SEQ_LEN
+
+
 def attention_ln_qkv_core(x, ln_scale, ln_bias, w_qkv, b_qkv, heads: int,
                           bias=None, compute_dtype=None, eps: float = 1e-6):
     """Pre-LN LayerNorm + fused qkv projection + masked attention from the
-    residual stream x (B, N, C); w_qkv in Linear layout (3C, C). Returns the
-    (B, N, C) attention output before the projection."""
+    residual stream x (B, N, C); w_qkv in Linear layout (3C, C), a tensor or
+    a QuantizedTensor. Returns the (B, N, C) attention output before the
+    projection."""
     compute_dtype = compute_dtype or x.dtype
     b, n, _ = x.shape
     key_bias = _as_key_bias(bias, b, n, x.device)
     w = w_qkv.to(compute_dtype)
-    if _BACKEND == "cuda" and x.is_cuda and n >= MIN_SEQ_LEN:
+    if _on_kernels(x):
+        if is_quantized(w):
+            return lqa.ln_qkv_attention_q8(x.contiguous(), ln_scale, ln_bias, w.q, w.scale,
+                                           b_qkv, key_bias, heads, eps)
         return lqa.ln_qkv_attention(x.contiguous(), ln_scale, ln_bias, w,
                                     b_qkv, key_bias, heads, eps)
     return lqa.ln_qkv_attention_plain(x, ln_scale, ln_bias, w, b_qkv,
@@ -106,13 +128,29 @@ def attn_proj_core(attn, w_proj, b_proj, compute_dtype=None):
     """Output projection (pallas_attention._xla_proj): compute-dtype operands,
     fp32 accumulation and bias, result in the compute dtype."""
     w = w_proj.to(compute_dtype or attn.dtype)
-    return (lqa.dot_f32(attn.to(w.dtype), w) + b_proj.float()).to(w.dtype)
+    return (quant_dot(attn.to(w.dtype), w) + b_proj.float()).to(w.dtype)
 
 
 def attention_block_core(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                          heads: int, bias=None, compute_dtype=None,
                          eps: float = 1e-6):
-    """x + proj(attn(qkv(LN(x)))): the first half of VitBlock."""
+    """x + proj(attn(qkv(LN(x)))): the first half of VitBlock. With
+    UVLTRACK_FUSED_PROJ=1 on the kernels, one fused branch (#4 for fp
+    weights, #6 for int8 ones; a mixed pair stays composed)."""
+    compute_dtype = compute_dtype or x.dtype
+    if _on_kernels(x) and os.environ.get("UVLTRACK_FUSED_PROJ", "0") == "1":
+        b, n, _ = x.shape
+        quant_qkv, quant_proj = is_quantized(w_qkv), is_quantized(w_proj)
+        if quant_qkv and quant_proj:
+            return lqp.ln_qkv_attn_proj_q8(
+                x.contiguous(), ln_scale, ln_bias, w_qkv.q, w_qkv.scale, b_qkv,
+                w_proj.q, w_proj.scale, b_proj, _as_key_bias(bias, b, n, x.device),
+                heads, eps)
+        if not (quant_qkv or quant_proj):
+            return lqp.ln_qkv_attn_proj(
+                x.contiguous(), ln_scale, ln_bias, w_qkv.to(compute_dtype), b_qkv,
+                w_proj.to(compute_dtype), b_proj, _as_key_bias(bias, b, n, x.device),
+                heads, eps)
     attn = attention_ln_qkv_core(x, ln_scale, ln_bias, w_qkv, b_qkv, heads,
                                  bias, compute_dtype=compute_dtype, eps=eps)
     return x + attn_proj_core(attn, w_proj, b_proj,
@@ -122,10 +160,11 @@ def attention_block_core(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
 def ln_mlp_core(x, ln_scale, ln_bias, w1, b1, w2, b2, compute_dtype=None,
                 eps: float = 1e-6):
     """Pre-LN LayerNorm + fc1 + exact GELU + fc2 (pallas_attention._xla_ln_mlp):
-    the (B, N, C) MLP output before the residual, in the compute dtype."""
+    the (B, N, C) MLP output before the residual, in the compute dtype;
+    fp or int8 weights (quant_dot)."""
     compute_dtype = compute_dtype or x.dtype
     w1, w2 = w1.to(compute_dtype), w2.to(compute_dtype)
     y = lqa.layer_norm_fast_var(x, ln_scale, ln_bias, eps)
-    h = F.gelu(lqa.dot_f32(y.to(w1.dtype), w1) + b1.float())
-    o = lqa.dot_f32(h.to(w2.dtype), w2)
+    h = F.gelu(quant_dot(y.to(w1.dtype), w1) + b1.float())
+    o = quant_dot(h.to(w2.dtype), w2)
     return (o + b2.float()).to(w2.dtype)

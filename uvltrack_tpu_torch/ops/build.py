@@ -8,6 +8,11 @@ covers the source, the shared header and the flags, so an edited kernel is
 rebuilt and an unchanged one is loaded as it is. `build()` starts one nvcc
 per source, all at once, and waits for all of them.
 
+Every wrapper under ops/ launches its kernel through `launch()`, which
+calls the library's `uvl_<name>` entry point, raises on the CUDA error code
+it returns and counts the launch in LAUNCHES per kernel and instantiation;
+`require()` and `check_cuda()` are the wrappers' argument checks.
+
 Nothing here runs at import: the CPU tests import every module of the port,
 and this machine class has no nvcc.
 """
@@ -20,12 +25,15 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ln_qkv", "qkv_attention")
+SOURCES = ("ln_qkv", "qkv_attention", "proj_residual")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -113,8 +121,64 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a kernel entry point returned a CUDA error code."""
+# ---------------------------------------------------------------- launching
+PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (kernel, instantiation) -> launches since the last reset
+LAUNCHES: Counter = Counter()
+_FNS: Dict[str, object] = {}  # kernel -> its bound entry point
+
+
+def launch_counts() -> dict:
+    """{kernel: launches since the last reset, over all its instantiations}
+    for every kernel source."""
+    out = dict.fromkeys(SOURCES, 0)
+    for (kernel, _), n in LAUNCHES.items():
+        out[kernel] += n
+    return out
+
+
+def instantiation_counts() -> dict:
+    """{"kernel[instantiation]": launches} of every kernel launched."""
+    return {f"{k}[{i}]": n for (k, i), n in sorted(LAUNCHES.items()) if n}
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
+
+
+def dtype_tag(t: torch.Tensor) -> str:
+    return {torch.bfloat16: "bf16", torch.float32: "fp32", torch.int8: "int8"}[t.dtype]
+
+
+def require(cond: bool, msg: str) -> None:
+    """A wrapper's argument check: raise ValueError(msg) unless cond."""
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """All tensors on one CUDA device, contiguous and 16-byte aligned."""
+    dev = tensors[0].device
+    for t in tensors:
+        require(t.is_cuda and t.device == dev,
+                f"{name}: all tensors must be on one CUDA device, got {t.device}")
+        require(t.is_contiguous(), f"{name}: tensors must be contiguous")
+        require(t.data_ptr() % 16 == 0, f"{name}: tensors must be 16-byte aligned")
+
+
+def launch(kernel: str, inst: str, argtypes, *args, stream_of: torch.Tensor) -> None:
+    """Call `uvl_<kernel>` of lib<kernel> with args and, as its last
+    argument, PyTorch's current stream on the device of `stream_of`; raise
+    on the CUDA error code it returns, and count one launch of
+    kernel[inst]."""
+    fn = _FNS.get(kernel)
+    if fn is None:
+        fn = getattr(library(kernel), f"uvl_{kernel}")
+        fn.argtypes = [*argtypes, PTR]
+        fn.restype = ctypes.c_int
+        _FNS[kernel] = fn
+    rc = fn(*args, torch.cuda.current_stream(stream_of.device).cuda_stream)
     if rc != 0:
-        msg = lib.uvl_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        msg = _LIBS[kernel].uvl_error_string(rc).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")
+    LAUNCHES[(kernel, inst)] += 1

@@ -1,37 +1,44 @@
-"""Fused LayerNorm + qkv + masked attention: the CUDA port of the Pallas kernel
+"""Fused LayerNorm + qkv + masked attention: the CUDA port of the Pallas kernels
 uvltrack_tpu/ops/pallas_attention.py::_ln_qkv_attn_kernel (:167,
-`fused_ln_qkv_attention` :207) and, through its second half, of
-`_attn_kernel_qkv` (:119, `fused_attention_qkv` :143).
+`fused_ln_qkv_attention` :207), its int8-weight variant
+_ln_qkv_attn_kernel_q8 (:433, `fused_ln_qkv_attention_q8` :459) and, through
+their second half, `_attn_kernel_qkv` (:119, `fused_attention_qkv` :143).
 
-The TPU kernel is one program per batch element (grid=(B,)) with the (C, 3C)
-weight resident in 16 MB of VMEM. At batch 1 that would be one block on one
-of the H100's 132 SMs, so the port splits it in two kernels
+The TPU kernels are one program per batch element (grid=(B,)) with the
+(C, 3C) weight resident in VMEM. At batch 1 that would be one block on one
+of the H100's 132 SMs, so the port splits each in two kernels
 (csrc/ln_qkv.cu, csrc/qkv_attention.cu; design and bounds in their notes):
 
-- `ln_qkv`: LN (fp32, fast variance clamped at 0) normalized as the A tile
-  loads, bf16 tensor-core product against W, fp32 bias, bf16 out (B, N, 3C).
+- `ln_qkv` / `ln_qkv_q8`: LN (fp32, fast variance clamped at 0) normalized
+  as the A tile loads, tensor-core product against W, fp32 epilogue
+  (`acc + b`, or `acc * scale + b` for the int8 payload), out (B, N, 3C).
 - `qkv_attention`: per (query tile, head, batch) block,
-  exp(clip(q.k*D^-1/2 + key_bias, +-80)), fp32 row sums, bf16 P.V, division
-  at the end; out (B, N, C) before the output projection.
+  exp(clip(q.k*D^-1/2 + key_bias, +-80)), fp32 row sums, P.V, division at
+  the end; out (B, N, C) before the output projection.
 
-The cost of the split is one bf16 (N, 3C) round trip (1.66 MB at N=361),
-which stays in the 50 MB L2.
+Compute dtype, as in the Pallas kernels: the bf16-weight kernel (#1)
+computes in the weight's dtype, bf16, whatever x is. The int8 kernel (#5)
+computes in x's dtype: bf16 in the visual blocks, fp32 in the joint blocks,
+where nothing is rounded to bf16 (normalized rows, qkv, scores, e, P.V and
+the output all stay fp32). So `ln_qkv` has four instantiations (x bf16/fp32
+x weight bf16/int8) and `qkv_attention` two (bf16, fp32).
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises on a nonzero cudaGetLastError, and counts
-its launches in `<wrapper>.launches`. A CPU tensor takes the plain PyTorch
-version beside it; a CUDA tensor launches the kernel or raises. The plain
-versions compute the same function with the same rounding points and are
-what the CPU tests hold against the JAX package.
+its launches per kernel and instantiation (all through ops/build.py: read
+them with build.launch_counts() and build.instantiation_counts()). A CPU
+tensor takes the plain PyTorch version beside it; a CUDA tensor launches
+the kernel or raises. The plain versions compute the same function with the same rounding
+points and are what the CPU tests hold against the Pallas interpreter.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import build
+from .build import FLOAT, INT, PTR, check_cuda, require
+from .quant import QuantizedTensor, quant_dot
 
 CLAMP = 80.0  # exp-safe score range of the kernels (pallas_attention._CLAMP)
 
@@ -48,23 +55,25 @@ def layer_norm_fast_var(x: torch.Tensor, scale: torch.Tensor,
     return y * scale.float() + bias.float()
 
 
-def dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a @ w.T with fp32 accumulation and an fp32 result, for a Linear-layout
-    weight w (out, in): the port of quant_dot / preferred_element_type=f32.
-    Products of bf16 values are exact in fp32, so upcasting first gives the
-    same numbers as a bf16 product that accumulates and returns in fp32."""
-    return torch.matmul(a.float(), w.float().t())
-
-
 def ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps: float = 1e-6):
-    """Plain version of `ln_qkv` (pallas_attention._xla_ln_qkv)."""
+    """Plain version of `ln_qkv` (pallas_attention._xla_ln_qkv): the
+    normalized rows and the result in w_qkv's dtype, which for a
+    QuantizedTensor is its compute dtype."""
     y = layer_norm_fast_var(x, ln_scale, ln_bias, eps).to(w_qkv.dtype)
-    return (dot_f32(y, w_qkv) + b_qkv.float()).to(w_qkv.dtype)
+    return (quant_dot(y, w_qkv) + b_qkv.float()).to(w_qkv.dtype)
+
+
+def ln_qkv_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps: float = 1e-6):
+    """Plain version of `ln_qkv_q8`: the q8 kernel's prefix
+    (_ln_qkv_attn_kernel_q8 :441-453), computing in x's dtype."""
+    return ln_qkv_plain(x, ln_scale, ln_bias, QuantizedTensor(w_q, w_scale, x.dtype),
+                        b_qkv, eps)
 
 
 def qkv_attention_plain(qkv, key_bias, heads: int):
     """Plain version of `qkv_attention`: the kernel's clamped, late-divided
-    softmax (pallas_attention._attn_kernel_qkv's math)."""
+    softmax (pallas_attention._attn_kernel_qkv's math), e cast to qkv's
+    dtype for P.V (a no-op in fp32)."""
     b, n, f = qkv.shape
     d = f // (3 * heads)
     q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
@@ -78,116 +87,97 @@ def qkv_attention_plain(qkv, key_bias, heads: int):
 
 def ln_qkv_attention_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, key_bias,
                            heads: int, eps: float = 1e-6):
-    """Plain version of `ln_qkv_attention` (kernel #1's function)."""
+    """Plain version of `ln_qkv_attention` (kernel #1's function; with a
+    QuantizedTensor, the JAX package's XLA fallback for int8 weights)."""
     qkv = ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
     return qkv_attention_plain(qkv, key_bias, heads)
 
 
+def ln_qkv_attention_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, key_bias,
+                              heads: int, eps: float = 1e-6):
+    """Plain version of `ln_qkv_attention_q8` (kernel #5's function)."""
+    qkv = ln_qkv_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps)
+    return qkv_attention_plain(qkv, key_bias, heads)
+
+
 # ---------------------------------------------------------------- kernels
-_FNS = {}
-
-
-def _fn(lib_name: str, sym: str, argtypes):
-    key = (lib_name, sym)
-    if key not in _FNS:
-        lib = build.library(lib_name)
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[key] = (lib, fn)
-    return _FNS[key]
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    for t in tensors:
-        _require(t.is_cuda and t.device == dev,
-                 f"{name}: all tensors must be on one CUDA device, got {t.device}")
-        _require(t.is_contiguous(), f"{name}: tensors must be contiguous")
-        _require(t.data_ptr() % 16 == 0, f"{name}: tensors must be 16-byte aligned")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _launch_ln_qkv(x, ln_scale, ln_bias, w, w_scale, b_qkv, eps, out_dtype):
+    b, n, c = x.shape
+    f = 3 * c
+    require(x.dtype in (torch.bfloat16, torch.float32),
+            f"ln_qkv: x must be bf16 or fp32, got {x.dtype}")
+    require(all(t.dtype == torch.float32 for t in (ln_scale, ln_bias, b_qkv)),
+            "ln_qkv: LN scale/bias and qkv bias must be fp32")
+    require(tuple(w.shape) == (f, c) and tuple(b_qkv.shape) == (f,)
+            and tuple(ln_scale.shape) == (c,) and tuple(ln_bias.shape) == (c,),
+            f"ln_qkv: bad shapes for C={c}")
+    require(c % 64 == 0, f"ln_qkv: C must be a multiple of 64, got {c}")
+    tensors = (x, ln_scale, ln_bias, w, b_qkv) + ((w_scale,) if w_scale is not None else ())
+    check_cuda("ln_qkv", *tensors)
+    out = torch.empty((b, n, f), dtype=out_dtype, device=x.device)
+    build.launch("ln_qkv", f"{build.dtype_tag(x)}x-{build.dtype_tag(w)}w",
+                 [PTR, INT, PTR, PTR, PTR, INT, PTR, PTR, PTR, INT, INT, INT, FLOAT],
+                 x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(),
+                 ln_bias.data_ptr(), w.data_ptr(), int(w_scale is not None),
+                 w_scale.data_ptr() if w_scale is not None else None, b_qkv.data_ptr(),
+                 out.data_ptr(), b * n, c, f, eps, stream_of=x)
+    return out
 
 
 def ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, eps: float = 1e-6):
     """x (B, N, C) bf16|fp32; ln_scale, ln_bias (C,) fp32; w_qkv (3C, C) bf16
-    (Linear layout); b_qkv (3C,) fp32 -> (B, N, 3C) bf16."""
+    (Linear layout); b_qkv (3C,) fp32 -> (B, N, 3C) bf16 (kernel #1's
+    prefix)."""
     if x.device.type == "cpu":
         return ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
-    b, n, c = x.shape
-    f = 3 * c
-    _require(x.dtype in (torch.bfloat16, torch.float32),
-             f"ln_qkv: x must be bf16 or fp32, got {x.dtype}")
-    _require(w_qkv.dtype == torch.bfloat16, f"ln_qkv: w_qkv must be bf16, got {w_qkv.dtype}")
-    _require(all(t.dtype == torch.float32 for t in (ln_scale, ln_bias, b_qkv)),
-             "ln_qkv: LN scale/bias and qkv bias must be fp32")
-    _require(tuple(w_qkv.shape) == (f, c) and tuple(b_qkv.shape) == (f,)
-             and tuple(ln_scale.shape) == (c,) and tuple(ln_bias.shape) == (c,),
-             f"ln_qkv: bad shapes for C={c}")
-    _require(c % 64 == 0, f"ln_qkv: C must be a multiple of 64, got {c}")
-    _check_cuda("ln_qkv", x, ln_scale, ln_bias, w_qkv, b_qkv)
-    out = torch.empty((b, n, f), dtype=torch.bfloat16, device=x.device)
-    lib, fn = _fn("ln_qkv", "uvl_ln_qkv", [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    rc = fn(x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(),
-            ln_bias.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(),
-            out.data_ptr(), b * n, c, f, eps, _stream(x))
-    build.check(lib, rc, "ln_qkv")
-    ln_qkv.launches += 1
-    return out
+    require(w_qkv.dtype == torch.bfloat16, f"ln_qkv: w_qkv must be bf16, got {w_qkv.dtype}")
+    return _launch_ln_qkv(x, ln_scale, ln_bias, w_qkv, None, b_qkv, eps, torch.bfloat16)
 
 
-ln_qkv.launches = 0
+def ln_qkv_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps: float = 1e-6):
+    """x (B, N, C) bf16|fp32; w_q (3C, C) int8 payload; w_scale (3C,) fp32
+    per-row scale -> (B, N, 3C) in x's dtype (kernel #5's prefix)."""
+    if x.device.type == "cpu":
+        return ln_qkv_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps)
+    require(w_q.dtype == torch.int8, f"ln_qkv_q8: w_q must be int8, got {w_q.dtype}")
+    require(w_scale.dtype == torch.float32 and tuple(w_scale.shape) == (w_q.shape[0],),
+            "ln_qkv_q8: w_scale must be (3C,) fp32")
+    return _launch_ln_qkv(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps, x.dtype)
 
 
 def qkv_attention(qkv, key_bias, heads: int):
-    """qkv (B, N, 3*H*64) bf16; key_bias (B, N) fp32 additive -> (B, N, H*64)
-    bf16."""
+    """qkv (B, N, 3*H*64) bf16|fp32; key_bias (B, N) fp32 additive ->
+    (B, N, H*64) in qkv's dtype."""
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, key_bias, heads)
     b, n, f = qkv.shape
-    _require(qkv.dtype == torch.bfloat16, f"qkv_attention: qkv must be bf16, got {qkv.dtype}")
-    _require(key_bias.dtype == torch.float32 and tuple(key_bias.shape) == (b, n),
-             "qkv_attention: key_bias must be (B, N) fp32")
-    _require(f == 3 * heads * 64, f"qkv_attention: head dim must be 64 (F={f}, H={heads})")
-    _check_cuda("qkv_attention", qkv, key_bias)
-    out = torch.empty((b, n, f // 3), dtype=torch.bfloat16, device=qkv.device)
-    lib, fn = _fn("qkv_attention", "uvl_qkv_attention", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p])
-    rc = fn(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), b, n, heads,
-            64, 64 ** -0.5, _stream(qkv))
-    build.check(lib, rc, "qkv_attention")
-    qkv_attention.launches += 1
+    require(qkv.dtype in (torch.bfloat16, torch.float32),
+            f"qkv_attention: qkv must be bf16 or fp32, got {qkv.dtype}")
+    require(key_bias.dtype == torch.float32 and tuple(key_bias.shape) == (b, n),
+            "qkv_attention: key_bias must be (B, N) fp32")
+    require(f == 3 * heads * 64, f"qkv_attention: head dim must be 64 (F={f}, H={heads})")
+    check_cuda("qkv_attention", qkv, key_bias)
+    out = torch.empty((b, n, f // 3), dtype=qkv.dtype, device=qkv.device)
+    build.launch("qkv_attention", build.dtype_tag(qkv),
+                 [PTR, INT, PTR, PTR, INT, INT, INT, INT, FLOAT],
+                 qkv.data_ptr(), int(qkv.dtype == torch.float32), key_bias.data_ptr(),
+                 out.data_ptr(), b, n, heads, 64, 64 ** -0.5, stream_of=qkv)
     return out
-
-
-qkv_attention.launches = 0
 
 
 def ln_qkv_attention(x, ln_scale, ln_bias, w_qkv, b_qkv, key_bias,
                      heads: int, eps: float = 1e-6):
-    """Kernel #1's function: (B, N, C) residual stream -> (B, N, C)
+    """Kernel #1's function: (B, N, C) residual stream -> (B, N, C) bf16
     attention output before the projection. On a CUDA tensor: `ln_qkv`
     then `qkv_attention`, two launches."""
     qkv = ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
     return qkv_attention(qkv, key_bias, heads)
 
 
-def launch_counts() -> dict:
-    return {"ln_qkv": ln_qkv.launches, "qkv_attention": qkv_attention.launches}
-
-
-def reset_launch_counts() -> None:
-    ln_qkv.launches = 0
-    qkv_attention.launches = 0
+def ln_qkv_attention_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, key_bias,
+                        heads: int, eps: float = 1e-6):
+    """Kernel #5's function: as ln_qkv_attention with the int8 payload and
+    its per-row scale, computing in x's dtype. Two launches on a CUDA
+    tensor: `ln_qkv_q8`, then `qkv_attention` in x's dtype."""
+    qkv = ln_qkv_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps)
+    return qkv_attention(qkv, key_bias, heads)

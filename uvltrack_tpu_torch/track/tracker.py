@@ -46,8 +46,10 @@ class TrackerState:
 class Tracker:
     """Reference-compatible API: initialize(image, info) / track(image).
 
-    The model's weights are cast in place by prepare_inference_model (bf16
-    per cfg.TPU.COMPUTE_DTYPE); images are (H, W, 3) uint8 numpy arrays."""
+    The model's weights are prepared in place by prepare_inference_model
+    (bf16 per cfg.TPU.COMPUTE_DTYPE, int8 per cfg.TPU.WEIGHT_QUANT; a model
+    prepared already is left as it is); images are (H, W, 3) uint8 numpy
+    arrays."""
 
     def __init__(self, cfg, model: UVLTrack, tokenizer=None):
         if not cfg.TPU.CACHE_TEXT:
