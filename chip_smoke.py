@@ -16,27 +16,43 @@ Phases, one JSON line each:
                  (ln_qkv with an int8 payload, fp32 qkv_attention,
                  proj_residual) and the compositions #4, #5 and #6: bf16
                  compute under the KERNEL_* rule, fp32 compute under F32_*.
+     fused_kernel -- kernel #3 (`attention`, BERT's attention) at N in {40,
+                 48, 128, 361} under BERT-padding / all-masked / open /
+                 ViT flag-0 masks, and kernel #7 (`ln_mlp`, both launches
+                 and each alone) at N in {48, 321, 361} with bf16 and fp32
+                 x, against their plain versions; times at N=40/128 and at
+                 the MLP's main-path shapes.
   3. track    -- UVLTrack-B (experiments/uvltrack/baseline_base.yaml, full
                  width, seeded random weights) tracks a synthetic 720p
-                 sequence in BBOX, then NLBBOX mode: FPS at batch 1, p50/p90
-                 frame latency, peak memory, launch counts (must be 12 per
-                 backbone forward), prompt re-mines; the same sequence on
-                 the "plain" backend; the per-frame kernel-vs-plain box
-                 difference from a shared state (paired_ab); each layer's
-                 time (layer_times) and the card's busy share from
-                 torch.profiler (device_profile). Then the same two cells
+                 sequence in BBOX, NLBBOX, then NL mode (initialized from
+                 the sentence by the grounding forward, compared kernel vs
+                 plain: the same argmax cell or a near-tie, the box within
+                 1% of the letterbox side): FPS at batch 1, p50/p90 frame
+                 latency, peak memory, launch counts (12 per backbone
+                 forward, none of kernels #3/#7 with their knobs unset),
+                 prompt re-mines; the same sequence on the "plain" backend;
+                 the per-frame kernel-vs-plain box difference from a shared
+                 state (paired_ab); each layer's time (layer_times, with the
+                 grounding forward in NL mode) and the card's busy share
+                 from torch.profiler (device_profile). Then BBOX and NLBBOX
                  with TPU.WEIGHT_QUANT=int8 (B-BBOX-Q8, B-NLBBOX-Q8), the
                  launches counted per instantiation.
-     fused_proj -- UVLTRACK_FUSED_PROJ=1 on the bf16 and the int8 model,
-                 BBOX, 16 frames: 12 proj_residual launches per forward,
-                 kernel vs plain through paired_ab.
+     fused_proj, fused_mlp -- UVLTRACK_FUSED_PROJ=1 / UVLTRACK_FUSED_MLP=1
+                 on the bf16 and the int8 model, BBOX, 16 frames: 12
+                 proj_residual / ln_mlp launches per forward (none of
+                 ln_mlp with int8 weights), kernel vs plain through
+                 paired_ab.
+     bert_kernel -- UVLTRACK_PALLAS_MIN_N=32, NL mode: 18 attention launches
+                 per initialize (6 BERT layers in the grounding forward, the
+                 prompt init and encode_text), none per frame; the
+                 grounding box and paired_ab kernel vs plain.
      q8_drift -- the int8 tracker against the bf16 one, each frame stepped
                  from the bf16 tracker's state: per-frame IoU and the share
                  of frames on the same cell (reported, not gated: the
                  weights are random).
   4. reference -- one step's model outputs on the card against the same
                  weights and inputs on the CPU (cpu_reference), for the bf16
-                 and the int8 model.
+                 and the int8 model, and the grounding forward's (bf16).
 Then the {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failure raises: no ok line, exit 1.
 Without a CUDA card, or outside a checkout, it exits 2 and prints no result.
@@ -63,7 +79,11 @@ TPU_KERNEL = "uvltrack_tpu/ops/pallas_attention.py"
 # about two bf16 steps at each output's scale: qkv is about 1 to 8, the
 # attention output about 0.1 (the softmax spreads over a hundred keys and
 # more), so a few wrongly masked keys cannot hide under it
-KERNEL_ATOL = {"ln_qkv": 2e-2, "qkv_attention": 6e-3, "ln_qkv_attention": 6e-3}
+KERNEL_ATOL = {"ln_qkv": 2e-2, "qkv_attention": 6e-3, "ln_qkv_attention": 6e-3,
+               # kernel #3: attention outputs, as qkv_attention; kernel #7: the
+               # GELU hidden tensor (|h| up to about 4) as qkv, the MLP output
+               # (|out| about 0.5) two bf16 steps at 0.5
+               "attention": 6e-3, "ln_fc1_gelu": 2e-2, "fc2_bias": 6e-3, "ln_mlp": 6e-3}
 KERNEL_RTOL = 2e-2
 # kernel-vs-plain tracking A/B (paired_ab): boxes from the same cell within
 # 1% of the search crop's side (a few bf16 steps of a crop-normalized box
@@ -83,6 +103,11 @@ Q8_KERNEL_ATOL = {"ln_qkv": KERNEL_ATOL["ln_qkv"], "qkv_attention": KERNEL_ATOL[
 # another order, and the hi/lo bf16 passes keep 2^-17 of each operand:
 # |kernel - plain| <= F32_ATOL + F32_RTOL*|plain|
 F32_ATOL, F32_RTOL = 2e-4, 2e-4
+
+
+TIMER = ("CUDA events, L2-warm: *ms = mean of 200 back-to-back eager calls after 20 "
+         "warm-up (host time included where it exceeds the device's); *device_ms = a "
+         "CUDA graph of 20 calls replayed 10 times (device time per call)")
 
 
 def emit(obj) -> None:
@@ -109,6 +134,58 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_CAPTURE_STREAM = []  # one stream for every capture: cuBLAS keeps a workspace per stream
+
+
+def graph_time_ms(fn, calls: int = 20, replays: int = 10):
+    """Mean device time of fn(): `calls` back-to-back calls captured in one
+    CUDA graph, replayed `replays` times between two events (L2-warm). The
+    eager timing above includes the host's time per call (Python wrapper,
+    ctypes, allocator) wherever that exceeds the device's; the replay leaves
+    it out. Returns None, with the reason, if fn cannot be captured."""
+    import torch
+
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    side = _CAPTURE_STREAM[0]
+    try:
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up off the default stream, as PyTorch advises
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (replays * calls), None
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return None, str(e)[:200]
+
+
+def timings(kern, plain, lib) -> dict:
+    """A kernel's, its plain version's and the library yardstick's times:
+    eager (cuda_time_ms: ms, plain_ms, library_ms) and device
+    (graph_time_ms: device_ms, plain_device_ms, library_device_ms)."""
+    out = {"ms": cuda_time_ms(kern), "plain_ms": cuda_time_ms(plain),
+           "library_ms": cuda_time_ms(lib) if lib else None}
+    for key, fn in (("device_ms", kern), ("plain_device_ms", plain),
+                    ("library_device_ms", lib)):
+        out[key], why = graph_time_ms(fn) if fn else (None, None)
+        if why:
+            out[f"{key}_error"] = why
+    return out
 
 
 def bound(flops: float, nbytes: float):
@@ -227,9 +304,7 @@ def kernel_phase(dev, seed: int):
         out = {}
         for name, (kern, plain, lib) in fns.items():
             b_ms, b_by = bound(*work[name])
-            out[name] = {"ms": cuda_time_ms(kern), "plain_ms": cuda_time_ms(plain),
-                         "library_ms": cuda_time_ms(lib) if lib else None,
-                         "bound_ms": b_ms, "bound_by": b_by}
+            out[name] = {**timings(kern, plain, lib), "bound_ms": b_ms, "bound_by": b_by}
         return out
 
     # the main path's two shapes: blocks 0-5 (visual, N=321, bf16 stream,
@@ -237,8 +312,7 @@ def kernel_phase(dev, seed: int):
     # stream, flag-0 mask on the 40 text keys)
     times = {"N321_bf16x_open": timed(321, "open", torch.bfloat16),
              "N361_fp32x_flag0": timed(361, "flag0", torch.float32)}
-    emit({"phase": "kernel_times", "timer": "CUDA events, mean of 200 back-to-back "
-          "launches after 20 warm-up (L2-warm)", "times": times})
+    emit({"phase": "kernel_times", "timer": TIMER, "times": times})
     return worst, times["N361_fp32x_flag0"]
 
 
@@ -446,15 +520,145 @@ def q8_kernel_phase(dev, seed: int):
         for name, (kern, plain, _) in checks(*args).items():
             lib, lib_what = library(name, *args)
             b_ms, b_by = bound(*work(name, n, xb))
-            out[name] = {"ms": cuda_time_ms(kern), "plain_ms": cuda_time_ms(plain),
-                         "library_ms": cuda_time_ms(lib) if lib else None,
-                         "library": lib_what, "bound_ms": b_ms, "bound_by": b_by}
+            out[name] = {**timings(kern, plain, lib), "library": lib_what,
+                         "bound_ms": b_ms, "bound_by": b_by}
         return out
 
     times = {"N321_bf16x_open": timed(321, "open", torch.bfloat16),
              "N361_fp32x_flag0": timed(361, "flag0", torch.float32)}
-    emit({"phase": "q8_kernel_times", "timer": "CUDA events, mean of 200 back-to-back "
-          "launches after 20 warm-up (L2-warm)", "times": times})
+    emit({"phase": "q8_kernel_times", "timer": TIMER, "times": times})
+    return worst, times
+
+
+def fused_kernel_phase(dev, seed: int):
+    """Kernel #3 (`attention`, BERT's layout: three (1, N, 768) products
+    viewed as (1, 12, N, 64)) and kernel #7 (`ln_mlp`, ViT-B's MLP, C=768,
+    F=3072: the pair and each launch alone) against their plain versions on
+    the card, then CUDA-event times: #3 at N=40 (BERT's length) and N=128,
+    #7 at the main path's two shapes. Returns ({name: worst error},
+    {shape: {name: times}})."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from uvltrack_tpu_torch.ops import fused_attention as fa
+    from uvltrack_tpu_torch.ops import ln_mlp as lm
+
+    c, heads, f = 768, 12, 3072
+    rng = np.random.default_rng(seed + 2)
+
+    def arr(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def attn_case(n, kind):
+        """bert: trailing text padding at -10000; all: every key at -10000
+        (BBOX mode's empty text); open: nothing; flag0: the ViT's -1e10 on
+        the trailing 40 keys."""
+        q, k, v = (arr(rng.normal(size=(1, n, c))).to(torch.bfloat16)
+                   .view(1, n, heads, 64).transpose(1, 2) for _ in range(3))
+        kb = np.zeros((1, n), np.float32)
+        if kind == "bert":
+            kb[:, int(rng.integers(5, n)):] = -10000.0
+        elif kind == "all":
+            kb[:] = -10000.0
+        elif kind == "flag0":
+            kb = np.where(key_mask(n, "flag0", rng), -1e10, 0.0)
+        return q, k, v, arr(kb)
+
+    def mlp_case(n, x_dtype):
+        x = arr(rng.normal(size=(1, n, c))).to(x_dtype)
+        g, be = arr(1 + 0.1 * rng.normal(size=c)), arr(0.1 * rng.normal(size=c))
+        w1 = arr(rng.normal(size=(f, c)) / np.sqrt(c)).to(torch.bfloat16)
+        w2 = arr(rng.normal(size=(c, f)) / np.sqrt(f)).to(torch.bfloat16)
+        b1, b2 = arr(0.02 * rng.normal(size=f)), arr(0.02 * rng.normal(size=c))
+        return x, g, be, w1, b1, w2, b2
+
+    worst = {}
+
+    def check(name, got, want, what):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{name} {what}: {got.dtype}{tuple(got.shape)} vs plain "
+                                 f"{want.dtype}{tuple(want.shape)}")
+        a, b = got.float(), want.float()
+        e = float((a - b).abs().max())
+        if not bool(((a - b).abs() <= KERNEL_ATOL[name] + KERNEL_RTOL * b.abs()).all()):
+            raise AssertionError(f"{name} {what}: max abs err {e} over tolerance")
+        worst[name] = max(worst.get(name, 0.0), e)
+
+    for n in (40, 48, 128, 361):
+        for kind in ("bert", "all", "open", "flag0"):
+            q, k, v, kb = attn_case(n, kind)
+            out = fa.fused_attention(q, k, v, kb)
+            torch.cuda.synchronize()
+            check("attention", out, fa.fused_attention_plain(q, k, v, kb), f"N={n} mask={kind}")
+    for n in (48, 321, 361):
+        for x_dtype in (torch.bfloat16, torch.float32):
+            x, g, be, w1, b1, w2, b2 = mlp_case(n, x_dtype)
+            hidden = torch.empty((n, f), dtype=torch.bfloat16, device=dev)
+            out = torch.empty((1, n, c), dtype=torch.bfloat16, device=dev)
+            lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out)
+            torch.cuda.synchronize()
+            what = f"N={n} x={x_dtype}"
+            check("ln_fc1_gelu", hidden,
+                  lm.ln_fc1_gelu_plain(x, g, be, w1, b1).to(torch.bfloat16).view(n, f), what)
+            check("fc2_bias", out, lm.fc2_bias_plain(hidden.view(1, n, f), w2, b2), what)
+            check("ln_mlp", out, lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2), what)
+    emit({"phase": "fused_kernel_check", "attention_N": [40, 48, 128, 361],
+          "attention_masks": ["bert", "all", "open", "flag0"], "ln_mlp_N": [48, 321, 361],
+          "x_dtypes": ["bf16", "fp32"],
+          "tolerance": {k: f"|kernel-plain| <= {KERNEL_ATOL[k]} + {KERNEL_RTOL}*|plain|"
+                        for k in worst},
+          "max_abs_err": worst})
+
+    def row(kern, plain, lib, lib_what, work):
+        b_ms, b_by = bound(*work)
+        return {**timings(kern, plain, lib), "library": lib_what,
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    def attn_times(n):
+        q, k, v, kb = attn_case(n, "bert")
+        mask = kb.to(torch.bfloat16)[:, None, None, :]
+        work = (4 * heads * n * n * 64, 3 * n * c * 2 + n * 4 + n * c * 2)
+        return {"attention[bf16]": row(
+            lambda: fa.fused_attention(q, k, v, kb), lambda: fa.fused_attention_plain(q, k, v, kb),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), "SDPA", work)}
+
+    def mlp_times(n, x_dtype):
+        x, g, be, w1, b1, w2, b2 = mlp_case(n, x_dtype)
+        tag = f"ln_mlp[{'fp32' if x_dtype == torch.float32 else 'bf16'}x-bf16w]"
+        hidden = torch.empty((n, f), dtype=torch.bfloat16, device=dev)
+        out = torch.empty((1, n, c), dtype=torch.bfloat16, device=dev)
+        h3 = hidden.view(1, n, f)
+        b16 = torch.bfloat16
+        xb, vecs = x.element_size(), (f + 3 * c) * 4  # b1, b2, LN scale/bias
+
+        def fc1_lib():
+            y = F.layer_norm(x.float(), (c,), g, be, 1e-6).to(b16)
+            return F.gelu(F.linear(y, w1, b1.to(b16)))
+
+        def launch(stages):
+            return lambda: lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out,
+                                            stages=stages)
+
+        return {
+            tag: row(launch("pair"), lambda: lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2),
+                     lambda: F.linear(fc1_lib(), w2, b2.to(b16)),
+                     "F.layer_norm + F.linear + F.gelu + F.linear, 4 calls",
+                     (4 * n * c * f, n * c * xb + 2 * c * f * 2 + vecs + n * c * 2)),
+            f"{tag} ln_fc1_gelu": row(
+                launch("ln_fc1_gelu"), lambda: lm.ln_fc1_gelu_plain(x, g, be, w1, b1).to(b16),
+                fc1_lib, "F.layer_norm + F.linear + F.gelu, 3 calls",
+                (2 * n * c * f, n * c * xb + c * f * 2 + (f + 2 * c) * 4 + n * f * 2)),
+            f"{tag} fc2_bias": row(
+                launch("fc2_bias"), lambda: lm.fc2_bias_plain(h3, w2, b2),
+                lambda: F.linear(h3, w2, b2.to(b16)), "F.linear",
+                (2 * n * f * c, n * f * 2 + c * f * 2 + c * 4 + n * c * 2)),
+        }
+
+    times = {"N40_bert": attn_times(40), "N128_bert": attn_times(128),
+             "N321_bf16x": mlp_times(321, torch.bfloat16),
+             "N361_fp32x": mlp_times(361, torch.float32)}
+    emit({"phase": "fused_kernel_times", "timer": TIMER, "times": times})
     return worst, times
 
 
@@ -586,10 +790,42 @@ def paired_ab(tracker, frames, info):
                          f"within {AB_TIE:.0%} of the max in both maps"}
 
 
+def grounding_ab(tracker, frame):
+    """The grounding forward of one frame on the plain, then the kernel
+    backend (the tracker's sentence tokenized already): the argmax cell of
+    cls x contrastive score (convert2bbox's pick) must agree, or be a
+    near-tie within AB_TIE in both maps, and on the same cell the boxes
+    (cxcywh normalized to the letterbox side) within AB_BOX_REL of it."""
+    import torch
+
+    from uvltrack_tpu_torch.ops import attention
+
+    outs = {}
+    for backend in ("plain", "cuda"):
+        attention.force_backend(backend)
+        o = tracker.grounding_forward(tracker._frame(frame))
+        merged = (o["cls_score_test"].float() * torch.softmax(o["cont_score"].float(), -1)[..., 0])
+        outs[backend] = (merged[0].cpu(), o["pred_boxes"][0, 0].float().cpu())
+    attention.force_backend(None)
+    (mp, bp), (mk, bk) = outs["plain"], outs["cuda"]
+    ip, ik = int(mp.argmax()), int(mk.argmax())
+    d = float((bp - bk).abs().max())
+    if ip == ik and d > AB_BOX_REL:
+        raise AssertionError(f"grounding: same cell, boxes {d} apart (> {AB_BOX_REL} of the side)")
+    if ip != ik and (mk[ip] < (1 - AB_TIE) * mk[ik] or mp[ik] < (1 - AB_TIE) * mp[ip]):
+        raise AssertionError(f"grounding: argmax flip that is not a near-tie: plain "
+                             f"{float(mp[ip]):.4g}/{float(mp[ik]):.4g} kernel "
+                             f"{float(mk[ik]):.4g}/{float(mk[ip]):.4g}")
+    return {"same_cell": ip == ik, "box_diff_side_frac": d, "box_kernel": bk.tolist(),
+            "box_plain": bp.tolist()}
+
+
 def track_phase(mode: str, model, cfg, frames, boxes, tokenizer, language,
                 expect=None, label: str = ""):
     """One cell: `expect` gives the launches per backbone forward of each
-    kernel instantiation, when the caller checks them (build.instantiation_counts)."""
+    kernel instantiation, when the caller checks them (build.instantiation_counts).
+    NL mode initializes with two backbone forwards (grounding, prompt init)
+    and first compares the grounding forward kernel vs plain."""
     import numpy as np
     import torch
 
@@ -627,14 +863,17 @@ def track_phase(mode: str, model, cfg, frames, boxes, tokenizer, language,
     res, lat, init_s, remines = run("cuda")
     counts = build.launch_counts()
     inst = build.instantiation_counts()
-    forwards = len(frames)  # initialize's backbone pass + one per tracked frame
+    # initialize's backbone passes (NL: grounding + prompt init) + one per frame
+    forwards = len(frames) + (mode == "NL")
     peak = torch.cuda.max_memory_allocated()
     _, lat2, _, _ = run("cuda")
     _, plat2, _, _ = run("plain")
     lat, plat = np.concatenate([lat, lat2]), np.concatenate([plat, plat2])
     if build.launch_counts() != {k: 2 * v for k, v in counts.items()}:
         raise AssertionError("the plain backend launched a kernel")
-    if counts != {"ln_qkv": 12 * forwards, "qkv_attention": 12 * forwards, "proj_residual": 0}:
+    # kernels #3 and #7 (attention, ln_mlp) stay off with their knobs unset
+    if counts != dict(dict.fromkeys(build.SOURCES, 0), ln_qkv=12 * forwards,
+                      qkv_attention=12 * forwards):
         raise AssertionError(f"launches {counts} != 12 x {forwards} backbone forwards")
     if expect is not None and inst != {k: v * forwards for k, v in expect.items()}:
         raise AssertionError(f"launches {inst} != {expect} x {forwards} backbone forwards")
@@ -642,6 +881,7 @@ def track_phase(mode: str, model, cfg, frames, boxes, tokenizer, language,
         raise AssertionError("non-finite or misshapen tracker output")
     if remines < len(res) // int(cfg.TEST.UPDATE_INTERVAL):
         raise AssertionError(f"only {remines} prompt re-mines")
+    ground = grounding_ab(tracker, frames[0]) if mode == "NL" else None
     ab = paired_ab(tracker, frames, info)
     attention.force_backend("cuda")
     layers = layer_times(tracker, frames)
@@ -661,18 +901,21 @@ def track_phase(mode: str, model, cfg, frames, boxes, tokenizer, language,
           "plain_fps": len(plat) / float(plat.sum()),
           "plain_latency_ms_p50": float(np.percentile(plat, 50) * 1e3),
           "plain_latency_ms_p90": float(np.percentile(plat, 90) * 1e3),
-          "ab_per_frame": ab,
+          "ab_per_frame": ab, **({"grounding_ab": ground} if ground else {}),
           "free_running_box_diff_px_max": float(np.abs(res[:, :4] - plain[:, :4]).max()),
           "score_range": [float(res[:, 4].min()), float(res[:, 4].max())],
           "layer_ms": layers, "device_profile": busy})
     return inst
 
 
-def reference_phase(model, cfg, frames, boxes, label: str = ""):
-    """One tracking step's model outputs on the card (kernel backend, bf16)
-    against the same weights and inputs on the CPU, where every wrapper takes
-    its plain version, the path that the CPU tests hold against the JAX
-    package. Tolerance: bf16 summation-order noise through 12 blocks and the
+def reference_phase(model, cfg, frames, boxes, label: str = "", tokenizer=None,
+                    language=None):
+    """Model outputs on the card (kernel backend, bf16) against the same
+    weights and inputs on the CPU, where every wrapper takes its plain
+    version, the path that the CPU tests hold against the JAX package: one
+    tracking step (forward_test_cached) or, given a tokenizer and a sentence,
+    the grounding forward of the first frame (UVLTrack.forward under flag
+    1). Tolerance: bf16 summation-order noise through 12 blocks and the
     head, |card - cpu| <= REF_ATOL + REF_RTOL*|cpu| (the CPU tests' bf16
     parity bound)."""
     import copy
@@ -684,21 +927,33 @@ def reference_phase(model, cfg, frames, boxes, label: str = ""):
     from uvltrack_tpu_torch.track.pipeline import sample_target_device
     from uvltrack_tpu_torch.track.tracker import Tracker
 
-    cfg.TEST.MODE = "BBOX"
-    t = Tracker(cfg, model)
+    grounding = tokenizer is not None
+    cfg.TEST.MODE = "NL" if grounding else "BBOX"
+    t = Tracker(cfg, model, tokenizer=tokenizer)
     attention.force_backend("cuda")
-    t.initialize(frames[0], {"init_bbox": boxes[0]})
-    search, _ = sample_target_device(t._frame(frames[1]), t.state.box, t.search_factor,
-                                     t.search_size)
-    args = (t.template, search, t.txt, t.text_mask, t.state.prompt, t.flag)
     keys = ("cls_score_test", "bbox_map", "cont_score")
+    if grounding:
+        t.text_ids, t.text_mask = t._tokenize(language)
+        args = t.grounding_inputs(t._frame(frames[0]))
+        keys += ("pred_boxes",)
+
+        def fwd(m, *a):
+            return m(*a)
+    else:
+        t.initialize(frames[0], {"init_bbox": boxes[0]})
+        search, _ = sample_target_device(t._frame(frames[1]), t.state.box, t.search_factor,
+                                         t.search_size)
+        args = (t.template, search, t.txt, t.text_mask, t.state.prompt, t.flag)
+
+        def fwd(m, *a):
+            return m.forward_test_cached(*a)
     before = build.launch_counts()
     with torch.no_grad():
-        card = model.forward_test_cached(*args)
+        card = fwd(model, *args)
         launched = build.launch_counts() != before
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cpu = copy.deepcopy(model).cpu().forward_test_cached(*(a.cpu() for a in args))
+        cpu = fwd(copy.deepcopy(model).cpu(), *(a.cpu() for a in args))
         cpu_s = time.perf_counter() - t0
     attention.force_backend(None)
     if not launched:
@@ -718,7 +973,8 @@ def reference_phase(model, cfg, frames, boxes, label: str = ""):
         return int(merged.argmax())
 
     emit({"phase": f"cpu_reference{label}",
-          "what": "forward_test_cached, one BBOX step, full width",
+          "what": ("UVLTrack.forward, the NL grounding forward of frame 0" if grounding
+                   else "forward_test_cached, one BBOX step") + ", full width",
           "max_abs_err": errs, "same_argmax_cell": cell(card) == cell(cpu),
           "tolerance": f"|card-cpu| <= {REF_ATOL} + {REF_RTOL}*|cpu|", "cpu_s": cpu_s})
 
@@ -728,7 +984,8 @@ def layer_times(tracker, frames, iters: int = 30):
     back on the kernel backend at the step's own inputs: crop (search
     crop/resize/normalize), backbone (forward_cached_text: patch embed and
     12 blocks), head (MABH test path), remine (forward_prompt); step is a
-    whole Tracker.step (the parts plus decode and state update). Where the
+    whole Tracker.step (the parts plus decode and state update); in NL
+    mode, grounding is the initialization's grounding forward. Where the
     host cannot keep the card fed, these include the gaps between kernels,
     so the parts need not add up to the step."""
     import torch
@@ -760,6 +1017,9 @@ def layer_times(tracker, frames, iters: int = 30):
             t.step(frame)
 
         out["step"] = cuda_time_ms(step, iters, 3)
+        if t.cfg.TEST.MODE == "NL":  # letterbox + UVLTrack.forward, once per sequence
+            first = t._frame(frames[0])
+            out["grounding"] = cuda_time_ms(lambda: t.grounding_forward(first), iters, 3)
     t.state = st
     return out
 
@@ -801,11 +1061,15 @@ def device_profile(tracker, frames, info, n: int = 16):
                      "ms_per_frame": dev_us(e) / n / 1e3} for e in top]}
 
 
-def fused_proj_phase(label: str, model, cfg, frames, boxes, expect):
-    """UVLTRACK_FUSED_PROJ=1 (read at call time by ops/attention.py): BBOX
-    over len(frames)-1 frames on the kernel backend, its launches per
-    instantiation (expect: per backbone forward) and host-clock FPS, then
-    the kernel-vs-plain paired_ab (the plain backend composes the branch)."""
+def knob_phase(name: str, knob: str, value: str, model, cfg, frames, boxes, expect,
+               mode: str = "BBOX", tokenizer=None, language=None, expect_init=None):
+    """One environment knob of ops/attention.py set (read at call time):
+    `mode` over len(frames)-1 frames on the kernel backend, its launches per
+    instantiation checked -- `expect` per backbone forward of a tracked
+    frame, `expect_init` per initialize (default: `expect` per backbone
+    forward of it) -- and host-clock FPS, then (NL: the grounding forward
+    and) the kernel-vs-plain paired_ab and a profiler window. Returns the
+    launches of the counted initialize and frames."""
     import numpy as np
     import torch
 
@@ -813,16 +1077,20 @@ def fused_proj_phase(label: str, model, cfg, frames, boxes, expect):
     from uvltrack_tpu_torch.ops import build
     from uvltrack_tpu_torch.track.tracker import Tracker
 
-    cfg.TEST.MODE = "BBOX"
-    tracker = Tracker(cfg, model)
-    info = {"init_bbox": boxes[0]}
-    os.environ["UVLTRACK_FUSED_PROJ"] = "1"
+    cfg.TEST.MODE = mode
+    tracker = Tracker(cfg, model, tokenizer=tokenizer)
+    info = {"init_bbox": boxes[0], "language": language}
+    init_forwards = 1 + (mode == "NL")
+    expect_init = expect_init or {k: v * init_forwards for k, v in expect.items()}
+    os.environ[knob] = value
     try:
         attention.force_backend("cuda")
         tracker.initialize(frames[0], info)  # warm-up
         torch.cuda.synchronize()
         build.reset_launch_counts()
         tracker.initialize(frames[0], info)
+        init_inst = build.instantiation_counts()
+        build.reset_launch_counts()
         lat = []
         for f in frames[1:]:
             t = time.perf_counter()
@@ -830,18 +1098,25 @@ def fused_proj_phase(label: str, model, cfg, frames, boxes, expect):
             lat.append(time.perf_counter() - t)
         inst = build.instantiation_counts()
         attention.force_backend(None)
-        forwards = len(frames)
-        if inst != {k: v * forwards for k, v in expect.items()}:
-            raise AssertionError(f"fused_proj {label}: launches {inst} != {expect} x {forwards}")
+        if init_inst != expect_init:
+            raise AssertionError(f"{name}: initialize launched {init_inst} != {expect_init}")
+        if inst != {k: v * len(lat) for k, v in expect.items()}:
+            raise AssertionError(f"{name}: {len(lat)} frames launched {inst} != {expect} "
+                                 f"x {len(lat)}")
+        ground = grounding_ab(tracker, frames[0]) if mode == "NL" else None
         ab = paired_ab(tracker, frames, info)
+        attention.force_backend("cuda")
+        busy = device_profile(tracker, frames, info)
     finally:
-        del os.environ["UVLTRACK_FUSED_PROJ"]
+        del os.environ[knob]
         attention.force_backend(None)
     lat = np.asarray(lat)
-    emit({"phase": f"fused_proj_{label}", "frames": len(lat), "backbone_forwards": forwards,
-          "launches_by_instantiation": inst, "tracked_fps": len(lat) / float(lat.sum()),
-          "latency_ms_p50": float(np.percentile(lat, 50) * 1e3), "ab_per_frame": ab})
-    return inst
+    emit({"phase": name, "knob": f"{knob}={value}", "mode": mode, "frames": len(lat),
+          "launches_per_initialize": init_inst, "launches_over_frames": inst,
+          "tracked_fps": len(lat) / float(lat.sum()),
+          "latency_ms_p50": float(np.percentile(lat, 50) * 1e3), "ab_per_frame": ab,
+          **({"grounding_ab": ground} if ground else {}), "device_profile": busy})
+    return {k: init_inst.get(k, 0) + inst.get(k, 0) for k in {*init_inst, *inst}}
 
 
 def drift_phase(model_fp, cfg_fp, model_q8, cfg_q8, frames, boxes):
@@ -923,6 +1198,7 @@ def main() -> int:
 
     worst, times = kernel_phase(dev, args.seed)
     q8_worst, q8_times = q8_kernel_phase(dev, args.seed)
+    fused_worst, fused_times = fused_kernel_phase(dev, args.seed)
 
     from uvltrack_tpu_torch.config import load_cfg
     from uvltrack_tpu_torch.core.tokenizer import BertTokenizer
@@ -956,10 +1232,12 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + v
 
     per_fwd_fp = {"ln_qkv[bf16x-bf16w]": 6, "ln_qkv[fp32x-bf16w]": 6, "qkv_attention[bf16]": 12}
-    for mode in ("BBOX", "NLBBOX"):
+    for mode in ("BBOX", "NLBBOX", "NL"):
         add(track_phase(mode, model, cfg, frames, boxes, BertTokenizer(str(vocab)), language,
                         expect=per_fwd_fp))
     reference_phase(model, cfg, frames, boxes)
+    reference_phase(model, cfg, frames, boxes, label="_grounding",
+                    tokenizer=BertTokenizer(str(vocab)), language=language)
 
     # weight-only int8: the same cells, the same seed
     cfg_q8 = config("int8")
@@ -977,12 +1255,23 @@ def main() -> int:
         add(track_phase(mode, model_q8, cfg_q8, frames, boxes, BertTokenizer(str(vocab)),
                         language, expect=per_fwd_q8, label="_q8"))
     fused = frames[:17]
-    add(fused_proj_phase("bf16", model, cfg, fused, boxes, dict(
-        per_fwd_fp, **{"proj_residual[bf16x-bf16a-bf16w]": 6,
-                       "proj_residual[fp32x-bf16a-bf16w]": 6})))
-    add(fused_proj_phase("q8", model_q8, cfg_q8, fused, boxes, dict(
-        per_fwd_q8, **{"proj_residual[bf16x-bf16a-int8w]": 6,
-                       "proj_residual[fp32x-fp32a-int8w]": 6})))
+    add(knob_phase("fused_proj_bf16", "UVLTRACK_FUSED_PROJ", "1", model, cfg, fused, boxes,
+                   dict(per_fwd_fp, **{"proj_residual[bf16x-bf16a-bf16w]": 6,
+                                       "proj_residual[fp32x-bf16a-bf16w]": 6})))
+    add(knob_phase("fused_proj_q8", "UVLTRACK_FUSED_PROJ", "1", model_q8, cfg_q8, fused, boxes,
+                   dict(per_fwd_q8, **{"proj_residual[bf16x-bf16a-int8w]": 6,
+                                       "proj_residual[fp32x-fp32a-int8w]": 6})))
+    # kernel #7 in every block of the bf16 model; int8 weights stay plain
+    add(knob_phase("fused_mlp_bf16", "UVLTRACK_FUSED_MLP", "1", model, cfg, fused, boxes,
+                   dict(per_fwd_fp, **{"ln_mlp[bf16x-bf16w]": 6, "ln_mlp[fp32x-bf16w]": 6})))
+    add(knob_phase("fused_mlp_q8", "UVLTRACK_FUSED_MLP", "1", model_q8, cfg_q8, fused, boxes,
+                   per_fwd_q8))
+    # kernel #3 in BERT's 40-token layers: 6 layers each in the grounding
+    # forward, the prompt init and encode_text; the frames run no BERT
+    add(knob_phase("bert_kernel", "UVLTRACK_PALLAS_MIN_N", "32", model, cfg, fused, boxes,
+                   per_fwd_fp, mode="NL", tokenizer=BertTokenizer(str(vocab)), language=language,
+                   expect_init=dict({k: 2 * v for k, v in per_fwd_fp.items()},
+                                    **{"attention[bf16]": 18})))
     drift_phase(model, cfg, model_q8, cfg_q8, frames, boxes)
     reference_phase(model_q8, cfg_q8, frames, boxes, label="_q8")
 
@@ -1007,6 +1296,13 @@ def main() -> int:
         source = f"{src}/{name.split('[')[0]}.cu"
         t = {k: v for k, v in shape[name].items() if k != "library"}
         rows.append((name, source, line, launches.get(name, 0), q8_worst[name], t))
+    # kernel #3 at BERT's N=40, kernel #7 at the ViT's two shapes
+    for name, line, shape, err in (("attention[bf16]", 78, "N40_bert", "attention"),
+                                   ("ln_mlp[bf16x-bf16w]", 551, "N321_bf16x", "ln_mlp"),
+                                   ("ln_mlp[fp32x-bf16w]", 551, "N361_fp32x", "ln_mlp")):
+        t = {k: v for k, v in fused_times[shape][name].items() if k != "library"}
+        rows.append((name, f"{src}/{name.split('[')[0]}.cu", line, launches.get(name, 0),
+                     fused_worst[err], t))
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": f"{TPU_KERNEL}:{line}", "launches": n, "max_abs_err": err, **t}
                for name, source, line, n, err, t in rows]
@@ -1023,6 +1319,15 @@ def main() -> int:
                     emit({"phase": "composition", "name": name,
                           "replaces": f"{TPU_KERNEL}:{line}", "max_abs_err": q8_worst[name],
                           **t})
+    # kernel #7's two launches, each alone, and kernel #3 at N=128
+    for shape, name in (("N321_bf16x", "ln_mlp[bf16x-bf16w] ln_fc1_gelu"),
+                        ("N321_bf16x", "ln_mlp[bf16x-bf16w] fc2_bias"),
+                        ("N361_fp32x", "ln_mlp[fp32x-bf16w] ln_fc1_gelu"),
+                        ("N361_fp32x", "ln_mlp[fp32x-bf16w] fc2_bias"),
+                        ("N128_bert", "attention[bf16]")):
+        emit({"phase": "per_launch", "shape": shape, "name": name,
+              "max_abs_err": fused_worst[name.split()[-1] if " " in name else "attention"],
+              **fused_times[shape][name]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -136,7 +136,7 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     torch.testing.assert_close(qkv, lqa.ln_qkv_plain(*args), rtol=0, atol=0)
     out = lqa.qkv_attention(qkv, _t(kb), 4)
     torch.testing.assert_close(out, lqa.qkv_attention_plain(qkv, _t(kb), 4), rtol=0, atol=0)
-    assert build.launch_counts() == {"ln_qkv": 0, "qkv_attention": 0, "proj_residual": 0}
+    assert build.launch_counts() == dict.fromkeys(build.SOURCES, 0)
 
 
 @pytest.mark.parametrize("n", [21, 130])
@@ -287,7 +287,8 @@ def test_cuda_kernels_match_plain(cuda, n, mask, x_dtype):
     qkv = lqa.ln_qkv(x, g, be, w, wb)
     out = lqa.qkv_attention(qkv, kb, 12)
     torch.cuda.synchronize()
-    assert build.launch_counts() == {"ln_qkv": 1, "qkv_attention": 1, "proj_residual": 0}
+    assert build.launch_counts() == dict(dict.fromkeys(build.SOURCES, 0), ln_qkv=1,
+                                         qkv_attention=1)
     qkv_ref = lqa.ln_qkv_plain(x, g, be, w, wb)
     torch.testing.assert_close(qkv.float(), qkv_ref.float(), atol=GPU_ATOL, rtol=GPU_RTOL)
     # the attention kernel on the same qkv, then the composition (#1)
@@ -326,7 +327,8 @@ def test_cuda_dispatch_launches_on_the_cuda_backend_only(cuda):
                                     torch.bfloat16)  # N < 128: plain
     finally:
         tattn.force_backend(None)
-    assert build.launch_counts() == {"ln_qkv": 1, "qkv_attention": 1, "proj_residual": 0}
+    assert build.launch_counts() == dict(dict.fromkeys(build.SOURCES, 0), ln_qkv=1,
+                                         qkv_attention=1)
 
 
 @pytest.mark.gpu
@@ -387,4 +389,4 @@ def test_model_built_without_build_model_launches_the_kernels(cuda):
                          cwd=REPO, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     counts = ast.literal_eval(out.stdout.strip().splitlines()[-1])
-    assert counts == {"ln_qkv": 8, "qkv_attention": 8, "proj_residual": 0}
+    assert counts == dict(dict.fromkeys(build.SOURCES, 0), ln_qkv=8, qkv_attention=8)

@@ -164,14 +164,30 @@ def test_track_debug_matches_jax_and_track(trackers):
         assert d["target_bbox"] == r["target_bbox"] and d["score"] == r["score"]
 
 
-def test_nl_mode_waits_for_its_slice(trackers):
-    _, tt = trackers
-    tt.cfg.TEST.MODE = "NL"
+def test_nl_mode_matches_jax_frame_by_frame(trackers):
+    """NL mode starts from a sentence alone: the grounding box becomes the
+    init box, the sequence tracks with flag 2, and every frame (re-mines
+    included) agrees with the JAX tracker at the tolerances above."""
+    jt, tt = trackers
+    jt.cfg.TEST.MODE = tt.cfg.TEST.MODE = "NL"
     try:
-        with pytest.raises(NotImplementedError, match="NL slice"):
-            tt.initialize(_frame(40), {"language": "the box"})
+        info = {"language": "a red box moving"}
+        ref, out = jt.initialize(_frame(40), info), tt.initialize(_frame(40), info)
+        np.testing.assert_allclose(out["target_bbox"], ref["target_bbox"], atol=1e-3, rtol=0)
+        assert int(tt.flag[0]) == int(jt.flag[0]) == 2
+        np.testing.assert_allclose(tt.state.prompt.numpy(), np.asarray(jt.state.prompt),
+                                   atol=1e-4, rtol=1e-4)
+        for i in range(7):
+            f = _frame(41 + i)
+            ref, out = jt.track(f), tt.track(f)
+            np.testing.assert_allclose(out["target_bbox"], ref["target_bbox"], atol=1e-3,
+                                       rtol=0)
+            np.testing.assert_allclose(out["score"], ref["score"], atol=1e-4, rtol=1e-4)
+            np.testing.assert_allclose(tt.state.prompt.numpy(), np.asarray(jt.state.prompt),
+                                       atol=1e-4, rtol=1e-4)
+        assert tt.remines == 3
     finally:
-        tt.cfg.TEST.MODE = "BBOX"
+        jt.cfg.TEST.MODE = tt.cfg.TEST.MODE = "BBOX"
 
 
 def test_uncached_text_waits_for_its_slice(trackers):

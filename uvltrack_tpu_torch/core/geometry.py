@@ -3,6 +3,7 @@ uvltrack_tpu/core/geometry.py). Every function stays on the tensors' device:
 the tracking step never reads a box back to the host.
 
 - anno2mask     (lib/test/tracker/uvltrack.py:183-194)
+- rotate_half_batch (the head's prompt mining without a prompt)
 - crop_params / crop_box_normalized / map_box_back
                 (lib/train/data/processing_utils.py:159-193,
                  lib/test/tracker/uvltrack.py:167-173)
@@ -34,6 +35,13 @@ def anno2mask(boxes_xywh: torch.Tensor, size: int) -> torch.Tensor:
     ctr = (idx[None, :, None] == cy[:, None, None]) & (
         idx[None, None, :] == cx[:, None, None])
     return (mask | ctr).reshape(b, size * size)
+
+
+def rotate_half_batch(x: torch.Tensor) -> torch.Tensor:
+    """Swap the two halves of the batch dim (context shuffling of the
+    prompt-mining forward); batch 1 is left as it is."""
+    h = x.shape[0] // 2
+    return torch.cat([x[h:], x[:h]], dim=0)
 
 
 def crop_params(box_xywh: torch.Tensor, search_area_factor: float,

@@ -1,8 +1,9 @@
 // Shared helpers of the port's hand-written Hopper kernels. Each kernel
 // source is compiled on its own by nvcc into a shared library with a plain C
-// interface (uvltrack_tpu_torch/ops/build.py) and called through ctypes; the
-// wrapper passes device pointers and PyTorch's current stream, and every
-// entry point returns cudaGetLastError() so a refused launch raises in Python.
+// interface (uvltrack_tpu_torch/ops/build.py; the library's hash covers every
+// header under csrc/) and called through ctypes; the wrapper passes device
+// pointers and PyTorch's current stream, and every entry point returns
+// cudaGetLastError() so a refused launch raises in Python.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,6 +56,21 @@ __device__ __forceinline__ void load_w_tile(bf16* dst, int ld, const bf16* w, in
   }
 }
 
+// bf16 activation tile: rows m0..m0+ROWS-1 (zero past M), columns
+// k0..k0+31 of a row-major (M, K) matrix, 16-byte vector copies.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_a_tile(bf16* dst, int ld, const bf16* a, int m0, int M,
+                                            int k0, int K, int tid) {
+  for (int c = tid; c < ROWS * (W_TILE_K / 8); c += THREADS) {
+    const int r = c / (W_TILE_K / 8);
+    const int q = (c % (W_TILE_K / 8)) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (m0 + r < M)
+      v = *reinterpret_cast<const uint4*>(a + static_cast<size_t>(m0 + r) * K + k0 + q);
+    *reinterpret_cast<uint4*>(dst + r * ld + q) = v;
+  }
+}
+
 // int8 payload: 16 values per 16-byte load, converted to bf16 in shared
 // memory (exact: |q| <= 127 needs 7 significant bits). The per-row scale is
 // applied to the fp32 accumulator in the epilogue, never to the tile.
@@ -88,6 +104,71 @@ __device__ __forceinline__ float scale_bias(float acc, const float* scale, const
                                             int n) {
   if constexpr (std::is_same<TW, int8_t>::value) acc = __fmul_rn(acc, scale[n]);
   return __fadd_rn(acc, bias[n]);
+}
+
+// The LayerNorm prologue of the LN-fused products (ln_qkv.cu, ln_mlp.cu):
+// flax's fp32 LayerNorm with the fast variance clamped at 0,
+//   LN(x) = (x - mean) * rsqrt(max(mean(x^2) - mean^2, 0) + eps) * g + beta,
+// applied to the A tile as it loads, so the normalized rows never reach
+// device memory.
+//
+// Statistics of rows m0..m0+ROWS-1 of x (M, C), one warp per row; rows past
+// M get rstd 0.
+template <int ROWS, int THREADS, typename TX>
+__device__ __forceinline__ void ln_stats(const TX* x, int m0, int M, int C, float eps,
+                                         float* s_mean, float* s_rstd, int tid) {
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  for (int r = warp; r < ROWS; r += THREADS / 32) {
+    const int row = m0 + r;
+    float s = 0.f, ss = 0.f;
+    if (row < M) {
+      const TX* xr = x + static_cast<size_t>(row) * C;
+      for (int k = lane; k < C; k += 32) {
+        const float v = to_f32(xr[k]);
+        s += v;
+        ss += v * v;
+      }
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    if (lane == 0) {
+      const float mean = s / C;
+      const float var = fmaxf(ss / C - mean * mean, 0.f);
+      s_mean[r] = mean;
+      s_rstd[r] = row < M ? 1.f / sqrtf(var + eps) : 0.f;
+    }
+  }
+}
+
+// The normalized (ROWS x W_TILE_K) A tile at depth k0, one thread per 16
+// consecutive values of a row, rounded to bf16 (SPLIT: as hi + lo halves,
+// split_bf16); rows past M are zero. Row stride ld.
+template <int ROWS, int THREADS, bool SPLIT, typename TX>
+__device__ __forceinline__ void ln_a_tile(bf16* hi, bf16* lo, int ld, const TX* x,
+                                          const float* gamma, const float* beta,
+                                          const float* s_mean, const float* s_rstd, int m0,
+                                          int M, int C, int k0, int tid) {
+  static_assert(ROWS * (W_TILE_K / 16) == THREADS, "one thread per 16 values of the tile");
+  const int r = tid / (W_TILE_K / 16);
+  const int c = (tid % (W_TILE_K / 16)) * 16;
+  const int row = m0 + r;
+  const TX* xr = x + static_cast<size_t>(row < M ? row : 0) * C;
+  const float mean = s_mean[r];
+  const float rstd = s_rstd[r];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int k = k0 + c + i;
+    float y = 0.f;
+    if (row < M) {
+      y = (to_f32(xr[k]) - mean) * rstd;
+      y = y * gamma[k] + beta[k];
+    }
+    if constexpr (SPLIT)
+      split_bf16(y, hi[r * ld + c + i], lo[r * ld + c + i]);
+    else
+      hi[r * ld + c + i] = __float2bfloat16(y);
+  }
 }
 
 }  // namespace uvl

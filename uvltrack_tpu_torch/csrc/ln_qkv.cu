@@ -67,31 +67,10 @@ ln_qkv_kernel(const TX* __restrict__ x, const float* __restrict__ gamma,
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int lane = tid & 31;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
 
-  // LayerNorm statistics of this block's rows, one warp per row.
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int row = m0 + r;
-    float s = 0.f, ss = 0.f;
-    if (row < M) {
-      const TX* xr = x + static_cast<size_t>(row) * C;
-      for (int k = lane; k < C; k += 32) {
-        const float v = uvl::to_f32(xr[k]);
-        s += v;
-        ss += v * v;
-      }
-    }
-    s = uvl::warp_sum(s);
-    ss = uvl::warp_sum(ss);
-    if (lane == 0) {
-      const float mean = s / C;
-      const float var = fmaxf(ss / C - mean * mean, 0.f);
-      s_mean[r] = mean;
-      s_rstd[r] = row < M ? 1.f / sqrtf(var + eps) : 0.f;
-    }
-  }
+  uvl::ln_stats<BM, THREADS>(x, m0, M, C, eps, s_mean, s_rstd, tid);
   __syncthreads();
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
@@ -102,28 +81,9 @@ ln_qkv_kernel(const TX* __restrict__ x, const float* __restrict__ gamma,
   const int wm = (warp >> 1) * 32;
   const int wn = (warp & 1) * 32;
 
-  // each thread normalizes 16 consecutive values of one A-tile row
-  const int a_r = tid >> 1;
-  const int a_c = (tid & 1) * 16;
-  const int a_row = m0 + a_r;
-  const float a_mean = s_mean[a_r];
-  const float a_rstd = s_rstd[a_r];
-  const TX* xa = x + static_cast<size_t>(a_row < M ? a_row : 0) * C;
-
   for (int k0 = 0; k0 < C; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int k = k0 + a_c + i;
-      float y = 0.f;
-      if (a_row < M) {
-        y = (uvl::to_f32(xa[k]) - a_mean) * a_rstd;
-        y = y * gamma[k] + beta[k];
-      }
-      if constexpr (SPLIT)
-        uvl::split_bf16(y, As[a_r * LDA + a_c + i], Al[a_r * LDA + a_c + i]);
-      else
-        As[a_r * LDA + a_c + i] = __float2bfloat16(y);
-    }
+    uvl::ln_a_tile<BM, THREADS, SPLIT>(As, Al, LDA, x, gamma, beta, s_mean, s_rstd, m0, M, C,
+                                       k0, tid);
     uvl::load_w_tile<BN, THREADS>(Bs, LDB, w, n0, k0, C, tid);
     __syncthreads();
 #pragma unroll

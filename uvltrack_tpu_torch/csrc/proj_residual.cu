@@ -87,14 +87,7 @@ proj_residual_kernel(const TX* __restrict__ x, const TA* __restrict__ a,
         uvl::split_bf16(v.w, As[r * LDA + q + 3], Al[r * LDA + q + 3]);
       }
     } else {
-      for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-        const int r = c / (BK / 8);
-        const int q = (c % (BK / 8)) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m0 + r < M)
-          v = *reinterpret_cast<const uint4*>(a + static_cast<size_t>(m0 + r) * K + k0 + q);
-        *reinterpret_cast<uint4*>(&As[r * LDA + q]) = v;
-      }
+      uvl::load_a_tile<BM, THREADS>(As, LDA, a, m0, M, k0, K, tid);
     }
     uvl::load_w_tile<BN, THREADS>(Bs, LDB, w, n0, k0, K, tid);
     __syncthreads();

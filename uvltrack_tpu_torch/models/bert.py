@@ -1,7 +1,9 @@
 """BERT text encoder pieces (port of uvltrack_tpu/models/bert.py): word +
 position + type embeddings with LayerNorm(eps=1e-12), post-LN encoder layers
 with exact-GELU intermediate, and the additive (1-mask)*-10000 attention bias
-(lib/models/backbones/bert_backbone.py:740-751).
+(lib/models/backbones/bert_backbone.py:740-751). The self-attention goes
+through ops/attention.py::attention_core, as the JAX package's BertLayer
+does, so with UVLTRACK_PALLAS_MIN_N <= 40 on the card it runs kernel #3.
 
 Module names follow the reference BERT (embeddings.*, encoder.layer.{i}.
 attention.self.{query,key,value}, attention.output.{dense,LayerNorm},
@@ -15,7 +17,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..ops.attention import plain_attention
+from ..ops.attention import attention_core
 from ..ops.ln_qkv_attention import layer_norm_fast_var
 
 
@@ -125,7 +127,7 @@ class BertLayer(nn.Module):
             return t.reshape(b, n, h, d).transpose(1, 2)
 
         q, k, v = (heads(dense(x, lin, dt)) for lin in (sa.query, sa.key, sa.value))
-        ctx = plain_attention(q, k, v, attn_bias)
+        ctx = attention_core(q, k, v, attn_bias)
         ctx = ctx.transpose(1, 2).reshape(b, n, c.hidden_size)
         ao = self.attention.output
         x = flax_layer_norm(dense(ctx, ao.dense, dt) + x, ao.LayerNorm)

@@ -2,10 +2,13 @@
 (port of uvltrack_tpu/models/head.py; reference
 lib/models/heads/modality_adaptive_box_head.py, lib/models/heads/utils.py).
 
-The test path: four 5-stage conv towers over the (feat_sz x feat_sz) search
+The head: four 5-stage conv towers over the (feat_sz x feat_sz) search
 map, a contrastive prompt-vs-search score, and the argmax decode of
-convert2bbox. The prompter mines target / distractor / background tokens
-from template+context features, splitting the background at the 0.25 CDF
+convert2bbox. Given a prompt (the tracker's step) the score has the test
+columns; without one (the grounding forward, UVLTrack.forward) the prompts
+are mined from the template and the half-batch-rotated search features
+first. The prompter mines target / distractor / background tokens from
+template+context features, splitting the background at the 0.25 CDF
 (divide_background); flag==1 uses the bare learned query embeddings.
 
 Module names follow the reference (conv_cls.{0..3}.{0 conv, 1 bn}, conv_cls.4
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.geometry import rotate_half_batch
 from ..ops.quant import is_quantized, weight_of
 from .bert import dense
 from .mufe import l2_normalize, select_by_flag
@@ -196,13 +200,22 @@ class MABH(nn.Module):
         bbox = torch.gather(bbox_map, 1, best[:, None, None].expand(-1, 1, 4))
         return bbox_map, bbox
 
-    def forward(self, out_dict: dict, prompt: torch.Tensor) -> dict:
-        """The test path (prompt given; the training path's prompt mining
-        lands with the training slice)."""
+    def forward(self, out_dict: dict, prompt: torch.Tensor | None = None) -> dict:
+        """The test path when a prompt is given. With prompt=None (the
+        grounding forward) the prompter mines prompts from the template and
+        the half-batch-rotated search features, under out_dict's
+        template_mask and context_mask, and the contrastive score keeps the
+        two non-test columns."""
         flag, search = out_dict["flag"], out_dict["search"]
         b, s, c = search.shape
         f = self.feat_sz
-        cont_score = self.cont_score_from_prompt(search, prompt, test=True)
+        if prompt is None:
+            prompt = self.prompter(out_dict["template"], out_dict["template_mask"],
+                                   rotate_half_batch(search), out_dict["context_mask"],
+                                   self._token(out_dict), flag)
+            cont_score = self.cont_score_from_prompt(search, prompt, test=False)
+        else:
+            cont_score = self.cont_score_from_prompt(search, prompt, test=True)
         x2d = search.reshape(b, f, f, c).permute(0, 3, 1, 2)  # NCHW
         cls_in = x2d * self._token(out_dict)[:, :, None, None] if self.cls_tokenize else x2d
         cls_map = torch.sigmoid(self.conv_cls(cls_in).float()).reshape(b, s)

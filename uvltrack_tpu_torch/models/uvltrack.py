@@ -4,8 +4,9 @@ lib/models/uvltrack/uvltrack.py:8-57).
 
 The module tree is named like the reference ('backbone.vit...',
 'backbone.bert...', 'box_head...'), so a reference-keyed state dict loads
-through models/convert.py. The training forward and prompt mining from a
-rotated batch land with the training slice.
+through models/convert.py. `forward` is the JAX package's __call__ at
+train=False, which the tracker's NL mode runs as its grounding forward; the
+training forward (train=True) lands with the training slice.
 """
 
 from __future__ import annotations
@@ -26,6 +27,17 @@ class UVLTrack(nn.Module):
         super().__init__()
         self.backbone = backbone
         self.box_head = box_head
+
+    def forward(self, template, search, text_ids, text_mask, template_mask,
+                context_mask, flag):
+        """The full forward without a prompt (UVLTrack.__call__, train=False):
+        MUFE with live BERT, then the head mining prompts from the rotated
+        batch (MABH.forward with prompt=None); the grounding-size tower's
+        boxes under flag 1."""
+        out = self.backbone(template, search, text_ids, text_mask, flag)
+        out["template_mask"] = template_mask
+        out["context_mask"] = context_mask
+        return self.box_head(out)
 
     def forward_prompt_init(self, template, search, text_ids, text_mask,
                             template_mask, context_mask, flag):

@@ -1,24 +1,38 @@
-"""Attention entry points with a backend switch (port of
+"""Attention and MLP entry points with a backend switch (port of
 uvltrack_tpu/ops/attention.py).
 
 Backends: "plain" (the JAX package's "xla": composed PyTorch math) and
-"cuda" (its "pallas": the hand-written kernels of ops/ln_qkv_attention.py
-and ops/ln_qkv_attn_proj.py), which is the default. build_model sets the
-backend from cfg.TPU.USE_PALLAS_ATTENTION; force_backend pins it
-process-wide (chip_smoke.py's plain-vs-kernel A/B), and force_backend(None)
-goes back to the backend set_backend chose last.
+"cuda" (its "pallas": the hand-written kernels of ops/ln_qkv_attention.py,
+ops/ln_qkv_attn_proj.py, ops/fused_attention.py and ops/ln_mlp.py), which is
+the default. build_model sets the backend from cfg.TPU.USE_PALLAS_ATTENTION;
+force_backend pins it process-wide (chip_smoke.py's plain-vs-kernel A/B),
+and force_backend(None) goes back to the backend set_backend chose last.
 
-On the "cuda" backend, a CUDA tensor with N >= 128 (the JAX package's
-min_seq_len gate) takes the kernels; CPU tensors and BERT's 40-token layers
-take the plain math. attention_ln_qkv_core runs kernel #1 for bf16 weights
-and #5 for int8 ones (ops/quant.py QuantizedTensor); attention_block_core
-runs #4 or #6 instead when UVLTRACK_FUSED_PROJ=1 (read at call time, default
-off) and the qkv and proj weights are both fp or both int8, as the JAX
-package gates them. The bf16 kernels take bf16 weights only, so an fp32
-model on the card raises there; it runs on the "plain" backend. The JAX
-package's VMEM caps (UVLTRACK_FUSED_VMEM_MB) bound a TPU resource that the
-port's tiled kernels do not have, and are not ported. Kernel #7 (the opt-in
-fused MLP) is not ported yet (ROADMAP.md).
+On the "cuda" backend a CUDA tensor takes the kernels when its sequence
+length N is at least min_seq_len(): UVLTRACK_PALLAS_MIN_N, read at call
+time, default 128, as pallas_attention.min_seq_len reads it. Every gate
+below uses it; CPU tensors take the plain math.
+
+- attention_core (BERT's layers; (B, H, N, D) q/k/v, so N is q.shape[2]):
+  kernel #3 for a key-padding bias (B, 1, 1, N) or none; any other bias
+  falls back to plain_attention, as the JAX adapter returns None for it.
+  BERT runs at N=40, so the kernel engages with UVLTRACK_PALLAS_MIN_N <= 40.
+- attention_ln_qkv_core: kernel #1 for bf16 weights, #5 for int8 ones
+  (ops/quant.py QuantizedTensor); attention_block_core runs #4 or #6
+  instead when UVLTRACK_FUSED_PROJ=1 (read at call time, default off) and
+  the qkv and proj weights are both fp or both int8, as the JAX package
+  gates them.
+- ln_mlp_core: kernel #7 when UVLTRACK_FUSED_MLP=1 (read at call time,
+  default off) for fp weights; int8 weights stay plain, as in the JAX
+  package.
+
+The bf16 kernels take bf16 weights and activations only, so an fp32 model on
+the card raises there; it runs on the "plain" backend. The JAX package's
+VMEM caps (UVLTRACK_FUSED_VMEM_MB, and the 14 MB gate of its fused MLP)
+bound a TPU resource that the port's tiled kernels do not have, and are not
+ported: under UVLTRACK_FUSED_MLP=1 the port's #7 runs in every ViT block at
+N=321/361, where the JAX package, over its cap, runs the kernel's XLA twin
+(the same function with the same rounding points).
 
 Precision of the int8 path: the q8 kernels compute in x's dtype, so on the
 card the fp32 joint blocks run their attention prefix in fp32; the plain
@@ -35,8 +49,9 @@ from __future__ import annotations
 import os
 
 import torch
-import torch.nn.functional as F
 
+from . import fused_attention as fa
+from . import ln_mlp as lm
 from . import ln_qkv_attention as lqa
 from . import ln_qkv_attn_proj as lqp
 from .quant import is_quantized, quant_dot
@@ -45,7 +60,13 @@ _BACKENDS = ("plain", "cuda")
 _CONFIGURED = "cuda"  # set_backend's last choice
 _OVERRIDE = None  # force_backend pin: wins over later set_backend calls
 _BACKEND = _CONFIGURED  # the backend in effect
-MIN_SEQ_LEN = 128  # pallas_attention.min_seq_len: BERT's N=40 stays plain
+
+
+def min_seq_len() -> int:
+    """Shortest sequence the kernels take (pallas_attention.min_seq_len):
+    UVLTRACK_PALLAS_MIN_N, read at call time, default 128, so BERT's
+    40-token layers stay plain unless it is lowered."""
+    return int(os.environ.get("UVLTRACK_PALLAS_MIN_N", "128"))
 
 
 def set_backend(name: str) -> None:
@@ -79,14 +100,23 @@ def key_padding_bias(key_masked: torch.Tensor, neg: float = -1e10) -> torch.Tens
     return torch.where(key_masked, neg, zero)[:, None, None, :]
 
 
-def _as_key_bias(bias, b: int, n: int, device) -> torch.Tensor:
-    """None -> zeros; a (B, 1, 1, N) key-padding bias -> (B, N) fp32."""
+def _key_padding(bias, b: int, n: int, device):
+    """The JAX package's key-padding contract: None -> zeros; a (B, 1, 1, N)
+    additive bias -> its (B, N) fp32 form; any other shape -> None."""
     if bias is None:
         return torch.zeros((b, n), dtype=torch.float32, device=device)
     if bias.ndim == 4 and bias.shape[1] == 1 and bias.shape[2] == 1:
         return bias[:, 0, 0, :].float().contiguous()
-    raise ValueError(f"only key-padding biases (B,1,1,N) are supported, got "
-                     f"{tuple(bias.shape)}")
+    return None
+
+
+def _as_key_bias(bias, b: int, n: int, device) -> torch.Tensor:
+    """_key_padding for the ViT block cores, which take key padding only."""
+    key_bias = _key_padding(bias, b, n, device)
+    if key_bias is None:
+        raise ValueError(f"only key-padding biases (B,1,1,N) are supported, got "
+                         f"{tuple(bias.shape)}")
+    return key_bias
 
 
 def plain_attention(q, k, v, bias=None):
@@ -100,8 +130,29 @@ def plain_attention(q, k, v, bias=None):
     return torch.matmul(probs, v)
 
 
-def _on_kernels(x: torch.Tensor) -> bool:
-    return _BACKEND == "cuda" and x.is_cuda and x.shape[1] >= MIN_SEQ_LEN
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _on_kernels(t: torch.Tensor, n: int) -> bool:
+    """The kernel gate: "cuda" backend, a CUDA tensor, N >= min_seq_len()."""
+    return _BACKEND == "cuda" and _on_card(t) and n >= min_seq_len()
+
+
+def attention_core(q, k, v, bias=None):
+    """Counterpart of attention_core: q, k, v (B, H, N, D); bias None or
+    additive, broadcastable to (B, H, N, N). Returns (B, H, N, D) in v's
+    dtype: kernel #3 past the gate for a key-padding bias, else
+    plain_attention. The two differ on a row whose keys are all masked
+    (BERT in BBOX mode): the kernel's clamp gives the uniform average of v,
+    the plain softmax weighs the keys by their scores, as the JAX package's
+    Pallas and XLA paths do."""
+    b, _, n, _ = q.shape
+    if _on_kernels(q, n):
+        key_bias = _key_padding(bias, b, n, q.device)
+        if key_bias is not None:
+            return fa.fused_attention(q, k, v, key_bias)
+    return plain_attention(q, k, v, bias)
 
 
 def attention_ln_qkv_core(x, ln_scale, ln_bias, w_qkv, b_qkv, heads: int,
@@ -114,7 +165,7 @@ def attention_ln_qkv_core(x, ln_scale, ln_bias, w_qkv, b_qkv, heads: int,
     b, n, _ = x.shape
     key_bias = _as_key_bias(bias, b, n, x.device)
     w = w_qkv.to(compute_dtype)
-    if _on_kernels(x):
+    if _on_kernels(x, n):
         if is_quantized(w):
             return lqa.ln_qkv_attention_q8(x.contiguous(), ln_scale, ln_bias, w.q, w.scale,
                                            b_qkv, key_bias, heads, eps)
@@ -138,7 +189,7 @@ def attention_block_core(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
     UVLTRACK_FUSED_PROJ=1 on the kernels, one fused branch (#4 for fp
     weights, #6 for int8 ones; a mixed pair stays composed)."""
     compute_dtype = compute_dtype or x.dtype
-    if _on_kernels(x) and os.environ.get("UVLTRACK_FUSED_PROJ", "0") == "1":
+    if _on_kernels(x, x.shape[1]) and os.environ.get("UVLTRACK_FUSED_PROJ", "0") == "1":
         b, n, _ = x.shape
         quant_qkv, quant_proj = is_quantized(w_qkv), is_quantized(w_proj)
         if quant_qkv and quant_proj:
@@ -159,12 +210,13 @@ def attention_block_core(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
 
 def ln_mlp_core(x, ln_scale, ln_bias, w1, b1, w2, b2, compute_dtype=None,
                 eps: float = 1e-6):
-    """Pre-LN LayerNorm + fc1 + exact GELU + fc2 (pallas_attention._xla_ln_mlp):
-    the (B, N, C) MLP output before the residual, in the compute dtype;
-    fp or int8 weights (quant_dot)."""
+    """Pre-LN LayerNorm + fc1 + exact GELU + fc2: the (B, N, C) MLP output
+    before the residual, in the compute dtype; fp or int8 weights. Kernel
+    #7 under UVLTRACK_FUSED_MLP=1 for fp weights past the gate, else its
+    plain version (pallas_attention._xla_ln_mlp)."""
     compute_dtype = compute_dtype or x.dtype
     w1, w2 = w1.to(compute_dtype), w2.to(compute_dtype)
-    y = lqa.layer_norm_fast_var(x, ln_scale, ln_bias, eps)
-    h = F.gelu(quant_dot(y.to(w1.dtype), w1) + b1.float())
-    o = quant_dot(h.to(w2.dtype), w2)
-    return (o + b2.float()).to(w2.dtype)
+    if (_on_kernels(x, x.shape[1]) and os.environ.get("UVLTRACK_FUSED_MLP", "0") == "1"
+            and not (is_quantized(w1) or is_quantized(w2))):
+        return lm.ln_mlp(x.contiguous(), ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    return lm.ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)

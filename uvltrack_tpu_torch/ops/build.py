@@ -4,9 +4,9 @@ Each csrc/<name>.cu is compiled on its own into lib<name>-<hash>.so with a
 plain C interface (nvcc -gencode arch=compute_90a,code=sm_90a -shared), at
 first use, into the build directory: $UVLTRACK_TORCH_BUILD_DIR, else
 build/kernels/ at the root of the checkout (listed in .gitignore). The hash
-covers the source, the shared header and the flags, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is. `build()` starts one nvcc
-per source, all at once, and waits for all of them.
+covers the source, the shared headers (csrc/*.cuh) and the flags, so an
+edited kernel is rebuilt and an unchanged one is loaded as it is. `build()`
+starts one nvcc per source, all at once, and waits for all of them.
 
 Every wrapper under ops/ launches its kernel through `launch()`, which
 calls the library's `uvl_<name>` entry point, raises on the CUDA error code
@@ -33,7 +33,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ln_qkv", "qkv_attention", "proj_residual")
+SOURCES = ("ln_qkv", "qkv_attention", "proj_residual", "attention", "ln_mlp")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -69,7 +69,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
@@ -122,7 +122,7 @@ def library(name: str) -> ctypes.CDLL:
 
 
 # ---------------------------------------------------------------- launching
-PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PTR, INT, I64, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # (kernel, instantiation) -> launches since the last reset
 LAUNCHES: Counter = Counter()
 _FNS: Dict[str, object] = {}  # kernel -> its bound entry point

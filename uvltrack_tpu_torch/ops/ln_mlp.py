@@ -1,0 +1,109 @@
+"""Fused LayerNorm + fc1 + exact GELU + fc2, the MLP half of a ViT block before
+the residual add: the CUDA port of the Pallas kernel
+uvltrack_tpu/ops/pallas_attention.py::_ln_mlp_kernel (:551, entry
+`fused_ln_mlp` :577), kernel #7.
+
+    y   = w1.dtype( LN(x) )                   fp32 LN, fast variance clamped at 0
+    h   = w2.dtype( gelu( y . W1^T + b1 ) )   fp32 accumulation, erf GELU in fp32
+    out = w2.dtype( h . W2^T + b2 )           fp32 accumulation
+
+The JAX package takes the kernel in ln_mlp_core only under
+UVLTRACK_FUSED_MLP=1, for fp weights, at N >= min_seq_len() and under a 14 MB
+VMEM estimate, which at ViT-B width is 17.2 MB at N=361 and 16.3 MB at
+N=321: on a TPU the kernel never engages at the tracker's shapes, and the
+JAX package runs its XLA twin `_xla_ln_mlp` (:601), which has the kernel's
+rounding points. The port drops the VMEM cap (it bounds a TPU resource its
+tiled kernels do not have), so under UVLTRACK_FUSED_MLP=1 its kernel runs in
+all 12 blocks at N=321/361, computing the function the JAX package computes
+there through the twin.
+
+On the card this is two launches of csrc/ln_mlp.cu (one `ln_mlp` call
+counted by ops/build.py): `ln_fc1_gelu` writes the (M, 4C) hidden tensor in
+bf16 to device memory, since a 64-row tile of it would overflow a block's
+shared memory, and `fc2_bias` reads it back (design in the source's
+notes). Two instantiations: bf16 x (blocks 0-5) and fp32 x (the fp32 joint
+stream, blocks 6-11), both with bf16 weights; the output is bf16, w2's
+dtype.
+
+A CPU tensor takes the plain version, which is also the plain backend's
+MLP (ops/attention.py::ln_mlp_core) and takes int8 QuantizedTensor weights
+through quant_dot.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+from .build import FLOAT, INT, PTR, check_cuda, require
+from .ln_qkv_attention import layer_norm_fast_var
+from .quant import quant_dot
+
+STAGES = {"ln_fc1_gelu": 1, "fc2_bias": 2, "pair": 3}  # uvl_ln_mlp's launch mask
+
+
+# ----------------------------------------------------------------- plain
+def ln_fc1_gelu_plain(x, ln_scale, ln_bias, w1, b1, eps: float = 1e-6):
+    """The first launch's function: gelu(w1.dtype(LN(x)) . W1^T + b1) in
+    fp32, returned in fp32 (the caller rounds it to w2's dtype)."""
+    y = layer_norm_fast_var(x, ln_scale, ln_bias, eps).to(w1.dtype)
+    return F.gelu(quant_dot(y, w1) + b1.float())
+
+
+def fc2_bias_plain(h, w2, b2):
+    """The second launch's function: w2.dtype(h . W2^T + b2)."""
+    return (quant_dot(h.to(w2.dtype), w2) + b2.float()).to(w2.dtype)
+
+
+def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6):
+    """Kernel #7's function (pallas_attention._xla_ln_mlp): x (B, N, C);
+    w1 (F, C), w2 (C, F) in Linear layout, dense or QuantizedTensor ->
+    (B, N, C) in w2's dtype."""
+    return fc2_bias_plain(ln_fc1_gelu_plain(x, ln_scale, ln_bias, w1, b1, eps), w2, b2)
+
+
+# ---------------------------------------------------------------- kernel
+def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float = 1e-6,
+                  stages: str = "pair"):
+    """Launch csrc/ln_mlp.cu into the caller's hidden (M, F) bf16 and out
+    (B, N, C) bf16: stages "pair" (both launches, the kernel's function),
+    or "ln_fc1_gelu" / "fc2_bias" alone (chip_smoke.py times each launch).
+    Counts one `ln_mlp` launch per call."""
+    b, n, c = x.shape
+    f = w1.shape[0]
+    require(x.dtype in (torch.bfloat16, torch.float32),
+            f"ln_mlp: x must be bf16 or fp32, got {x.dtype}")
+    require(w1.dtype == torch.bfloat16 and w2.dtype == torch.bfloat16,
+            f"ln_mlp: w1, w2 must be bf16, got {w1.dtype}, {w2.dtype}")
+    require(all(t.dtype == torch.float32 for t in (ln_scale, ln_bias, b1, b2)),
+            "ln_mlp: LN scale/bias and the biases must be fp32")
+    require(tuple(w1.shape) == (f, c) and tuple(w2.shape) == (c, f)
+            and tuple(b1.shape) == (f,) and tuple(b2.shape) == (c,)
+            and tuple(ln_scale.shape) == (c,) and tuple(ln_bias.shape) == (c,),
+            f"ln_mlp: bad shapes for C={c}, F={f}")
+    require(c % 64 == 0 and f % 64 == 0,
+            f"ln_mlp: C and F must be multiples of 64 (C={c}, F={f})")
+    require(hidden.dtype == torch.bfloat16 and tuple(hidden.shape) == (b * n, f)
+            and out.dtype == torch.bfloat16 and tuple(out.shape) == (b, n, c),
+            "ln_mlp: hidden must be (B*N, F) bf16 and out (B, N, C) bf16")
+    check_cuda("ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out)
+    build.launch("ln_mlp", f"{build.dtype_tag(x)}x-bf16w",
+                 [PTR, INT, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, FLOAT, INT],
+                 x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(),
+                 ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                 b2.data_ptr(), hidden.data_ptr(), out.data_ptr(), b * n, c, f, eps,
+                 STAGES[stages], stream_of=x)
+    return out
+
+
+def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6):
+    """x (B, N, C) bf16|fp32; ln_scale, ln_bias (C,) fp32; w1 (F, C), w2 (C, F)
+    bf16 (Linear layout); b1 (F,), b2 (C,) fp32 -> (B, N, C) bf16, the MLP
+    output before the residual. Two kernel launches on a CUDA tensor."""
+    if x.device.type == "cpu":
+        return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    b, n, c = x.shape
+    hidden = torch.empty((b * n, w1.shape[0]), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((b, n, c), dtype=torch.bfloat16, device=x.device)
+    return launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps)

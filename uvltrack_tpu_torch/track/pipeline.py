@@ -1,19 +1,28 @@
 """Device-side image pipeline: crop/resize/normalize on torch tensors (port
 of uvltrack_tpu/track/pipeline.py; reference sample_target,
-lib/train/data/processing_utils.py:159-243, and Preprocessor_wo_mask,
-lib/test/tracker/tracker_utils.py:20-29).
+lib/train/data/processing_utils.py:159-243, grounding_resize, :60-141, and
+Preprocessor_wo_mask, lib/test/tracker/tracker_utils.py:20-29).
 
 The square crop uses the reference's window geometry (integer-rounded
 corner, ceil crop size) and cv2.INTER_LINEAR sampling (half-pixel centers,
 edge clamping within the crop, zero outside the image) as a separable
 two-tap bilinear gather. The crop corner and size stay device tensors, so a
-tracking step reads nothing back to the host. grounding_letterbox comes with
-the NL slice.
+tracking step reads nothing back to the host.
+
+The grounding letterbox resizes the whole frame as the JAX package's
+jax.image.resize(..., "linear", antialias=False) does: half-pixel sample
+positions with a triangle kernel whose out-of-image taps drop out and whose
+weights are renormalized, i.e. edge clamping. F.interpolate(bilinear,
+align_corners=False, antialias=False) computes that function; the CPU tests
+hold the two within 2e-5 of a pixel value at the borders, downscaling
+(720p -> 256) and upscaling (a frame smaller than 256), and the whole
+letterbox within 1e-4 after normalization.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core.geometry import crop_params
 
@@ -75,3 +84,33 @@ def sample_target_device(frame: torch.Tensor, box_xywh: torch.Tensor,
     x1, y1, crop_i, resize_factor = crop_params(box_xywh, search_area_factor, out_sz)
     patch = crop_resize(frame, x1, y1, crop_i, out_sz)
     return normalize(patch)[None], resize_factor
+
+
+def letterbox_params(h: int, w: int, out_sz: int):
+    """Static letterbox geometry (grounding_resize, processing_utils.py:60-141):
+    (oh, ow, y_pad, x_pad) as Python ints. The longer side becomes out_sz;
+    an odd margin puts its extra pixel before the image (the reference's
+    y1 = y2 = int((out - oh) / 2), then y1 += 1 when short by one)."""
+    if w > h:
+        ow, oh = out_sz, int(out_sz * h / w)
+    else:
+        oh, ow = out_sz, int(out_sz * w / h)
+    y_pad, x_pad = int((out_sz - oh) / 2), int((out_sz - ow) / 2)
+    if 2 * y_pad + oh != out_sz:
+        y_pad += 1
+    if 2 * x_pad + ow != out_sz:
+        x_pad += 1
+    return oh, ow, y_pad, x_pad
+
+
+def grounding_letterbox(frame: torch.Tensor, out_sz: int) -> torch.Tensor:
+    """frame (H, W, 3) uint8 or float -> (1, out_sz, out_sz, 3) fp32:
+    aspect-preserving bilinear resize of the whole frame (in fp32), centered
+    on a zero canvas, ImageNet-normalized (the padding normalizes too)."""
+    h, w = frame.shape[0], frame.shape[1]
+    oh, ow, y_pad, x_pad = letterbox_params(h, w, out_sz)
+    resized = F.interpolate(frame.float().permute(2, 0, 1)[None], size=(oh, ow),
+                            mode="bilinear", align_corners=False, antialias=False)
+    canvas = torch.zeros((out_sz, out_sz, 3), dtype=torch.float32, device=frame.device)
+    canvas[y_pad:y_pad + oh, x_pad:x_pad + ow] = resized[0].permute(1, 2, 0)
+    return normalize(canvas)[None]

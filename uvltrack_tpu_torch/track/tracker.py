@@ -1,6 +1,14 @@
 """Stateful UVLTrack tracker with a device-resident per-frame step (port of
-uvltrack_tpu/track/tracker.py, modes BBOX and NLBBOX; reference
+uvltrack_tpu/track/tracker.py, modes BBOX, NL and NLBBOX; reference
 lib/test/tracker/uvltrack.py).
+
+Initialization: BBOX and NLBBOX start from the given box (flag 0 / 2). NL
+starts from a sentence alone: the grounding forward (JitTracker.grounding_fn)
+letterboxes the first frame to the search size and runs UVLTrack.forward
+under flag 1 with a zero template and all-false template/context masks;
+its best box, mapped back to image xywh, becomes the init box, and the
+sequence then tracks with flag 2 like NLBBOX. The grounding box costs one
+host read.
 
 Per frame: crop/resize/normalize the search region on the device, run
 UVLTrack.forward_test_cached, weight the cls map by the Hann window and the
@@ -27,7 +35,7 @@ from ..core.box_ops import box_cxcywh_to_xywh, clip_box_xywh
 from ..core.geometry import anno2mask, crop_box_normalized, map_box_back
 from ..core.hann import hanning2d_flat
 from ..models.uvltrack import UVLTrack, prepare_inference_model
-from .pipeline import sample_target_device
+from .pipeline import grounding_letterbox, sample_target_device
 
 
 @dataclass
@@ -89,18 +97,48 @@ class Tracker:
     def _frame(self, image: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
 
+    def grounding_inputs(self, frame: torch.Tensor) -> tuple:
+        """UVLTrack.forward's arguments for grounding a (H, W, 3) device
+        frame (JitTracker.grounding_fn): a zero template, the frame
+        letterboxed to the search size, the tokenized sentence, all-false
+        template/context masks and flag 1."""
+        ts, ss = self.template_size, self.search_size
+        template = torch.zeros((1, ts, ts, 3), dtype=torch.float32, device=self.device)
+        tmask = torch.zeros((1, (ts // 16) ** 2), dtype=torch.bool, device=self.device)
+        cmask = torch.zeros((1, (ss // 16) ** 2), dtype=torch.bool, device=self.device)
+        flag = torch.ones((1,), dtype=torch.int32, device=self.device)
+        return (template, grounding_letterbox(frame, ss), self.text_ids, self.text_mask,
+                tmask, cmask, flag)
+
+    @torch.no_grad()
+    def grounding_forward(self, frame: torch.Tensor) -> dict:
+        """The grounding forward's output dict; pred_boxes[0, 0] is the
+        grounding box, cxcywh normalized to the letterbox side."""
+        return self.model(*self.grounding_inputs(frame))
+
+    def _grounding(self, image: np.ndarray):
+        """The grounding box in image xywh (Tracker._grounding): scaled by the
+        longer side, shifted back by the letterbox margin."""
+        pred = self.grounding_forward(self._frame(image))["pred_boxes"][0, 0]
+        cx, cy, w, h = pred.float().cpu().numpy() * max(image.shape[:2])
+        x, y = cx - w / 2, cy - h / 2
+        ih, iw = image.shape[:2]
+        x += min(0.0, (iw - ih) / 2)
+        y += min(0.0, (ih - iw) / 2)
+        return [float(x), float(y), float(w), float(h)]
+
     @torch.no_grad()
     def initialize(self, image: np.ndarray, info: dict):
         mode = self.cfg.TEST.MODE
+        with_text = mode in ("NL", "NLBBOX")  # any other mode tracks as BBOX
+        self.text_ids, self.text_mask = self._tokenize(info.get("language") if with_text
+                                                       else None)
+        self.flag = torch.full((1,), 2 if with_text else 0, dtype=torch.int32,
+                               device=self.device)
         if mode == "NL":
-            raise NotImplementedError(
-                "TEST.MODE=NL (grounding init: grounding_letterbox, "
-                "Tracker._grounding) lands with the port's NL slice")
-        language = info.get("language") if mode == "NLBBOX" else None
-        self.text_ids, self.text_mask = self._tokenize(language)
-        self.flag = torch.full((1,), 2 if mode == "NLBBOX" else 0,
-                               dtype=torch.int32, device=self.device)
-        init_bbox = [float(v) for v in info["init_bbox"]]
+            init_bbox = self._grounding(image)
+        else:
+            init_bbox = [float(v) for v in info["init_bbox"]]
         frame = self._frame(image)
         box = torch.tensor(init_bbox, dtype=torch.float32, device=self.device)
         ts, ss = self.template_size, self.search_size
