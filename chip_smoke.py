@@ -19,9 +19,11 @@ Phases, one JSON line each:
      fused_kernel -- kernel #3 (`attention`, BERT's attention) at N in {40,
                  48, 128, 361} under BERT-padding / all-masked / open /
                  ViT flag-0 masks, and kernel #7 (`ln_mlp`, both launches
-                 and each alone) at N in {48, 321, 361} with bf16 and fp32
-                 x, against their plain versions; times at N=40/128 and at
-                 the MLP's main-path shapes.
+                 and each alone) at N in {48, 321, 361, 681} with bf16 and
+                 fp32 x, against their plain versions, and fc2_bias twice
+                 (bitwise equal); times at N=40/128 and at the MLP's
+                 main-path shapes. ln_qkv's library yardstick is
+                 F.layer_norm + F.linear (dequantized W for int8).
   3. track    -- UVLTrack-B (experiments/uvltrack/baseline_base.yaml, full
                  width, seeded random weights) tracks a synthetic 720p
                  sequence in BBOX, NLBBOX, then NL mode (initialized from
@@ -37,6 +39,8 @@ Phases, one JSON line each:
                  from torch.profiler (device_profile). Then BBOX and NLBBOX
                  with TPU.WEIGHT_QUANT=int8 (B-BBOX-Q8, B-NLBBOX-Q8), the
                  launches counted per instantiation.
+     fused_prefix_off -- UVLTRACK_FUSED_PREFIX=0, BBOX, 16 frames: LN + qkv
+                 plain and 12 qkv_attention launches per forward, no ln_qkv.
      fused_proj, fused_mlp -- UVLTRACK_FUSED_PROJ=1 / UVLTRACK_FUSED_MLP=1
                  on the bf16 and the int8 model, BBOX, 16 frames: 12
                  proj_residual / ln_mlp launches per forward (none of
@@ -104,6 +108,8 @@ Q8_KERNEL_ATOL = {"ln_qkv": KERNEL_ATOL["ln_qkv"], "qkv_attention": KERNEL_ATOL[
 # |kernel - plain| <= F32_ATOL + F32_RTOL*|plain|
 F32_ATOL, F32_RTOL = 2e-4, 2e-4
 
+
+MLP_N = (48, 321, 361, 681)  # kernel #7's check shapes
 
 TIMER = ("CUDA events, L2-warm: *ms = mean of 200 back-to-back eager calls after 20 "
          "warm-up (host time included where it exceeds the device's); *device_ms = a "
@@ -268,7 +274,8 @@ def kernel_phase(dev, seed: int):
         """{name: {ms, plain_ms, library_ms, bound_ms, bound_by}} at one shape.
         library_ms: one PyTorch call computing the same function where there
         is one (SDPA for the attention); for the LN+qkv half there is none,
-        and the composition's yardstick is LN + linear + SDPA (three calls)."""
+        and its yardstick is F.layer_norm + F.linear (two calls), the
+        composition's LN + linear + SDPA (three calls)."""
         x, g, be, w, wb, kb = case(n, kind, x_dtype)
         qkv = lqa.ln_qkv(x, g, be, w, wb)
         mask = kb.to(torch.bfloat16)[:, None, None, :]
@@ -290,9 +297,13 @@ def kernel_phase(dev, seed: int):
             "ln_qkv_attention": (2 * n * c * f + 4 * heads * n * n * 64,
                                  n * c * xb + params + n * 4 + n * c * 2),
         }
+        def library_ln_qkv():
+            y = F.layer_norm(x.float(), (c,), g, be, 1e-6).to(torch.bfloat16)
+            return F.linear(y, w, wb16)
+
         fns = {
             "ln_qkv": (lambda: lqa.ln_qkv(x, g, be, w, wb),
-                       lambda: lqa.ln_qkv_plain(x, g, be, w, wb), None),
+                       lambda: lqa.ln_qkv_plain(x, g, be, w, wb), library_ln_qkv),
             "qkv_attention": (lambda: lqa.qkv_attention(qkv, kb, heads),
                               lambda: lqa.qkv_attention_plain(qkv, kb, heads),
                               lambda: sdpa(qkv)),
@@ -497,6 +508,9 @@ def q8_kernel_phase(dev, seed: int):
         def ln(dt):
             return F.layer_norm(x.float(), (c,), g, be, 1e-6).to(dt)
 
+        if name.startswith("ln_qkv["):
+            return lambda: F.linear(ln(x.dtype), wqd, wb.to(x.dtype)), \
+                "F.layer_norm + F.linear (dequantized W), 2 calls"
         if name.startswith("#5"):
             return lambda: sdpa(F.linear(ln(x.dtype), wqd, wb.to(x.dtype))), \
                 "LN + linear + SDPA, 3 calls"
@@ -591,20 +605,27 @@ def fused_kernel_phase(dev, seed: int):
             out = fa.fused_attention(q, k, v, kb)
             torch.cuda.synchronize()
             check("attention", out, fa.fused_attention_plain(q, k, v, kb), f"N={n} mask={kind}")
-    for n in (48, 321, 361):
+    for n in MLP_N:
         for x_dtype in (torch.bfloat16, torch.float32):
             x, g, be, w1, b1, w2, b2 = mlp_case(n, x_dtype)
             hidden = torch.empty((n, f), dtype=torch.bfloat16, device=dev)
             out = torch.empty((1, n, c), dtype=torch.bfloat16, device=dev)
             lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out)
+            again = torch.empty_like(out)
+            lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, again, stages="fc2_bias")
             torch.cuda.synchronize()
             what = f"N={n} x={x_dtype}"
             check("ln_fc1_gelu", hidden,
                   lm.ln_fc1_gelu_plain(x, g, be, w1, b1).to(torch.bfloat16).view(n, f), what)
             check("fc2_bias", out, lm.fc2_bias_plain(hidden.view(1, n, f), w2, b2), what)
             check("ln_mlp", out, lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2), what)
+            # split-K over a cluster, reduced in rank order: bit for bit again
+            if not torch.equal(out, again):
+                raise AssertionError(f"fc2_bias {what}: a second call differs "
+                                     f"(max {float((out.float() - again.float()).abs().max())})")
     emit({"phase": "fused_kernel_check", "attention_N": [40, 48, 128, 361],
-          "attention_masks": ["bert", "all", "open", "flag0"], "ln_mlp_N": [48, 321, 361],
+          "attention_masks": ["bert", "all", "open", "flag0"], "ln_mlp_N": list(MLP_N),
+          "fc2_bias_repeatable": "bitwise, two calls at every ln_mlp shape",
           "x_dtypes": ["bf16", "fp32"],
           "tolerance": {k: f"|kernel-plain| <= {KERNEL_ATOL[k]} + {KERNEL_RTOL}*|plain|"
                         for k in worst},
@@ -1261,6 +1282,10 @@ def main() -> int:
     add(knob_phase("fused_proj_q8", "UVLTRACK_FUSED_PROJ", "1", model_q8, cfg_q8, fused, boxes,
                    dict(per_fwd_q8, **{"proj_residual[bf16x-bf16a-int8w]": 6,
                                        "proj_residual[fp32x-fp32a-int8w]": 6})))
+    # LN + qkv plain, the attention alone on kernel #2 (qkv_attention) in
+    # every block: the JAX package's "step 3" A/B
+    add(knob_phase("fused_prefix_off", "UVLTRACK_FUSED_PREFIX", "0", model, cfg, fused, boxes,
+                   {"qkv_attention[bf16]": 12}))
     # kernel #7 in every block of the bf16 model; int8 weights stay plain
     add(knob_phase("fused_mlp_bf16", "UVLTRACK_FUSED_MLP", "1", model, cfg, fused, boxes,
                    dict(per_fwd_fp, **{"ln_mlp[bf16x-bf16w]": 6, "ln_mlp[fp32x-bf16w]": 6})))

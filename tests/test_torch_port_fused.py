@@ -377,7 +377,7 @@ def test_cuda_attention_matches_plain(cuda, n, mask):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n", [48, 321, 361])
+@pytest.mark.parametrize("n", [48, 321, 361, 681])
 def test_cuda_ln_mlp_matches_plain(cuda, n, x_dtype):
     c, f = 768, 3072
     x, g, be, w1, b1, w2, b2 = _mlp_case(n, c=c, f=f, seed=n)
@@ -402,6 +402,58 @@ def test_cuda_ln_mlp_matches_plain(cuda, n, x_dtype):
                                lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2).float(),
                                atol=GPU_ATOL["ln_mlp"], rtol=GPU_RTOL)
     torch.testing.assert_close(lm.ln_mlp(x, g, be, w1, b1, w2, b2), out, rtol=0, atol=0)
+
+
+def _cuda_mlp(n, cuda, x_dtype, c=768, b=1, seed=0):
+    x, g, be, w1, b1, w2, b2 = _mlp_case(n, c=c, f=4 * c, b=b, seed=seed)
+    return (_t(x).to(cuda, x_dtype), _t(g).to(cuda), _t(be).to(cuda),
+            _t(w1.T).to(cuda, torch.bfloat16).contiguous(), _t(b1).to(cuda),
+            _t(w2.T).to(cuda, torch.bfloat16).contiguous(), _t(b2).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,c", [(1, 65, 768), (2, 321, 768), (1, 681, 768),
+                                   (2, 361, 1024), (1, 65, 1024)])
+def test_cuda_ln_mlp_stages_on_the_wgmma_core(cuda, b, n, c, x_dtype):
+    """Each launch of #7 alone on the TMA + wgmma core: ln_fc1_gelu into the
+    hidden tensor, and fc2_bias (K split over a cluster of four) on the
+    plain version's hidden tensor, at ragged M (65 = 64 + 1, 321, 681), with
+    B = 2 and at ViT-L's C=1024 (F=4096); fc2_bias gives the same output,
+    bit for bit, on a second call."""
+    x, g, be, w1, b1, w2, b2 = _cuda_mlp(n, cuda, x_dtype, c=c, b=b, seed=n + c)
+    f = 4 * c
+    hidden = torch.empty((b * n, f), dtype=torch.bfloat16, device=cuda)
+    out = torch.empty((b, n, c), dtype=torch.bfloat16, device=cuda)
+    build.reset_launch_counts()
+    lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out, stages="ln_fc1_gelu")
+    torch.cuda.synchronize()
+    h_ref = lm.ln_fc1_gelu_plain(x, g, be, w1, b1).to(torch.bfloat16)
+    torch.testing.assert_close(hidden.view(b, n, f).float(), h_ref.float(),
+                               atol=GPU_ATOL["hidden"], rtol=GPU_RTOL)
+    hidden.copy_(h_ref.view(b * n, f))
+    lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out, stages="fc2_bias")
+    first = out.clone()
+    lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out, stages="fc2_bias")
+    torch.cuda.synchronize()
+    tag = "fp32x" if x_dtype == torch.float32 else "bf16x"
+    assert build.instantiation_counts() == {f"ln_mlp[{tag}-bf16w]": 3}
+    torch.testing.assert_close(first.float(), lm.fc2_bias_plain(h_ref, w2, b2).float(),
+                               atol=GPU_ATOL["ln_mlp"], rtol=GPU_RTOL)
+    assert torch.equal(out, first)
+
+
+@pytest.mark.gpu
+def test_cuda_fc2_bias_is_deterministic(cuda):
+    """Two fc2_bias launches on the same hidden tensor are bitwise equal at
+    the main path's shape (the cluster's partials summed in rank order)."""
+    x, g, be, w1, b1, w2, b2 = _cuda_mlp(361, cuda, torch.float32)
+    hidden = torch.empty((361, 3072), dtype=torch.bfloat16, device=cuda)
+    outs = [torch.empty((1, 361, 768), dtype=torch.bfloat16, device=cuda) for _ in range(2)]
+    lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, outs[0], stages="pair")
+    lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, outs[1], stages="fc2_bias")
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.gpu

@@ -299,6 +299,28 @@ def test_cuda_kernels_match_plain(cuda, n, mask, x_dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,c", [(1, 65, 768), (2, 321, 768), (2, 361, 768),
+                                   (1, 361, 1024), (2, 65, 1024), (1, 321, 192)])
+def test_cuda_ln_qkv_on_the_wgmma_core_matches_plain(cuda, b, n, c, x_dtype):
+    """The TMA + wgmma ln_qkv (csrc/gemm_sm90.cuh) at ragged M (65 = 64 + 1:
+    one row in the last tile; 321, 361), M = B*N with B = 2, ViT-L's C=1024
+    (128 KB of normalized rows in shared memory) and C=192 (F=576: a last
+    column tile half past F), for bf16 and fp32 x."""
+    x, g, be, w, wb, _ = _gpu_case(n, "open", x_dtype, cuda, c=c, seed=n + c, b=b)
+    build.reset_launch_counts()
+    qkv = lqa.ln_qkv(x, g, be, w, wb)
+    torch.cuda.synchronize()
+    tag = "fp32x" if x_dtype == torch.float32 else "bf16x"
+    assert build.instantiation_counts() == {f"ln_qkv[{tag}-bf16w]": 1}
+    assert qkv.shape == (b, n, 3 * c) and qkv.dtype == torch.bfloat16
+    ref = lqa.ln_qkv_plain(x, g, be, w, wb)
+    torch.testing.assert_close(qkv.float(), ref.float(), atol=GPU_ATOL, rtol=GPU_RTOL)
+    # a second call (the weight's TMA descriptor from the cache) repeats it
+    torch.testing.assert_close(lqa.ln_qkv(x, g, be, w, wb), qkv, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
 def test_cuda_kernels_match_plain_per_batch_element(cuda):
     """B=3: rows of every batch element go through ln_qkv as one (B*N, C)
     matrix, and qkv_attention keeps each element's keys and key bias apart."""

@@ -190,11 +190,33 @@ def test_nl_mode_matches_jax_frame_by_frame(trackers):
         jt.cfg.TEST.MODE = tt.cfg.TEST.MODE = "BBOX"
 
 
-def test_uncached_text_waits_for_its_slice(trackers):
-    """The tracker always runs the step on the text features cached at
-    initialize; TPU.CACHE_TEXT=False (BERT every frame) is refused."""
-    _, tt = trackers
-    cfg = CfgNode(tt.cfg.to_dict())
-    cfg.TPU.CACHE_TEXT = False
-    with pytest.raises(NotImplementedError, match="CACHE_TEXT"):
-        Tracker(cfg, tt.model)
+@pytest.mark.parametrize("mode", ["BBOX", "NLBBOX"])
+def test_uncached_text_matches_jax_frame_by_frame(trackers, mode):
+    """TPU.CACHE_TEXT=False: both trackers step UVLTrack.forward_test on the
+    raw text ids every frame (BERT each frame), and agree frame by frame,
+    re-mines included, at the tolerances above; the port's boxes also equal
+    its cached-text tracker's."""
+    jt0, tt0 = trackers
+    jcfg = tiny_cfg()
+    jcfg.TPU.COMPUTE_DTYPE = "float32"
+    jcfg.TPU.CACHE_TEXT = False
+    jcfg.TEST.MODE = mode
+    jt = JTracker(jcfg, jt0.jt.model, jt0.jt.variables, tokenizer=jt0.tokenizer)
+    tt = Tracker(CfgNode(jcfg.to_dict()), tt0.model, tokenizer=tt0.tokenizer)
+    assert not tt.cache_text and not jt.jt.cache_text
+    info = {"init_bbox": [30.0, 20.0, 20.0, 24.0], "language": "a red box moving"}
+    assert tt.initialize(_frame(60), info) == jt.initialize(_frame(60), info)
+    assert tt.txt.dtype == torch.int32 and tuple(tt.txt.shape) == tuple(jt.txt.shape)
+    tt0.cfg.TEST.MODE = mode
+    tt0.initialize(_frame(60), info)
+    for i in range(5):
+        f = _frame(61 + i)
+        ref, out, cached = jt.track(f), tt.track(f), tt0.track(f)
+        np.testing.assert_allclose(out["target_bbox"], ref["target_bbox"], atol=1e-3, rtol=0)
+        np.testing.assert_allclose(out["score"], ref["score"], atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(tt.state.prompt.numpy(), np.asarray(jt.state.prompt),
+                                   atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(out["target_bbox"], cached["target_bbox"], atol=1e-3,
+                                   rtol=0)
+    assert tt.remines == 2  # frames 2, 4
+    tt0.cfg.TEST.MODE = "BBOX"

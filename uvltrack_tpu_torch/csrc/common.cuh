@@ -106,7 +106,8 @@ __device__ __forceinline__ float scale_bias(float acc, const float* scale, const
   return __fadd_rn(acc, bias[n]);
 }
 
-// The LayerNorm prologue of the LN-fused products (ln_qkv.cu, ln_mlp.cu):
+// The LayerNorm prologue of ln_qkv.cu's int8-weight products (gemm_sm90.cuh
+// keeps the same contract for the bf16-weight ones):
 // flax's fp32 LayerNorm with the fast variance clamped at 0,
 //   LN(x) = (x - mean) * rsqrt(max(mean(x^2) - mean^2, 0) + eps) * g + beta,
 // applied to the A tile as it loads, so the normalized rows never reach

@@ -22,21 +22,28 @@
 // in PyTorch's Linear layout (out, in), s (3C,) fp32 per-row scale of the
 // int8 payload; b, g, beta fp32; out (M, 3C) bf16 or fp32.
 //
+// Two designs, one per weight type:
+//   - bf16 W (#1): the TMA + wgmma core of gemm_sm90.cuh (kind LN_BIAS): the
+//     normalized 64-row block sits in shared memory once, W streams through
+//     a 4-stage TMA ring, 64 x 128 output tiles (two m64n64k16 warpgroups),
+//     18 x 6 = 108 blocks at M=321/361, C=768 (F=2304): one wave on the 132
+//     SMs (at 160 KB of shared memory, one block an SM).
+//   - int8 W (#5): the WMMA (mma.sync) kernel below, 64x64 tiles, 216 blocks
+//     at M=361; each block computes the LN statistics of its 64 rows and
+//     normalizes the A tile as it loads it; an int8 W tile converts to bf16
+//     in shared memory, so the weight streams from device memory at one byte
+//     a value. One shared-memory stage; its redesign is later work.
+//
 // Bound on the H100 (UVLTrack-B, C=768), each input read once and each
-// output written once: M=321, bf16 x, int8 W: 1.14 GFLOP of bf16 tensor-core
-// work (~1.15 us at 989 TFLOP/s) against 1.77 MB of int8 W + 0.49 MB of x +
-// 1.48 MB of bf16 out (~1.1 us at 3.35 TB/s): about even. M=361, fp32 x,
-// int8 W: 2 x 1.28 GFLOP for the two passes (~2.6 us) against 6.2 MB
-// (~1.9 us): the operations bound it. The TPU kernels keep the whole weight
-// resident in VMEM and run grid=(B,): one program, which on Hopper would
-// occupy one of 132 SMs. Here the product is tiled 64x64 over (rows, output
-// columns), 216 blocks at M=361, so the card fills at batch 1; each block
-// computes the LN statistics of its 64 rows and normalizes the A tile as it
-// loads it, so the normalized activations never reach device memory; an
-// int8 W tile converts to bf16 in shared memory, so the weight streams from
-// device memory at one byte a value. bf16 WMMA (mma.sync) with fp32
-// accumulators; no TMA/wgmma pipeline yet (a later PR's work).
-#include "common.cuh"
+// output written once: M=361, fp32 x, bf16 W: 1.28 GFLOP of bf16 tensor-core
+// work (~1.3 us at 989 TFLOP/s) against 3.5 MB of W + 1.1 MB of x + 1.7 MB
+// of bf16 out (~1.9 us at 3.35 TB/s): the bytes bound it. M=321, bf16 x,
+// int8 W: 1.14 GFLOP (~1.15 us) against 1.77 MB of int8 W + 0.49 MB of x +
+// 1.48 MB of bf16 out (~1.1 us): about even. M=361, fp32 x, int8 W: 2 x
+// 1.28 GFLOP for the two passes (~2.6 us) against 6.2 MB (~1.9 us). The TPU
+// kernels keep the whole weight resident in VMEM and run grid=(B,): one
+// program, which on Hopper would occupy one of 132 SMs.
+#include "gemm_sm90.cuh"
 
 using namespace nvcuda;
 using uvl::bf16;
@@ -51,6 +58,7 @@ constexpr int LDA = BK + 8;   // padded row strides (bf16 elements)
 constexpr int LDB = BK + 8;
 constexpr int LDC = BN + 4;   // fp32 epilogue tile
 
+// the int8-weight instantiations (#5); TO is x's type
 template <typename TX, typename TW, typename TO>
 __global__ void __launch_bounds__(THREADS)
 ln_qkv_kernel(const TX* __restrict__ x, const float* __restrict__ gamma,
@@ -145,17 +153,23 @@ int launch(const void* x, const float* gamma, const float* beta, const void* w,
 
 // x_is_f32: 1 when x is fp32 (the joint blocks' stream), 0 when bf16.
 // w_is_i8: 1 for an int8 payload with its fp32 per-row scale w_scale (out
-// in x's type), 0 for a bf16 weight (out bf16). Requires C % 32 == 0,
-// F % 64 == 0 and 16-byte aligned W (checked by the Python wrapper).
+// in x's type), 0 for a bf16 weight (out bf16). Requires C % 64 == 0
+// (C <= 1024 for a bf16 W: the LN block in shared memory), F % 64 == 0
+// and 16-byte aligned x and W (checked by the Python wrapper).
 extern "C" int uvl_ln_qkv(const void* x, int x_is_f32, const float* gamma,
                           const float* beta, const void* w, int w_is_i8,
                           const float* w_scale, const float* wb, void* out, int M,
                           int C, int F, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!w_is_i8) {
+    using uvl::sm90::launch_ln_gemm;
+    const bf16* wb16 = static_cast<const bf16*>(w);
+    bf16* o = static_cast<bf16*>(out);
     if (x_is_f32)
-      return launch<float, bf16, bf16>(x, gamma, beta, w, w_scale, wb, out, M, C, F, eps, s);
-    return launch<bf16, bf16, bf16>(x, gamma, beta, w, w_scale, wb, out, M, C, F, eps, s);
+      return launch_ln_gemm<uvl::sm90::LN_BIAS, float, 128, 4>(
+          static_cast<const float*>(x), gamma, beta, wb16, wb, o, M, C, F, eps, s);
+    return launch_ln_gemm<uvl::sm90::LN_BIAS, bf16, 128, 4>(
+        static_cast<const bf16*>(x), gamma, beta, wb16, wb, o, M, C, F, eps, s);
   }
   if (w_scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (x_is_f32)

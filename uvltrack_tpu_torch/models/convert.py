@@ -10,7 +10,10 @@ helpers, :57-139 and :324-363).
 - `load_reference_state(model, state)`: a reference-keyed state dict (the
   'net' dict of a released UVLTrack .pth.tar, or from_jax_variables' output)
   into the model, strict about missing keys like the reference's
-  load_state_dict; keys the model has no place for are returned.
+  load_state_dict; keys the model has no place for are returned. A model
+  with `backbone.text_proj` (BERT width != ViT width) loads only a state
+  that carries it (from_jax_variables'); a reference checkpoint never does,
+  and is refused, as the JAX package's convert_uvltrack refuses it.
 """
 
 from __future__ import annotations
@@ -142,7 +145,8 @@ def uvltrack_rules(depth: int, n_bert: int):
 
 def state_key(src: str) -> str:
     """The reference prefixes backbone parameters with 'backbone.'."""
-    return "backbone." + src if src.startswith(("vit.", "bert.", "logit_scale")) else src
+    return ("backbone." + src if src.startswith(("vit.", "bert.", "logit_scale", "text_proj."))
+            else src)
 
 
 def _get(tree: dict, path: List[str]) -> np.ndarray:
@@ -157,12 +161,12 @@ def from_jax_variables(params: dict, batch_stats: dict) -> Dict[str, torch.Tenso
     """Flax UVLTrack variables (nested dicts of numpy arrays) -> the port's
     reference-keyed state dict; num_batches_tracked is 0 (no flax home)."""
     bk = params["backbone"]
-    if "text_proj" in bk:
-        raise ValueError("backbone.text_proj has no reference counterpart: "
-                         "match the BERT width to the ViT width")
     depth = sum(1 for k in bk if k.startswith("block_"))
     n_bert = sum(1 for k in bk if k.startswith("bert_layer_"))
     rules, bn_rules = uvltrack_rules(depth, n_bert)
+    if "text_proj" in bk:  # BERT width != ViT width: the port's own key
+        rules += [("text_proj.weight", ["backbone", "text_proj", "kernel"], _t_linear),
+                  ("text_proj.bias", ["backbone", "text_proj", "bias"], None)]
     state = {}
     for src, dst, tf in rules:
         v = _get(params, dst)
@@ -185,6 +189,16 @@ def load_reference_state(model: torch.nn.Module, state: dict,
     state = {re.sub(r"\.gamma$", ".weight", re.sub(r"\.beta$", ".bias", k)): v
              for k, v in state.items()}
     own = model.state_dict()
+    proj = [k for k in own if k.startswith("backbone.text_proj.")]
+    if proj and not all(k in state for k in proj):
+        # text_proj exists only where the BERT width differs from the ViT's,
+        # a pairing the reference cannot run, so no reference checkpoint
+        # carries it: loading one would track with a random text projection
+        raise ValueError(
+            "model has backbone.text_proj (BERT hidden_size != embed_dim); "
+            "reference checkpoints never contain these weights -- match the "
+            "BERT variant to the ViT width (base/768, large/1024) as the "
+            "reference does")
     missing = [k for k in own if k not in state]
     if missing and strict:
         raise ValueError(f"state dict is missing {len(missing)} keys of the "

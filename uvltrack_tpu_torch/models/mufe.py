@@ -10,6 +10,12 @@ over [CLS | template | search | text] under a flag-conditioned key mask
 dtype follows the JAX package: the visual stream is in the compute dtype,
 the BERT stream leaves its fp32 LayerNorms in fp32, and the joint blocks
 concatenate the two, so the joint stream (and everything after it) is fp32.
+
+A BERT width other than the ViT's gets `text_proj` (the JAX package's
+MUFE.text_proj): a Linear from the BERT width to the ViT width, fp32
+parameters computing in the compute dtype, applied to the embeddings in both
+text paths (forward and encode_text). No reference checkpoint carries it
+(models/convert.py).
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
-from .bert import BertConfig, BertEmbeddings, BertLayer, bert_attention_bias
+from .bert import BertConfig, BertEmbeddings, BertLayer, bert_attention_bias, dense
 from .vit import PatchEmbed, VitBlock, sincos_2d
 
 
@@ -78,10 +84,6 @@ class MUFE(nn.Module):
                  txt_token_mode: str = "cls", bert: BertConfig = BertConfig(),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if bert.hidden_size != embed_dim:
-            raise ValueError("the port has no text_proj: match the BERT width "
-                             "to the ViT width (base/768, large/1024) as the "
-                             "reference does")
         self.embed_dim, self.depth, self.dtype = embed_dim, depth, dtype
         self.num_patches_z = (template_size // patch_size) ** 2
         self.num_patches_x = (search_size // patch_size) ** 2
@@ -92,6 +94,8 @@ class MUFE(nn.Module):
         self.vit = VisionTransformer(embed_dim, depth, num_heads, template_size,
                                      search_size, patch_size, dtype)
         self.bert = BertModel(bert, n_bert, dtype)
+        self.text_proj = (nn.Linear(bert.hidden_size, embed_dim)
+                          if bert.hidden_size != embed_dim else None)
         self.logit_scale = nn.Parameter(torch.tensor(0.0))
 
     # ------------------------------------------------------------------ masks
@@ -153,12 +157,20 @@ class MUFE(nn.Module):
             "flag": flag.reshape(-1),
         }
 
+    def embed_text(self, text_ids):
+        """BERT's embeddings, projected to the ViT width by text_proj where
+        the widths differ."""
+        txt_feat = self.bert.embeddings(text_ids)
+        if self.text_proj is not None:
+            txt_feat = dense(txt_feat, self.text_proj, self.dtype)
+        return txt_feat
+
     # ---------------------------------------------------------- cached text
     def encode_text(self, text_ids, text_mask):
-        """The pre-fusion text stream: embeddings then the min(fusion_layers)
-        BertLayers. Constant for a tracking sequence, so the tracker computes
-        it once at initialize."""
-        txt_feat = self.bert.embeddings(text_ids)
+        """The pre-fusion text stream: embeddings (and text_proj) then the
+        min(fusion_layers) BertLayers. Constant for a tracking sequence, so
+        the tracker computes it once at initialize."""
+        txt_feat = self.embed_text(text_ids)
         bert_bias = bert_attention_bias(text_mask)
         for layer in self.bert.encoder.layer:
             txt_feat = layer(txt_feat, bert_bias)
@@ -183,7 +195,7 @@ class MUFE(nn.Module):
         (B,Nt); flag: (B,) int. Returns the backbone feature dict, with the
         per-layer contrastive "logits" of the cont_loss_layers."""
         img_feat = self.patchify(template, search)
-        txt_feat = self.bert.embeddings(text_ids)
+        txt_feat = self.embed_text(text_ids)
         bert_bias = bert_attention_bias(text_mask)
         joint_masked, visual_masked = self.cat_mask(text_mask, flag)
         fusion, cont = set(self.fusion_layers), set(self.cont_loss_layers)

@@ -17,11 +17,20 @@ below uses it; CPU tensors take the plain math.
   kernel #3 for a key-padding bias (B, 1, 1, N) or none; any other bias
   falls back to plain_attention, as the JAX adapter returns None for it.
   BERT runs at N=40, so the kernel engages with UVLTRACK_PALLAS_MIN_N <= 40.
+- attention_qkv_core (kernel #2's entry, the fused qkv layout (B, N, 3C)):
+  `qkv_attention` for a key-padding bias or none, else plain_attention on
+  the reshaped q, k, v (the unclamped softmax of the JAX package's XLA
+  branch).
 - attention_ln_qkv_core: kernel #1 for bf16 weights, #5 for int8 ones
-  (ops/quant.py QuantizedTensor); attention_block_core runs #4 or #6
-  instead when UVLTRACK_FUSED_PROJ=1 (read at call time, default off) and
-  the qkv and proj weights are both fp or both int8, as the JAX package
-  gates them.
+  (ops/quant.py QuantizedTensor). Under UVLTRACK_FUSED_PREFIX=0 (read at
+  call time, default "1") LN + qkv run as the plain `ln_qkv_plain` and the
+  attention alone as kernel #2, the JAX package's "step 3" A/B.
+  attention_block_core runs #4 or #6 instead when UVLTRACK_FUSED_PROJ=1
+  (default off), UVLTRACK_FUSED_PREFIX is not "0", and the qkv and proj
+  weights are both fp or both int8, as the JAX package gates them.
+- A bias that is not key padding ((B, 1, N, N) and the like) takes the
+  generic path in the ViT cores: `ln_qkv_plain`, then attention_qkv_core
+  with the full bias, and never #4/#6.
 - ln_mlp_core: kernel #7 when UVLTRACK_FUSED_MLP=1 (read at call time,
   default off) for fp weights; int8 weights stay plain, as in the JAX
   package.
@@ -110,13 +119,10 @@ def _key_padding(bias, b: int, n: int, device):
     return None
 
 
-def _as_key_bias(bias, b: int, n: int, device) -> torch.Tensor:
-    """_key_padding for the ViT block cores, which take key padding only."""
-    key_bias = _key_padding(bias, b, n, device)
-    if key_bias is None:
-        raise ValueError(f"only key-padding biases (B,1,1,N) are supported, got "
-                         f"{tuple(bias.shape)}")
-    return key_bias
+def fused_prefix() -> bool:
+    """UVLTRACK_FUSED_PREFIX, read at call time (default "1"): "0" runs LN +
+    qkv plain and the attention alone on kernel #2."""
+    return os.environ.get("UVLTRACK_FUSED_PREFIX", "1") != "0"
 
 
 def plain_attention(q, k, v, bias=None):
@@ -155,6 +161,21 @@ def attention_core(q, k, v, bias=None):
     return plain_attention(q, k, v, bias)
 
 
+def attention_qkv_core(qkv, heads: int, bias=None):
+    """Counterpart of attention_qkv_core, kernel #2's entry: qkv is the fused
+    projection (B, N, 3*H*D), features [q|k|v] x head x dim. Returns
+    (B, N, H*D) in qkv's dtype: `qkv_attention` past the gate for a
+    key-padding bias or none, else plain_attention on the reshaped heads."""
+    b, n, f = qkv.shape
+    d = f // (3 * heads)
+    if _on_kernels(qkv, n):
+        key_bias = _key_padding(bias, b, n, qkv.device)
+        if key_bias is not None:
+            return lqa.qkv_attention(qkv.contiguous(), key_bias, heads)
+    q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    return plain_attention(q, k, v, bias).transpose(1, 2).reshape(b, n, heads * d)
+
+
 def attention_ln_qkv_core(x, ln_scale, ln_bias, w_qkv, b_qkv, heads: int,
                           bias=None, compute_dtype=None, eps: float = 1e-6):
     """Pre-LN LayerNorm + fused qkv projection + masked attention from the
@@ -163,9 +184,15 @@ def attention_ln_qkv_core(x, ln_scale, ln_bias, w_qkv, b_qkv, heads: int,
     projection."""
     compute_dtype = compute_dtype or x.dtype
     b, n, _ = x.shape
-    key_bias = _as_key_bias(bias, b, n, x.device)
+    key_bias = _key_padding(bias, b, n, x.device)
     w = w_qkv.to(compute_dtype)
-    if _on_kernels(x, n):
+    on_kernels = _on_kernels(x, n)
+    # a generic bias (any shape), or the prefix unfused: LN + qkv plain, then
+    # the attention alone (kernel #2 on the kernels, for key padding)
+    if key_bias is None or (on_kernels and not fused_prefix()):
+        return attention_qkv_core(lqa.ln_qkv_plain(x, ln_scale, ln_bias, w, b_qkv, eps),
+                                  heads, bias)
+    if on_kernels:
         if is_quantized(w):
             return lqa.ln_qkv_attention_q8(x.contiguous(), ln_scale, ln_bias, w.q, w.scale,
                                            b_qkv, key_bias, heads, eps)
@@ -186,22 +213,23 @@ def attention_block_core(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                          heads: int, bias=None, compute_dtype=None,
                          eps: float = 1e-6):
     """x + proj(attn(qkv(LN(x)))): the first half of VitBlock. With
-    UVLTRACK_FUSED_PROJ=1 on the kernels, one fused branch (#4 for fp
-    weights, #6 for int8 ones; a mixed pair stays composed)."""
+    UVLTRACK_FUSED_PROJ=1 on the kernels, a key-padding bias and the prefix
+    fused, one fused branch (#4 for fp weights, #6 for int8 ones; a mixed
+    pair stays composed)."""
     compute_dtype = compute_dtype or x.dtype
-    if _on_kernels(x, x.shape[1]) and os.environ.get("UVLTRACK_FUSED_PROJ", "0") == "1":
-        b, n, _ = x.shape
+    b, n, _ = x.shape
+    key_bias = _key_padding(bias, b, n, x.device)
+    if (key_bias is not None and _on_kernels(x, n) and fused_prefix()
+            and os.environ.get("UVLTRACK_FUSED_PROJ", "0") == "1"):
         quant_qkv, quant_proj = is_quantized(w_qkv), is_quantized(w_proj)
         if quant_qkv and quant_proj:
             return lqp.ln_qkv_attn_proj_q8(
                 x.contiguous(), ln_scale, ln_bias, w_qkv.q, w_qkv.scale, b_qkv,
-                w_proj.q, w_proj.scale, b_proj, _as_key_bias(bias, b, n, x.device),
-                heads, eps)
+                w_proj.q, w_proj.scale, b_proj, key_bias, heads, eps)
         if not (quant_qkv or quant_proj):
             return lqp.ln_qkv_attn_proj(
                 x.contiguous(), ln_scale, ln_bias, w_qkv.to(compute_dtype), b_qkv,
-                w_proj.to(compute_dtype), b_proj, _as_key_bias(bias, b, n, x.device),
-                heads, eps)
+                w_proj.to(compute_dtype), b_proj, key_bias, heads, eps)
     attn = attention_ln_qkv_core(x, ln_scale, ln_bias, w_qkv, b_qkv, heads,
                                  bias, compute_dtype=compute_dtype, eps=eps)
     return x + attn_proj_core(attn, w_proj, b_proj,

@@ -34,8 +34,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ln_qkv", "qkv_attention", "proj_residual", "attention", "ln_mlp")
+# -lcuda: csrc/gemm_sm90.cuh encodes its TMA descriptors with the driver's
+# cuTensorMapEncodeTiled (nvcc links the toolkit's libcuda stub; the driver
+# provides the library at run time)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda"]
 
 
 @dataclass

@@ -17,13 +17,15 @@ tiled kernels do not have), so under UVLTRACK_FUSED_MLP=1 its kernel runs in
 all 12 blocks at N=321/361, computing the function the JAX package computes
 there through the twin.
 
-On the card this is two launches of csrc/ln_mlp.cu (one `ln_mlp` call
-counted by ops/build.py): `ln_fc1_gelu` writes the (M, 4C) hidden tensor in
-bf16 to device memory, since a 64-row tile of it would overflow a block's
-shared memory, and `fc2_bias` reads it back (design in the source's
-notes). Two instantiations: bf16 x (blocks 0-5) and fp32 x (the fp32 joint
-stream, blocks 6-11), both with bf16 weights; the output is bf16, w2's
-dtype.
+On the card this is two launches of csrc/ln_mlp.cu on the TMA + wgmma
+core of csrc/gemm_sm90.cuh (one `ln_mlp` call counted by ops/build.py):
+`ln_fc1_gelu` writes the (M, 4C) hidden tensor in bf16 to device memory,
+since a 64-row tile of it would overflow a block's shared memory, and
+`fc2_bias` reads it back with its K split over a cluster of four blocks,
+reduced in a fixed order, so its output repeats bit for bit (design in the
+sources' notes). Two instantiations: bf16 x (blocks 0-5) and fp32 x (the
+fp32 joint stream, blocks 6-11), both with bf16 weights; the output is
+bf16, w2's dtype.
 
 A CPU tensor takes the plain version, which is also the plain backend's
 MLP (ops/attention.py::ln_mlp_core) and takes int8 QuantizedTensor weights
@@ -37,7 +39,7 @@ import torch.nn.functional as F
 
 from . import build
 from .build import FLOAT, INT, PTR, check_cuda, require
-from .ln_qkv_attention import layer_norm_fast_var
+from .ln_qkv_attention import LN_MAX_C, layer_norm_fast_var
 from .quant import quant_dot
 
 STAGES = {"ln_fc1_gelu": 1, "fc2_bias": 2, "pair": 3}  # uvl_ln_mlp's launch mask
@@ -82,8 +84,9 @@ def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float 
             and tuple(b1.shape) == (f,) and tuple(b2.shape) == (c,)
             and tuple(ln_scale.shape) == (c,) and tuple(ln_bias.shape) == (c,),
             f"ln_mlp: bad shapes for C={c}, F={f}")
-    require(c % 64 == 0 and f % 64 == 0,
-            f"ln_mlp: C and F must be multiples of 64 (C={c}, F={f})")
+    require(c % 64 == 0 and c <= LN_MAX_C and f % 256 == 0,
+            f"ln_mlp: C must be a multiple of 64 up to {LN_MAX_C} and F of 256 (fc2's K "
+            f"split four ways in 64-deep tiles), got C={c}, F={f}")
     require(hidden.dtype == torch.bfloat16 and tuple(hidden.shape) == (b * n, f)
             and out.dtype == torch.bfloat16 and tuple(out.shape) == (b, n, c),
             "ln_mlp: hidden must be (B*N, F) bf16 and out (B, N, C) bf16")

@@ -9,9 +9,12 @@ The TPU kernels are one program per batch element (grid=(B,)) with the
 of the H100's 132 SMs, so the port splits each in two kernels
 (csrc/ln_qkv.cu, csrc/qkv_attention.cu; design and bounds in their notes):
 
-- `ln_qkv` / `ln_qkv_q8`: LN (fp32, fast variance clamped at 0) normalized
-  as the A tile loads, tensor-core product against W, fp32 epilogue
-  (`acc + b`, or `acc * scale + b` for the int8 payload), out (B, N, 3C).
+- `ln_qkv` / `ln_qkv_q8`: LN (fp32, fast variance clamped at 0), tensor-core
+  product against W, fp32 epilogue (`acc + b`, or `acc * scale + b` for the
+  int8 payload), out (B, N, 3C). A bf16 W runs on the TMA + wgmma core of
+  csrc/gemm_sm90.cuh (the 64 normalized rows of a block in shared memory
+  once, C <= 1024); an int8 W on the WMMA kernel, which normalizes each A
+  tile as it loads.
 - `qkv_attention`: per (query tile, head, batch) block,
   exp(clip(q.k*D^-1/2 + key_bias, +-80)), fp32 row sums, P.V, division at
   the end; out (B, N, C) before the output projection.
@@ -41,6 +44,10 @@ from .build import FLOAT, INT, PTR, check_cuda, require
 from .quant import QuantizedTensor, quant_dot
 
 CLAMP = 80.0  # exp-safe score range of the kernels (pallas_attention._CLAMP)
+# widest C the bf16-weight LN products take: 64 normalized rows of C bf16 sit
+# in shared memory beside the TMA ring (csrc/gemm_sm90.cuh MAX_C; at C=1024
+# the fc1 launch uses 205,872 of a block's 232,448 bytes)
+LN_MAX_C = 1024
 
 
 # ----------------------------------------------------------------- plain
@@ -131,6 +138,8 @@ def ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, eps: float = 1e-6):
     if x.device.type == "cpu":
         return ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
     require(w_qkv.dtype == torch.bfloat16, f"ln_qkv: w_qkv must be bf16, got {w_qkv.dtype}")
+    require(x.shape[-1] <= LN_MAX_C, f"ln_qkv: C must be at most {LN_MAX_C} (the LN block of 64 "
+            f"rows in shared memory), got {x.shape[-1]}")
     return _launch_ln_qkv(x, ln_scale, ln_bias, w_qkv, None, b_qkv, eps, torch.bfloat16)
 
 

@@ -11,7 +11,8 @@ sequence then tracks with flag 2 like NLBBOX. The grounding box costs one
 host read.
 
 Per frame: crop/resize/normalize the search region on the device, run
-UVLTrack.forward_test_cached, weight the cls map by the Hann window and the
+UVLTrack.forward_test_cached (forward_test, BERT included, under
+TPU.CACHE_TEXT=False), weight the cls map by the Hann window and the
 contrastive score, take the argmax box, map it back and clip it. Every
 UPDATE_INTERVAL frames the prompt is re-mined from the best-scoring frame's
 cached features if that frame's score beat TEST.THRESHOLD.
@@ -60,12 +61,12 @@ class Tracker:
     arrays."""
 
     def __init__(self, cfg, model: UVLTrack, tokenizer=None):
-        if not cfg.TPU.CACHE_TEXT:
-            raise NotImplementedError(
-                "TPU.CACHE_TEXT=False (BERT re-run every frame, the JAX "
-                "package's debug path) lands with the port's "
-                "BatchTracker/StreamPool slice")
         self.cfg = cfg
+        # TPU.CACHE_TEXT (default on): the step reads the pre-fusion text
+        # features cached at initialize; off, it runs UVLTrack.forward_test on
+        # the raw text ids every frame (BERT each frame, the JAX package's
+        # debug path), as JitTracker's cache_text does
+        self.cache_text = bool(cfg.TPU.CACHE_TEXT)
         self.model = prepare_inference_model(cfg, model)
         self.device = next(model.parameters()).device
         self.tokenizer = tokenizer
@@ -153,8 +154,9 @@ class Tracker:
             self.template_mask, context_mask, self.flag)
         self.template = template
         # per-sequence constant consumed by the step: the cached pre-fusion
-        # text features
-        self.txt = self.model.encode_text(self.text_ids, self.text_mask)
+        # text features, or the raw ids under TPU.CACHE_TEXT=False
+        self.txt = (self.model.encode_text(self.text_ids, self.text_mask)
+                    if self.cache_text else self.text_ids)
         s, z, c = (ss // 16) ** 2, (ts // 16) ** 2, self.embed_dim
 
         def zeros(*shape):
@@ -178,8 +180,8 @@ class Tracker:
         h, w = frame.shape[0], frame.shape[1]
         search, resize_factor = sample_target_device(
             frame, st.box, self.search_factor, sz)
-        out = self.model.forward_test_cached(self.template, search, self.txt,
-                                             self.text_mask, st.prompt, self.flag)
+        test = self.model.forward_test_cached if self.cache_text else self.model.forward_test
+        out = test(self.template, search, self.txt, self.text_mask, st.prompt, self.flag)
         cls = out["cls_score_test"].reshape(-1).float()
         if self.has_cont:
             cont = torch.softmax(out["cont_score"].float(), dim=-1)[0, :, 0]
