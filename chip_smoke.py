@@ -14,8 +14,9 @@ Phases, one JSON line each:
                  (N=321 with a bf16 stream, N=361 with an fp32 stream).
      q8_kernel -- the same for the int8 and fused-projection instantiations
                  (ln_qkv with an int8 payload, fp32 qkv_attention,
-                 proj_residual) and the compositions #4, #5 and #6: bf16
-                 compute under the KERNEL_* rule, fp32 compute under F32_*.
+                 proj_residual, each proj_residual call twice: bitwise
+                 equal) and the compositions #4, #5 and #6: bf16 compute
+                 under the KERNEL_* rule, fp32 compute under F32_*.
      fused_kernel -- kernel #3 (`attention`, BERT's attention) at N in {40,
                  48, 128, 361} under BERT-padding / all-masked / open /
                  ViT flag-0 masks, and kernel #7 (`ln_mlp`, both launches
@@ -443,11 +444,16 @@ def q8_kernel_phase(dev, seed: int):
                         raise AssertionError(f"{name} N={n} mask={kind}: max abs err {e} "
                                              "over tolerance")
                     worst[name] = max(worst.get(name, 0.0), e)
+                    # split-K summed in rank order: a second call gives the same bits
+                    if name.startswith("proj_residual") and not torch.equal(got, kern()):
+                        raise AssertionError(f"{name} N={n} mask={kind}: a second call "
+                                             "differs (not bitwise repeatable)")
                     if name.endswith("proj only"):
                         proj_abs_max = max(proj_abs_max, float(want.float().abs().max()))
     emit({"phase": "q8_kernel_check", "shapes_N": [48, 321, 361, 681],
           "masks": ["flag0", "flag2", "open"], "x_dtypes": ["bf16", "fp32"],
           "proj_only_abs_max": proj_abs_max,
+          "proj_residual_repeatable": "bitwise, two calls of every proj_residual check",
           "tolerance": {"bf16 compute": {k: f"|kernel-plain| <= {a} + {KERNEL_RTOL}*|plain|"
                                          for k, a in Q8_KERNEL_ATOL.items()},
                         "fp32 compute": f"|kernel-plain| <= {F32_ATOL} + {F32_RTOL}*|plain|"},

@@ -568,21 +568,26 @@ def _gpu_close(out, ref, f32: bool, atol=GPU_ATOL):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c", [768, 1024])
 @pytest.mark.parametrize("x_dtype", ["bf16", "fp32"])
 @pytest.mark.parametrize("mask", ["random", "tail", "open"])
 @pytest.mark.parametrize("n", [48, 321, 361, 681])
-def test_cuda_q8_and_proj_kernels_match_plain(cuda, n, mask, x_dtype):
-    x, g, be, w16, wq, wb, wp16, wpq, bp, kb = _gpu_q8_case(n, mask, cuda)
+def test_cuda_q8_and_proj_kernels_match_plain(cuda, n, mask, x_dtype, c):
+    """Every int8 ln_qkv and proj_residual instantiation against its plain
+    version at UVLTrack-B's width (C=768, 12 heads) and UVLTrack-L's (C=1024,
+    16 heads)."""
+    x, g, be, w16, wq, wb, wp16, wpq, bp, kb = _gpu_q8_case(n, mask, cuda, c=c)
+    heads = c // 64
     x = x.to(XDT[x_dtype])
     f32 = x_dtype == "fp32"
     build.reset_launch_counts()
     qkv = lqa.ln_qkv_q8(x, g, be, wq.q, wq.scale, wb)
-    attn = lqa.qkv_attention(qkv, kb, 12)
+    attn = lqa.qkv_attention(qkv, kb, heads)
     torch.cuda.synchronize()
     assert qkv.dtype == attn.dtype == x.dtype
     _gpu_close(qkv, lqa.ln_qkv_q8_plain(x, g, be, wq.q, wq.scale, wb), f32)
-    _gpu_close(attn, lqa.qkv_attention_plain(qkv, kb, 12), f32, GPU_ATTN_ATOL)
-    _gpu_close(attn, lqa.ln_qkv_attention_q8_plain(x, g, be, wq.q, wq.scale, wb, kb, 12), f32,
+    _gpu_close(attn, lqa.qkv_attention_plain(qkv, kb, heads), f32, GPU_ATTN_ATOL)
+    _gpu_close(attn, lqa.ln_qkv_attention_q8_plain(x, g, be, wq.q, wq.scale, wb, kb, heads), f32,
                GPU_ATTN_ATOL)
     # the epilogue kernel on the same attention output: #6 (x's dtype, int8)
     out = lqp.proj_residual(x, attn, wpq.q, bp, wpq.scale)
@@ -604,11 +609,31 @@ def test_cuda_q8_and_proj_kernels_match_plain(cuda, n, mask, x_dtype):
     _gpu_close(lqp.proj_residual(z, a16, wp16, bp), lqp.proj_residual_plain(z, a16, wp16, bp),
                f32, GPU_PROJ_ATOL)
     # the compositions #6 and #4 against their plain versions
-    _gpu_close(lqp.ln_qkv_attn_proj_q8(x, g, be, wq.q, wq.scale, wb, wpq.q, wpq.scale, bp, kb, 12),
+    _gpu_close(lqp.ln_qkv_attn_proj_q8(x, g, be, wq.q, wq.scale, wb, wpq.q, wpq.scale, bp, kb,
+                                       heads),
                lqp.ln_qkv_attn_proj_q8_plain(x, g, be, wq.q, wq.scale, wb, wpq.q, wpq.scale, bp,
-                                             kb, 12), f32)
-    _gpu_close(lqp.ln_qkv_attn_proj(x, g, be, w16, wb, wp16, bp, kb, 12),
-               lqp.ln_qkv_attn_proj_plain(x, g, be, w16, wb, wp16, bp, kb, 12), False)
+                                             kb, heads), f32)
+    _gpu_close(lqp.ln_qkv_attn_proj(x, g, be, w16, wb, wp16, bp, kb, heads),
+               lqp.ln_qkv_attn_proj_plain(x, g, be, w16, wb, wp16, bp, kb, heads), False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inst", ["bf16x-bf16a-bf16w", "fp32x-bf16a-bf16w", "bf16x-bf16a-int8w",
+                                  "fp32x-fp32a-int8w"])
+def test_cuda_proj_residual_is_deterministic(cuda, inst):
+    """Two proj_residual launches on the same inputs are bitwise equal at
+    the main path's shape (the cluster's split-K partials summed in rank
+    order), for each instantiation."""
+    x, g, be, w16, wq, wb, wp16, wpq, bp, kb = _gpu_q8_case(361, "tail", cuda)
+    xt, at, wt = (part[:4] for part in inst.split("-"))
+    x = x.to(XDT[xt])
+    attn = lqa.qkv_attention(lqa.ln_qkv_q8(x.float(), g, be, wq.q, wq.scale, wb), kb, 12)
+    attn = attn.to(XDT[at])
+    args = (wpq.q, bp, wpq.scale) if wt == "int8" else (wp16, bp)
+    outs = [lqp.proj_residual(x, attn, *args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert outs[0].dtype == x.dtype
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.gpu
@@ -658,6 +683,19 @@ def test_cuda_q8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         lqp.proj_residual(x, a32.bfloat16(), wpq.q, bp)  # int8 without its scale
     with pytest.raises(ValueError):
         lqp.proj_residual(x, a32, wp16.t(), bp)  # not contiguous / fp32 A with bf16 W
+    # K past what one k-tile a cluster block takes: K % 64, K < 64 * PROJ_SPLIT
+    for k in (96, 128):
+        a = torch.zeros(1, 64, k, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            lqp.proj_residual(x.bfloat16(), a, wp16[:, :k].contiguous(), bp)
+    # C past the LN block the int8 ln_qkv holds in shared memory (1024)
+    c = 1088
+    xw = torch.zeros(1, 64, c, device=cuda)
+    gw = torch.ones(c, device=cuda)
+    wqw = torch.zeros(3 * c, c, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        lqa.ln_qkv_q8(xw, gw, gw, wqw, torch.ones(3 * c, device=cuda),
+                      torch.zeros(3 * c, device=cuda))
 
 
 def test_gpu_tests_need_no_jax_at_import():

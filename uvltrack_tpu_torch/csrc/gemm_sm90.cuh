@@ -1,51 +1,83 @@
-// The TMA + wgmma GEMM core of the port's bf16-weight products on Hopper
-// (sm_90a): the LayerNorm-fused qkv projection of csrc/ln_qkv.cu (kernel #1's
-// prefix, uvltrack_tpu/ops/pallas_attention.py::_ln_qkv_attn_kernel :167) and
-// both launches of csrc/ln_mlp.cu (kernel #7, _ln_mlp_kernel :551).
+// The TMA + wgmma GEMM core of the port's products on Hopper (sm_90a):
+//   - ln_qkv (csrc/ln_qkv.cu), the LayerNorm-fused qkv projection of kernel
+//     #1 (uvltrack_tpu/ops/pallas_attention.py::_ln_qkv_attn_kernel :167,
+//     bf16 W) and #5 (_ln_qkv_attn_kernel_q8 :433, int8 W);
+//   - proj_residual (csrc/proj_residual.cu), the output projection + residual
+//     epilogue of #4 (_ln_qkv_attn_proj_kernel :291) and #6
+//     (_ln_qkv_attn_proj_kernel_q8 :489);
+//   - both launches of ln_mlp (csrc/ln_mlp.cu), kernel #7 (_ln_mlp_kernel :551).
 //
-//   out[m, n] = bf16( EPI( sum_k A[m, k] * W[n, k] + b[n] ) )      fp32 acc
+//   out[m, n] = TO( EPI( sum_k A[m, k] * W[n, k] (* s[n]) + b[n] ) )   fp32 acc
 //
-// W is a Linear-layout (N_out, K) bf16 weight, K-major. Three kinds:
-//   - LN_BIAS (ln_qkv) and LN_BIAS_GELU (ln_fc1_gelu): A = bf16(LN(x)), K = C;
-//     EPI is the identity or the erf GELU;
-//   - SPLITK_BIAS (fc2_bias): A is the bf16 hidden tensor (M, F), K = F.
+// W is a Linear-layout (N_out, K) weight, K-major: bf16, or an int8 payload
+// with its fp32 per-row scale s, which multiplies the fp32 accumulator in the
+// epilogue (rounded before the bias add: the Pallas kernels' order). Kinds:
+//   - LN_BIAS (ln_qkv) and LN_BIAS_GELU (ln_fc1_gelu): A = LN(x), K = C; EPI
+//     is the identity or the erf GELU; TO is bf16, or fp32 for the int8 qkv
+//     of an fp32 x;
+//   - SPLITK_BIAS (fc2_bias): A is the bf16 hidden tensor (M, F), K = F;
+//   - SPLITK_RESIDUAL (proj_residual): A is the attention output (M, K), bf16
+//     or fp32, and out = x + TX(proj) in x's type TX.
+//
+// Bound on the H100: at the tracking step's shapes (M = 321/361 tokens, C =
+// 768) every one of these products moves 0.6-10 MB and needs 0.4-3.4 GFLOP of
+// bf16 tensor-core passes, 0.6-3.4 us either way: they are latency problems
+// (a few k-tiles a block, one wave of blocks), not throughput problems.
 //
 // One block computes a 64 x BN output tile with NC = 2 consumer warpgroups
 // (each a 64 x BN/2 half with wgmma.mma_async m64n{BN/2}k16, bf16 in, fp32
 // accumulators in registers) and one producer warp. The producer streams
-// 64-deep k-tiles of W by TMA (cp.async.bulk.tensor, 128-byte swizzle) into
-// a ring of STAGES shared-memory stages guarded by full/empty mbarriers, so
-// up to STAGES loads are in flight while the tensor cores run; the old
-// kernels (one stage, WMMA mma.sync, two __syncthreads a 32-deep step)
-// paid one device-memory latency a k-step, 24 for K=768 and 96 for
-// K=3072, which is what held them at 80-98 us against 2-3 us of bound.
+// 64-deep k-tiles of W (and of A for the SPLITK kinds) by TMA
+// (cp.async.bulk.tensor) into a ring of STAGES shared-memory stages guarded by
+// full/empty mbarriers, so up to STAGES loads are in flight while the tensor
+// cores run. The kernels before this core (one stage, WMMA mma.sync, two
+// __syncthreads a 32-deep step) paid one device-memory latency a k-step,
+// which held them at 25-98 us against 1-3 us of bound.
+//
+// Operands the tensor cores cannot take as they arrive are converted by the
+// consumers, a k-tile ahead of the products (the conversion of tile kt runs
+// while wgmma works on tile kt-1, from a second buffer):
+//   - an int8 W tile (TMA without swizzle, 64 bytes a row, so the weight
+//     crosses device memory at one byte a value) becomes a bf16 tile (exact:
+//     |q| <= 127) in the 128-byte-swizzled layout, each warpgroup its half;
+//   - an fp32 operand runs as two bf16 passes, y = hi + lo (split_bf16 in
+//     common.cuh; |y - hi - lo| <= 2^-17 |y|, against a B operand that bf16
+//     holds exactly): fp32-accurate, no TF32. An fp32 A tile of the SPLITK
+//     kinds (TMA, 256 bytes a row) is split by both warpgroups, 32 rows each.
 //
 // A operand:
 //   - LN kinds: the consumers compute each row's statistics once (fp32,
-//     flax's fast variance clamped at 0, the contract of common.cuh's
-//     ln_stats) from 16-byte vector loads of x, and write the normalized rows,
-//     rounded once to bf16, into shared memory in the swizzled K-major layout
-//     wgmma reads: C/64 tiles of 64 x 64 (96 KB at C=768, 128 KB at C=1024),
-//     while the producer already fills the ring. The normalized rows never
-//     reach device memory, and no k-step reloads x.
-//   - SPLITK_BIAS: TMA tiles of the hidden tensor beside the W tiles. With
-//     only (M/64)(C/BN) output tiles (24 at M=361, C=768, BN=192), K is split
-//     over a thread-block cluster of SPLIT blocks (4 x 768 at F=3072); each
-//     leaves its fp32 partial tile in its shared memory, and block r of the
-//     cluster sums rows 16r..16r+15 over the SPLIT partials through
-//     distributed shared memory in rank order 0, 1, 2, 3: the same output on
-//     every run (no atomics).
+//     flax's fast variance mean(x^2) - mean^2 clamped at 0) and write the
+//     normalized rows, rounded once to bf16, into shared memory in the
+//     swizzled K-major layout wgmma reads: C/64 tiles of 64 x 64 (96 KB at
+//     C=768, 128 KB at C=1024), while the producer already fills the ring. A
+//     bf16 x arrives there first by TMA, the block's 64 rows all in flight at
+//     once, and is normalized in place; an fp32 x (twice the bytes, which do
+//     not fit beside the ring) is read with 16-byte vector loads, two rows a
+//     warp at a time. With an fp32 output (the int8 qkv of an fp32 x)
+//     the block holds hi and lo halves of the first C/128 k-tiles, and after
+//     those the consumers overwrite it with the second half's, normalized
+//     again from x with the row statistics kept in shared memory: the same
+//     96-128 KB, and W still streams once.
+//   - SPLITK kinds: TMA tiles of A beside the W tiles. With only (M/64)(N_out
+//     / BN) output tiles, K is split over a thread-block cluster of SPLIT
+//     blocks; each leaves its fp32 partial tile in its shared memory, and
+//     block r of the cluster sums its share of the 64 rows over the SPLIT
+//     partials through distributed shared memory in rank order 0, 1, ...:
+//     the same output on every run (no atomics).
 //
-// Rows past M: TMA zero-fills the hidden tensor's rows past M, the LN
-// prologue writes zero rows, and the epilogue stores nothing there; columns
-// past N_out (a tail tile) are zero-filled the same way and not stored.
+// Rows past M: TMA zero-fills the A rows past M, the LN prologue writes zero
+// rows, and the epilogue stores nothing there; columns past N_out (a tail
+// tile) are zero-filled the same way and not stored.
 //
 // Host side: each operand's TMA descriptor (cuTensorMapEncodeTiled, linked
-// from libcuda with -lcuda) is encoded once per (pointer, rows, columns, box
-// rows) and cached, so the weights' descriptors cost no host time after the
-// first call; it goes to the kernel as a __grid_constant__ parameter.
-// Dynamic shared memory above 48 KB is opted into with cudaFuncSetAttribute,
-// once per instantiation and size. Every launch returns cudaGetLastError().
+// from libcuda with -lcuda) is encoded once per (pointer, type, rows,
+// columns, box rows) and cached, so the weights' descriptors cost no host
+// time after the first call; it goes to the kernel as a __grid_constant__
+// parameter. Dynamic shared memory above 48 KB is opted into with
+// cudaFuncSetAttribute, once per instantiation and size. A launcher returns a
+// refusal (an unsupported shape, a descriptor or attribute error) before it
+// launches, else 0; the C entry points then return cudaGetLastError().
 #pragma once
 
 #include <cuda.h>
@@ -54,20 +86,21 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace uvl {
 namespace sm90 {
 
-enum Kind { LN_BIAS = 0, LN_BIAS_GELU = 1, SPLITK_BIAS = 2 };
+enum Kind { LN_BIAS = 0, LN_BIAS_GELU = 1, SPLITK_BIAS = 2, SPLITK_RESIDUAL = 3 };
 
 constexpr int BM = 64;              // output rows per block (one wgmma M)
 constexpr int BK = 64;              // k-tile depth: 64 bf16 = one 128-byte swizzle row
 constexpr int NC = 2;               // consumer warpgroups
 constexpr int CONSUMERS = NC * 128;
 constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
-constexpr int A_TILE_BYTES = BM * BK * 2;  // 8 KB
+constexpr int A_TILE_BYTES = BM * BK * 2;  // 8 KB: a 64 x 64 bf16 tile
 constexpr int MAX_C = 1024;         // LN kinds: 64 rows of C bf16 in shared memory
 
 // exact GELU as jax.nn.gelu(approximate=False): 0.5 x erfc(-x / sqrt(2))
@@ -211,16 +244,7 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b)
     wgmma_n96(d, a, b);
 }
 
-// ------------------------------------------------------ the LN prologue
-// Rows m0..m0+63 of x (M, C) -> bf16(LN(x)) in shared memory as C/64
-// swizzled 64 x 64 k-tiles (a_smem, 1024-byte aligned): the byte of element
-// (r, k) is (k/64)*8192 + r*128 + (((k%64)/8) ^ (r%8))*16 + (k%8)*2, the
-// layout TMA's SWIZZLE_128B gives a 64 x 64 box. Each lane owns the 16-byte
-// output chunks ch = lane + 32j of every row (8 values each), so its gamma
-// and beta stay in registers; a warp normalizes two rows at a time, each
-// row read once with 16-byte loads. Rows past M are zero.
-constexpr int MAX_CH = MAX_C / 256;  // chunks a lane owns in a row
-
+// ------------------------------------------------------- type helpers
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
@@ -239,24 +263,161 @@ __device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
   }
 }
 
-template <typename TX>
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// two and four consecutive values of a row, in and out, rounded once to the
+// output's type
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+// v rounded to T and back (a no-op for fp32)
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const bf16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// ------------------------------------------------------- conversions
+// Four int8 values (one 32-bit word, k..k+3) -> four bf16, exact, as two
+// bf16x2 words. Each biased byte b + 128 goes into the low mantissa byte of
+// 2^23; subtracting 2^23 + 128 leaves b as an fp32 integer, whose upper 16
+// bits are its bf16 (|b| <= 128 needs 8 significant bits).
+__device__ __forceinline__ uint2 i8x4_to_bf16x4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(
+        __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)), 8388736.f));
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632), __byte_perm(f[2], f[3], 0x7632));
+}
+
+// Rows 0..ROWS-1 of an int8 W k-tile (TMA without swizzle: 64 bytes a row)
+// -> bf16 in the 128-byte-swizzled K-major layout (128 bytes a row); the 128
+// threads of a warpgroup (t), two 16-byte int8 chunks each at ROWS = 64.
+// Reads fall on consecutive 16-byte words; each 8-thread phase of the
+// writes covers the 16 distinct chunks of two rows (even rows take the even
+// chunks' XOR set, odd rows the odd): no bank conflicts.
+template <int ROWS>
+__device__ __forceinline__ void convert_w_tile(const uint8_t* src, uint8_t* dst, int t) {
+  static_assert(ROWS * 4 % 128 == 0, "whole chunks a thread");
+#pragma unroll
+  for (int j = 0; j < ROWS * 4 / 128; ++j) {
+    const int i = t + 128 * j;
+    const int r = i >> 2;
+    const int q = i & 3;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + r * 64 + q * 16);
+    const uint2 a = i8x4_to_bf16x4(v.x), b = i8x4_to_bf16x4(v.y);
+    const uint2 c = i8x4_to_bf16x4(v.z), d = i8x4_to_bf16x4(v.w);
+    uint8_t* row = dst + r * 128;
+    *reinterpret_cast<uint4*>(row + (((2 * q) ^ (r & 7)) << 4)) = make_uint4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<uint4*>(row + (((2 * q + 1) ^ (r & 7)) << 4)) =
+        make_uint4(c.x, c.y, d.x, d.y);
+  }
+}
+
+// Eight fp32 values -> their hi and lo bf16 halves (split_bf16), one
+// 16-byte chunk each, stored at hi + off and lo + off.
+__device__ __forceinline__ void store_split8(const float (&v)[8], uint8_t* hi, uint8_t* lo,
+                                             int off) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    bf16 h0, l0, h1, l1;
+    split_bf16(v[2 * e], h0, l0);
+    split_bf16(v[2 * e + 1], h1, l1);
+    const __nv_bfloat162 hp(h0, h1), lp(l0, l1);
+    h[e] = *reinterpret_cast<const uint32_t*>(&hp);
+    l[e] = *reinterpret_cast<const uint32_t*>(&lp);
+  }
+  *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// Rows r0..r0+31 of an fp32 A k-tile (TMA without swizzle: 256 bytes a row)
+// -> its hi and lo bf16 tiles in the swizzled layout; the 128 threads of a
+// warpgroup (t), two 8-value chunks each.
+__device__ __forceinline__ void split_a_tile(const float* src, uint8_t* hi, uint8_t* lo, int r0,
+                                             int t) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int i = t + 128 * j;
+    const int r = r0 + (i >> 3);
+    const int c = i & 7;
+    float v[8];
+    load8(src + r * BK + c * 8, v);
+    store_split8(v, hi, lo, r * 128 + ((c ^ (r & 7)) << 4));
+  }
+}
+
+// ------------------------------------------------------ the LN prologue
+// Rows m0..m0+63 of x (M, C) -> LN(x) in shared memory as swizzled 64 x 64
+// bf16 k-tiles (a_smem, 1024-byte aligned): the byte of element (r, k) is
+// (k/64 - k0/64)*8192 + r*128 + (((k%64)/8) ^ (r%8))*16 + (k%8)*2, the layout
+// TMA's SWIZZLE_128B gives a 64 x 64 box. Each lane owns the 16-byte output
+// chunks ch = lane + 32j of every row (8 values each), so its gamma and beta
+// stay in registers; a warp normalizes two rows at a time, each row read
+// once with 16-byte loads. Rows past M are zero.
+//   LN(x) = (x - mean) * rsqrt(max(mean(x^2) - mean^2, 0) + eps) * g + beta
+// (the means as sums times 1/C and rsqrt as rsqrtf, within 2 ulp, in place
+// of IEEE divisions and a square root on every row, which cost ~1 us a launch
+// at one block an SM).
+// HILO: only the chunks [ch0, ch1) (k = 8 ch0 .. 8 ch1 - 1) are written, as a
+// bf16 hi tile and, lo_off bytes further, its lo tile (split_bf16). STATS:
+// the row statistics come from the whole row (and, with HILO, go to
+// stats[r]); else from stats[r], and only the written chunks are loaded.
+// SMEM_X: a bf16 x block arrives in a_smem in that same layout (TMA puts it
+// there; rows past M zero; x_bar completes when it is in), and each row is
+// normalized in place.
+constexpr int MAX_CH = MAX_C / 256;  // chunks a lane owns in a row
+
+template <typename TX, bool HILO, bool STATS, bool SMEM_X>
 __device__ __forceinline__ void ln_rows_to_smem(const TX* __restrict__ x,
                                                 const float* __restrict__ gamma,
                                                 const float* __restrict__ beta, int m0, int M,
-                                                int C, float eps, uint8_t* a_smem, int ctid) {
+                                                int C, float eps, uint8_t* a_smem, int ctid,
+                                                int ch0, int ch1, int lo_off, float2* stats,
+                                                uint32_t x_bar) {
   constexpr int RPI = 2;  // rows a warp normalizes at a time
   const int warp = ctid >> 5;
   const int lane = ctid & 31;
   const int nch = C / 8;
+  const float inv_c = 1.f / C;
+  auto written = [&](int ch) { return ch < nch && (!HILO || (ch >= ch0 && ch < ch1)); };
+  auto offset = [&](int ch, int r) {
+    return ((ch >> 3) - (ch0 >> 3)) * A_TILE_BYTES + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
+  };
+  static_assert(!SMEM_X || (std::is_same<TX, bf16>::value && !HILO), "a bf16 x block in place");
   float g[MAX_CH][8], be[MAX_CH][8];
 #pragma unroll
   for (int j = 0; j < MAX_CH; ++j) {
     const int ch = lane + 32 * j;
-    if (ch < nch) {
+    if (written(ch)) {
       load8(gamma + ch * 8, g[j]);
       load8(beta + ch * 8, be[j]);
     }
   }
+  if constexpr (SMEM_X) mbar_wait(x_bar, 0);  // gamma and beta already in flight
   for (int r0 = warp * RPI; r0 < BM; r0 += (CONSUMERS / 32) * RPI) {
     float v[RPI][MAX_CH][8];
     float s[RPI], ss[RPI];
@@ -267,12 +428,17 @@ __device__ __forceinline__ void ln_rows_to_smem(const TX* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < MAX_CH; ++j) {
         const int ch = lane + 32 * j;
-        if (ch < nch && row < M) {
-          load8(x + static_cast<size_t>(row) * C + ch * 8, v[i][j]);
+        if ((STATS ? ch < nch : written(ch)) && row < M) {
+          if constexpr (SMEM_X)
+            load8(reinterpret_cast<const bf16*>(a_smem + offset(ch, r0 + i)), v[i][j]);
+          else
+            load8(x + static_cast<size_t>(row) * C + ch * 8, v[i][j]);
+          if constexpr (STATS) {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            s[i] += v[i][j][e];
-            ss[i] += v[i][j][e] * v[i][j][e];
+            for (int e = 0; e < 8; ++e) {
+              s[i] += v[i][j][e];
+              ss[i] += v[i][j][e] * v[i][j][e];
+            }
           }
         }
       }
@@ -281,74 +447,134 @@ __device__ __forceinline__ void ln_rows_to_smem(const TX* __restrict__ x,
     for (int i = 0; i < RPI; ++i) {
       const int r = r0 + i;
       const bool live = m0 + r < M;
-      const float sum = warp_sum(s[i]);
-      const float sumsq = warp_sum(ss[i]);
-      const float mean = sum / C;
-      const float var = fmaxf(sumsq / C - mean * mean, 0.f);
-      const float rstd = 1.f / sqrtf(var + eps);
+      float mean, rstd;
+      if constexpr (STATS) {
+        const float sum = warp_sum(s[i]);
+        const float sumsq = warp_sum(ss[i]);
+        mean = sum * inv_c;
+        const float var = fmaxf(sumsq * inv_c - mean * mean, 0.f);
+        rstd = rsqrtf(var + eps);
+        if (HILO && lane == 0) stats[r] = make_float2(mean, rstd);
+      } else {
+        const float2 st = stats[r];
+        mean = st.x;
+        rstd = st.y;
+      }
 #pragma unroll
       for (int j = 0; j < MAX_CH; ++j) {
         const int ch = lane + 32 * j;
-        if (ch < nch) {
-          uint32_t packed[4];
+        if (written(ch)) {
+          float y[8];
 #pragma unroll
-          for (int e = 0; e < 8; e += 2) {
-            float y0 = 0.f, y1 = 0.f;
+          for (int e = 0; e < 8; ++e) {
+            y[e] = 0.f;
             if (live) {
-              y0 = (v[i][j][e] - mean) * rstd;
-              y0 = y0 * g[j][e] + be[j][e];
-              y1 = (v[i][j][e + 1] - mean) * rstd;
-              y1 = y1 * g[j][e + 1] + be[j][e + 1];
+              y[e] = (v[i][j][e] - mean) * rstd;
+              y[e] = y[e] * g[j][e] + be[j][e];
             }
-            const __nv_bfloat162 p = __floats2bfloat162_rn(y0, y1);
-            packed[e / 2] = *reinterpret_cast<const uint32_t*>(&p);
           }
-          const int off = (ch >> 3) * A_TILE_BYTES + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
-          *reinterpret_cast<uint4*>(a_smem + off) =
-              make_uint4(packed[0], packed[1], packed[2], packed[3]);
+          const int off = offset(ch, r);
+          if constexpr (HILO) {
+            store_split8(y, a_smem, a_smem + lo_off, off);
+          } else {
+            *reinterpret_cast<uint4*>(a_smem + off) =
+                make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
+                           pack_bf16(y[6], y[7]));
+          }
         }
       }
     }
   }
 }
 
+// --------------------------------------------------- shared-memory plan
+// Byte offsets from the 1024-aligned base, the same on host and device.
+//   a:    LN kinds: the normalized block (KT tiles of 8 KB; with HILO, hi and
+//         lo tiles of the first ceil(KT/2) k-tiles); SPLITK kinds: the A ring
+//   b:    the W ring, STAGES x BN x 64 values of TW
+//   wcv:  int8 W: two converted bf16 W tiles (BN x 128 bytes each), a
+//         k-tile apart
+//   acv:  fp32 A of the SPLITK kinds: two (hi, lo) pairs of bf16 A tiles
+//   st:   LN with HILO: 64 (mean, rstd) pairs
+//   bar:  full[STAGES], empty[STAGES], and the x block's barrier
+struct Plan {
+  int a, b, wcv, acv, st, bar, total;
+};
+
+template <bool LN, bool HILO, int A_ELEM, int W_ELEM, int BN, int STAGES>
+__host__ __device__ constexpr Plan plan(int K) {
+  const int kt = K / BK;
+  Plan p{};
+  p.a = 0;
+  p.b = LN ? (HILO ? 2 * ((kt + 1) / 2) : kt) * A_TILE_BYTES : STAGES * BM * BK * A_ELEM;
+  p.wcv = p.b + STAGES * BN * BK * W_ELEM;
+  p.acv = p.wcv + (W_ELEM == 1 ? 2 * BN * 128 : 0);
+  p.st = p.acv + (!LN && A_ELEM == 4 ? 4 * A_TILE_BYTES : 0);
+  p.bar = p.st + (LN && HILO ? BM * 8 : 0);
+  p.total = 1024 + p.bar + (2 * STAGES + 1) * 8;  // + the alignment slack
+  return p;
+}
+
 // ------------------------------------------------------------ the kernel
-// Grid (ceil(N_out / BN), ceil(M / 64), SPLIT); SPLITK_BIAS runs as clusters
-// of SPLIT blocks along z. x/A: LN kinds read x (TX) directly; SPLITK_BIAS
-// reads A through map_a. W through map_b. out (M, N_out) bf16.
-template <int KIND, typename TX, int BN, int STAGES, int SPLIT>
+// Grid (ceil(N_out / BN), ceil(M / 64), SPLIT); the SPLITK kinds run as
+// clusters of SPLIT blocks along z. LN kinds read a bf16 x through map_a
+// (TMA, the whole 64-row block at once) and an fp32 x directly; the SPLITK
+// kinds read A (TA) through map_a, and SPLITK_RESIDUAL the residual x (TX).
+// W (TW) through map_b. out (M, N_out) TO.
+template <int KIND, typename TX, typename TA, typename TW, typename TO, int BN, int STAGES,
+          int SPLIT>
 __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtensorMap* map_b,
                                           const TX* __restrict__ x,
                                           const float* __restrict__ gamma,
                                           const float* __restrict__ beta,
-                                          const float* __restrict__ bias, bf16* __restrict__ out,
+                                          const float* __restrict__ wscale,
+                                          const float* __restrict__ bias, TO* __restrict__ out,
                                           int M, int K, int N_out, float eps) {
-  constexpr bool LN = KIND != SPLITK_BIAS;
-  constexpr int WN = BN / NC;                 // columns of one consumer warpgroup
-  constexpr int B_STAGE_BYTES = BN * BK * 2;  // one W k-tile
-  constexpr uint32_t TX_BYTES = B_STAGE_BYTES + (LN ? 0 : A_TILE_BYTES);
+  constexpr bool LN = KIND == LN_BIAS || KIND == LN_BIAS_GELU;
+  constexpr bool W8 = std::is_same<TW, int8_t>::value;
+  constexpr bool A32 = !LN && std::is_same<TA, float>::value;
+  constexpr bool HILO = A32 || (LN && std::is_same<TO, float>::value);  // two bf16 passes
+  constexpr bool CONVERT = W8 || A32;
+  constexpr bool XS = LN && std::is_same<TX, bf16>::value;  // x block staged by TMA
+  // the ring stage is free once converted, unless wgmma reads it directly
+  constexpr bool RELEASE_EARLY = W8 && (LN || A32);
+  constexpr int WN = BN / NC;                        // columns of one consumer warpgroup
+  constexpr int B_STAGE = BN * BK * sizeof(TW);      // one W k-tile
+  constexpr int A_STAGE = LN ? 0 : BM * BK * sizeof(TA);
+  constexpr uint32_t TX_BYTES = B_STAGE + A_STAGE;
   static_assert(WN % 8 == 0 && (WN == 64 || WN == 96), "a warpgroup takes n64 or n96");
+  static_assert(!(LN && SPLIT > 1), "the LN kinds do not split K");
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const int kt_total = K / BK / SPLIT;  // k-tiles of this block
-  uint8_t* a_smem = base;               // LN: all C/64 tiles; else the A ring
-  uint8_t* b_ring = base + (LN ? (K / BK) * A_TILE_BYTES : STAGES * A_TILE_BYTES);
-  uint64_t* full = reinterpret_cast<uint64_t*>(b_ring + STAGES * B_STAGE_BYTES);
+  constexpr int A_ELEM = LN ? 2 : static_cast<int>(sizeof(TA));
+  const Plan p = plan<LN, HILO, A_ELEM, sizeof(TW), BN, STAGES>(K);
+  uint8_t* a_smem = base + p.a;
+  uint8_t* b_ring = base + p.b;
+  uint8_t* wcv = base + p.wcv;
+  uint8_t* acv = base + p.acv;
+  float2* stats = reinterpret_cast<float2*>(base + p.st);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + p.bar);
   uint64_t* empty = full + STAGES;
+  uint64_t* x_full = empty + STAGES;
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   const int rank = SPLIT > 1 ? static_cast<int>(cluster_rank()) : 0;
-  const int kt0 = rank * kt_total;
+  const int kt_all = K / BK;
+  const int kt0 = rank * kt_all / SPLIT;  // this block's k-tiles: kt0 ..
+  const int kt_total = (rank + 1) * kt_all / SPLIT - kt0;
+  // LN with HILO: k-tiles the block holds at a time (the first half)
+  const int kc = HILO ? (kt_all + 1) / 2 : kt_all;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(smem_u32(full + s), 1);
       mbar_init(smem_u32(empty + s), CONSUMERS);
     }
+    mbar_init(smem_u32(x_full), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -357,7 +583,16 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtens
 #pragma unroll
   for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
   const int wg = tid / 128;
+  const int t = tid % 128;
 
+  if (XS && tid == CONSUMERS) {
+    // the block's 64 rows of x, all C/64 tiles in flight at once, into the
+    // LN block that the consumers then normalize in place
+    const uint32_t xb = smem_u32(x_full);
+    mbar_expect_tx(xb, kt_all * A_TILE_BYTES);
+    for (int kt = 0; kt < kt_all; ++kt)
+      tma_load_2d(smem_u32(a_smem + kt * A_TILE_BYTES), map_a, kt * BK, m0, xb);
+  }
   if (tid >= CONSUMERS) {
     // ---- producer warp: one lane keeps STAGES k-tiles in flight
     if (tid == CONSUMERS) {
@@ -368,70 +603,132 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtens
         const uint32_t bar = smem_u32(full + s);
         mbar_expect_tx(bar, TX_BYTES);
         const int k = (kt0 + kt) * BK;
-        tma_load_2d(smem_u32(b_ring + s * B_STAGE_BYTES), map_b, k, n0, bar);
-        if constexpr (!LN) tma_load_2d(smem_u32(a_smem + s * A_TILE_BYTES), map_a, k, m0, bar);
+        tma_load_2d(smem_u32(b_ring + s * B_STAGE), map_b, k, n0, bar);
+        if constexpr (!LN) tma_load_2d(smem_u32(a_smem + s * A_STAGE), map_a, k, m0, bar);
       }
     }
     __syncwarp();
   } else {
     // ---- consumer warpgroups
     if constexpr (LN) {
-      ln_rows_to_smem(x, gamma, beta, m0, M, K, eps, a_smem, tid);
+      ln_rows_to_smem<TX, HILO, true, XS>(x, gamma, beta, m0, M, K, eps, a_smem, tid, 0, kc * 8,
+                                          kc * A_TILE_BYTES, stats, smem_u32(x_full));
       // the generic-proxy stores must be visible to wgmma's async proxy
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_barrier_sync(1, CONSUMERS);
     }
     for (int kt = 0; kt < kt_total; ++kt) {
       const int s = kt % STAGES;
+      if constexpr (LN && HILO) {
+        if (kt == kc) {
+          // the second half of the LN block, once no product reads the first
+          wgmma_wait_all();
+          fence_operands(acc);
+          named_barrier_sync(1, CONSUMERS);
+          ln_rows_to_smem<TX, true, false, false>(x, gamma, beta, m0, M, K, eps, a_smem, tid,
+                                                  kc * 8, kt_all * 8, kc * A_TILE_BYTES, stats,
+                                                  0);
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          named_barrier_sync(1, CONSUMERS);
+        }
+      }
       mbar_wait(smem_u32(full + s), (kt / STAGES) & 1);
-      const uint32_t a0 = smem_u32(a_smem + (LN ? kt : s) * A_TILE_BYTES);
-      const uint32_t b0 = smem_u32(b_ring + s * B_STAGE_BYTES + wg * WN * 128);
+      const int cb = kt & 1;  // conversion buffer
+      uint32_t a_hi, b0;
+      if constexpr (LN)
+        a_hi = smem_u32(a_smem + (HILO && kt >= kc ? kt - kc : kt) * A_TILE_BYTES);
+      else if constexpr (A32)
+        a_hi = smem_u32(acv + cb * 2 * A_TILE_BYTES);
+      else
+        a_hi = smem_u32(a_smem + s * A_STAGE);
+      const uint32_t a_lo = a_hi + (LN ? kc * A_TILE_BYTES : A_TILE_BYTES);
+      if constexpr (W8)
+        b0 = smem_u32(wcv + cb * BN * 128 + wg * WN * 128);
+      else
+        b0 = smem_u32(b_ring + s * B_STAGE + wg * WN * 128);
+
+      if constexpr (CONVERT) {
+        // convert tile kt while the products of tile kt-1 run; its buffers
+        // (cb) were last read by tile kt-2's, complete before the barrier
+        // of kt-1
+        if constexpr (W8)
+          convert_w_tile<WN>(b_ring + s * B_STAGE + wg * WN * 64,
+                             wcv + cb * BN * 128 + wg * WN * 128, t);
+        if constexpr (A32)
+          split_a_tile(reinterpret_cast<const float*>(a_smem + s * A_STAGE),
+                       acv + cb * 2 * A_TILE_BYTES, acv + cb * 2 * A_TILE_BYTES + A_TILE_BYTES,
+                       wg * 32, t);
+        if constexpr (RELEASE_EARLY) mbar_arrive(smem_u32(empty + s));
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        wgmma_wait_all();  // tile kt-1's products: its ring stage is free
+        fence_operands(acc);
+        if constexpr (!RELEASE_EARLY)
+          if (kt > 0) mbar_arrive(smem_u32(empty + (kt - 1) % STAGES));
+        // a converted A tile is both warpgroups' work; a W half is one's
+        if constexpr (A32)
+          named_barrier_sync(1, CONSUMERS);
+        else
+          named_barrier_sync(2 + wg, 128);
+      }
       fence_operands(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma<WN>(acc, desc_sw128(a0 + kk * 32), desc_sw128(b0 + kk * 32));
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma<WN>(acc, desc_sw128(a_hi + kk * 32), desc_sw128(b0 + kk * 32));
+        if constexpr (HILO) wgmma<WN>(acc, desc_sw128(a_lo + kk * 32), desc_sw128(b0 + kk * 32));
+      }
       wgmma_commit();
+      if constexpr (!CONVERT) {
+        wgmma_wait_all();
+        fence_operands(acc);
+        mbar_arrive(smem_u32(empty + s));
+      }
+    }
+    if constexpr (CONVERT) {
       wgmma_wait_all();
       fence_operands(acc);
-      mbar_arrive(smem_u32(empty + s));
     }
   }
 
   // accumulator fragment of thread t of warpgroup wg: register i holds
   // row (t/32)*16 + (t%32)/4 + 8*((i/2)%2), column wg*WN + (i/4)*8 + (t%4)*2 + i%2
-  const int t = tid % 128;
   const int frow = (t / 32) * 16 + (t % 32) / 4;
   const int fcol = wg * WN + (t % 4) * 2;
 
   if constexpr (SPLIT == 1) {
+    static_assert(KIND != SPLITK_RESIDUAL, "the residual epilogue is the split one");
     if (tid < CONSUMERS) {
 #pragma unroll
       for (int j = 0; j < WN / 8; ++j) {
         const int col = n0 + fcol + j * 8;
         if (col >= N_out) continue;
         const float2 b = *reinterpret_cast<const float2*>(bias + col);
+        float2 sc = make_float2(1.f, 1.f);
+        if constexpr (W8) sc = *reinterpret_cast<const float2*>(wscale + col);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = m0 + frow + 8 * h;
           if (row >= M) continue;
-          float v0 = __fadd_rn(acc[4 * j + 2 * h], b.x);
-          float v1 = __fadd_rn(acc[4 * j + 2 * h + 1], b.y);
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if constexpr (W8) {
+            v0 = __fmul_rn(v0, sc.x);
+            v1 = __fmul_rn(v1, sc.y);
+          }
+          v0 = __fadd_rn(v0, b.x);
+          v1 = __fadd_rn(v1, b.y);
           if constexpr (KIND == LN_BIAS_GELU) {
             v0 = gelu_erf(v0);
             v1 = gelu_erf(v1);
           }
-          *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row) * N_out + col) =
-              __floats2bfloat162_rn(v0, v1);
+          store2(out + static_cast<size_t>(row) * N_out + col, v0, v1);
         }
       }
     }
   } else {
     // split-K: each block's fp32 partial tile (64 x BN, row stride BN+4)
-    // over its own ring, once every consumer is done with the ring
+    // over its own rings, once every consumer is done with them
     constexpr int LDP = BN + 4;
     float* part = reinterpret_cast<float*>(base);
-    static_assert(BM * LDP * 4 <= STAGES * (A_TILE_BYTES + B_STAGE_BYTES), "partials fit the ring");
     if (tid < CONSUMERS) {
       named_barrier_sync(1, CONSUMERS);
 #pragma unroll
@@ -442,80 +739,113 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtens
               make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
     cluster_sync();
-    // block `rank` sums rows rank*16 .. rank*16+15 over the SPLIT partials,
-    // in rank order
-    constexpr int ROWS = BM / SPLIT;
+    // block `rank` sums its rows r_lo .. r_hi-1 over the SPLIT partials, in
+    // rank order
+    const int r_lo = rank * BM / SPLIT;
+    const int r_hi = (rank + 1) * BM / SPLIT;
     const uint32_t part0 = smem_u32(part);
-    for (int e = tid; e < ROWS * (BN / 4); e += THREADS) {
-      const int r = rank * ROWS + e / (BN / 4);
+    for (int e = tid; e < (r_hi - r_lo) * (BN / 4); e += THREADS) {
+      const int r = r_lo + e / (BN / 4);
       const int c = (e % (BN / 4)) * 4;
       const uint32_t addr = part0 + (r * LDP + c) * 4;
       float4 sum = ld_cluster_f4(addr, 0);
 #pragma unroll
       for (int q = 1; q < SPLIT; ++q) {
-        const float4 p = ld_cluster_f4(addr, q);
-        sum.x += p.x;
-        sum.y += p.y;
-        sum.z += p.z;
-        sum.w += p.w;
+        const float4 p4 = ld_cluster_f4(addr, q);
+        sum.x += p4.x;
+        sum.y += p4.y;
+        sum.z += p4.z;
+        sum.w += p4.w;
       }
       const int row = m0 + r;
       const int col = n0 + c;
       if (row < M && col < N_out) {
+        if constexpr (W8) {
+          const float4 sc = *reinterpret_cast<const float4*>(wscale + col);
+          sum = make_float4(__fmul_rn(sum.x, sc.x), __fmul_rn(sum.y, sc.y),
+                            __fmul_rn(sum.z, sc.z), __fmul_rn(sum.w, sc.w));
+        }
         const float4 b = *reinterpret_cast<const float4*>(bias + col);
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(__fadd_rn(sum.x, b.x), __fadd_rn(sum.y, b.y));
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(__fadd_rn(sum.z, b.z), __fadd_rn(sum.w, b.w));
-        uint2 pk;
-        pk.x = *reinterpret_cast<const uint32_t*>(&lo);
-        pk.y = *reinterpret_cast<const uint32_t*>(&hi);
-        *reinterpret_cast<uint2*>(out + static_cast<size_t>(row) * N_out + col) = pk;
+        float4 v = make_float4(__fadd_rn(sum.x, b.x), __fadd_rn(sum.y, b.y),
+                               __fadd_rn(sum.z, b.z), __fadd_rn(sum.w, b.w));
+        const size_t i = static_cast<size_t>(row) * N_out + col;
+        if constexpr (KIND == SPLITK_RESIDUAL) {
+          // the projection rounded once to x's type, then the residual add
+          // in x's type
+          const float4 r4 = load4(x + i);
+          v = make_float4(r4.x + round_to(v.x, x), r4.y + round_to(v.y, x),
+                          r4.z + round_to(v.z, x), r4.w + round_to(v.w, x));
+        }
+        store4(out + i, v);
       }
     }
     cluster_sync();  // no block leaves while another reads its partials
   }
 }
 
-template <int KIND, typename TX, int BN, int STAGES>
+template <int KIND, typename TX, typename TW, typename TO, int BN, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
-ln_gemm_kernel(const __grid_constant__ CUtensorMap map_b, const TX* __restrict__ x,
+ln_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_b, const TX* __restrict__ x,
                const float* __restrict__ gamma, const float* __restrict__ beta,
-               const float* __restrict__ bias, bf16* __restrict__ out, int M, int K, int N_out,
-               float eps) {
-  gemm_body<KIND, TX, BN, STAGES, 1>(nullptr, &map_b, x, gamma, beta, bias, out, M, K, N_out,
-                                     eps);
+               const float* __restrict__ wscale, const float* __restrict__ bias,
+               TO* __restrict__ out, int M, int K, int N_out, float eps) {
+  gemm_body<KIND, TX, bf16, TW, TO, BN, STAGES, 1>(&map_x, &map_b, x, gamma, beta, wscale, bias,
+                                                   out, M, K, N_out, eps);
 }
 
-template <int BN, int STAGES, int SPLIT>
+template <int KIND, typename TX, typename TA, typename TW, typename TO, int BN, int STAGES,
+          int SPLIT>
 __global__ void __cluster_dims__(1, 1, SPLIT) __launch_bounds__(THREADS, 2)
 splitk_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
-                   const __grid_constant__ CUtensorMap map_b, const float* __restrict__ bias,
-                   bf16* __restrict__ out, int M, int K, int N_out) {
-  gemm_body<SPLITK_BIAS, bf16, BN, STAGES, SPLIT>(&map_a, &map_b, nullptr, nullptr, nullptr,
-                                                  bias, out, M, K, N_out, 0.f);
+                   const __grid_constant__ CUtensorMap map_b, const TX* __restrict__ x,
+                   const float* __restrict__ wscale, const float* __restrict__ bias,
+                   TO* __restrict__ out, int M, int K, int N_out) {
+  gemm_body<KIND, TX, TA, TW, TO, BN, STAGES, SPLIT>(&map_a, &map_b, x, nullptr, nullptr, wscale,
+                                                     bias, out, M, K, N_out, 0.f);
 }
 
 // --------------------------------------------------------------- host side
-// The TMA descriptor of a row-major (rows, cols) bf16 matrix read in boxes
-// of box_rows x 64 with the 128-byte swizzle, encoded once per key and
+template <typename T>
+struct TmaType;
+template <>
+struct TmaType<bf16> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct TmaType<int8_t> {  // bytes are bytes: the kernels convert the payload
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
+template <>
+struct TmaType<float> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+
+// The TMA descriptor of a row-major (rows, cols) matrix of T read in boxes of
+// box_rows x 64 values: bf16 with the 128-byte swizzle wgmma reads, int8
+// and fp32 unswizzled (the consumers convert them). Encoded once per key and
 // cached (weights never move; an activation's key repeats whenever the
 // allocator hands its buffer out again).
-inline int tensor_map(const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows,
+template <typename T>
+inline int tensor_map(const T* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows,
                       CUtensorMap* map) {
-  using Key = std::tuple<uintptr_t, uint64_t, uint64_t, uint32_t>;
+  using Key = std::tuple<uintptr_t, int, uint64_t, uint64_t, uint32_t>;
   static std::mutex mu;
   static std::map<Key, CUtensorMap> cache;
-  const Key key{reinterpret_cast<uintptr_t>(ptr), rows, cols, box_rows};
+  const Key key{reinterpret_cast<uintptr_t>(ptr), static_cast<int>(TmaType<T>::value), rows,
+                cols, box_rows};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it == cache.end()) {
     CUtensorMap m;
     const cuuint64_t dims[2] = {cols, rows};
-    const cuuint64_t strides[1] = {cols * 2};
+    const cuuint64_t strides[1] = {cols * sizeof(T)};
     const cuuint32_t box[2] = {BK, box_rows};
     const cuuint32_t elem[2] = {1, 1};
     const CUresult r = cuTensorMapEncodeTiled(
-        &m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+        &m, TmaType<T>::value, 2, const_cast<T*>(ptr), dims, strides, box, elem,
+        CU_TENSOR_MAP_INTERLEAVE_NONE,
+        sizeof(T) == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
     it = cache.emplace(key, m).first;
@@ -540,42 +870,60 @@ inline int allow_smem(F* kernel, int bytes, int& allowed) {
 
 constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
 
-// LN kinds: out (M, N_out) = EPI(bf16(LN(x)) . W^T + b); W (N_out, C) bf16
-template <int KIND, typename TX, int BN, int STAGES>
-inline int launch_ln_gemm(const TX* x, const float* gamma, const float* beta, const bf16* w,
-                          const float* bias, bf16* out, int M, int C, int N_out, float eps,
-                          cudaStream_t stream) {
+// LN kinds: out (M, N_out) = TO(EPI(LN(x) . W^T (* s) + b)); W (N_out, C)
+// bf16, or int8 with its per-row scale s
+template <int KIND, typename TX, typename TW, typename TO, int BN, int STAGES>
+inline int launch_ln_gemm(const TX* x, const float* gamma, const float* beta, const TW* w,
+                          const float* wscale, const float* bias, TO* out, int M, int C,
+                          int N_out, float eps, cudaStream_t stream) {
+  constexpr bool HILO = std::is_same<TO, float>::value;
   if (C % BK != 0 || C > MAX_C || N_out % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 1024 + (C / BK) * A_TILE_BYTES + STAGES * BN * BK * 2 + 2 * STAGES * 8;
+  if (std::is_same<TW, int8_t>::value && wscale == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = plan<true, HILO, 2, sizeof(TW), BN, STAGES>(C).total;
   if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map_b;
+  CUtensorMap map_x{}, map_b;  // map_x: a bf16 x only
   int err = tensor_map(w, N_out, C, BN, &map_b);
+  if (!err && std::is_same<TX, bf16>::value) err = tensor_map(x, M, C, BM, &map_x);
   if (err) return err;
   static int allowed = 0;
-  auto* kernel = ln_gemm_kernel<KIND, TX, BN, STAGES>;
+  auto* kernel = ln_gemm_kernel<KIND, TX, TW, TO, BN, STAGES>;
   if ((err = allow_smem(kernel, smem, allowed))) return err;
   const dim3 grid((N_out + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<<<grid, THREADS, smem, stream>>>(map_b, x, gamma, beta, bias, out, M, C, N_out, eps);
-  return static_cast<int>(cudaGetLastError());
+  kernel<<<grid, THREADS, smem, stream>>>(map_x, map_b, x, gamma, beta, wscale, bias, out, M, C,
+                                          N_out, eps);
+  return 0;
 }
 
-// out (M, N_out) = bf16(A . W^T + b); A (M, K) bf16, W (N_out, K) bf16,
-// K split over a cluster of SPLIT blocks
-template <int BN, int STAGES, int SPLIT>
-inline int launch_splitk_gemm(const bf16* a, const bf16* w, const float* bias, bf16* out, int M,
+// SPLITK kinds, K split over a cluster of SPLIT blocks: A (M, K) bf16 or
+// fp32, W (N_out, K) bf16 or int8 with its scale s;
+//   SPLITK_BIAS:     out = bf16(A . W^T + b)
+//   SPLITK_RESIDUAL: out = x + TX(A . W^T (* s) + b), in x's type TX
+template <int KIND, typename TX, typename TA, typename TW, int BN, int STAGES, int SPLIT>
+inline int launch_splitk_gemm(const TA* a, const TW* w, const float* wscale, const TX* x,
+                              const float* bias,
+                              std::conditional_t<KIND == SPLITK_RESIDUAL, TX, bf16>* out, int M,
                               int K, int N_out, cudaStream_t stream) {
-  if (K % (BK * SPLIT) != 0 || N_out % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 1024 + STAGES * (A_TILE_BYTES + BN * BK * 2) + 2 * STAGES * 8;
+  using TO = std::conditional_t<KIND == SPLITK_RESIDUAL, TX, bf16>;
+  constexpr bool HILO = std::is_same<TA, float>::value;
+  if (K % BK != 0 || K / BK < SPLIT || N_out % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (std::is_same<TW, int8_t>::value && wscale == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (KIND == SPLITK_RESIDUAL && x == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = plan<false, HILO, sizeof(TA), sizeof(TW), BN, STAGES>(K).total;
+  static_assert(BM * (BN + 4) * 4 <= STAGES * (BM * BK * sizeof(TA) + BN * BK * sizeof(TW)),
+                "the fp32 partial tile fits over the rings");
   CUtensorMap map_a, map_b;
   int err = tensor_map(a, M, K, BM, &map_a);
   if (!err) err = tensor_map(w, N_out, K, BN, &map_b);
   if (err) return err;
   static int allowed = 0;
-  auto* kernel = splitk_gemm_kernel<BN, STAGES, SPLIT>;
+  auto* kernel = splitk_gemm_kernel<KIND, TX, TA, TW, TO, BN, STAGES, SPLIT>;
   if ((err = allow_smem(kernel, smem, allowed))) return err;
   const dim3 grid((N_out + BN - 1) / BN, (M + BM - 1) / BM, SPLIT);
-  kernel<<<grid, THREADS, smem, stream>>>(map_a, map_b, bias, out, M, K, N_out);
-  return static_cast<int>(cudaGetLastError());
+  kernel<<<grid, THREADS, smem, stream>>>(map_a, map_b, x, wscale, bias, out, M, K, N_out);
+  return 0;
 }
 
 }  // namespace sm90

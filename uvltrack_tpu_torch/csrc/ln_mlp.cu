@@ -56,17 +56,19 @@ extern "C" int uvl_ln_mlp(const void* x, int x_is_f32, const float* gamma, const
   using namespace uvl::sm90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* h = static_cast<bf16*>(hidden);
+  int err = 0;
   if (stages & 1) {
     const bf16* w = static_cast<const bf16*>(w1);
-    const int err =
-        x_is_f32 ? launch_ln_gemm<LN_BIAS_GELU, float, 192, 3>(
-                       static_cast<const float*>(x), gamma, beta, w, b1, h, M, C, F, eps, s)
-                 : launch_ln_gemm<LN_BIAS_GELU, bf16, 192, 3>(
-                       static_cast<const bf16*>(x), gamma, beta, w, b1, h, M, C, F, eps, s);
-    if (err) return err;
+    err = x_is_f32 ? launch_ln_gemm<LN_BIAS_GELU, float, bf16, bf16, 192, 3>(
+                       static_cast<const float*>(x), gamma, beta, w, nullptr, b1, h, M, C, F,
+                       eps, s)
+                 : launch_ln_gemm<LN_BIAS_GELU, bf16, bf16, bf16, 192, 3>(
+                       static_cast<const bf16*>(x), gamma, beta, w, nullptr, b1, h, M, C, F,
+                       eps, s);
   }
-  if (stages & 2)
-    return launch_splitk_gemm<192, 4, 4>(h, static_cast<const bf16*>(w2), b2,
-                                          static_cast<bf16*>(out), M, F, C, s);
-  return static_cast<int>(cudaGetLastError());
+  if (!err && (stages & 2))
+    err = launch_splitk_gemm<SPLITK_BIAS, bf16, bf16, bf16, 192, 4, 4>(
+        h, static_cast<const bf16*>(w2), nullptr, nullptr, b2, static_cast<bf16*>(out), M, F, C,
+        s);
+  return err ? err : static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 // LayerNorm + fused qkv projection: the prologue half of
 // uvltrack_tpu/ops/pallas_attention.py::_ln_qkv_attn_kernel (:167, bf16
-// weight) and of its int8-weight variant _ln_qkv_attn_kernel_q8 (:433).
+// weight) and of its int8-weight variant _ln_qkv_attn_kernel_q8 (:433-456).
 //
 //   out[m, n] = TO( sum_k TC(LN(x)[m, k]) * W[n, k] (* s[n]) + b[n] )
 //   LN(x) = (x - mean) * rsqrt(max(mean(x^2) - mean^2, 0) + eps) * g + beta
@@ -20,19 +20,8 @@
 //
 // Layouts: x (M, C) bf16 or fp32, rows = B*N tokens; W (3C, C) bf16 or int8
 // in PyTorch's Linear layout (out, in), s (3C,) fp32 per-row scale of the
-// int8 payload; b, g, beta fp32; out (M, 3C) bf16 or fp32.
-//
-// Two designs, one per weight type:
-//   - bf16 W (#1): the TMA + wgmma core of gemm_sm90.cuh (kind LN_BIAS): the
-//     normalized 64-row block sits in shared memory once, W streams through
-//     a 4-stage TMA ring, 64 x 128 output tiles (two m64n64k16 warpgroups),
-//     18 x 6 = 108 blocks at M=321/361, C=768 (F=2304): one wave on the 132
-//     SMs (at 160 KB of shared memory, one block an SM).
-//   - int8 W (#5): the WMMA (mma.sync) kernel below, 64x64 tiles, 216 blocks
-//     at M=361; each block computes the LN statistics of its 64 rows and
-//     normalizes the A tile as it loads it; an int8 W tile converts to bf16
-//     in shared memory, so the weight streams from device memory at one byte
-//     a value. One shared-memory stage; its redesign is later work.
+// int8 payload; b, g, beta fp32; out (M, 3C) bf16, or fp32 for an fp32 x with
+// an int8 W.
 //
 // Bound on the H100 (UVLTrack-B, C=768), each input read once and each
 // output written once: M=361, fp32 x, bf16 W: 1.28 GFLOP of bf16 tensor-core
@@ -43,136 +32,52 @@
 // 1.28 GFLOP for the two passes (~2.6 us) against 6.2 MB (~1.9 us). The TPU
 // kernels keep the whole weight resident in VMEM and run grid=(B,): one
 // program, which on Hopper would occupy one of 132 SMs.
+//
+// All four instantiations run on the TMA + wgmma core of gemm_sm90.cuh
+// (kind LN_BIAS): the normalized 64-row block of a block sits in shared
+// memory once (a bf16 x arrives there by TMA and is normalized in place), W
+// streams through a 4-stage TMA ring, 64 x 128 output tiles (two m64n64k16
+// warpgroups), 18 x 6 = 108 blocks at M=321/361, C=768 (F=2304): one wave on
+// the 132 SMs, one block an SM. An int8 W crosses device memory at one byte a
+// value and is converted to bf16 in shared memory by the consumers, a k-tile
+// ahead of the products; its scale multiplies the accumulator in the
+// epilogue. With fp32 x the block holds hi and lo halves of the first half of
+// the k-tiles, then of the second: the LN block takes the same 96-128 KB as a
+// bf16 one, and W streams once. The bound is not what limits these launches:
+// the LN prologue is, before the first product of each block, and with int8
+// the conversion, which every one of the 6 row-blocks repeats for its W
+// tiles (PERF.md, section 6, measures both).
 #include "gemm_sm90.cuh"
 
-using namespace nvcuda;
 using uvl::bf16;
-
-namespace {
-
-constexpr int BM = 64;   // token rows per block
-constexpr int BN = 64;   // output columns per block
-constexpr int BK = uvl::W_TILE_K;  // depth per shared-memory stage
-constexpr int THREADS = 128;  // 4 warps, each a 32x32 sub-tile
-constexpr int LDA = BK + 8;   // padded row strides (bf16 elements)
-constexpr int LDB = BK + 8;
-constexpr int LDC = BN + 4;   // fp32 epilogue tile
-
-// the int8-weight instantiations (#5); TO is x's type
-template <typename TX, typename TW, typename TO>
-__global__ void __launch_bounds__(THREADS)
-ln_qkv_kernel(const TX* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ beta, const TW* __restrict__ w,
-              const float* __restrict__ wscale, const float* __restrict__ wb,
-              TO* __restrict__ out, int M, int C, int F, float eps) {
-  constexpr bool SPLIT = std::is_same<TO, float>::value;  // fp32 compute
-  __shared__ __align__(128) bf16 As[BM * LDA];
-  __shared__ __align__(128) bf16 Al[SPLIT ? BM * LDA : 8];  // low halves
-  __shared__ __align__(128) bf16 Bs[BN * LDB];
-  __shared__ __align__(128) float Cs[BM * LDC];
-  __shared__ float s_mean[BM];
-  __shared__ float s_rstd[BM];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  uvl::ln_stats<BM, THREADS>(x, m0, M, C, eps, s_mean, s_rstd, tid);
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const int wm = (warp >> 1) * 32;
-  const int wn = (warp & 1) * 32;
-
-  for (int k0 = 0; k0 < C; k0 += BK) {
-    uvl::ln_a_tile<BM, THREADS, SPLIT>(As, Al, LDA, x, gamma, beta, s_mean, s_rstd, m0, M, C,
-                                       k0, tid);
-    uvl::load_w_tile<BN, THREADS>(Bs, LDB, w, n0, k0, C, tid);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], Bs + (wn + j * 16) * LDB + kk, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], As + (wm + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-      if constexpr (SPLIT) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(af[i], Al + (wm + i * 16) * LDA + kk, LDA);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16, acc[i][j],
-                              LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < BM * BN; e += THREADS) {
-    const int r = e / BN;
-    const int c = e % BN;
-    const int row = m0 + r;
-    if (row < M)
-      uvl::store(out + static_cast<size_t>(row) * F + n0 + c,
-                 uvl::scale_bias<TW>(Cs[r * LDC + c], wscale, wb, n0 + c));
-  }
-}
-
-template <typename TX, typename TW, typename TO>
-int launch(const void* x, const float* gamma, const float* beta, const void* w,
-           const float* wscale, const float* wb, void* out, int M, int C, int F,
-           float eps, cudaStream_t s) {
-  const dim3 grid(F / BN, (M + BM - 1) / BM);
-  ln_qkv_kernel<TX, TW, TO><<<grid, THREADS, 0, s>>>(
-      static_cast<const TX*>(x), gamma, beta, static_cast<const TW*>(w), wscale, wb,
-      static_cast<TO*>(out), M, C, F, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
 
 // x_is_f32: 1 when x is fp32 (the joint blocks' stream), 0 when bf16.
 // w_is_i8: 1 for an int8 payload with its fp32 per-row scale w_scale (out
-// in x's type), 0 for a bf16 weight (out bf16). Requires C % 64 == 0
-// (C <= 1024 for a bf16 W: the LN block in shared memory), F % 64 == 0
-// and 16-byte aligned x and W (checked by the Python wrapper).
+// in x's type), 0 for a bf16 weight (out bf16). Requires C % 64 == 0,
+// C <= 1024 (the LN block in shared memory), F % 8 == 0 and 16-byte aligned
+// x and W (checked by the Python wrapper).
 extern "C" int uvl_ln_qkv(const void* x, int x_is_f32, const float* gamma,
                           const float* beta, const void* w, int w_is_i8,
                           const float* w_scale, const float* wb, void* out, int M,
                           int C, int F, float eps, void* stream) {
+  using namespace uvl::sm90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!w_is_i8) {
-    using uvl::sm90::launch_ln_gemm;
-    const bf16* wb16 = static_cast<const bf16*>(w);
-    bf16* o = static_cast<bf16*>(out);
-    if (x_is_f32)
-      return launch_ln_gemm<uvl::sm90::LN_BIAS, float, 128, 4>(
-          static_cast<const float*>(x), gamma, beta, wb16, wb, o, M, C, F, eps, s);
-    return launch_ln_gemm<uvl::sm90::LN_BIAS, bf16, 128, 4>(
-        static_cast<const bf16*>(x), gamma, beta, wb16, wb, o, M, C, F, eps, s);
-  }
-  if (w_scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (x_is_f32)
-    return launch<float, int8_t, float>(x, gamma, beta, w, w_scale, wb, out, M, C, F, eps, s);
-  return launch<bf16, int8_t, bf16>(x, gamma, beta, w, w_scale, wb, out, M, C, F, eps, s);
+  const float* x32 = static_cast<const float*>(x);
+  const bf16* x16 = static_cast<const bf16*>(x);
+  const bf16* w16 = static_cast<const bf16*>(w);
+  const int8_t* w8 = static_cast<const int8_t*>(w);
+  int err;
+  if (!w_is_i8 && x_is_f32)
+    err = launch_ln_gemm<LN_BIAS, float, bf16, bf16, 128, 4>(
+        x32, gamma, beta, w16, nullptr, wb, static_cast<bf16*>(out), M, C, F, eps, s);
+  else if (!w_is_i8)
+    err = launch_ln_gemm<LN_BIAS, bf16, bf16, bf16, 128, 4>(
+        x16, gamma, beta, w16, nullptr, wb, static_cast<bf16*>(out), M, C, F, eps, s);
+  else if (x_is_f32)
+    err = launch_ln_gemm<LN_BIAS, float, int8_t, float, 128, 4>(
+        x32, gamma, beta, w8, w_scale, wb, static_cast<float*>(out), M, C, F, eps, s);
+  else
+    err = launch_ln_gemm<LN_BIAS, bf16, int8_t, bf16, 128, 4>(
+        x16, gamma, beta, w8, w_scale, wb, static_cast<bf16*>(out), M, C, F, eps, s);
+  return err ? err : static_cast<int>(cudaGetLastError());
 }

@@ -11,10 +11,10 @@ of the H100's 132 SMs, so the port splits each in two kernels
 
 - `ln_qkv` / `ln_qkv_q8`: LN (fp32, fast variance clamped at 0), tensor-core
   product against W, fp32 epilogue (`acc + b`, or `acc * scale + b` for the
-  int8 payload), out (B, N, 3C). A bf16 W runs on the TMA + wgmma core of
-  csrc/gemm_sm90.cuh (the 64 normalized rows of a block in shared memory
-  once, C <= 1024); an int8 W on the WMMA kernel, which normalizes each A
-  tile as it loads.
+  int8 payload), out (B, N, 3C). Both weight types run on the TMA + wgmma
+  core of csrc/gemm_sm90.cuh (the 64 normalized rows of a block in shared
+  memory once, so C <= 1024; an int8 W streams as bytes and is converted to
+  bf16 in shared memory).
 - `qkv_attention`: per (query tile, head, batch) block,
   exp(clip(q.k*D^-1/2 + key_bias, +-80)), fp32 row sums, P.V, division at
   the end; out (B, N, C) before the output projection.
@@ -44,9 +44,10 @@ from .build import FLOAT, INT, PTR, check_cuda, require
 from .quant import QuantizedTensor, quant_dot
 
 CLAMP = 80.0  # exp-safe score range of the kernels (pallas_attention._CLAMP)
-# widest C the bf16-weight LN products take: 64 normalized rows of C bf16 sit
-# in shared memory beside the TMA ring (csrc/gemm_sm90.cuh MAX_C; at C=1024
-# the fc1 launch uses 205,872 of a block's 232,448 bytes)
+# widest C the LN products take (both weight types): 64 normalized rows of C
+# bf16 (or hi/lo halves of half the row) sit in shared memory beside the TMA
+# ring (csrc/gemm_sm90.cuh MAX_C; at C=1024 the fc1 launch uses 205,880 of a
+# block's 232,448 bytes)
 LN_MAX_C = 1024
 
 
@@ -151,6 +152,8 @@ def ln_qkv_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps: float = 1e-6):
     require(w_q.dtype == torch.int8, f"ln_qkv_q8: w_q must be int8, got {w_q.dtype}")
     require(w_scale.dtype == torch.float32 and tuple(w_scale.shape) == (w_q.shape[0],),
             "ln_qkv_q8: w_scale must be (3C,) fp32")
+    require(x.shape[-1] <= LN_MAX_C, f"ln_qkv_q8: C must be at most {LN_MAX_C} (the LN block of "
+            f"64 rows in shared memory), got {x.shape[-1]}")
     return _launch_ln_qkv(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps, x.dtype)
 
 

@@ -21,8 +21,11 @@ by that rounding, as they do in the JAX package.) Four instantiations:
 (x, A, Wp) in {bf16, bf16, bf16}, {fp32, bf16, bf16} (#4) and {bf16, bf16,
 int8}, {fp32, fp32, int8} (#6).
 
-The wrapper checks, launches and counts through ops/build.py, as the
-prefix wrappers do; a CPU tensor takes the plain version.
+`proj_residual` runs on the TMA + wgmma core of csrc/gemm_sm90.cuh, with K
+split over clusters of PROJ_SPLIT blocks (one 64-deep k-tile each at the
+least) and summed in rank order, so two calls give the same bits. The
+wrapper checks, launches and counts through ops/build.py, as the prefix
+wrappers do; a CPU tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from . import ln_qkv_attention as lqa
 from .build import INT, PTR, check_cuda, require
 from .quant import QuantizedTensor, quant_dot
 
+PROJ_SPLIT = 3  # blocks of a cluster that split K (csrc/proj_residual.cu SPLIT)
 _OK = {  # (x, A, Wp) dtypes the kernel is instantiated for
     (torch.bfloat16, torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.bfloat16, torch.bfloat16),
@@ -85,8 +89,9 @@ def proj_residual(x, attn, w_proj, b_proj, wp_scale=None):
     require(tuple(attn.shape) == (b, n, k) and tuple(w_proj.shape) == (c, k)
             and tuple(b_proj.shape) == (c,) and b_proj.dtype == torch.float32,
             "proj_residual: bad shapes or bias dtype")
-    require(k % 32 == 0 and c % 64 == 0,
-            f"proj_residual: K must be a multiple of 32 and C of 64 (K={k}, C={c})")
+    require(k % 64 == 0 and k >= 64 * PROJ_SPLIT and c % 64 == 0,
+            f"proj_residual: K must be a multiple of 64 and at least {64 * PROJ_SPLIT}, and C "
+            f"a multiple of 64 (K={k}, C={c})")
     scale = () if wp_scale is None else (wp_scale,)
     if scale:
         require(wp_scale.dtype == torch.float32 and tuple(wp_scale.shape) == (c,),
