@@ -9,21 +9,25 @@ Phases, one JSON line each:
   2. kernel   -- each CUDA kernel (and the pair as the fused LN+qkv+attention
                  op) against its plain PyTorch version on the card in bf16 at
                  N in {48, 321, 361, 681} under flag-0 / flag-2 / open key
-                 masks; CUDA-event times of kernel, plain version and the
+                 masks, qkv_attention called twice (bitwise equal: the keys'
+                 cluster split is summed in rank order); CUDA-event times
+                 (a kernel that fails under CUDA-graph capture fails the
+                 run) of kernel, plain version and the
                  PyTorch library yardstick at the main path's two shapes
                  (N=321 with a bf16 stream, N=361 with an fp32 stream).
      q8_kernel -- the same for the int8 and fused-projection instantiations
                  (ln_qkv with an int8 payload, fp32 qkv_attention,
-                 proj_residual, each proj_residual call twice: bitwise
-                 equal) and the compositions #4, #5 and #6: bf16 compute
-                 under the KERNEL_* rule, fp32 compute under F32_*.
+                 proj_residual, each proj_residual and fp32 qkv_attention
+                 call twice: bitwise equal) and the compositions #4, #5
+                 and #6: bf16 compute under the KERNEL_* rule, fp32
+                 compute under F32_*.
      fused_kernel -- kernel #3 (`attention`, BERT's attention) at N in {40,
-                 48, 128, 361} under BERT-padding / all-masked / open /
+                 48, 128, 321, 361, 681} under BERT-padding / all-masked / open /
                  ViT flag-0 masks, and kernel #7 (`ln_mlp`, both launches
                  and each alone) at N in {48, 321, 361, 681} with bf16 and
-                 fp32 x, against their plain versions, and fc2_bias twice
-                 (bitwise equal); times at N=40/128 and at the MLP's
-                 main-path shapes. ln_qkv's library yardstick is
+                 fp32 x, against their plain versions, and fc2_bias and
+                 attention twice (bitwise equal); times at N=40/128 and
+                 at the MLP's main-path shapes. ln_qkv's library yardstick is
                  F.layer_norm + F.linear (dequantized W for int8).
   3. track    -- UVLTrack-B (experiments/uvltrack/baseline_base.yaml, full
                  width, seeded random weights) tracks a synthetic 720p
@@ -111,6 +115,7 @@ F32_ATOL, F32_RTOL = 2e-4, 2e-4
 
 
 MLP_N = (48, 321, 361, 681)  # kernel #7's check shapes
+ATTN_N = (40, 48, 128, 321, 361, 681)  # kernel #3's: BERT's N, 128 and the ViT's
 
 TIMER = ("CUDA events, L2-warm: *ms = mean of 200 back-to-back eager calls after 20 "
          "warm-up (host time included where it exceeds the device's); *device_ms = a "
@@ -184,12 +189,17 @@ def graph_time_ms(fn, calls: int = 20, replays: int = 10):
 def timings(kern, plain, lib) -> dict:
     """A kernel's, its plain version's and the library yardstick's times:
     eager (cuda_time_ms: ms, plain_ms, library_ms) and device
-    (graph_time_ms: device_ms, plain_device_ms, library_device_ms)."""
+    (graph_time_ms: device_ms, plain_device_ms, library_device_ms). A kernel
+    that cannot be captured in a CUDA graph fails the run (the device times
+    and the step's future graph need it); the plain version's and the
+    library call's capture errors are reported."""
     out = {"ms": cuda_time_ms(kern), "plain_ms": cuda_time_ms(plain),
            "library_ms": cuda_time_ms(lib) if lib else None}
     for key, fn in (("device_ms", kern), ("plain_device_ms", plain),
                     ("library_device_ms", lib)):
         out[key], why = graph_time_ms(fn) if fn else (None, None)
+        if why and key == "device_ms":
+            raise AssertionError(f"the kernel failed under CUDA-graph capture: {why}")
         if why:
             out[f"{key}_error"] = why
     return out
@@ -252,7 +262,12 @@ def kernel_phase(dev, seed: int):
                 x, g, be, w, wb, kb = case(n, kind, x_dtype)
                 qkv = lqa.ln_qkv(x, g, be, w, wb)
                 out = lqa.qkv_attention(qkv, kb, heads)
+                again = lqa.qkv_attention(qkv, kb, heads)
                 torch.cuda.synchronize()
+                # the keys' cluster split summed in rank order: the same bits
+                if not torch.equal(out, again):
+                    raise AssertionError(f"qkv_attention N={n} mask={kind}: a second call "
+                                         "differs (not bitwise repeatable)")
                 checks = {
                     "ln_qkv": err("ln_qkv", qkv, lqa.ln_qkv_plain(x, g, be, w, wb)),
                     "qkv_attention": err("qkv_attention", out,
@@ -267,6 +282,7 @@ def kernel_phase(dev, seed: int):
                     worst[name] = max(worst[name], e)
     emit({"phase": "kernel_check", "shapes_N": [48, 321, 361, 681],
           "masks": ["flag0", "flag2", "open"], "x_dtypes": ["bf16", "fp32"],
+          "qkv_attention_repeatable": "bitwise, two calls at every check",
           "tolerance": {k: f"|kernel-plain| <= {a} + {KERNEL_RTOL}*|plain|"
                         for k, a in KERNEL_ATOL.items()},
           "max_abs_err": worst})
@@ -444,8 +460,10 @@ def q8_kernel_phase(dev, seed: int):
                         raise AssertionError(f"{name} N={n} mask={kind}: max abs err {e} "
                                              "over tolerance")
                     worst[name] = max(worst.get(name, 0.0), e)
-                    # split-K summed in rank order: a second call gives the same bits
-                    if name.startswith("proj_residual") and not torch.equal(got, kern()):
+                    # split-K (split keys) summed in rank order: a second call gives
+                    # the same bits
+                    if name.startswith(("proj_residual", "qkv_attention")) and \
+                            not torch.equal(got, kern()):
                         raise AssertionError(f"{name} N={n} mask={kind}: a second call "
                                              "differs (not bitwise repeatable)")
                     if name.endswith("proj only"):
@@ -454,6 +472,7 @@ def q8_kernel_phase(dev, seed: int):
           "masks": ["flag0", "flag2", "open"], "x_dtypes": ["bf16", "fp32"],
           "proj_only_abs_max": proj_abs_max,
           "proj_residual_repeatable": "bitwise, two calls of every proj_residual check",
+          "qkv_attention_fp32_repeatable": "bitwise, two calls of every qkv_attention[fp32] check",
           "tolerance": {"bf16 compute": {k: f"|kernel-plain| <= {a} + {KERNEL_RTOL}*|plain|"
                                          for k, a in Q8_KERNEL_ATOL.items()},
                         "fp32 compute": f"|kernel-plain| <= {F32_ATOL} + {F32_RTOL}*|plain|"},
@@ -605,12 +624,15 @@ def fused_kernel_phase(dev, seed: int):
             raise AssertionError(f"{name} {what}: max abs err {e} over tolerance")
         worst[name] = max(worst.get(name, 0.0), e)
 
-    for n in (40, 48, 128, 361):
+    for n in ATTN_N:
         for kind in ("bert", "all", "open", "flag0"):
             q, k, v, kb = attn_case(n, kind)
             out = fa.fused_attention(q, k, v, kb)
+            again = fa.fused_attention(q, k, v, kb)
             torch.cuda.synchronize()
             check("attention", out, fa.fused_attention_plain(q, k, v, kb), f"N={n} mask={kind}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"attention N={n} mask={kind}: a second call differs")
     for n in MLP_N:
         for x_dtype in (torch.bfloat16, torch.float32):
             x, g, be, w1, b1, w2, b2 = mlp_case(n, x_dtype)
@@ -629,9 +651,10 @@ def fused_kernel_phase(dev, seed: int):
             if not torch.equal(out, again):
                 raise AssertionError(f"fc2_bias {what}: a second call differs "
                                      f"(max {float((out.float() - again.float()).abs().max())})")
-    emit({"phase": "fused_kernel_check", "attention_N": [40, 48, 128, 361],
+    emit({"phase": "fused_kernel_check", "attention_N": list(ATTN_N),
           "attention_masks": ["bert", "all", "open", "flag0"], "ln_mlp_N": list(MLP_N),
           "fc2_bias_repeatable": "bitwise, two calls at every ln_mlp shape",
+          "attention_repeatable": "bitwise, two calls at every attention check",
           "x_dtypes": ["bf16", "fp32"],
           "tolerance": {k: f"|kernel-plain| <= {KERNEL_ATOL[k]} + {KERNEL_RTOL}*|plain|"
                         for k in worst},

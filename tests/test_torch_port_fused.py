@@ -358,10 +358,16 @@ def _bert_qkv(n, dev, b=1, h=12, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mask", ["bert", "all", "vit", "open"])
-@pytest.mark.parametrize("n", [40, 48, 128, 361])
-def test_cuda_attention_matches_plain(cuda, n, mask):
-    q, k, v = _bert_qkv(n, cuda, b=2)
-    kb = _t(_key_bias(2, n, mask, np.random.default_rng(n))).to(cuda)
+@pytest.mark.parametrize("h", [12, 16])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("n", [40, 48, 63, 64, 65, 128, 321, 361, 681])
+def test_cuda_attention_matches_plain(cuda, n, b, h, mask):
+    """Kernel #3 on the wgmma body (csrc/attention.cuh) in BERT's strided
+    layout at ragged N, B in {1, 2}, H in {12, 16} (C = 768 and 1024), with
+    an all-masked row (mask "all", batch element 0); the head-major
+    contiguous layout gives the same numbers."""
+    q, k, v = _bert_qkv(n, cuda, b=b, h=h, seed=n + h)
+    kb = _t(_key_bias(b, n, mask, np.random.default_rng(n + b))).to(cuda)
     build.reset_launch_counts()
     out = fa.fused_attention(q, k, v, kb)
     torch.cuda.synchronize()
@@ -373,6 +379,27 @@ def test_cuda_attention_matches_plain(cuda, n, mask):
     # the head-major contiguous layout gives the same numbers
     hm = [t.contiguous() for t in (q, k, v)]
     torch.testing.assert_close(fa.fused_attention(*hm, kb).float(), out.float(), rtol=0, atol=0)
+
+
+# (N, the cluster split csrc/attention.cuh's rule picks at B=1, H=12)
+SPLIT_CASES = [(40, 1), (681, 2), (361, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,split", SPLIT_CASES, ids=[f"N{n}-split{s}" for n, s in SPLIT_CASES])
+def test_cuda_attention_is_deterministic(cuda, n, split):
+    """Two calls of kernel #3 are bitwise equal at shapes where the rule
+    keeps the keys in one block (split 1) and splits them over clusters of
+    2 and 3 blocks (the partials summed in rank order), and each matches
+    the plain version."""
+    q, k, v = _bert_qkv(n, cuda, seed=split)
+    kb = _t(_key_bias(1, n, "bert", np.random.default_rng(n))).to(cuda)
+    first = fa.fused_attention(q, k, v, kb)
+    second = fa.fused_attention(q, k, v, kb)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.float(), fa.fused_attention_plain(q, k, v, kb).float(),
+                               atol=GPU_ATOL["attention"], rtol=GPU_RTOL)
 
 
 @pytest.mark.gpu

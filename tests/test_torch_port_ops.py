@@ -367,6 +367,80 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         lqa.qkv_attention(qkv, kb, 24)  # head dim 32
 
 
+# fp32 compute (the fp32 attention body, three bf16 hi/lo passes a product):
+# |diff| <= 2e-4 + 2e-4 * |plain|, fp32 sums in another order (the passes
+# keep 2^-17 of each operand), as tests/test_torch_port_quant.py
+GPU_F32_TOL = 2e-4
+
+
+def _qkv_attention_case(b, n, heads, mask, dtype, dev, seed=0):
+    """qkv (B, N, 3*H*64) from a normal draw, in the body's type, and its
+    (B, N) key bias: the masks of _ln_case (random, tail, open) or all: every
+    key of batch element 0 at -1e10 (the row averages v), random on the
+    rest."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(b, n, 3 * heads * 64)).astype(np.float32)
+    masked = np.zeros((b, n), bool)
+    if mask in ("random", "all"):
+        masked = rng.random((b, n)) < 0.3
+        masked[:, 0] = False
+    elif mask == "tail":
+        masked[:, -min(40, n - 1):] = True
+    if mask == "all":
+        masked[0] = True
+    kb = np.where(masked, -1e10, 0.0).astype(np.float32)
+    dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+    return _t(qkv).to(dev, dt), _t(kb).to(dev)
+
+
+def _attention_close(out, ref, dtype):
+    if dtype == "fp32":
+        torch.testing.assert_close(out, ref, atol=GPU_F32_TOL, rtol=GPU_F32_TOL)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=GPU_ATTN_ATOL, rtol=GPU_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("mask", ["random", "tail", "open", "all"])
+@pytest.mark.parametrize("heads", [12, 16])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("n", [40, 63, 64, 65, 128, 321, 361, 681])
+def test_cuda_qkv_attention_bodies_match_plain(cuda, n, b, heads, mask, dtype):
+    """Both wgmma attention bodies (csrc/attention.cuh) from the fused qkv
+    layout at ragged N (one key and one query row past a 64-row tile at 65,
+    one short at 63), B = 2 (the next element's rows must never enter a
+    tile), C = 768 and UVLTrack-L's C = 1024, with an all-masked row."""
+    qkv, kb = _qkv_attention_case(b, n, heads, mask, dtype, cuda, seed=n + heads + b)
+    build.reset_launch_counts()
+    out = lqa.qkv_attention(qkv, kb, heads)
+    torch.cuda.synchronize()
+    assert build.instantiation_counts() == {f"qkv_attention[{dtype}]": 1}
+    assert out.shape == (b, n, heads * 64) and out.dtype == qkv.dtype
+    _attention_close(out, lqa.qkv_attention_plain(qkv, kb, heads), dtype)
+
+
+# (N, the cluster split csrc/attention.cuh's rule picks at B=1, H=12 in
+# both types)
+SPLIT_CASES = [(128, 1), (681, 2), (361, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,split", SPLIT_CASES, ids=[f"N{n}-split{s}" for n, s in SPLIT_CASES])
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_cuda_qkv_attention_is_deterministic(cuda, dtype, n, split):
+    """Two calls of each body are bitwise equal at shapes where the rule
+    keeps the keys in one block (split 1) and splits them over clusters of
+    2 and 3 blocks (the partials summed in rank order; N=361 is the main
+    path's joint blocks), and each matches the plain version."""
+    qkv, kb = _qkv_attention_case(1, n, 12, "tail", dtype, cuda, seed=split)
+    first = lqa.qkv_attention(qkv, kb, 12)
+    second = lqa.qkv_attention(qkv, kb, 12)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _attention_close(first, lqa.qkv_attention_plain(qkv, kb, 12), dtype)
+
+
 # A fresh process (the backend at its default), a bf16 model of 4 blocks at
 # C=128, 2 heads (head dim 64) and 128/256 px crops (N=321, then 329 with the
 # text), made from the modules without build_model and moved with .cuda().

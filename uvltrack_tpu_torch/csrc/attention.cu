@@ -8,12 +8,13 @@
 //   e   = exp(clip(q . k * D^-1/2 + key_bias, -80, 80))
 //   out = bf16( (bf16(e) . v) * (1 / sum_k e) )
 //
-// The kernel is csrc/attention.cuh's, shared with csrc/qkv_attention.cu;
-// this source only binds it to three separate base pointers. q, k and v
-// carry (batch, token, head) strides, so BERT's view(B, N, H, D) of its
-// (B, N, C) query/key/value products needs no transpose copy; the output is
-// (B, N, H, D) contiguous, which the wrapper returns as a (B, H, N, D) view.
-// An all-masked key row (BERT's text mask all 0 in BBOX mode: bias -10000
+// The kernel is csrc/attention.cuh's bf16 TMA + wgmma body, shared with
+// csrc/qkv_attention.cu; this source only binds it to three separate base
+// pointers. q, k and v carry (batch, token, head) strides, which its 4-D
+// tensor maps take as they are, so BERT's view(B, N, H, D) of its (B, N, C)
+// query/key/value products needs no transpose copy; the output is (B, N, H,
+// D) contiguous, which the wrapper returns as a (B, H, N, D) view. An
+// all-masked key row (BERT's text mask all 0 in BBOX mode: bias -10000
 // everywhere) clamps every score to -80, so every key gets e^-80 and the
 // row is the uniform average of v, as in the Pallas kernel.
 //
@@ -21,7 +22,8 @@
 // read once and each output written once: 4.9 MFLOP against 3 x 61 KB of
 // bf16 q, k, v, 160 B of bias and 61 KB out (~0.07 us at 3.35 TB/s, ~0.005
 // us of operations): the bytes bound it, and at this size any kernel is
-// bound by its launch (a few us). Grid (2 query tiles, 12 heads, B) at N=40.
+// bound by its launch and one load round trip (a few us). At N=40 the grid
+// is one query tile and one key tile a head (12 blocks, no split).
 #include "attention.cuh"
 
 // q, k, v: bf16 with element (b, n, h, d) at base + b*sb + n*sn + h*sh + d;
@@ -31,10 +33,11 @@
 extern "C" int uvl_attention(const void* q, const void* k, const void* v, long long sb,
                              int sn, int sh, const float* key_bias, void* out, int B, int N,
                              int H, int head_dim, float scale, void* stream) {
-  if (head_dim != attn::D) return static_cast<int>(cudaErrorInvalidValue);
-  launch_attention_bf16(static_cast<const uvl::bf16*>(q), static_cast<const uvl::bf16*>(k),
-                        static_cast<const uvl::bf16*>(v), sb, sn, sh, key_bias,
-                        static_cast<uvl::bf16*>(out), B, N, H, scale,
-                        static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  using uvl::bf16;
+  if (head_dim != uvl::attn::D) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = uvl::attn::launch_attention<bf16>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), sb,
+      sn, sh, key_bias, static_cast<bf16*>(out), B, N, H, scale,
+      static_cast<cudaStream_t>(stream));
+  return err ? err : static_cast<int>(cudaGetLastError());
 }

@@ -71,10 +71,10 @@
 // tile) are zero-filled the same way and not stored.
 //
 // Host side: each operand's TMA descriptor (cuTensorMapEncodeTiled, linked
-// from libcuda with -lcuda) is encoded once per (pointer, type, rows,
-// columns, box rows) and cached, so the weights' descriptors cost no host
-// time after the first call; it goes to the kernel as a __grid_constant__
-// parameter. Dynamic shared memory above 48 KB is opted into with
+// from libcuda with -lcuda) is encoded once per (pointer, type, shape, box)
+// and cached (cached_map, which csrc/attention.cuh shares), so the weights'
+// descriptors cost no host time after the first call; it goes to the kernel
+// as a __grid_constant__ parameter. Dynamic shared memory above 48 KB is opted into with
 // cudaFuncSetAttribute, once per instantiation and size. A launcher returns a
 // refusal (an unsupported shape, a descriptor or attribute error) before it
 // launches, else 0; the C entry points then return cudaGetLastError().
@@ -82,10 +82,10 @@
 
 #include <cuda.h>
 
+#include <array>
 #include <cstring>
 #include <map>
 #include <mutex>
-#include <tuple>
 #include <type_traits>
 
 #include "common.cuh"
@@ -821,29 +821,37 @@ struct TmaType<float> {
   static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
 
-// The TMA descriptor of a row-major (rows, cols) matrix of T read in boxes of
-// box_rows x 64 values: bf16 with the 128-byte swizzle wgmma reads, int8
-// and fp32 unswizzled (the consumers convert them). Encoded once per key and
-// cached (weights never move; an activation's key repeats whenever the
-// allocator hands its buffer out again).
-template <typename T>
-inline int tensor_map(const T* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows,
-                      CUtensorMap* map) {
-  using Key = std::tuple<uintptr_t, int, uint64_t, uint64_t, uint32_t>;
+// The TMA descriptor of a rank-R tensor of T at ptr (dims and box in
+// elements, innermost first; strides in bytes of dims 1..R-1): bf16 with the
+// 128-byte swizzle wgmma reads, int8 and fp32 unswizzled (the consumers
+// convert them). Encoded once per (pointer, type, dims, strides, box) and
+// cached: weights never move, and an activation's key repeats whenever the
+// allocator hands its buffer out again. The cache holds only what the
+// arguments determine, so libraries that share it (see below) agree on it;
+// it is cleared at 4096 entries, which bounds a long-lived process's.
+template <typename T, int R>
+inline int cached_map(const T* ptr, const cuuint64_t (&dims)[R], const cuuint64_t (&strides)[R - 1],
+                      const cuuint32_t (&box)[R], CUtensorMap* map) {
+  using Key = std::array<uint64_t, 3 * R + 1>;  // ptr, type, dims, strides, box
   static std::mutex mu;
   static std::map<Key, CUtensorMap> cache;
-  const Key key{reinterpret_cast<uintptr_t>(ptr), static_cast<int>(TmaType<T>::value), rows,
-                cols, box_rows};
+  Key key{};
+  key[0] = reinterpret_cast<uintptr_t>(ptr);
+  key[1] = static_cast<uint64_t>(TmaType<T>::value);
+  for (int i = 0; i < R; ++i) {
+    key[2 + i] = dims[i];
+    key[2 + R + i] = box[i];
+    if (i + 1 < R) key[2 + 2 * R + i] = strides[i];
+  }
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it == cache.end()) {
+    if (cache.size() >= 4096) cache.clear();
     CUtensorMap m;
-    const cuuint64_t dims[2] = {cols, rows};
-    const cuuint64_t strides[1] = {cols * sizeof(T)};
-    const cuuint32_t box[2] = {BK, box_rows};
-    const cuuint32_t elem[2] = {1, 1};
+    cuuint32_t elem[R];
+    for (int i = 0; i < R; ++i) elem[i] = 1;
     const CUresult r = cuTensorMapEncodeTiled(
-        &m, TmaType<T>::value, 2, const_cast<T*>(ptr), dims, strides, box, elem,
+        &m, TmaType<T>::value, R, const_cast<T*>(ptr), dims, strides, box, elem,
         CU_TENSOR_MAP_INTERLEAVE_NONE,
         sizeof(T) == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -852,6 +860,13 @@ inline int tensor_map(const T* ptr, uint64_t rows, uint64_t cols, uint32_t box_r
   }
   std::memcpy(map, &it->second, sizeof(CUtensorMap));
   return 0;
+}
+
+// A row-major (rows, cols) matrix of T read in boxes of box_rows x 64 values
+template <typename T>
+inline int tensor_map(const T* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows,
+                      CUtensorMap* map) {
+  return cached_map<T, 2>(ptr, {cols, rows}, {cols * sizeof(T)}, {BK, box_rows}, map);
 }
 
 // cudaFuncSetAttribute for the dynamic shared memory a launch needs, made
@@ -869,6 +884,12 @@ inline int allow_smem(F* kernel, int bytes, int& allowed) {
 }
 
 constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
+
+// The launchers have internal linkage: each keeps its kernel's opted-in
+// shared-memory size in a static, and a static of an inline function would
+// otherwise be one object across every loaded library that instantiates it
+// (GNU unique symbols), while each library's kernel needs its own opt-in.
+namespace {
 
 // LN kinds: out (M, N_out) = TO(EPI(LN(x) . W^T (* s) + b)); W (N_out, C)
 // bf16, or int8 with its per-row scale s
@@ -926,5 +947,6 @@ inline int launch_splitk_gemm(const TA* a, const TW* w, const float* wscale, con
   return 0;
 }
 
+}  // namespace
 }  // namespace sm90
 }  // namespace uvl

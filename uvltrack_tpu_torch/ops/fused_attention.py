@@ -12,11 +12,12 @@ more; the port's attention_core gates it the same way.
     e   = exp(clip(q . k * D^-1/2 + key_bias, -80, 80))    fp32
     out = (v.dtype(e) . v) * (1 / sum_k e)                 fp32 sums, out in v's dtype
 
-The kernel (csrc/attention.cu) is csrc/attention.cuh's bf16 kernel, which
-csrc/qkv_attention.cu (kernel #2) shares; it takes q, k and v with their
-(batch, token, head) strides, so BERT's (B, H, N, D) views of its (B, N, C)
-products go in without a copy, and writes (B, N, H, D), returned as a
-(B, H, N, D) view. bf16 and D = 64 only, as the other attention wrappers.
+The kernel (csrc/attention.cu) is csrc/attention.cuh's bf16 TMA + wgmma
+body, which csrc/qkv_attention.cu (kernel #2) shares; its tensor maps take
+q, k and v with their (batch, token, head) strides, so BERT's (B, H, N, D)
+views of its (B, N, C) products go in without a copy, and it writes (B, N,
+H, D), returned as a (B, H, N, D) view. bf16 and D = 64 only, as the other
+attention wrappers.
 
 The wrapper checks, launches and counts through ops/build.py; a CPU tensor
 takes the plain version, which follows _attn_kernel's rounding points and is

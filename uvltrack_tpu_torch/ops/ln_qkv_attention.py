@@ -15,9 +15,11 @@ of the H100's 132 SMs, so the port splits each in two kernels
   core of csrc/gemm_sm90.cuh (the 64 normalized rows of a block in shared
   memory once, so C <= 1024; an int8 W streams as bytes and is converted to
   bf16 in shared memory).
-- `qkv_attention`: per (query tile, head, batch) block,
-  exp(clip(q.k*D^-1/2 + key_bias, +-80)), fp32 row sums, P.V, division at
-  the end; out (B, N, C) before the output projection.
+- `qkv_attention`: the TMA + wgmma attention body of csrc/attention.cuh,
+  one block per (64-row query tile, head, batch element), the keys split
+  over a cluster of up to 3 blocks: exp(clip(q.k*D^-1/2 + key_bias, +-80)),
+  fp32 row sums, P.V, division at the end; out (B, N, C) before the output
+  projection. In fp32 every product runs as three bf16 hi/lo passes.
 
 Compute dtype, as in the Pallas kernels: the bf16-weight kernel (#1)
 computes in the weight's dtype, bf16, whatever x is. The int8 kernel (#5)

@@ -2,13 +2,26 @@
 (`ln_qkv` with bf16 and int8 weights, `proj_residual` in its four
 instantiations, `ln_fc1_gelu`, `fc2_bias`) and their library yardsticks at the
 tracking step's two shapes (N=321 with a bf16 stream, N=361 with an fp32
-one), for A/B runs of two checkouts on one card.
+one), and of the attention bodies beside SDPA (`qkv_attention[bf16]` at
+N=321 open and N=361 flag-0, `qkv_attention[fp32]` at N=361 flag-0,
+`attention[bf16]` at BERT's N=40 and N=128), for A/B runs of two checkouts
+on one card. Also the eager time per call, host included, of the attention
+bodies, of the compositions #1, #4, #5 and #6 (two or three launches each)
+and, as controls, of `ln_qkv` and `proj_residual` alone.
 
     python uvltrack_tpu_torch/tools/gemm_ab.py [--root DIR] [--label NAME]
+        [--eager-only]
 
 --root: the checkout whose uvltrack_tpu_torch is timed (default: the one
-holding this script), built into DIR/build/kernels. The timer is
-chip_smoke.py's graph_time_ms. Prints one JSON line; times in ms.
+holding this script), built into DIR/build/kernels. The timers are
+chip_smoke.py's graph_time_ms ("times", device ms a call) and, under
+"eager", two per function, each taken EAGER_REPS times and given as [min,
+median, max]: "ms", chip_smoke.py's cuda_time_ms (200 back-to-back eager
+calls between two CUDA events: the host's time where it exceeds the
+device's), and "host_ms", the host's wall clock over 200 calls that nothing
+synchronizes (the launch queue holds them all, so the device's time does
+not show). --eager-only skips the device times. Prints one JSON line; times
+in ms.
 """
 
 from __future__ import annotations
@@ -16,9 +29,36 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
+EAGER_REPS = 7
+
+
+def host_ms(fn, iters: int = 200) -> float:
+    """The host's wall-clock ms a call over `iters` unsynchronized calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
+def eager_ms(fn) -> dict:
+    """{"ms", "host_ms"}: [min, median, max] of EAGER_REPS timings of fn."""
+    from chip_smoke import cuda_time_ms
+
+    def spread(timer):
+        ts = sorted(timer(fn) for _ in range(EAGER_REPS))
+        return [ts[0], ts[len(ts) // 2], ts[-1]]
+
+    return {"ms": spread(cuda_time_ms), "host_ms": spread(host_ms)}
 
 
 def main() -> int:
@@ -26,6 +66,7 @@ def main() -> int:
     ap.add_argument("--root", default=str(REPO))
     ap.add_argument("--label", default="")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eager-only", action="store_true")
     args = ap.parse_args()
     sys.path[:0] = [args.root, str(REPO)]
 
@@ -48,7 +89,9 @@ def main() -> int:
     def arr(a, dt=torch.float32):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
 
-    out = {"label": args.label, "root": args.root, "device": nvidia_smi(), "times": {}}
+    out = {"label": args.label, "root": args.root, "device": nvidia_smi(), "times": {},
+           "eager": {}}
+    heads = c // 64
     for n, xdt in ((321, torch.bfloat16), (361, torch.float32)):
         x = arr(rng.normal(size=(1, n, c)), xdt)
         g, be = arr(1 + 0.1 * rng.normal(size=c)), arr(0.1 * rng.normal(size=c))
@@ -92,9 +135,100 @@ def main() -> int:
             f"proj_residual[{xt}x-{xt}a-int8w] library":
                 lambda: torch.add(x, F.linear(attn, wpd, bp.to(xdt))),
         }
-        out["times"][f"N{n}"] = {k: graph_time_ms(fn)[0] for k, fn in fns.items()}
+        if not args.eager_only:
+            out["times"][f"N{n}"] = {k: graph_time_ms(fn)[0] for k, fn in fns.items()}
+        # the main path's masks: nothing at N=321, the 40 text keys at N=361
+        kb = torch.zeros((1, n), device=dev)
+        kb[:, 321:] = -1e10
+        qkv = lqa.ln_qkv(x, g, be, wq, bq)
+        eager = {
+            "ln_qkv": fns["ln_qkv"],
+            f"proj_residual[{xt}x-bf16a-bf16w]": fns[f"proj_residual[{xt}x-bf16a-bf16w]"],
+            "qkv_attention[bf16]": lambda: lqa.qkv_attention(qkv, kb, heads),
+            "#1 ln_qkv_attention": lambda: lqa.ln_qkv_attention(x, g, be, wq, bq, kb, heads),
+            "#4 ln_qkv_attn_proj":
+                lambda: lqp.ln_qkv_attn_proj(x, g, be, wq, bq, wp, bp, kb, heads),
+            f"#5 ln_qkv_attention_q8[{xt}x]":
+                lambda: lqa.ln_qkv_attention_q8(x, g, be, wqq.q, wqq.scale, bq, kb, heads),
+            f"#6 ln_qkv_attn_proj_q8[{xt}x]":
+                lambda: lqp.ln_qkv_attn_proj_q8(x, g, be, wqq.q, wqq.scale, bq, wpq.q, wpq.scale,
+                                                bp, kb, heads),
+        }
+        if xdt == torch.float32:
+            qkv32 = qkv.float()
+            eager["qkv_attention[fp32]"] = lambda: lqa.qkv_attention(qkv32, kb, heads)
+        out["eager"][f"N{n}"] = {k: eager_ms(fn) for k, fn in eager.items()}
+    if not args.eager_only:
+        out["times"]["attention"] = attention_times(args.seed)
+    out["eager"]["attention"] = attention_eager(args.seed)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def attention_times(seed: int) -> dict:
+    """{name: device ms} of the attention bodies and SDPA on the same inputs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import graph_time_ms
+    from uvltrack_tpu_torch.ops import fused_attention as fa
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+
+    dev, heads, c = torch.device("cuda"), 12, 768
+    rng = np.random.default_rng(seed + 3)
+
+    def timed(name, kern, lib):
+        return {name: graph_time_ms(kern)[0], f"{name} library": graph_time_ms(lib)[0]}
+
+    times = {}
+    for n, masked, dt in ((321, 0, torch.bfloat16), (361, 40, torch.bfloat16),
+                          (361, 40, torch.float32)):
+        qkv = torch.from_numpy(rng.normal(size=(1, n, 3 * c)).astype(np.float32)).to(dev, dt)
+        kb = torch.zeros((1, n), device=dev)
+        kb[:, n - masked:] = -1e10
+        mask = kb.to(dt)[:, None, None, :]
+
+        def sdpa(qkv=qkv, mask=mask, n=n):
+            q, k, v = qkv.view(1, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        tag = "bf16" if dt == torch.bfloat16 else "fp32"
+        times.update(timed(f"qkv_attention[{tag}] N={n} {'flag0' if masked else 'open'}",
+                           lambda qkv=qkv, kb=kb: lqa.qkv_attention(qkv, kb, heads), sdpa))
+    for n in (40, 128):
+        q, k, v = (torch.from_numpy(rng.normal(size=(1, n, c)).astype(np.float32))
+                   .to(dev, torch.bfloat16).view(1, n, heads, 64).transpose(1, 2)
+                   for _ in range(3))
+        kb = torch.zeros((1, n), device=dev)
+        kb[:, int(rng.integers(5, n)):] = -10000.0
+        mask = kb.to(torch.bfloat16)[:, None, None, :]
+        times.update(timed(f"attention[bf16] N={n}",
+                           lambda q=q, k=k, v=v, kb=kb: fa.fused_attention(q, k, v, kb),
+                           lambda q=q, k=k, v=v, mask=mask:
+                           F.scaled_dot_product_attention(q, k, v, attn_mask=mask)))
+    return times
+
+
+def attention_eager(seed: int) -> dict:
+    """{name: eager_ms} of kernel #3 at BERT's N=40 and N=128, in its
+    strided layout."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.ops import fused_attention as fa
+
+    dev, heads, c = torch.device("cuda"), 12, 768
+    rng = np.random.default_rng(seed + 4)
+    out = {}
+    for n in (40, 128):
+        q, k, v = (torch.from_numpy(rng.normal(size=(1, n, c)).astype(np.float32))
+                   .to(dev, torch.bfloat16).view(1, n, heads, 64).transpose(1, 2)
+                   for _ in range(3))
+        kb = torch.zeros((1, n), device=dev)
+        kb[:, int(rng.integers(5, n)):] = -10000.0
+        out[f"attention[bf16] N={n}"] = eager_ms(lambda: fa.fused_attention(q, k, v, kb))
+    return out
 
 
 if __name__ == "__main__":
