@@ -9,7 +9,11 @@ Phases, one JSON line each:
   2. kernel   -- each CUDA kernel (and the pair as the fused LN+qkv+attention
                  op) against its plain PyTorch version on the card in bf16 at
                  N in {48, 321, 361, 681} under flag-0 / flag-2 / open key
-                 masks, qkv_attention called twice (bitwise equal: the keys'
+                 masks, and again at batches 4 and 8 (LOCKSTEP_S, the
+                 multistream phase's S, a key mask a row) at the main path's
+                 two shapes (every phase 2 check below is repeated there, and
+                 every time at batch 8; #3 at N=40), qkv_attention called
+                 twice (bitwise equal: the keys'
                  cluster split is summed in rank order); CUDA-event times
                  (a kernel that fails under CUDA-graph capture fails the
                  run) of kernel, plain version and the
@@ -55,6 +59,20 @@ Phases, one JSON line each:
                  per initialize (6 BERT layers in the grounding forward, the
                  prompt init and encode_text), none per frame; the
                  grounding box and paired_ab kernel vs plain.
+     multistream -- BatchTracker at S = 1, 4 (BBOX and NLBBOX streams, one
+                 8 frames shorter, frozen) and 8 (the mix and an NL stream),
+                 32 steps, and S=4 with int8 weights, 16 steps; the batched
+                 eval runner over the S=4 streams (frames handed over in
+                 memory); a StreamPool of 4 slots (opens at rounds 0, 3, 7,
+                 a close and a reuse at 12, a stream frozen for 2 rounds),
+                 24 rounds. Checked: launches per batched forward and per
+                 initialize equal the single-stream counts, re-mines every
+                 20 frames; every step from a shared state, each row of the
+                 kernel step against the plain step and against a single
+                 Tracker stepped from that row (paired_ab's rule); NL
+                 streams' grounding against a single Tracker's. Reported:
+                 stream-frames/s, step p50/p90, peak memory, and device time,
+                 device ops and busy share per step (profile_window).
      q8_drift -- the int8 tracker against the bf16 one, each frame stepped
                  from the bf16 tracker's state: per-frame IoU and the share
                  of frames on the same cell (reported, not gated: the
@@ -62,7 +80,9 @@ Phases, one JSON line each:
   4. reference -- one step's model outputs on the card against the same
                  weights and inputs on the CPU (cpu_reference), for the bf16
                  and the int8 model, and the grounding forward's (bf16).
-Then the {"kernels": [...]} line, the nvidia-smi name/power-limit line and,
+Then the script's total seconds, the {"kernels": [...]} line (each
+kernel's times at B=1 and, under "B8", at the lockstep batch), the
+nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failure raises: no ok line, exit 1.
 Without a CUDA card, or outside a checkout, it exits 2 and prints no result.
 """
@@ -229,6 +249,33 @@ def key_mask(n: int, kind: str, rng):
     return m
 
 
+def key_masks(b: int, n: int, kind: str, rng):
+    """(B, N) masks, one key_mask a row (flag2 draws each row's padding)."""
+    import numpy as np
+
+    return np.concatenate([key_mask(n, kind, rng) for _ in range(b)])
+
+
+# the batches of the kernel checks at B > 1: every S > 1 of the multistream
+# phase (its S4, S4_q8 and pool cells run at 4, S8 at 8); the timings at B > 1
+# are taken at the largest
+LOCKSTEP_S = (4, 8)
+LOCKSTEP_B = max(LOCKSTEP_S)
+GRID_DOC = (f"B=1: N in {{48, 321, 361, 681}} x 3 masks x {{bf16, fp32}} x; B in {LOCKSTEP_S}: "
+            "the main path's shapes, N=321 bf16 x and N=361 fp32 x, x 3 masks, a mask a row")
+
+
+def check_grid():
+    """(B, N, mask, x dtype) of every kernel check: the B=1 grid, then the
+    main path's two shapes at each lockstep batch."""
+    import torch
+
+    masks, dtypes = ("flag0", "flag2", "open"), (torch.bfloat16, torch.float32)
+    grid = [(1, n, kind, dt) for n in (48, 321, 361, 681) for kind in masks for dt in dtypes]
+    return grid + [(b, n, kind, dt) for b in LOCKSTEP_S
+                   for n, dt in ((321, dtypes[0]), (361, dtypes[1])) for kind in masks]
+
+
 def kernel_phase(dev, seed: int):
     import numpy as np
     import torch
@@ -239,14 +286,14 @@ def kernel_phase(dev, seed: int):
     c, heads = 768, 12
     rng = np.random.default_rng(seed)
 
-    def case(n, kind, x_dtype):
-        x = torch.from_numpy(rng.normal(size=(1, n, c)).astype(np.float32)).to(dev, x_dtype)
+    def case(n, kind, x_dtype, b=1):
+        x = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(dev, x_dtype)
         g = torch.from_numpy((1 + 0.1 * rng.normal(size=c)).astype(np.float32)).to(dev)
         be = torch.from_numpy((0.1 * rng.normal(size=c)).astype(np.float32)).to(dev)
         w = torch.from_numpy((rng.normal(size=(3 * c, c)) / np.sqrt(c)).astype(np.float32))
         w = w.to(dev, torch.bfloat16)
         wb = torch.from_numpy((0.02 * rng.normal(size=3 * c)).astype(np.float32)).to(dev)
-        kb = torch.from_numpy(np.where(key_mask(n, kind, rng), -1e10, 0.0)
+        kb = torch.from_numpy(np.where(key_masks(b, n, kind, rng), -1e10, 0.0)
                               .astype(np.float32)).to(dev)
         return x, g, be, w, wb, kb
 
@@ -256,63 +303,59 @@ def kernel_phase(dev, seed: int):
         return float((a - b).abs().max()), ok
 
     worst = {"ln_qkv": 0.0, "qkv_attention": 0.0, "ln_qkv_attention": 0.0}
-    for n in (48, 321, 361, 681):
-        for kind in ("flag0", "flag2", "open"):
-            for x_dtype in (torch.bfloat16, torch.float32):
-                x, g, be, w, wb, kb = case(n, kind, x_dtype)
-                qkv = lqa.ln_qkv(x, g, be, w, wb)
-                out = lqa.qkv_attention(qkv, kb, heads)
-                again = lqa.qkv_attention(qkv, kb, heads)
-                torch.cuda.synchronize()
-                # the keys' cluster split summed in rank order: the same bits
-                if not torch.equal(out, again):
-                    raise AssertionError(f"qkv_attention N={n} mask={kind}: a second call "
-                                         "differs (not bitwise repeatable)")
-                checks = {
-                    "ln_qkv": err("ln_qkv", qkv, lqa.ln_qkv_plain(x, g, be, w, wb)),
-                    "qkv_attention": err("qkv_attention", out,
-                                         lqa.qkv_attention_plain(qkv, kb, heads)),
-                    "ln_qkv_attention": err("ln_qkv_attention", out, lqa.ln_qkv_attention_plain(
-                        x, g, be, w, wb, kb, heads)),
-                }
-                for name, (e, ok) in checks.items():
-                    if not ok:
-                        raise AssertionError(f"{name} N={n} mask={kind} x={x_dtype}: "
-                                             f"max abs err {e} over tolerance")
-                    worst[name] = max(worst[name], e)
-    emit({"phase": "kernel_check", "shapes_N": [48, 321, 361, 681],
-          "masks": ["flag0", "flag2", "open"], "x_dtypes": ["bf16", "fp32"],
+    for b, n, kind, x_dtype in check_grid():
+        x, g, be, w, wb, kb = case(n, kind, x_dtype, b)
+        qkv = lqa.ln_qkv(x, g, be, w, wb)
+        out = lqa.qkv_attention(qkv, kb, heads)
+        again = lqa.qkv_attention(qkv, kb, heads)
+        torch.cuda.synchronize()
+        # the keys' cluster split summed in rank order: the same bits
+        if not torch.equal(out, again):
+            raise AssertionError(f"qkv_attention B={b} N={n} mask={kind}: a second call "
+                                 "differs (not bitwise repeatable)")
+        checks = {
+            "ln_qkv": err("ln_qkv", qkv, lqa.ln_qkv_plain(x, g, be, w, wb)),
+            "qkv_attention": err("qkv_attention", out, lqa.qkv_attention_plain(qkv, kb, heads)),
+            "ln_qkv_attention": err("ln_qkv_attention", out, lqa.ln_qkv_attention_plain(
+                x, g, be, w, wb, kb, heads)),
+        }
+        for name, (e, ok) in checks.items():
+            if not ok:
+                raise AssertionError(f"{name} B={b} N={n} mask={kind} x={x_dtype}: "
+                                     f"max abs err {e} over tolerance")
+            worst[name] = max(worst[name], e)
+    emit({"phase": "kernel_check", "grid": GRID_DOC,
           "qkv_attention_repeatable": "bitwise, two calls at every check",
           "tolerance": {k: f"|kernel-plain| <= {a} + {KERNEL_RTOL}*|plain|"
                         for k, a in KERNEL_ATOL.items()},
           "max_abs_err": worst})
 
-    def timed(n, kind, x_dtype):
+    def timed(n, kind, x_dtype, b=1):
         """{name: {ms, plain_ms, library_ms, bound_ms, bound_by}} at one shape.
         library_ms: one PyTorch call computing the same function where there
         is one (SDPA for the attention); for the LN+qkv half there is none,
         and its yardstick is F.layer_norm + F.linear (two calls), the
         composition's LN + linear + SDPA (three calls)."""
-        x, g, be, w, wb, kb = case(n, kind, x_dtype)
+        x, g, be, w, wb, kb = case(n, kind, x_dtype, b)
         qkv = lqa.ln_qkv(x, g, be, w, wb)
         mask = kb.to(torch.bfloat16)[:, None, None, :]
         wb16 = wb.to(torch.bfloat16)
 
         def sdpa(t):
-            q, k, v = t.view(1, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+            q, k, v = t.view(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
         def library_fused():
             y = F.layer_norm(x.float(), (c,), g, be, 1e-6).to(torch.bfloat16)
             return sdpa(F.linear(y, w, wb16))
 
-        f, xb = 3 * c, x.element_size()
+        f, xb, m = 3 * c, x.element_size(), b * n
         params = f * c * 2 + f * 4 + 2 * c * 4  # W bf16, qkv bias, LN scale/bias
         work = {  # (operations, bytes): each input read once, each output written once
-            "ln_qkv": (2 * n * c * f, n * c * xb + params + n * f * 2),
-            "qkv_attention": (4 * heads * n * n * 64, n * f * 2 + n * 4 + n * c * 2),
-            "ln_qkv_attention": (2 * n * c * f + 4 * heads * n * n * 64,
-                                 n * c * xb + params + n * 4 + n * c * 2),
+            "ln_qkv": (2 * m * c * f, m * c * xb + params + m * f * 2),
+            "qkv_attention": (4 * heads * b * n * n * 64, m * f * 2 + m * 4 + m * c * 2),
+            "ln_qkv_attention": (2 * m * c * f + 4 * heads * b * n * n * 64,
+                                 m * c * xb + params + m * 4 + m * c * 2),
         }
         def library_ln_qkv():
             y = F.layer_norm(x.float(), (c,), g, be, 1e-6).to(torch.bfloat16)
@@ -338,10 +381,12 @@ def kernel_phase(dev, seed: int):
     # the main path's two shapes: blocks 0-5 (visual, N=321, bf16 stream,
     # nothing masked in BBOX mode) and blocks 6-11 (joint, N=361, fp32
     # stream, flag-0 mask on the 40 text keys)
-    times = {"N321_bf16x_open": timed(321, "open", torch.bfloat16),
-             "N361_fp32x_flag0": timed(361, "flag0", torch.float32)}
+    times = {f"{prefix}N321_bf16x_open": timed(321, "open", torch.bfloat16, b)
+             for b, prefix in ((1, ""), (LOCKSTEP_B, f"B{LOCKSTEP_B}_"))}
+    times.update({f"{prefix}N361_fp32x_flag0": timed(361, "flag0", torch.float32, b)
+                  for b, prefix in ((1, ""), (LOCKSTEP_B, f"B{LOCKSTEP_B}_"))})
     emit({"phase": "kernel_times", "timer": TIMER, "times": times})
-    return worst, times["N361_fp32x_flag0"]
+    return worst, times
 
 
 def q8_kernel_phase(dev, seed: int):
@@ -360,16 +405,16 @@ def q8_kernel_phase(dev, seed: int):
     c, heads, f = 768, 12, 3 * 768
     rng = np.random.default_rng(seed + 1)
 
-    def case(n, kind, x_dtype):
+    def case(n, kind, x_dtype, b=1):
         def arr(a):
             return torch.from_numpy(a.astype(np.float32)).to(dev)
 
-        x = arr(rng.normal(size=(1, n, c))).to(x_dtype)
+        x = arr(rng.normal(size=(b, n, c))).to(x_dtype)
         g, be = arr(1 + 0.1 * rng.normal(size=c)), arr(0.1 * rng.normal(size=c))
         w = arr(rng.normal(size=(f, c)) / np.sqrt(c)).to(torch.bfloat16)
         wp = arr(rng.normal(size=(c, c)) / np.sqrt(c)).to(torch.bfloat16)
         wb, bp = arr(0.02 * rng.normal(size=f)), arr(0.02 * rng.normal(size=c))
-        kb = arr(np.where(key_mask(n, kind, rng), -1e10, 0.0))
+        kb = arr(np.where(key_masks(b, n, kind, rng), -1e10, 0.0))
         # the model's path: int8 payloads quantized from the bf16 weights
         return x, g, be, w, wb, wp, bp, kb, quant.quantize_weight(w), quant.quantize_weight(wp)
 
@@ -443,33 +488,29 @@ def q8_kernel_phase(dev, seed: int):
         return float((a - b).abs().max()), bool(ok)
 
     worst, proj_abs_max = {}, 0.0
-    for n in (48, 321, 361, 681):
-        for kind in ("flag0", "flag2", "open"):
-            for x_dtype in (torch.bfloat16, torch.float32):
-                args = case(n, kind, x_dtype)
-                for name, (kern, plain, tol_key) in {**checks(*args),
-                                                     **proj_only(*args)}.items():
-                    got = kern()
-                    torch.cuda.synchronize()
-                    want = plain()
-                    if got.dtype != want.dtype or got.shape != want.shape:
-                        raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} vs plain "
-                                             f"{want.dtype}{tuple(want.shape)}")
-                    e, ok = err(tol_key, got, want)
-                    if not ok:
-                        raise AssertionError(f"{name} N={n} mask={kind}: max abs err {e} "
-                                             "over tolerance")
-                    worst[name] = max(worst.get(name, 0.0), e)
-                    # split-K (split keys) summed in rank order: a second call gives
-                    # the same bits
-                    if name.startswith(("proj_residual", "qkv_attention")) and \
-                            not torch.equal(got, kern()):
-                        raise AssertionError(f"{name} N={n} mask={kind}: a second call "
-                                             "differs (not bitwise repeatable)")
-                    if name.endswith("proj only"):
-                        proj_abs_max = max(proj_abs_max, float(want.float().abs().max()))
-    emit({"phase": "q8_kernel_check", "shapes_N": [48, 321, 361, 681],
-          "masks": ["flag0", "flag2", "open"], "x_dtypes": ["bf16", "fp32"],
+    for b, n, kind, x_dtype in check_grid():
+        args = case(n, kind, x_dtype, b)
+        for name, (kern, plain, tol_key) in {**checks(*args), **proj_only(*args)}.items():
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            if got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} vs plain "
+                                     f"{want.dtype}{tuple(want.shape)}")
+            e, ok = err(tol_key, got, want)
+            if not ok:
+                raise AssertionError(f"{name} B={b} N={n} mask={kind}: max abs err {e} "
+                                     "over tolerance")
+            worst[name] = max(worst.get(name, 0.0), e)
+            # split-K (split keys) summed in rank order: a second call gives
+            # the same bits
+            if name.startswith(("proj_residual", "qkv_attention")) and \
+                    not torch.equal(got, kern()):
+                raise AssertionError(f"{name} B={b} N={n} mask={kind}: a second call "
+                                     "differs (not bitwise repeatable)")
+            if name.endswith("proj only"):
+                proj_abs_max = max(proj_abs_max, float(want.float().abs().max()))
+    emit({"phase": "q8_kernel_check", "grid": GRID_DOC,
           "proj_only_abs_max": proj_abs_max,
           "proj_residual_repeatable": "bitwise, two calls of every proj_residual check",
           "qkv_attention_fp32_repeatable": "bitwise, two calls of every qkv_attention[fp32] check",
@@ -478,43 +519,44 @@ def q8_kernel_phase(dev, seed: int):
                         "fp32 compute": f"|kernel-plain| <= {F32_ATOL} + {F32_RTOL}*|plain|"},
           "max_abs_err": worst})
 
-    def work(name, n, xb):
+    def work(name, n, xb, b=1):
         """(bf16-pass operations, bytes): each input read once, each output
-        written once; fp32-accurate products counted in bf16 passes (bound)."""
-        f32 = xb == 4
+        written once; fp32-accurate products counted in bf16 passes (bound).
+        The weights are read once for the B*N rows."""
+        f32, m = xb == 4, b * n
         ln_params = 2 * c * 4 + f * 4  # LN scale/bias, qkv bias
-        pre = (2 * n * c * f * (2 if f32 else 1),
-               n * c * xb + f * c + f * 4 + ln_params)  # + int8 W and its scale
-        att = (4 * heads * n * n * 64 * (3 if f32 else 1), n * 4)  # + key bias
-        prj_q8 = (2 * n * c * c * (2 if f32 else 1), c * c + c * 4 + c * 4)
-        prj16 = (2 * n * c * c, c * c * 2 + c * 4)
+        pre = (2 * m * c * f * (2 if f32 else 1),
+               m * c * xb + f * c + f * 4 + ln_params)  # + int8 W and its scale
+        att = (4 * heads * b * n * n * 64 * (3 if f32 else 1), m * 4)  # + key bias
+        prj_q8 = (2 * m * c * c * (2 if f32 else 1), c * c + c * 4 + c * 4)
+        prj16 = (2 * m * c * c, c * c * 2 + c * 4)
         if name.startswith("ln_qkv["):
-            return pre[0], pre[1] + n * f * xb
+            return pre[0], pre[1] + m * f * xb
         if name == "qkv_attention[fp32]":
-            return att[0], n * f * 4 + att[1] + n * c * 4
+            return att[0], m * f * 4 + att[1] + m * c * 4
         if name.startswith("proj_residual") and name.endswith("int8w]"):
-            return prj_q8[0], prj_q8[1] + 3 * n * c * xb  # x, A in x's dtype, out
+            return prj_q8[0], prj_q8[1] + 3 * m * c * xb  # x, A in x's dtype, out
         if name.startswith("proj_residual"):
-            return prj16[0], prj16[1] + 2 * n * c * xb + n * c * 2  # x, out; bf16 A
+            return prj16[0], prj16[1] + 2 * m * c * xb + m * c * 2  # x, out; bf16 A
         if name.startswith("#5"):
-            return pre[0] + att[0], pre[1] + att[1] + n * c * xb
+            return pre[0] + att[0], pre[1] + att[1] + m * c * xb
         if name.startswith("#6"):
-            return pre[0] + att[0] + prj_q8[0], pre[1] + att[1] + prj_q8[1] + n * c * xb
+            return pre[0] + att[0] + prj_q8[0], pre[1] + att[1] + prj_q8[1] + m * c * xb
         # #4: bf16 weights, bf16 compute
-        return (2 * n * c * f + 4 * heads * n * n * 64 + 2 * n * c * c,
-                n * c * xb + f * c * 2 + ln_params + n * 4 + prj16[1] + n * c * xb)
+        return (2 * m * c * f + 4 * heads * b * n * n * 64 + 2 * m * c * c,
+                m * c * xb + f * c * 2 + ln_params + m * 4 + prj16[1] + m * c * xb)
 
     def library(name, x, g, be, w, wb, wp, bp, kb, wq, wpq):
         """One PyTorch call computing the same function where there is one
         (SDPA for the fp32 attention); else the nearest composition of
         library calls, named in `library` (dense weights dequantized before
         the timing)."""
-        n = x.shape[1]
+        b, n = x.shape[0], x.shape[1]
         mask = kb.to(x.dtype)[:, None, None, :]
         wpd = wpq.materialize(x.dtype)
 
         def sdpa(t):
-            q, k, v = t.view(1, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+            q, k, v = t.view(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask.to(t.dtype))
 
         qkv = lqa.ln_qkv_q8(x, g, be, wq.q, wq.scale, wb)
@@ -541,41 +583,44 @@ def q8_kernel_phase(dev, seed: int):
                 "LN + linear + SDPA, 3 calls"
         if name.startswith("#6"):
             return lambda: torch.add(x, F.linear(sdpa(F.linear(ln(x.dtype), wqd, wb.to(x.dtype)))
-                                                 .transpose(1, 2).reshape(1, n, c), wpd,
+                                                 .transpose(1, 2).reshape(b, n, c), wpd,
                                                  bp.to(x.dtype))), \
                 "LN + linear + SDPA + linear + add, 5 calls"
         if name.startswith("#4"):
             b16 = torch.bfloat16
             return lambda: torch.add(x, F.linear(sdpa(F.linear(ln(b16), w, wb.to(b16)))
-                                                 .transpose(1, 2).reshape(1, n, c), wp,
+                                                 .transpose(1, 2).reshape(b, n, c), wp,
                                                  bp.to(b16))), \
                 "LN + linear + SDPA + linear + add, 5 calls"
         return None, "none (no one call)"
 
-    def timed(n, kind, x_dtype):
-        args = case(n, kind, x_dtype)
+    def timed(n, kind, x_dtype, b=1):
+        args = case(n, kind, x_dtype, b)
         xb = args[0].element_size()
         out = {}
         for name, (kern, plain, _) in checks(*args).items():
             lib, lib_what = library(name, *args)
-            b_ms, b_by = bound(*work(name, n, xb))
+            b_ms, b_by = bound(*work(name, n, xb, b))
             out[name] = {**timings(kern, plain, lib), "library": lib_what,
                          "bound_ms": b_ms, "bound_by": b_by}
         return out
 
-    times = {"N321_bf16x_open": timed(321, "open", torch.bfloat16),
-             "N361_fp32x_flag0": timed(361, "flag0", torch.float32)}
+    times = {}
+    for b, prefix in ((1, ""), (LOCKSTEP_B, f"B{LOCKSTEP_B}_")):
+        times[f"{prefix}N321_bf16x_open"] = timed(321, "open", torch.bfloat16, b)
+        times[f"{prefix}N361_fp32x_flag0"] = timed(361, "flag0", torch.float32, b)
     emit({"phase": "q8_kernel_times", "timer": TIMER, "times": times})
     return worst, times
 
 
 def fused_kernel_phase(dev, seed: int):
-    """Kernel #3 (`attention`, BERT's layout: three (1, N, 768) products
-    viewed as (1, 12, N, 64)) and kernel #7 (`ln_mlp`, ViT-B's MLP, C=768,
+    """Kernel #3 (`attention`, BERT's layout: three (B, N, 768) products
+    viewed as (B, 12, N, 64)) and kernel #7 (`ln_mlp`, ViT-B's MLP, C=768,
     F=3072: the pair and each launch alone) against their plain versions on
-    the card, then CUDA-event times: #3 at N=40 (BERT's length) and N=128,
-    #7 at the main path's two shapes. Returns ({name: worst error},
-    {shape: {name: times}})."""
+    the card, at B=1 and at the lockstep batch, then CUDA-event times: #3 at
+    N=40 (BERT's length) and N=128, #7 at the main path's two shapes, each
+    at B=1 and #3 at N=40 and #7 at the lockstep batch too. Returns ({name:
+    worst error}, {shape: {name: times}})."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -589,23 +634,24 @@ def fused_kernel_phase(dev, seed: int):
     def arr(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
-    def attn_case(n, kind):
+    def attn_case(n, kind, b=1):
         """bert: trailing text padding at -10000; all: every key at -10000
         (BBOX mode's empty text); open: nothing; flag0: the ViT's -1e10 on
         the trailing 40 keys."""
-        q, k, v = (arr(rng.normal(size=(1, n, c))).to(torch.bfloat16)
-                   .view(1, n, heads, 64).transpose(1, 2) for _ in range(3))
-        kb = np.zeros((1, n), np.float32)
+        q, k, v = (arr(rng.normal(size=(b, n, c))).to(torch.bfloat16)
+                   .view(b, n, heads, 64).transpose(1, 2) for _ in range(3))
+        kb = np.zeros((b, n), np.float32)
         if kind == "bert":
-            kb[:, int(rng.integers(5, n)):] = -10000.0
+            for row in kb:
+                row[int(rng.integers(5, n)):] = -10000.0
         elif kind == "all":
             kb[:] = -10000.0
         elif kind == "flag0":
-            kb = np.where(key_mask(n, "flag0", rng), -1e10, 0.0)
+            kb = np.where(key_masks(b, n, "flag0", rng), -1e10, 0.0)
         return q, k, v, arr(kb)
 
-    def mlp_case(n, x_dtype):
-        x = arr(rng.normal(size=(1, n, c))).to(x_dtype)
+    def mlp_case(n, x_dtype, b=1):
+        x = arr(rng.normal(size=(b, n, c))).to(x_dtype)
         g, be = arr(1 + 0.1 * rng.normal(size=c)), arr(0.1 * rng.normal(size=c))
         w1 = arr(rng.normal(size=(f, c)) / np.sqrt(c)).to(torch.bfloat16)
         w2 = arr(rng.normal(size=(c, f)) / np.sqrt(f)).to(torch.bfloat16)
@@ -624,38 +670,42 @@ def fused_kernel_phase(dev, seed: int):
             raise AssertionError(f"{name} {what}: max abs err {e} over tolerance")
         worst[name] = max(worst.get(name, 0.0), e)
 
-    for n in ATTN_N:
+    attn_grid = [(1, n) for n in ATTN_N] + [(b, 40) for b in LOCKSTEP_S]
+    for b, n in attn_grid:
         for kind in ("bert", "all", "open", "flag0"):
-            q, k, v, kb = attn_case(n, kind)
+            q, k, v, kb = attn_case(n, kind, b)
             out = fa.fused_attention(q, k, v, kb)
             again = fa.fused_attention(q, k, v, kb)
             torch.cuda.synchronize()
-            check("attention", out, fa.fused_attention_plain(q, k, v, kb), f"N={n} mask={kind}")
+            what = f"B={b} N={n} mask={kind}"
+            check("attention", out, fa.fused_attention_plain(q, k, v, kb), what)
             if not torch.equal(out, again):
-                raise AssertionError(f"attention N={n} mask={kind}: a second call differs")
-    for n in MLP_N:
-        for x_dtype in (torch.bfloat16, torch.float32):
-            x, g, be, w1, b1, w2, b2 = mlp_case(n, x_dtype)
-            hidden = torch.empty((n, f), dtype=torch.bfloat16, device=dev)
-            out = torch.empty((1, n, c), dtype=torch.bfloat16, device=dev)
-            lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out)
-            again = torch.empty_like(out)
-            lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, again, stages="fc2_bias")
-            torch.cuda.synchronize()
-            what = f"N={n} x={x_dtype}"
-            check("ln_fc1_gelu", hidden,
-                  lm.ln_fc1_gelu_plain(x, g, be, w1, b1).to(torch.bfloat16).view(n, f), what)
-            check("fc2_bias", out, lm.fc2_bias_plain(hidden.view(1, n, f), w2, b2), what)
-            check("ln_mlp", out, lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2), what)
-            # split-K over a cluster, reduced in rank order: bit for bit again
-            if not torch.equal(out, again):
-                raise AssertionError(f"fc2_bias {what}: a second call differs "
-                                     f"(max {float((out.float() - again.float()).abs().max())})")
-    emit({"phase": "fused_kernel_check", "attention_N": list(ATTN_N),
-          "attention_masks": ["bert", "all", "open", "flag0"], "ln_mlp_N": list(MLP_N),
+                raise AssertionError(f"attention {what}: a second call differs")
+    mlp_grid = [(1, n, dt) for n in MLP_N for dt in (torch.bfloat16, torch.float32)]
+    mlp_grid += [(b, n, dt) for b in LOCKSTEP_S
+                 for n, dt in ((321, torch.bfloat16), (361, torch.float32))]
+    for b, n, x_dtype in mlp_grid:
+        x, g, be, w1, b1, w2, b2 = mlp_case(n, x_dtype, b)
+        hidden = torch.empty((b * n, f), dtype=torch.bfloat16, device=dev)
+        out = torch.empty((b, n, c), dtype=torch.bfloat16, device=dev)
+        lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out)
+        again = torch.empty_like(out)
+        lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, again, stages="fc2_bias")
+        torch.cuda.synchronize()
+        what = f"B={b} N={n} x={x_dtype}"
+        check("ln_fc1_gelu", hidden.view(b, n, f),
+              lm.ln_fc1_gelu_plain(x, g, be, w1, b1).to(torch.bfloat16), what)
+        check("fc2_bias", out, lm.fc2_bias_plain(hidden.view(b, n, f), w2, b2), what)
+        check("ln_mlp", out, lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2), what)
+        # split-K over a cluster, reduced in rank order: bit for bit again
+        if not torch.equal(out, again):
+            raise AssertionError(f"fc2_bias {what}: a second call differs "
+                                 f"(max {float((out.float() - again.float()).abs().max())})")
+    emit({"phase": "fused_kernel_check", "attention_B_N": attn_grid,
+          "attention_masks": ["bert", "all", "open", "flag0"],
+          "ln_mlp_B_N_x": [[b, n, str(dt)] for b, n, dt in mlp_grid],
           "fc2_bias_repeatable": "bitwise, two calls at every ln_mlp shape",
           "attention_repeatable": "bitwise, two calls at every attention check",
-          "x_dtypes": ["bf16", "fp32"],
           "tolerance": {k: f"|kernel-plain| <= {KERNEL_ATOL[k]} + {KERNEL_RTOL}*|plain|"
                         for k in worst},
           "max_abs_err": worst})
@@ -665,20 +715,21 @@ def fused_kernel_phase(dev, seed: int):
         return {**timings(kern, plain, lib), "library": lib_what,
                 "bound_ms": b_ms, "bound_by": b_by}
 
-    def attn_times(n):
-        q, k, v, kb = attn_case(n, "bert")
+    def attn_times(n, b=1):
+        q, k, v, kb = attn_case(n, "bert", b)
         mask = kb.to(torch.bfloat16)[:, None, None, :]
-        work = (4 * heads * n * n * 64, 3 * n * c * 2 + n * 4 + n * c * 2)
+        work = (4 * heads * b * n * n * 64, 3 * b * n * c * 2 + b * n * 4 + b * n * c * 2)
         return {"attention[bf16]": row(
             lambda: fa.fused_attention(q, k, v, kb), lambda: fa.fused_attention_plain(q, k, v, kb),
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), "SDPA", work)}
 
-    def mlp_times(n, x_dtype):
-        x, g, be, w1, b1, w2, b2 = mlp_case(n, x_dtype)
+    def mlp_times(n, x_dtype, b=1):
+        x, g, be, w1, b1, w2, b2 = mlp_case(n, x_dtype, b)
         tag = f"ln_mlp[{'fp32' if x_dtype == torch.float32 else 'bf16'}x-bf16w]"
-        hidden = torch.empty((n, f), dtype=torch.bfloat16, device=dev)
-        out = torch.empty((1, n, c), dtype=torch.bfloat16, device=dev)
-        h3 = hidden.view(1, n, f)
+        m = b * n
+        hidden = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
+        out = torch.empty((b, n, c), dtype=torch.bfloat16, device=dev)
+        h3 = hidden.view(b, n, f)
         b16 = torch.bfloat16
         xb, vecs = x.element_size(), (f + 3 * c) * 4  # b1, b2, LN scale/bias
 
@@ -694,20 +745,24 @@ def fused_kernel_phase(dev, seed: int):
             tag: row(launch("pair"), lambda: lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2),
                      lambda: F.linear(fc1_lib(), w2, b2.to(b16)),
                      "F.layer_norm + F.linear + F.gelu + F.linear, 4 calls",
-                     (4 * n * c * f, n * c * xb + 2 * c * f * 2 + vecs + n * c * 2)),
+                     (4 * m * c * f, m * c * xb + 2 * c * f * 2 + vecs + m * c * 2)),
             f"{tag} ln_fc1_gelu": row(
                 launch("ln_fc1_gelu"), lambda: lm.ln_fc1_gelu_plain(x, g, be, w1, b1).to(b16),
                 fc1_lib, "F.layer_norm + F.linear + F.gelu, 3 calls",
-                (2 * n * c * f, n * c * xb + c * f * 2 + (f + 2 * c) * 4 + n * f * 2)),
+                (2 * m * c * f, m * c * xb + c * f * 2 + (f + 2 * c) * 4 + m * f * 2)),
             f"{tag} fc2_bias": row(
                 launch("fc2_bias"), lambda: lm.fc2_bias_plain(h3, w2, b2),
                 lambda: F.linear(h3, w2, b2.to(b16)), "F.linear",
-                (2 * n * f * c, n * f * 2 + c * f * 2 + c * 4 + n * c * 2)),
+                (2 * m * f * c, m * f * 2 + c * f * 2 + c * 4 + m * c * 2)),
         }
 
+    lb = f"B{LOCKSTEP_B}_"
     times = {"N40_bert": attn_times(40), "N128_bert": attn_times(128),
              "N321_bf16x": mlp_times(321, torch.bfloat16),
-             "N361_fp32x": mlp_times(361, torch.float32)}
+             "N361_fp32x": mlp_times(361, torch.float32),
+             f"{lb}N40_bert": attn_times(40, LOCKSTEP_B),
+             f"{lb}N321_bf16x": mlp_times(321, torch.bfloat16, LOCKSTEP_B),
+             f"{lb}N361_fp32x": mlp_times(361, torch.float32, LOCKSTEP_B)}
     emit({"phase": "fused_kernel_times", "timer": TIMER, "times": times})
     return worst, times
 
@@ -747,9 +802,10 @@ def frame_work(model, nt: int) -> dict:
             "frame_bound_ms": bound(flops, wbytes)[0], "frame_bound_by": bound(flops, wbytes)[1]}
 
 
-def synthetic_sequence(n_frames: int, seed: int, h: int = 720, w: int = 1280):
+def synthetic_sequence(n_frames: int, seed: int, h: int = 720, w: int = 1280, phase: int = 0):
     """A textured background and a textured 96x64 target moving on a
-    Lissajous path; returns (frames, ground-truth xywh boxes)."""
+    Lissajous path from its point `phase`; returns (frames, ground-truth
+    xywh boxes)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -760,7 +816,7 @@ def synthetic_sequence(n_frames: int, seed: int, h: int = 720, w: int = 1280):
     target = rng.integers(0, 256, size=(th // 8, tw // 8, 3)).astype(np.uint8)
     target = np.repeat(np.repeat(target, 8, 0), 8, 1)
     frames, boxes = [], []
-    for t in range(n_frames + 1):
+    for t in range(phase, phase + n_frames + 1):
         cx = w / 2 + 0.3 * w * np.sin(2 * np.pi * t / 90)
         cy = h / 2 + 0.25 * h * np.sin(2 * np.pi * t / 70)
         x0, y0 = int(cx - tw / 2), int(cy - th / 2)
@@ -797,47 +853,72 @@ def paired_ab(tracker, frames, info):
     where they pick different cells, each path's pick scores within AB_TIE
     of the other's maximum in both merged maps (a near-tie, which bf16 noise
     may break either way)."""
-    import math
-
-    import numpy as np
-
     from uvltrack_tpu_torch.ops import attention
 
     attention.force_backend("cuda")
     tracker.initialize(frames[0], info)
-    same, flips, box_px, box_rel = 0, 0, [], []
+    tally = AbTally()
     for f in frames[1:]:
         st = tracker.state
-        _, _, bw, bh = st.box.tolist()
-        crop = math.ceil(math.sqrt(bw * bh) * tracker.search_factor)
+        crop = crop_side(st.box[0].tolist(), tracker.search_factor)
         attention.force_backend("plain")
         p = tracker.track_debug(f)
         tracker.state = st
         attention.force_backend("cuda")
         k = tracker.track_debug(f)
-        mp, mk = p["merged_map"].ravel(), k["merged_map"].ravel()
-        ip, ik = int(mp.argmax()), int(mk.argmax())
-        d = float(np.abs(np.subtract(p["target_bbox"], k["target_bbox"])).max())
-        if ip == ik:
-            same += 1
-            box_px.append(d)
-            box_rel.append(d / crop)
-            if d > AB_BOX_REL * crop:
-                raise AssertionError(f"same cell, boxes {d} px apart on a {crop} px crop "
-                                     f"(> {AB_BOX_REL} of its side)")
-        else:
-            flips += 1
-            if mk[ip] < (1 - AB_TIE) * mk[ik] or mp[ik] < (1 - AB_TIE) * mp[ip]:
-                raise AssertionError(f"argmax flip that is not a near-tie: plain "
-                                     f"{mp[ip]:.4g}/{mp[ik]:.4g} kernel {mk[ik]:.4g}/{mk[ip]:.4g}")
+        tally.add(p["target_bbox"], p["merged_map"], k["target_bbox"], k["merged_map"], crop)
     attention.force_backend(None)
-    return {"frames": len(frames) - 1, "same_cell": same, "near_tie_flips": flips,
-            "box_diff_px_max_same_cell": max(box_px, default=0.0),
-            "box_diff_px_mean_same_cell": float(np.mean(box_px)) if box_px else 0.0,
-            "box_diff_crop_frac_max_same_cell": max(box_rel, default=0.0),
-            "box_diff_crop_frac_mean_same_cell": float(np.mean(box_rel)) if box_rel else 0.0,
-            "tolerance": f"same cell: <= {AB_BOX_REL} of the crop side; other cell: "
-                         f"within {AB_TIE:.0%} of the max in both maps"}
+    return tally.summary()
+
+
+def crop_side(box, search_factor: float) -> int:
+    """The search crop's side in pixels for an xywh box (crop_params)."""
+    import math
+
+    return math.ceil(math.sqrt(box[2] * box[3]) * search_factor)
+
+
+class AbTally:
+    """paired_ab's rule, one frame at a time: two paths stepped from one
+    state agree if they pick the same argmax cell of the merged map with
+    boxes within AB_BOX_REL of the search crop's side, or pick cells that
+    are a near-tie (within AB_TIE of the maximum) in both maps. A miss
+    raises; `what` names the pair in the message."""
+
+    def __init__(self, what: str = "plain/kernel"):
+        self.what, self.same, self.flips, self.px, self.rel = what, 0, 0, [], []
+
+    def add(self, box_a, map_a, box_b, map_b, crop: int) -> None:
+        import numpy as np
+
+        ma, mb = np.asarray(map_a).ravel(), np.asarray(map_b).ravel()
+        ia, ib = int(ma.argmax()), int(mb.argmax())
+        d = float(np.abs(np.subtract(box_a, box_b)).max())
+        if ia == ib:
+            self.same += 1
+            self.px.append(d)
+            self.rel.append(d / crop)
+            if d > AB_BOX_REL * crop:
+                raise AssertionError(f"{self.what}: same cell, boxes {d} px apart on a {crop} "
+                                     f"px crop (> {AB_BOX_REL} of its side)")
+        else:
+            self.flips += 1
+            if mb[ia] < (1 - AB_TIE) * mb[ib] or ma[ib] < (1 - AB_TIE) * ma[ia]:
+                raise AssertionError(f"{self.what}: argmax flip that is not a near-tie: "
+                                     f"{ma[ia]:.4g}/{ma[ib]:.4g} vs {mb[ib]:.4g}/{mb[ia]:.4g}")
+
+    def summary(self) -> dict:
+        import numpy as np
+
+        return {"frames": self.same + self.flips, "same_cell": self.same,
+                "near_tie_flips": self.flips,
+                "box_diff_px_max_same_cell": max(self.px, default=0.0),
+                "box_diff_px_mean_same_cell": float(np.mean(self.px)) if self.px else 0.0,
+                "box_diff_crop_frac_max_same_cell": max(self.rel, default=0.0),
+                "box_diff_crop_frac_mean_same_cell":
+                    float(np.mean(self.rel)) if self.rel else 0.0,
+                "tolerance": f"same cell: <= {AB_BOX_REL} of the crop side; other cell: "
+                             f"within {AB_TIE:.0%} of the max in both maps"}
 
 
 def grounding_ab(tracker, frame):
@@ -991,8 +1072,8 @@ def reference_phase(model, cfg, frames, boxes, label: str = "", tokenizer=None,
             return m(*a)
     else:
         t.initialize(frames[0], {"init_bbox": boxes[0]})
-        search, _ = sample_target_device(t._frame(frames[1]), t.state.box, t.search_factor,
-                                         t.search_size)
+        search, _ = sample_target_device(t._frame(frames[1])[None], t.state.box,
+                                         t.search_factor, t.search_size)
         args = (t.template, search, t.txt, t.text_mask, t.state.prompt, t.flag)
 
         def fwd(m, *a):
@@ -1046,15 +1127,16 @@ def layer_times(tracker, frames, iters: int = 30):
 
     t, m = tracker, tracker.model
     frame = t._frame(frames[1])
+    frames1 = frame[None]
     st = t.state
     ctx = anno2mask(box_cxcywh_to_xywh(torch.tensor([[0.5, 0.5, 0.2, 0.2]], device=t.device)),
                     t.map_size)
     with torch.no_grad():
-        search, _ = sample_target_device(frame, st.box, t.search_factor, t.search_size)
+        search, _ = sample_target_device(frames1, st.box, t.search_factor, t.search_size)
         feats = m.backbone.forward_cached_text(t.template, search, t.txt, t.text_mask, t.flag)
         out = {
             "crop": cuda_time_ms(lambda: sample_target_device(
-                frame, st.box, t.search_factor, t.search_size), iters, 3),
+                frames1, st.box, t.search_factor, t.search_size), iters, 3),
             "backbone": cuda_time_ms(lambda: m.backbone.forward_cached_text(
                 t.template, search, t.txt, t.text_mask, t.flag), iters, 3),
             "head": cuda_time_ms(lambda: m.box_head(feats, st.prompt), iters, 3),
@@ -1078,37 +1160,44 @@ def device_profile(tracker, frames, info, n: int = 16):
     """torch.profiler over n tracked frames on the kernel backend: the card's
     busy share (summed kernel and copy time over the host-clock window) and
     the kernels that take most of it."""
+    tracker.initialize(frames[0], info)
+    tracker.track(frames[1])
+    n = len(frames[2:2 + n])
+    return {"frames": n, **profile_window(lambda i: tracker.track(frames[2 + i]), n, "frame")}
+
+
+def profile_window(call, n: int, unit: str) -> dict:
+    """torch.profiler over call(0) .. call(n-1), each ending in a read-back
+    and each one `unit`: the device's own events (kernels, copies, memsets)
+    summed over the host-clock window, per unit, and the 12 that take most
+    of it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    tracker.initialize(frames[0], info)
-    tracker.track(frames[1])
-    n = len(frames[2:2 + n])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for f in frames[2:2 + n]:
-            tracker.track(f)
+        for i in range(n):
+            call(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
     def dev_us(e):
         return float(e.self_device_time_total)
 
-    # the device's own events (kernels, copies, memsets); the CPU ops that
-    # launched them carry the same time again and are left out
+    # the CPU ops that launched the device's events carry the same time
+    # again and are left out
     evs = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     total = sum(dev_us(e) for e in evs)
     if total == 0:
-        return {"frames": n, "device_time": "not measured (the profiler saw no device time)"}
+        return {"device_time": "not measured (the profiler saw no device time)"}
     top = sorted(evs, key=dev_us, reverse=True)[:12]
-    return {"frames": n, "wall_ms_per_frame": wall_us / n / 1e3,
-            "device_ms_per_frame": total / n / 1e3, "busy_share": total / wall_us,
-            "device_ops_per_frame": sum(e.count for e in evs) / n,
-            "top": [{"name": e.key[:90], "calls_per_frame": e.count / n,
-                     "ms_per_frame": dev_us(e) / n / 1e3} for e in top]}
+    return {f"wall_ms_per_{unit}": wall_us / n / 1e3, f"device_ms_per_{unit}": total / n / 1e3,
+            "busy_share": total / wall_us, f"device_ops_per_{unit}": sum(e.count for e in evs) / n,
+            "top": [{"name": e.key[:90], f"calls_per_{unit}": e.count / n,
+                     f"ms_per_{unit}": dev_us(e) / n / 1e3} for e in top]}
 
 
 def knob_phase(name: str, knob: str, value: str, model, cfg, frames, boxes, expect,
@@ -1205,6 +1294,444 @@ def drift_phase(model_fp, cfg_fp, model_q8, cfg_q8, frames, boxes):
           "frames_iou_below_0.7": int((ious < 0.7).sum())})
 
 
+# ------------------------------------------------------------ multistream
+MULTISTREAM_TIMER = ("host clock per BatchTracker.step (StreamPool.submit), each ending in the "
+                     "(S, 5) read-back; stream-frames/s = active stream-frames over the summed "
+                     "step times; the frames are on the host before the clock starts")
+
+
+def load_row(tracker, bt, st, i: int) -> None:
+    """Put stream i of BatchTracker `bt` at state `st` into a single
+    Tracker: its per-sequence rows (template, masks, text, flag) and its
+    state, so both step from the same state."""
+    import dataclasses
+
+    tracker.template, tracker.template_mask = bt.template[i:i + 1], bt.template_mask[i:i + 1]
+    tracker.txt, tracker.text_mask = bt.txt[i:i + 1], bt.text_mask[i:i + 1]
+    tracker.flags = bt.flags[i:i + 1]
+    tracker.state = dataclasses.replace(st, **{
+        f.name: getattr(st, f.name)[i:i + 1] for f in dataclasses.fields(st)})
+
+
+def checked_step(bt, single, batch, tallies) -> None:
+    """One lockstep step, checked: from the same state, the batch on the
+    plain backend, then on the kernels (whose state goes on); each active
+    row of the kernel step against (b) the plain step's row and (a) a
+    single Tracker stepped from that row's state on the kernels, under
+    paired_ab's rule."""
+    from uvltrack_tpu_torch.ops import attention
+
+    st = bt.state
+    attention.force_backend("plain")
+    p, pm = (t.float().cpu().numpy() for t in bt.step_async(batch, debug=True))
+    bt.state = st
+    attention.force_backend("cuda")
+    k, km = (t.float().cpu().numpy() for t in bt.step_async(batch, debug=True))
+    after = bt.state
+    for i in map(int, st.active.nonzero()[0]):
+        crop = crop_side(st.box[i].tolist(), bt.search_factor)
+        tallies["kernel_vs_plain"].add(p[i, :4], pm[i, 2], k[i, :4], km[i, 2], crop)
+        load_row(single, bt, st, i)
+        r = single.track_debug(batch[i])
+        tallies["batch_vs_single"].add(r["target_bbox"], r["merged_map"], k[i, :4], km[i, 2],
+                                       crop)
+    bt.state = after
+    attention.force_backend(None)
+
+
+def expect_launches(per_fwd: dict, forwards: int, got: dict, what: str) -> None:
+    want = {k: v * forwards for k, v in per_fwd.items()}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {per_fwd} x {forwards} forwards")
+
+
+class LockstepCell:
+    """S streams (one a mode, sentence and sequence each; lengths[i] frames
+    of seqs[i], frame 0 the init) tracked in lockstep by one BatchTracker on
+    the kernels. run() is one run of the sequence, timed per step; timed()
+    a run whose launches per batched forward and per initialize are checked
+    against the single-stream counts and whose re-mines are counted;
+    finish() the checked run (checked_step each step), NL streams'
+    grounding against a single Tracker's, a profiler window, and the
+    phase's line."""
+
+    def __init__(self, label, model, cfg, seqs, modes, languages, lengths, tokenizer, per_fwd):
+        import numpy as np
+
+        from uvltrack_tpu_torch.track.batch import BatchTracker
+
+        self.label, self.model, self.cfg, self.tokenizer = label, model, cfg, tokenizer
+        self.modes, self.languages, self.lengths, self.per_fwd = modes, languages, lengths, per_fwd
+        self.S, self.T = len(modes), max(lengths) - 1
+        self.frames0 = [seqs[i][0][0] for i in range(self.S)]
+        self.boxes0 = np.asarray([seqs[i][1][0] for i in range(self.S)], np.float32)
+        self.actives = [np.asarray([t < n for n in lengths]) for t in range(1, self.T + 1)]
+        # a frozen stream's row gets its first frame again, as the batched runner does
+        self.batches = [np.stack([seqs[i][0][t] if act[i] else self.frames0[i]
+                                  for i in range(self.S)])
+                        for t, act in zip(range(1, self.T + 1), self.actives)]
+        self.bt = BatchTracker(cfg, model, self.S, tokenizer=tokenizer)
+        self.lats, self.peak = [], 0
+
+    def initialize(self):
+        return self.bt.initialize(self.frames0, self.boxes0, languages=self.languages,
+                                  modes=self.modes)
+
+    def run(self):
+        """(init boxes, init seconds, launches of initialize, launches of the
+        steps, host-clock seconds a step, (T, S, 5) outputs)."""
+        import numpy as np
+        import torch
+
+        from uvltrack_tpu_torch.ops import attention
+        from uvltrack_tpu_torch.ops import build
+
+        attention.force_backend("cuda")
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        init_boxes = self.initialize()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_inst = build.instantiation_counts()
+        build.reset_launch_counts()
+        lat, outs = [], []
+        for batch, active in zip(self.batches, self.actives):
+            self.bt.set_active(active)
+            t0 = time.perf_counter()
+            outs.append(self.bt.step(batch))
+            lat.append(time.perf_counter() - t0)
+        attention.force_backend(None)
+        return (init_boxes, init_s, init_inst, build.instantiation_counts(), np.asarray(lat),
+                np.stack(outs))
+
+    def timed(self):
+        import numpy as np
+        import torch
+
+        torch.cuda.reset_peak_memory_stats()
+        self.init_boxes, self.init_s, init_inst, inst, lat, self.out = self.run()
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        self.lats.append(lat)
+        label, T = self.label, self.T
+        # (c) the batch rides in the rows: a batched forward launches what one
+        # stream's forward launches (NL grounding: one batch-1 forward a stream)
+        expect_launches(self.per_fwd, T, inst, f"{label}: {T} steps")
+        expect_launches(self.per_fwd, 1 + self.modes.count("NL"), init_inst,
+                        f"{label}: initialize")
+        self.inst, self.init_inst = inst, init_inst
+        self.frames_done = np.sum(self.actives, axis=0)
+        self.remines = self.bt.remines
+        if self.remines.tolist() != (self.frames_done
+                                     // int(self.cfg.TEST.UPDATE_INTERVAL)).tolist():
+            raise AssertionError(f"{label}: re-mines {self.remines.tolist()} after "
+                                 f"{self.frames_done.tolist()} frames")
+        if not np.isfinite(self.out).all() or self.out.shape != (T, self.S, 5):
+            raise AssertionError(f"{label}: non-finite or misshapen output {self.out.shape}")
+
+    def finish(self):
+        import numpy as np
+
+        from uvltrack_tpu_torch.ops import attention
+        from uvltrack_tpu_torch.track.tracker import Tracker
+
+        bt, label, S, T = self.bt, self.label, self.S, self.T
+        # (a), (b): every step from a shared state
+        tallies = {"kernel_vs_plain": AbTally(f"{label} kernel/plain"),
+                   "batch_vs_single": AbTally(f"{label} batch/single")}
+        single = Tracker(self.cfg, self.model, tokenizer=self.tokenizer)
+        attention.force_backend("cuda")
+        self.initialize()
+        for batch, active in zip(self.batches, self.actives):
+            bt.set_active(active)
+            checked_step(bt, single, batch, tallies)
+        # (d) NL streams: the grounded box against a single NL Tracker's
+        grounding = []
+        for i in (i for i in range(S) if self.modes[i] == "NL"):
+            self.cfg.TEST.MODE = "NL"  # read by Tracker.initialize
+            alone = Tracker(self.cfg, self.model, tokenizer=self.tokenizer)
+            attention.force_backend("cuda")
+            want = alone.initialize(self.frames0[i], {"language": self.languages[i]})
+            self.cfg.TEST.MODE = "BBOX"
+            d = float(np.abs(np.subtract(self.init_boxes[i], want["target_bbox"])).max())
+            side = max(self.frames0[i].shape[:2])
+            grounding.append({"stream": i, "box": self.init_boxes[i].tolist(),
+                              "single": want["target_bbox"], "diff_px": d,
+                              "side_frac": d / side})
+            if d > AB_BOX_REL * side:
+                raise AssertionError(f"{label}: stream {i} grounded {d} px from a single "
+                                     f"Tracker's box (> {AB_BOX_REL} of the letterbox side)")
+        # the card's busy share at batch S over 8 steps
+        self.initialize()
+        bt.step(self.batches[0])
+        busy = profile_window(lambda j: bt.step(self.batches[1 + j]), min(8, T - 1), "step")
+        attention.force_backend(None)
+        if isinstance(busy.get("device_ms_per_step"), float):
+            busy["device_ms_per_stream_frame"] = busy["device_ms_per_step"] / S
+            busy["device_ops_per_stream_frame"] = busy["device_ops_per_step"] / S
+        lat = np.concatenate(self.lats)
+        stream_frames = int(self.frames_done.sum())
+        emit({"phase": f"multistream_{label}", "S": S, "steps": T, "modes": self.modes,
+              "stream_lengths": list(self.lengths), "frame_hw": list(self.frames0[0].shape[:2]),
+              "timer": MULTISTREAM_TIMER, "runs": len(self.lats),
+              "stream_frames_per_run": stream_frames,
+              "stream_frames_per_s": stream_frames * len(self.lats) / float(lat.sum()),
+              "stream_frames_per_s_by_run": [stream_frames / float(r.sum()) for r in self.lats],
+              "slot_frames_per_s": S * len(lat) / float(lat.sum()),
+              "step_ms_p50": float(np.percentile(lat, 50) * 1e3),
+              "step_ms_p90": float(np.percentile(lat, 90) * 1e3),
+              "step_ms_p50_by_run": [float(np.percentile(r, 50) * 1e3) for r in self.lats],
+              "init_s": self.init_s, "peak_mem_bytes": int(self.peak),
+              "launches_per_step": {k: v / T for k, v in self.inst.items()},
+              "launches_per_initialize": self.init_inst, "remines": self.remines.tolist(),
+              "paired": {k: t.summary() for k, t in tallies.items()},
+              **({"nl_grounding": grounding} if grounding else {}), "device_profile": busy})
+
+
+def tracker_run(model, cfg, seq, frames: int):
+    """Host-clock seconds of each Tracker.track (BBOX, the kernels) over
+    `frames` frames of seq after its frame 0: B-BBOX's step, timed in the
+    multistream phase's turns."""
+    import numpy as np
+
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.track.tracker import Tracker
+
+    cfg.TEST.MODE = "BBOX"
+    tracker = Tracker(cfg, model)
+    attention.force_backend("cuda")
+    tracker.initialize(seq[0][0], {"init_bbox": seq[1][0]})
+    lat = []
+    for f in seq[0][1:frames + 1]:
+        t0 = time.perf_counter()
+        tracker.track(f)
+        lat.append(time.perf_counter() - t0)
+    attention.force_backend(None)
+    return np.asarray(lat)
+
+
+def runner_cell(model, cfg, seqs, languages, lengths, tokenizer, direct) -> None:
+    """The batched eval runner (eval/running_batched.py) over the same
+    streams, frames handed over in memory through image_loader: every
+    sequence must be saved (a stream the runner isolates as failed fails
+    the run); whether its integer boxes equal the direct run's is
+    reported."""
+    import numpy as np
+
+    from uvltrack_tpu_torch.eval import Sequence, SequenceList, run_dataset_batched
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.track.batch import BatchTracker
+
+    frames = {f"s{i}/{t}": f for i in range(len(lengths)) for t, f in
+              enumerate(seqs[i][0][:lengths[i]])}
+    ds = SequenceList([Sequence(f"s{i}", [f"s{i}/{t}" for t in range(n)], "synthetic",
+                                np.asarray(seqs[i][1][:n]), language=languages[i])
+                       for i, n in enumerate(lengths)])
+    rdir = REPO / "build" / "chip_smoke" / "results"
+    cfg.TEST.MODE = "NLBBOX"  # a stream with no sentence gets flag 0
+    attention.force_backend("cuda")
+    t0 = time.perf_counter()
+    stats = run_dataset_batched(lambda S: BatchTracker(cfg, model, S, tokenizer=tokenizer), ds,
+                                str(rdir), num_streams=len(lengths), image_loader=frames.get,
+                                rerun=True, verbose=False)
+    wall = time.perf_counter() - t0
+    attention.force_backend(None)
+    if stats["sequences"] != len(lengths):
+        raise AssertionError(f"the batched runner saved {stats['sequences']} of "
+                             f"{len(lengths)} sequences")
+    same = True
+    for i, n in enumerate(lengths):
+        got = np.loadtxt(rdir / f"s{i}.txt", delimiter="\t", ndmin=2)
+        if got.shape != (n, 4):
+            raise AssertionError(f"runner result s{i}: shape {got.shape}, not ({n}, 4)")
+        same &= bool(np.array_equal(got[1:], np.round(direct[:n - 1, i, :4])))
+    emit({"phase": "multistream_runner", "sequences": stats["sequences"],
+          "frames": stats["frames"], "wall_s": wall,
+          "boxes_equal_the_direct_run": same})
+
+
+def pool_cell(model, cfg, seqs, languages, tokenizer, per_fwd, rounds: int = 24):
+    """A StreamPool of 4 slots in NLBBOX mode (streams without a sentence
+    get flag 0): streams open at rounds 0, 3 and 7, C skips rounds 15-16
+    (frozen), A closes at round 12 and D takes its slot; each open stream
+    submits its next frame every round. A timed run (launches per submit
+    and per open checked; a profiler window over 8 more rounds of the three
+    streams left), then a checked run stepping the pool's batch through
+    checked_step. Returns the timed run's launches."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.track.pool import StreamPool
+    from uvltrack_tpu_torch.track.tracker import Tracker
+
+    opens = {0: ["A"], 3: ["B"], 7: ["C"], 12: ["D"]}
+    closes, skips = {12: ["A"]}, {15: ["C"], 16: ["C"]}
+    seq_of = {"A": 0, "B": 1, "C": 2, "D": 3}
+    cfg.TEST.MODE = "NLBBOX"
+
+    def schedule(pool, on_open, on_round):
+        """Drive the pool through the rounds; on_round(pool, {stream: frame})."""
+        sent = {}
+        for r in range(rounds):
+            for s in closes.get(r, []):
+                pool.close(s)
+                del sent[s]
+            for s in opens.get(r, []):
+                i = seq_of[s]
+                on_open(lambda: pool.open(s, seqs[i][0][0], {"init_bbox": seqs[i][1][0],
+                                                            "language": languages[i]}))
+                sent[s] = 0
+            pending = {}
+            for s in sent:
+                if s not in skips.get(r, []):
+                    sent[s] += 1
+                    pending[s] = seqs[seq_of[s]][0][sent[s]]
+            on_round(pool, pending)
+        return sent
+
+    def timed():
+        pool = StreamPool(cfg, model, capacity=4, tokenizer=tokenizer)
+        lat, open_s, counts = [], [], {"open": {}, "submit": {}}
+
+        def count(kind):
+            for k, v in build.instantiation_counts().items():
+                counts[kind][k] = counts[kind].get(k, 0) + v
+            build.reset_launch_counts()
+
+        def on_open(do):
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            do()
+            torch.cuda.synchronize()
+            open_s.append(time.perf_counter() - t0)
+            count("open")
+
+        def on_round(pool, pending):
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = pool.submit(pending)
+            lat.append((time.perf_counter() - t0, len(pending)))
+            if not all(np.isfinite(o["bbox"]).all() for o in out.values()):
+                raise AssertionError("pool: non-finite box")
+            count("submit")
+
+        attention.force_backend("cuda")
+        sent = schedule(pool, on_open, on_round)
+        attention.force_backend(None)
+        return pool, sent, np.asarray(lat), open_s, counts
+
+    timed()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    pool, sent, lat, open_s, counts = timed()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(per_fwd, rounds, counts["submit"], "pool: submits")
+    expect_launches(per_fwd, sum(map(len, opens.values())), counts["open"], "pool: opens")
+    want = [0] * pool.capacity
+    for s, i in pool.slot_of.items():
+        want[i] = sent[s] // int(cfg.TEST.UPDATE_INTERVAL)
+    remines = pool.bt.remines.tolist()
+    if remines != want:
+        raise AssertionError(f"pool: re-mines {remines} != {want}")
+    # the card's busy share over 8 more rounds of the streams left open
+    attention.force_backend("cuda")
+    busy = profile_window(lambda j: pool.submit({
+        s: seqs[seq_of[s]][0][sent[s] + 1 + j] for s in sent}), 8, "step")
+    attention.force_backend(None)
+
+    tallies = {"kernel_vs_plain": AbTally("pool kernel/plain"),
+               "batch_vs_single": AbTally("pool batch/single")}
+    single = Tracker(cfg, model, tokenizer=tokenizer)
+
+    def checked(pool, pending):
+        """submit's batch and active rows, stepped by checked_step."""
+        (h, w), = {f.shape[:2] for f in pending.values()}
+        batch = np.zeros((pool.capacity, h, w, 3), np.uint8)
+        active = np.zeros((pool.capacity,), bool)
+        for s, f in pending.items():
+            batch[pool.slot_of[s]], active[pool.slot_of[s]] = f, True
+        pool.bt.set_active(active)
+        checked_step(pool.bt, single, batch, tallies)
+
+    attention.force_backend("cuda")
+    schedule(StreamPool(cfg, model, capacity=4, tokenizer=tokenizer), lambda do: do(), checked)
+    attention.force_backend(None)
+    stream_frames = int(lat[:, 1].sum())
+    emit({"phase": "multistream_pool", "capacity": 4, "rounds": rounds,
+          "schedule": {"open": opens, "close": closes, "skip": skips},
+          "timer": MULTISTREAM_TIMER, "stream_frames": stream_frames,
+          "stream_frames_per_s": stream_frames / float(lat[:, 0].sum()),
+          "submit_ms_p50": float(np.percentile(lat[:, 0], 50) * 1e3),
+          "submit_ms_p90": float(np.percentile(lat[:, 0], 90) * 1e3),
+          "open_ms_mean": float(np.mean(open_s) * 1e3), "peak_mem_bytes": int(peak),
+          "launches_per_submit": {k: v / rounds for k, v in counts["submit"].items()},
+          "launches_per_open": {k: v / len(open_s) for k, v in counts["open"].items()},
+          "remines_by_slot": remines,
+          "paired": {k: t.summary() for k, t in tallies.items()},
+          "device_profile": {"streams": len(sent), **busy}})
+    return {k: counts["open"].get(k, 0) + counts["submit"].get(k, 0)
+            for k in {*counts["open"], *counts["submit"]}}
+
+
+def multistream_phase(model, cfg, model_q8, cfg_q8, tokenizer, language, per_fwd_fp,
+                      per_fwd_q8, seed: int) -> dict:
+    """Lockstep tracking of UVLTrack-B at S = 1, 4 and 8 (bf16) and 4
+    (int8), the batched runner at S=4, and a StreamPool of 4 slots, on
+    720p synthetic sequences (a seed and a start on the path each; frame 0
+    the init). The host's clock drifts within a call, so the cells' timed
+    runs, and a single Tracker's (B-BBOX's step) beside them, go in turns:
+    each cell once in order, then once in reverse. Returns the launches by
+    instantiation over the timed runs."""
+    import numpy as np
+
+    launches = {}
+
+    def add(inst):
+        for k, v in inst.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    seqs = [synthetic_sequence(32, seed + 1 + i, phase=11 * i) for i in range(8)]
+    mix = ["BBOX", "NLBBOX"] * 4
+    langs = [language] * 8
+    lengths4 = [33, 33, 25, 33]  # stream 2 is 8 frames shorter: frozen for 8 steps
+    cells = [LockstepCell("S1", model, cfg, seqs, ["BBOX"], langs[:1], [33], tokenizer,
+                          per_fwd_fp),
+             LockstepCell("S4", model, cfg, seqs, mix[:4], langs[:4], lengths4, tokenizer,
+                          per_fwd_fp),
+             # the mix and an NL stream, grounded at initialize
+             LockstepCell("S8", model, cfg, seqs, mix[:7] + ["NL"], langs,
+                          [33, 33, 25] + [33] * 5, tokenizer, per_fwd_fp),
+             LockstepCell("S4_q8", model_q8, cfg_q8, seqs, mix[:4], langs[:4], [17, 17, 9, 17],
+                          tokenizer, per_fwd_q8)]
+    # the kernel phases checked every kernel at each of these batches
+    assert {cell.S for cell in cells} - {1} <= set(LOCKSTEP_S)
+    for cell in cells:
+        cell.run()  # warm-up: this batch size's first launches, cuBLAS/cuDNN plans
+    tracker_run(model, cfg, seqs[0], 32)
+    turns = []
+    for order in (cells, cells[::-1]):
+        turn = {"tracker": float(np.percentile(tracker_run(model, cfg, seqs[0], 32), 50) * 1e3)}
+        for cell in order:
+            cell.timed()
+            turn[cell.label] = float(np.percentile(cell.lats[-1], 50) * 1e3)
+        turns.append(turn)
+    for cell in cells:
+        add(cell.inst)
+    emit({"phase": "multistream_turns", "what": "step p50 ms of each timed run, in the turns' "
+          "order (tracker: Tracker.track, B-BBOX's step, over stream 0's frames)",
+          "turns": turns})
+    s4 = cells[1]
+    runner_cell(model, cfg, seqs, [None, language, None, language], lengths4, tokenizer, s4.out)
+    for cell in cells:
+        cell.finish()
+    add(pool_cell(model, cfg, seqs, [None, language, language, None], tokenizer, per_fwd_fp))
+    emit({"phase": "multistream_seconds", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def box_iou(a, b) -> float:
     """IoU of two [x, y, w, h] boxes."""
     iw = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
@@ -1214,6 +1741,7 @@ def box_iou(a, b) -> float:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=64)
@@ -1326,62 +1854,75 @@ def main() -> int:
                    per_fwd_fp, mode="NL", tokenizer=BertTokenizer(str(vocab)), language=language,
                    expect_init=dict({k: 2 * v for k, v in per_fwd_fp.items()},
                                     **{"attention[bf16]": 18})))
+    add(multistream_phase(model, cfg, model_q8, cfg_q8, BertTokenizer(str(vocab)), language,
+                          per_fwd_fp, per_fwd_q8, args.seed))
     drift_phase(model, cfg, model_q8, cfg_q8, frames, boxes)
     reference_phase(model_q8, cfg_q8, frames, boxes, label="_q8")
 
     src = "uvltrack_tpu_torch/csrc"
-    n321, n361 = q8_times["N321_bf16x_open"], q8_times["N361_fp32x_flag0"]
+    lb = f"B{LOCKSTEP_B}_"
+
+    def at(table, shape, name):
+        """A kernel's times at one shape, at B=1 and (under its key) at the
+        lockstep batch."""
+        def strip(t):
+            return {k: v for k, v in t.items() if k != "library"}
+        return {**strip(table[shape][name]), lb.rstrip("_"): strip(table[lb + shape][name])}
+
     # (name, source, TPU kernel line, launches, worst error, times at the
     # instantiation's main-path shape)
     rows = [
         ("ln_qkv", f"{src}/ln_qkv.cu", 167,
          launches.get("ln_qkv[bf16x-bf16w]", 0) + launches.get("ln_qkv[fp32x-bf16w]", 0),
-         worst["ln_qkv"], times["ln_qkv"]),
+         worst["ln_qkv"], at(times, "N361_fp32x_flag0", "ln_qkv")),
         ("qkv_attention", f"{src}/qkv_attention.cu", 119,
-         launches.get("qkv_attention[bf16]", 0), worst["qkv_attention"], times["qkv_attention"]),
+         launches.get("qkv_attention[bf16]", 0), worst["qkv_attention"],
+         at(times, "N361_fp32x_flag0", "qkv_attention")),
     ]
-    for name, line, shape in (("ln_qkv[bf16x-int8w]", 433, n321),
-                              ("ln_qkv[fp32x-int8w]", 433, n361),
-                              ("qkv_attention[fp32]", 433, n361),
-                              ("proj_residual[bf16x-bf16a-bf16w]", 291, n321),
-                              ("proj_residual[fp32x-bf16a-bf16w]", 291, n361),
-                              ("proj_residual[bf16x-bf16a-int8w]", 489, n321),
-                              ("proj_residual[fp32x-fp32a-int8w]", 489, n361)):
+    for name, line, shape in (("ln_qkv[bf16x-int8w]", 433, "N321_bf16x_open"),
+                              ("ln_qkv[fp32x-int8w]", 433, "N361_fp32x_flag0"),
+                              ("qkv_attention[fp32]", 433, "N361_fp32x_flag0"),
+                              ("proj_residual[bf16x-bf16a-bf16w]", 291, "N321_bf16x_open"),
+                              ("proj_residual[fp32x-bf16a-bf16w]", 291, "N361_fp32x_flag0"),
+                              ("proj_residual[bf16x-bf16a-int8w]", 489, "N321_bf16x_open"),
+                              ("proj_residual[fp32x-fp32a-int8w]", 489, "N361_fp32x_flag0")):
         source = f"{src}/{name.split('[')[0]}.cu"
-        t = {k: v for k, v in shape[name].items() if k != "library"}
-        rows.append((name, source, line, launches.get(name, 0), q8_worst[name], t))
+        rows.append((name, source, line, launches.get(name, 0), q8_worst[name],
+                     at(q8_times, shape, name)))
     # kernel #3 at BERT's N=40, kernel #7 at the ViT's two shapes
     for name, line, shape, err in (("attention[bf16]", 78, "N40_bert", "attention"),
                                    ("ln_mlp[bf16x-bf16w]", 551, "N321_bf16x", "ln_mlp"),
                                    ("ln_mlp[fp32x-bf16w]", 551, "N361_fp32x", "ln_mlp")):
-        t = {k: v for k, v in fused_times[shape][name].items() if k != "library"}
         rows.append((name, f"{src}/{name.split('[')[0]}.cu", line, launches.get(name, 0),
-                     fused_worst[err], t))
+                     fused_worst[err], at(fused_times, shape, name)))
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": f"{TPU_KERNEL}:{line}", "launches": n, "max_abs_err": err, **t}
                for name, source, line, n, err, t in rows]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")
-    emit({"phase": "composition", "name": "ln_qkv_attention (ln_qkv + qkv_attention)",
-          "replaces": f"{TPU_KERNEL}:167", "max_abs_err": worst["ln_qkv_attention"],
-          **times["ln_qkv_attention"], "library": "F.layer_norm + F.linear + SDPA"})
+    for shape in ("N361_fp32x_flag0", lb + "N361_fp32x_flag0"):
+        emit({"phase": "composition", "name": "ln_qkv_attention (ln_qkv + qkv_attention)",
+              "shape": shape, "replaces": f"{TPU_KERNEL}:167",
+              "max_abs_err": worst["ln_qkv_attention"], **times[shape]["ln_qkv_attention"],
+              "library": "F.layer_norm + F.linear + SDPA"})
     for num, line in (("#5", 433), ("#4", 291), ("#6", 489)):
-        for shape in (n321, n361):
-            for name, t in shape.items():
+        for shape, table in q8_times.items():
+            for name, t in table.items():
                 if name.startswith(num):
-                    emit({"phase": "composition", "name": name,
+                    emit({"phase": "composition", "name": name, "shape": shape,
                           "replaces": f"{TPU_KERNEL}:{line}", "max_abs_err": q8_worst[name],
                           **t})
     # kernel #7's two launches, each alone, and kernel #3 at N=128
-    for shape, name in (("N321_bf16x", "ln_mlp[bf16x-bf16w] ln_fc1_gelu"),
-                        ("N321_bf16x", "ln_mlp[bf16x-bf16w] fc2_bias"),
-                        ("N361_fp32x", "ln_mlp[fp32x-bf16w] ln_fc1_gelu"),
-                        ("N361_fp32x", "ln_mlp[fp32x-bf16w] fc2_bias"),
-                        ("N128_bert", "attention[bf16]")):
+    for shape, name in ((f"{p}{n}", f"ln_mlp[{x}-bf16w] {launch}")
+                        for p in ("", lb) for n, x in (("N321_bf16x", "bf16x"),
+                                                       ("N361_fp32x", "fp32x"))
+                        for launch in ("ln_fc1_gelu", "fc2_bias")):
         emit({"phase": "per_launch", "shape": shape, "name": name,
-              "max_abs_err": fused_worst[name.split()[-1] if " " in name else "attention"],
-              **fused_times[shape][name]})
+              "max_abs_err": fused_worst[name.split()[-1]], **fused_times[shape][name]})
+    emit({"phase": "per_launch", "shape": "N128_bert", "name": "attention[bf16]",
+          "max_abs_err": fused_worst["attention"], **fused_times["N128_bert"]["attention[bf16]"]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

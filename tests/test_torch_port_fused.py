@@ -359,11 +359,11 @@ def _bert_qkv(n, dev, b=1, h=12, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mask", ["bert", "all", "vit", "open"])
 @pytest.mark.parametrize("h", [12, 16])
-@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
 @pytest.mark.parametrize("n", [40, 48, 63, 64, 65, 128, 321, 361, 681])
 def test_cuda_attention_matches_plain(cuda, n, b, h, mask):
     """Kernel #3 on the wgmma body (csrc/attention.cuh) in BERT's strided
-    layout at ragged N, B in {1, 2}, H in {12, 16} (C = 768 and 1024), with
+    layout at ragged N, B in {1, 2, 4, 8}, H in {12, 16} (C = 768 and 1024), with
     an all-masked row (mask "all", batch element 0); the head-major
     contiguous layout gives the same numbers."""
     q, k, v = _bert_qkv(n, cuda, b=b, h=h, seed=n + h)
@@ -387,13 +387,14 @@ SPLIT_CASES = [(40, 1), (681, 2), (361, 3)]
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,split", SPLIT_CASES, ids=[f"N{n}-split{s}" for n, s in SPLIT_CASES])
-def test_cuda_attention_is_deterministic(cuda, n, split):
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_cuda_attention_is_deterministic(cuda, b, n, split):
     """Two calls of kernel #3 are bitwise equal at shapes where the rule
     keeps the keys in one block (split 1) and splits them over clusters of
-    2 and 3 blocks (the partials summed in rank order), and each matches
-    the plain version."""
-    q, k, v = _bert_qkv(n, cuda, seed=split)
-    kb = _t(_key_bias(1, n, "bert", np.random.default_rng(n))).to(cuda)
+    2 and 3 blocks (the partials summed in rank order), at B = 1, 4 and 8,
+    and each matches the plain version."""
+    q, k, v = _bert_qkv(n, cuda, b=b, seed=split)
+    kb = _t(_key_bias(b, n, "bert", np.random.default_rng(n))).to(cuda)
     first = fa.fused_attention(q, k, v, kb)
     second = fa.fused_attention(q, k, v, kb)
     torch.cuda.synchronize()
@@ -405,21 +406,24 @@ def test_cuda_attention_is_deterministic(cuda, n, split):
 @pytest.mark.gpu
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n", [48, 321, 361, 681])
-def test_cuda_ln_mlp_matches_plain(cuda, n, x_dtype):
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_cuda_ln_mlp_matches_plain(cuda, b, n, x_dtype):
+    """Kernel #7, both launches, at B = 1 and at the lockstep batches 4 and
+    8 (B*N rows)."""
     c, f = 768, 3072
-    x, g, be, w1, b1, w2, b2 = _mlp_case(n, c=c, f=f, seed=n)
+    x, g, be, w1, b1, w2, b2 = _mlp_case(n, c=c, f=f, b=b, seed=n)
     x = _t(x).to(cuda, x_dtype)
     g, be, b1, b2 = (_t(a).to(cuda) for a in (g, be, b1, b2))
     w1 = _t(w1.T).to(cuda, torch.bfloat16).contiguous()
     w2 = _t(w2.T).to(cuda, torch.bfloat16).contiguous()
-    hidden = torch.empty((n, f), dtype=torch.bfloat16, device=cuda)
-    out = torch.empty((1, n, c), dtype=torch.bfloat16, device=cuda)
+    hidden = torch.empty((b * n, f), dtype=torch.bfloat16, device=cuda)
+    out = torch.empty((b, n, c), dtype=torch.bfloat16, device=cuda)
     build.reset_launch_counts()
     lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out)
     torch.cuda.synchronize()
     tag = "fp32x" if x_dtype == torch.float32 else "bf16x"
     assert build.instantiation_counts() == {f"ln_mlp[{tag}-bf16w]": 1}
-    h3 = hidden.view(1, n, f)
+    h3 = hidden.view(b, n, f)
     h_ref = lm.ln_fc1_gelu_plain(x, g, be, w1, b1)
     torch.testing.assert_close(h3.float(), h_ref.to(torch.bfloat16).float(),
                                atol=GPU_ATOL["hidden"], rtol=GPU_RTOL)
@@ -471,12 +475,14 @@ def test_cuda_ln_mlp_stages_on_the_wgmma_core(cuda, b, n, c, x_dtype):
 
 
 @pytest.mark.gpu
-def test_cuda_fc2_bias_is_deterministic(cuda):
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_cuda_fc2_bias_is_deterministic(cuda, b):
     """Two fc2_bias launches on the same hidden tensor are bitwise equal at
-    the main path's shape (the cluster's partials summed in rank order)."""
-    x, g, be, w1, b1, w2, b2 = _cuda_mlp(361, cuda, torch.float32)
-    hidden = torch.empty((361, 3072), dtype=torch.bfloat16, device=cuda)
-    outs = [torch.empty((1, 361, 768), dtype=torch.bfloat16, device=cuda) for _ in range(2)]
+    the main path's shape (the cluster's partials summed in rank order), at
+    B = 1, 4 and 8."""
+    x, g, be, w1, b1, w2, b2 = _cuda_mlp(361, cuda, torch.float32, b=b)
+    hidden = torch.empty((b * 361, 3072), dtype=torch.bfloat16, device=cuda)
+    outs = [torch.empty((b, 361, 768), dtype=torch.bfloat16, device=cuda) for _ in range(2)]
     lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, outs[0], stages="pair")
     lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, outs[1], stages="fc2_bias")
     torch.cuda.synchronize()

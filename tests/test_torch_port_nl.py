@@ -155,7 +155,8 @@ def test_nl_initialize_sets_the_grounding_box_and_flag_2(trackers):
     info = {"language": "a red box moving"}
     ref, out = jt.initialize(frame, info), tt.initialize(frame, info)
     np.testing.assert_allclose(out["target_bbox"], ref["target_bbox"], atol=1e-3, rtol=0)
-    np.testing.assert_allclose(tt.state.box.numpy(), out["target_bbox"], rtol=1e-6)
+    # the Tracker's state is the lockstep state at S=1: box (1, 4)
+    np.testing.assert_allclose(tt.state.box[0].numpy(), out["target_bbox"], rtol=1e-6)
     assert int(tt.flag[0]) == int(jt.flag[0]) == 2
     np.testing.assert_array_equal(tt.text_mask.numpy(), np.asarray(jt.text_mask))
     np.testing.assert_allclose(tt.state.prompt.numpy(), np.asarray(jt.state.prompt),

@@ -550,8 +550,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _gpu_q8_case(n, mask, dev, c=768, seed=0):
-    x, g, be, w, wb, kb = (_t(a).to(dev) for a in _ln_case(n, c=c, seed=seed, mask=mask))
+def _gpu_q8_case(n, mask, dev, c=768, seed=0, b=1):
+    x, g, be, w, wb, kb = (_t(a).to(dev) for a in _ln_case(n, c=c, b=b, seed=seed, mask=mask))
     wp, bp = (_t(a).to(dev) for a in _proj_case(c=c, seed=seed + 1))
     # the model's path: bf16 weights, quantized from their bf16 values
     wq = quant.quantize_weight(w.t().contiguous().bfloat16())
@@ -572,11 +572,13 @@ def _gpu_close(out, ref, f32: bool, atol=GPU_ATOL):
 @pytest.mark.parametrize("x_dtype", ["bf16", "fp32"])
 @pytest.mark.parametrize("mask", ["random", "tail", "open"])
 @pytest.mark.parametrize("n", [48, 321, 361, 681])
-def test_cuda_q8_and_proj_kernels_match_plain(cuda, n, mask, x_dtype, c):
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_cuda_q8_and_proj_kernels_match_plain(cuda, b, n, mask, x_dtype, c):
     """Every int8 ln_qkv and proj_residual instantiation against its plain
     version at UVLTrack-B's width (C=768, 12 heads) and UVLTrack-L's (C=1024,
-    16 heads)."""
-    x, g, be, w16, wq, wb, wp16, wpq, bp, kb = _gpu_q8_case(n, mask, cuda, c=c)
+    16 heads), at B = 1 and at the lockstep batches 4 and 8 (B*N rows, split-K
+    tiles across the batch boundary)."""
+    x, g, be, w16, wq, wb, wp16, wpq, bp, kb = _gpu_q8_case(n, mask, cuda, c=c, b=b)
     heads = c // 64
     x = x.to(XDT[x_dtype])
     f32 = x_dtype == "fp32"
@@ -620,11 +622,12 @@ def test_cuda_q8_and_proj_kernels_match_plain(cuda, n, mask, x_dtype, c):
 @pytest.mark.gpu
 @pytest.mark.parametrize("inst", ["bf16x-bf16a-bf16w", "fp32x-bf16a-bf16w", "bf16x-bf16a-int8w",
                                   "fp32x-fp32a-int8w"])
-def test_cuda_proj_residual_is_deterministic(cuda, inst):
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_cuda_proj_residual_is_deterministic(cuda, b, inst):
     """Two proj_residual launches on the same inputs are bitwise equal at
     the main path's shape (the cluster's split-K partials summed in rank
-    order), for each instantiation."""
-    x, g, be, w16, wq, wb, wp16, wpq, bp, kb = _gpu_q8_case(361, "tail", cuda)
+    order), for each instantiation, at B = 1, 4 and 8."""
+    x, g, be, w16, wq, wb, wp16, wpq, bp, kb = _gpu_q8_case(361, "tail", cuda, b=b)
     xt, at, wt = (part[:4] for part in inst.split("-"))
     x = x.to(XDT[xt])
     attn = lqa.qkv_attention(lqa.ln_qkv_q8(x.float(), g, be, wq.q, wq.scale, wb), kb, 12)

@@ -1,0 +1,98 @@
+// Native JPEG decoding for the data/eval loaders.
+//
+// Replaces the reference's jpeg4py/cv2 image loaders
+// (lib/train/data/image_loader.py:15-100) with a direct libjpeg decoder:
+// no Python-object overhead per frame, releases the GIL for the whole
+// decode (called through ctypes), writes RGB8 straight into a caller-owned
+// numpy buffer that is copied to the device.
+//
+// Build: g++ -O3 -shared -fPIC jpeg_loader.cc -ljpeg -o _jpeg_loader.so
+
+#include <cstdio>
+#include <cstring>
+#include <csetjmp>
+
+#include <jpeglib.h>
+
+namespace {
+
+struct ErrorMgr {
+  jpeg_error_mgr pub;
+  jmp_buf jump;
+};
+
+void error_exit(j_common_ptr cinfo) {
+  ErrorMgr* err = reinterpret_cast<ErrorMgr*>(cinfo->err);
+  longjmp(err->jump, 1);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0 on success; fills *h, *w with image dimensions.
+int uvl_jpeg_dims(const char* path, int* h, int* w) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return -1;
+  jpeg_decompress_struct cinfo;
+  ErrorMgr jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = error_exit;
+  if (setjmp(jerr.jump)) {
+    jpeg_destroy_decompress(&cinfo);
+    fclose(f);
+    return -2;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_stdio_src(&cinfo, f);
+  jpeg_read_header(&cinfo, TRUE);
+  *h = static_cast<int>(cinfo.image_height);
+  *w = static_cast<int>(cinfo.image_width);
+  jpeg_destroy_decompress(&cinfo);
+  fclose(f);
+  return 0;
+}
+
+// Decodes `path` as RGB8 into `out` (capacity `cap` bytes).
+// Returns 0 on success, fills *h/*w; -1 file error, -2 decode error,
+// -3 buffer too small.
+int uvl_jpeg_decode(const char* path, unsigned char* out, long cap,
+                    int* h, int* w) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return -1;
+  jpeg_decompress_struct cinfo;
+  ErrorMgr jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = error_exit;
+  if (setjmp(jerr.jump)) {
+    jpeg_destroy_decompress(&cinfo);
+    fclose(f);
+    return -2;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_stdio_src(&cinfo, f);
+  jpeg_read_header(&cinfo, TRUE);
+  cinfo.out_color_space = JCS_RGB;
+  jpeg_start_decompress(&cinfo);
+  const int width = static_cast<int>(cinfo.output_width);
+  const int height = static_cast<int>(cinfo.output_height);
+  const int stride = width * 3;
+  if (static_cast<long>(stride) * height > cap) {
+    jpeg_abort_decompress(&cinfo);
+    jpeg_destroy_decompress(&cinfo);
+    fclose(f);
+    return -3;
+  }
+  while (cinfo.output_scanline < cinfo.output_height) {
+    unsigned char* row = out + static_cast<long>(cinfo.output_scanline) * stride;
+    jpeg_read_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  fclose(f);
+  *h = height;
+  *w = width;
+  return 0;
+}
+
+}  // extern "C"

@@ -1,0 +1,136 @@
+"""Lockstep multi-stream tracking: S streams advance together, one batched
+forward a step (port of uvltrack_tpu/track/batch.py; the reference runs one
+process per GPU over its eval sequences, lib/test/evaluation/running.py:93-102).
+
+A step crops every stream's search region from its own frame (the batched
+crop of track/pipeline.py), runs UVLTrack.forward_test_cached (forward_test
+under TPU.CACHE_TEXT=False) at batch S, decodes each row and updates every
+stream's state: the step of tracker.py's LockstepTracker, which Tracker
+runs at S=1. The
+kernels take the batch as (B, N, .) rows and a (B, N) key bias, so a step
+launches what one Tracker step launches, once for S stream-frames.
+
+All frames of one step share a resolution. Each stream may be frozen
+(set_active): it keeps its box, score and features, and its frame_id does
+not advance, so ragged sequence lengths batch cleanly.
+
+Flags follow the JAX BatchTracker, not the single Tracker: a stream gets
+flag 2 only if it has a sentence, a tokenizer is given and its mode is not
+BBOX; else flag 0. NL streams take their init box from the grounding
+forward, at batch 1 one stream at a time: the forward without a prompt
+mines prompts against the half-batch-rotated search features
+(models/head.py), which at batch S would pair one stream's template with
+another's search. A box supplied for an NL stream is ignored.
+
+frame_id and active stay on the host, as in the port's Tracker: the
+re-mine (every UPDATE_INTERVAL frames, for streams whose best score beat
+TEST.THRESHOLD) makes its one host read, max_score > threshold, only on a
+step where some active stream is due, and runs forward_prompt at batch S
+where some stream refreshes, where-selecting each row's prompt.
+UVLTRACK_BATCH_COND_REMINE=0 (read at call time) re-mines every step,
+where-selected, with no host read: the same boxes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .tracker import LockstepTracker
+
+
+class BatchTracker(LockstepTracker):
+    """Tracks S streams in lockstep: initialize(frames, boxes) from their
+    first frames, then step(frames (S, H, W, 3)). The model's weights are
+    prepared in place by prepare_inference_model, as by Tracker:
+    BatchTracker(cfg, model, num_streams, tokenizer=None)."""
+
+    def device_frames(self, frames) -> torch.Tensor:
+        """S frames (a list, an (S, H, W, 3) array or tensor) on the device."""
+        if isinstance(frames, torch.Tensor):
+            return frames.to(self.device)
+        if isinstance(frames, (list, tuple)):
+            frames = np.stack(frames)
+        return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+
+    def text_row(self, language: Optional[str], mode: str):
+        """(ids (Nt,), mask (Nt,), flag) of one stream: flag 2 with a
+        sentence, a tokenizer and a mode other than BBOX, else zero ids and
+        flag 0 (the JAX BatchTracker's rule)."""
+        ids = np.zeros((self.nt,), np.int32)
+        mask = np.zeros((self.nt,), np.int32)
+        if language is not None and self.tokenizer is not None and mode != "BBOX":
+            ii, mm = self.tokenizer.encode_query(language, self.nt)
+            ids[:], mask[:] = ii, mm
+            return ids, mask, 2
+        return ids, mask, 0
+
+    @property
+    def remines(self) -> np.ndarray:
+        """(S,) prompt re-mines of each stream since its initialize."""
+        return self._remines.cpu().numpy().copy()
+
+    # ------------------------------------------------------------------ init
+    @torch.no_grad()
+    def initialize(self, frames, boxes, languages: Optional[List[Optional[str]]] = None,
+                   modes: Optional[List[str]] = None) -> np.ndarray:
+        """frames: S first frames (one resolution); boxes: (S, 4) xywh.
+        Returns the (S, 4) boxes each stream started from (grounded for NL
+        streams)."""
+        S = self.S
+        if len(frames) != S:
+            raise ValueError(f"{len(frames)} frames for {S} streams")
+        languages = list(languages) if languages else [None] * S
+        modes = list(modes) if modes else [self.cfg.TEST.MODE] * S
+        # a copy: NL rows are overwritten, and the caller's array stays as it is
+        boxes = np.array(boxes, np.float32)
+        rows = [self.text_row(lang, mode) for lang, mode in zip(languages, modes)]
+        self.text_ids = self.to_device(np.stack([r[0] for r in rows]))
+        self.text_mask = self.to_device(np.stack([r[1] for r in rows]))
+        self.flags = self.to_device(np.asarray([r[2] for r in rows], np.int32))
+        stacked = self.device_frames(frames)
+        for i in (i for i in range(S) if modes[i] == "NL"):
+            boxes[i] = self.ground(stacked[i], self.text_ids[i:i + 1],
+                                   self.text_mask[i:i + 1])
+        box = self.to_device(boxes)
+        self.template, self.template_mask, prompt = self.init_rows(
+            stacked, box, self.text_ids, self.text_mask, self.flags)
+        # per-sequence constant consumed by the step: the cached pre-fusion
+        # text features, or the raw ids under TPU.CACHE_TEXT=False
+        self.txt = (self.model.encode_text(self.text_ids, self.text_mask)
+                    if self.cache_text else self.text_ids)
+        self.state = self.fresh_state(box, prompt, np.ones((S,), bool))
+        self._remines.zero_()
+        return boxes.copy()
+
+    def set_active(self, active) -> None:
+        active = np.asarray(active, bool)
+        if active.shape != (self.S,):
+            raise ValueError(f"active must have shape ({self.S},), got {active.shape}")
+        self.state = dataclasses.replace(self.state, active=active.copy())
+
+    # ------------------------------------------------------------------ step
+    def step_async(self, frames, debug: bool = False):
+        """Advance every active stream one frame; returns the (S, 5)
+        [x, y, w, h, score] device tensor without reading it back, and with
+        debug=True also the (S, 3, fsz*fsz) [cls, cont, merged] maps."""
+        always = os.environ.get("UVLTRACK_BATCH_COND_REMINE", "1") != "1"
+        return self.step_rows(self.device_frames(frames), always_remine=always, debug=debug)
+
+    def step(self, frames) -> np.ndarray:
+        """frames: (S, H, W, 3) or a list of S frames. Returns (S, 5)
+        [x, y, w, h, score]."""
+        return self.step_async(frames).double().cpu().numpy()
+
+    def step_many_async(self, frames_t) -> torch.Tensor:
+        """frames_t: (T, S, H, W, 3), or T lists of S frames: T lockstep
+        steps; returns the (T, S, 5) device tensor without reading it back
+        (the JAX package scans the T steps in one dispatch)."""
+        return torch.stack([self.step_async(f) for f in frames_t])
+
+    def step_many(self, frames_t) -> np.ndarray:
+        return self.step_many_async(frames_t).double().cpu().numpy()

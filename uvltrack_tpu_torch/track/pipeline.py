@@ -33,7 +33,9 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 def _axis_taps(out_sz: int, crop_sz: torch.Tensor, offset: torch.Tensor,
                limit: int):
     """Bilinear taps along one axis: (idx0, idx1, w0, w1), indices clamped
-    into the image and weights zeroed for out-of-image taps.
+    into the image and weights zeroed for out-of-image taps. crop_sz and
+    offset are 0-d (one crop: taps (out_sz,)) or (S,) (one crop a stream:
+    taps (S, out_sz)); the arithmetic is the same element by element.
 
     The reference pads the far side by max(x2 - W + 1, 0), so on any
     bottom/right spill -- an exact fit x2 == W included -- the last in-image
@@ -42,6 +44,7 @@ def _axis_taps(out_sz: int, crop_sz: torch.Tensor, offset: torch.Tensor,
     """
     dev = crop_sz.device
     j = torch.arange(out_sz, dtype=torch.float32, device=dev)
+    crop_sz, offset = crop_sz[..., None], offset[..., None]
     crop_f = crop_sz.float()
     s = (j + 0.5) * (crop_f / out_sz) - 0.5
     s = torch.minimum(s.clamp_min(0.0), crop_f - 1.0)
@@ -60,14 +63,23 @@ def _axis_taps(out_sz: int, crop_sz: torch.Tensor, offset: torch.Tensor,
 
 def crop_resize(frame: torch.Tensor, x1, y1, crop_sz, out_sz: int) -> torch.Tensor:
     """frame (H,W,3) uint8 or float -> (out_sz, out_sz, 3) fp32 bilinear
-    crop. Rows are gathered first (contiguous (W, 3) rows) and cast to fp32
-    after the gather, so the frame is never copied whole as fp32."""
-    h, w = frame.shape[0], frame.shape[1]
+    crop; frames (S,H,W,3) with (S,) corners and sizes -> (S, out_sz,
+    out_sz, 3), each stream's crop equal to its single crop bit for bit.
+    Rows are gathered first (contiguous (W, 3) rows) and cast to fp32 after
+    the gather, so the frame is never copied whole as fp32."""
+    h, w = frame.shape[-3], frame.shape[-2]
     ry0, ry1, wy0, wy1 = _axis_taps(out_sz, crop_sz, y1, h)
     rx0, rx1, wx0, wx1 = _axis_taps(out_sz, crop_sz, x1, w)
-    rows = (frame[ry0].float() * wy0[:, None, None]
-            + frame[ry1].float() * wy1[:, None, None])
-    return rows[:, rx0] * wx0[None, :, None] + rows[:, rx1] * wx1[None, :, None]
+    if frame.ndim == 3:
+        rows = (frame[ry0].float() * wy0[:, None, None]
+                + frame[ry1].float() * wy1[:, None, None])
+        return rows[:, rx0] * wx0[None, :, None] + rows[:, rx1] * wx1[None, :, None]
+    b = torch.arange(frame.shape[0], device=frame.device)[:, None]
+    rows = (frame[b, ry0].float() * wy0[..., None, None]
+            + frame[b, ry1].float() * wy1[..., None, None])  # (S, out, W, 3)
+    b, r = b[:, :, None], torch.arange(out_sz, device=frame.device)[None, :, None]
+    return (rows[b, r, rx0[:, None, :]] * wx0[:, None, :, None]
+            + rows[b, r, rx1[:, None, :]] * wx1[:, None, :, None])
 
 
 def normalize(img: torch.Tensor) -> torch.Tensor:
@@ -80,10 +92,12 @@ def normalize(img: torch.Tensor) -> torch.Tensor:
 def sample_target_device(frame: torch.Tensor, box_xywh: torch.Tensor,
                          search_area_factor: float, out_sz: int):
     """Square crop of area factor^2 * wh centered on the box, resized to
-    out_sz and normalized. Returns (patch (1,out,out,3), resize_factor)."""
+    out_sz and normalized. Returns (patch (1,out,out,3), resize_factor ());
+    for frames (S,H,W,3) and boxes (S,4), one crop a stream: (patches
+    (S,out,out,3), resize_factors (S,)), each row its single crop exactly."""
     x1, y1, crop_i, resize_factor = crop_params(box_xywh, search_area_factor, out_sz)
-    patch = crop_resize(frame, x1, y1, crop_i, out_sz)
-    return normalize(patch)[None], resize_factor
+    patch = normalize(crop_resize(frame, x1, y1, crop_i, out_sz))
+    return (patch[None] if frame.ndim == 3 else patch), resize_factor
 
 
 def letterbox_params(h: int, w: int, out_sz: int):
