@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (uvltrack_tpu_torch) end to end on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--frames 64]
+    python3 chip_smoke.py [--seed 0] [--frames 64] [--only GROUP,...]
 
 Phases, one JSON line each:
   1. env      -- card, count, power limit; the nvcc build of every kernel
@@ -35,7 +35,8 @@ Phases, one JSON line each:
                  F.layer_norm + F.linear (dequantized W for int8).
   3. track    -- UVLTrack-B (experiments/uvltrack/baseline_base.yaml, full
                  width, seeded random weights) tracks a synthetic 720p
-                 sequence in BBOX, NLBBOX, then NL mode (initialized from
+                 sequence in BBOX (64 frames), NLBBOX, then NL mode (32
+                 frames each; initialized from
                  the sentence by the grounding forward, compared kernel vs
                  plain: the same argmax cell or a near-tie, the box within
                  1% of the letterbox side): FPS at batch 1, p50/p90 frame
@@ -46,12 +47,13 @@ Phases, one JSON line each:
                  state (paired_ab); each layer's time (layer_times, with the
                  grounding forward in NL mode) and the card's busy share
                  from torch.profiler (device_profile). Then BBOX and NLBBOX
-                 with TPU.WEIGHT_QUANT=int8 (B-BBOX-Q8, B-NLBBOX-Q8), the
+                 with TPU.WEIGHT_QUANT=int8 (B-BBOX-Q8, B-NLBBOX-Q8; 32
+                 frames), the
                  launches counted per instantiation.
-     fused_prefix_off -- UVLTRACK_FUSED_PREFIX=0, BBOX, 16 frames: LN + qkv
+     fused_prefix_off -- UVLTRACK_FUSED_PREFIX=0, BBOX, 8 frames: LN + qkv
                  plain and 12 qkv_attention launches per forward, no ln_qkv.
      fused_proj, fused_mlp -- UVLTRACK_FUSED_PROJ=1 / UVLTRACK_FUSED_MLP=1
-                 on the bf16 and the int8 model, BBOX, 16 frames: 12
+                 on the bf16 and the int8 model, BBOX, 8 frames: 12
                  proj_residual / ln_mlp launches per forward (none of
                  ln_mlp with int8 weights), kernel vs plain through
                  paired_ab.
@@ -80,8 +82,38 @@ Phases, one JSON line each:
   4. reference -- one step's model outputs on the card against the same
                  weights and inputs on the CPU (cpu_reference), for the bf16
                  and the int8 model, and the grounding forward's (bf16).
+  Phases 3 and 4 run the eager step (graphs=False: launches counted per
+  forward, per-layer CUDA events); the compiled step follows:
+  5. compiled -- CUDA graphs of the step and the re-mine through a shared
+                 JitTracker against the eager step, in turns (eager, graph,
+                 graph, eager) in B-BBOX, B-NLBBOX, B-NL (64 frames),
+                 B-BBOX-Q8, lockstep S4 and S8 (the multistream sequences)
+                 and the S=4 pool: FPS / stream-frames/s, step p50/p90, a
+                 profiler window each (device ms, ops, busy share), peak
+                 memory with the graph pool, capture seconds, track_many at
+                 chunk 32 (B-BBOX's chunk of 16 profiled). Gated: every
+                 frame (row) from a shared state, the
+                 graph step's box and maps against the eager debug step's
+                 (paired_ab's rule; the bitwise-equal count reported);
+                 re-mines at frames 20/40/60 on both; the launches each
+                 graph recorded at capture equal the eager forward's (12 +
+                 12, 6+6 per dtype with int8; none in the re-mine); a second
+                 Tracker on the JitTracker captures nothing and tracks as a
+                 fresh one; UVLTRACK_FUSED_PREFIX=0 set after the capture gets
+                 its own graph (12 qkv_attention, no ln_qkv).
+  6. serve    -- cli/serve.py's make_server in this process on 127.0.0.1
+                 over the compiled step: per-stream (a BBOX and an NLBBOX
+                 stream, 32 720p npy frames each, two client threads) and
+                 --lockstep 4 (four streams, 24 rounds, one closed and
+                 reopened); served boxes equal a direct Tracker / StreamPool
+                 on the same JitTracker bit for bit; the --max_streams 429
+                 and /close; request p50/p90 and served frames/s.
+--only runs some groups (kernels = phase 2, track = 3-4 but the
+multistream ones, multistream, compiled, serve) and prints no kernels line.
 Then the script's total seconds, the {"kernels": [...]} line (each
-kernel's times at B=1 and, under "B8", at the lockstep batch), the
+kernel's times at B=1 and, under "B8", at the lockstep batch; "launches"
+counted by the wrappers on the eager paths, "graph_launches" the graphs'
+captured calls times their replays), the
 nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failure raises: no ok line, exit 1.
 Without a CUDA card, or outside a checkout, it exits 2 and prints no result.
@@ -135,6 +167,10 @@ F32_ATOL, F32_RTOL = 2e-4, 2e-4
 
 
 MLP_N = (48, 321, 361, 681)  # kernel #7's check shapes
+# the instantiations the kernels line's two bf16 rows count
+NAMED_BY_BASE = {"ln_qkv": ("ln_qkv[bf16x-bf16w]", "ln_qkv[fp32x-bf16w]"),
+                 "qkv_attention": ("qkv_attention[bf16]",)}
+GROUPS = ("kernels", "track", "multistream", "compiled", "serve")
 ATTN_N = (40, 48, 128, 321, 361, 681)  # kernel #3's: BERT's N, 128 and the ViT's
 
 TIMER = ("CUDA events, L2-warm: *ms = mean of 200 back-to-back eager calls after 20 "
@@ -769,35 +805,16 @@ def fused_kernel_phase(dev, seed: int):
 
 # ------------------------------------------------------------------ phase 3
 def frame_work(model, nt: int) -> dict:
-    """Operations and weight bytes of one tracked frame, from the shapes:
-    the 12 blocks (qkv, attention, projection, MLP), the patch embedding and
-    the head's conv towers (3x3 stages and the final 1x1), and the weights
+    """Operations and weight bytes of one tracked frame, counted from the
+    shapes by the package (track/tracker.py::frame_cost, which
+    Tracker.step_cost reads): the 12 blocks (qkv, attention, projection,
+    MLP), the patch embedding and the head's conv towers, and the weights
     the step reads (blocks, patch embedding, towers) at their stored width."""
-    import torch
+    from uvltrack_tpu_torch.track.tracker import frame_cost
 
-    bb, head = model.backbone, model.box_head
-    c = bb.embed_dim
-    n_vis = 1 + bb.num_patches_z + bb.num_patches_x
-    flops, kernel1 = 0, 0
-    for i in range(bb.depth):
-        n = n_vis + nt if i in bb.fusion_layers else n_vis
-        qkv_attn = 6 * n * c * c + 4 * n * n * c
-        kernel1 += qkv_attn
-        flops += qkv_attn + 18 * n * c * c  # + proj (2NC^2) + MLP (16NC^2)
-    flops += 2 * (bb.num_patches_z + bb.num_patches_x) * c * 3 * 16 * 16
-    cells = head.feat_sz ** 2
-    towers = [head.conv_cls, head.conv_offset, head.conv_bbox, head.conv_bbox_grounding]
-    for tower in towers:
-        for m in tower.modules():
-            if isinstance(m, torch.nn.Conv2d):
-                kh, kw = m.kernel_size
-                flops += 2 * cells * m.in_channels * kh * kw * m.out_channels
-    used = [bb.vit.blocks, bb.vit.patch_embed, *towers]
-    wbytes = sum(p.numel() * p.element_size() for mod in used for p in mod.parameters())
-    # int8 payloads and their scales (weight-only int8) are buffers
-    wbytes += sum(b.numel() * b.element_size() for mod in used
-                  for name, b in mod.named_buffers() if name.endswith(("weight_q", "weight_scale")))
-    return {"frame_gflops": flops / 1e9, "kernel1_gflops": kernel1 / 1e9,
+    cost = frame_cost(model, nt)
+    flops, wbytes = cost["flops"], cost["weight_bytes"]
+    return {"frame_gflops": flops / 1e9, "kernel1_gflops": cost["kernel1_flops"] / 1e9,
             "frame_weight_bytes": wbytes,
             "frame_bound_ms": bound(flops, wbytes)[0], "frame_bound_by": bound(flops, wbytes)[1]}
 
@@ -965,7 +982,7 @@ def track_phase(mode: str, model, cfg, frames, boxes, tokenizer, language,
     from uvltrack_tpu_torch.track.tracker import Tracker
 
     cfg.TEST.MODE = mode
-    tracker = Tracker(cfg, model, tokenizer=tokenizer)
+    tracker = Tracker(cfg, model, tokenizer=tokenizer, graphs=False)
     info = {"init_bbox": boxes[0], "language": language}
 
     def run(backend: str):
@@ -1060,7 +1077,7 @@ def reference_phase(model, cfg, frames, boxes, label: str = "", tokenizer=None,
 
     grounding = tokenizer is not None
     cfg.TEST.MODE = "NL" if grounding else "BBOX"
-    t = Tracker(cfg, model, tokenizer=tokenizer)
+    t = Tracker(cfg, model, tokenizer=tokenizer, graphs=False)
     attention.force_backend("cuda")
     keys = ("cls_score_test", "bbox_map", "cont_score")
     if grounding:
@@ -1217,7 +1234,7 @@ def knob_phase(name: str, knob: str, value: str, model, cfg, frames, boxes, expe
     from uvltrack_tpu_torch.track.tracker import Tracker
 
     cfg.TEST.MODE = mode
-    tracker = Tracker(cfg, model, tokenizer=tokenizer)
+    tracker = Tracker(cfg, model, tokenizer=tokenizer, graphs=False)
     info = {"init_bbox": boxes[0], "language": language}
     init_forwards = 1 + (mode == "NL")
     expect_init = expect_init or {k: v * init_forwards for k, v in expect.items()}
@@ -1271,7 +1288,7 @@ def drift_phase(model_fp, cfg_fp, model_q8, cfg_q8, frames, boxes):
     from uvltrack_tpu_torch.track.tracker import Tracker
 
     cfg_fp.TEST.MODE = cfg_q8.TEST.MODE = "BBOX"
-    tf, tq = Tracker(cfg_fp, model_fp), Tracker(cfg_q8, model_q8)
+    tf, tq = Tracker(cfg_fp, model_fp, graphs=False), Tracker(cfg_q8, model_q8, graphs=False)
     info = {"init_bbox": boxes[0]}
     attention.force_backend("cuda")
     try:
@@ -1370,7 +1387,7 @@ class LockstepCell:
         self.batches = [np.stack([seqs[i][0][t] if act[i] else self.frames0[i]
                                   for i in range(self.S)])
                         for t, act in zip(range(1, self.T + 1), self.actives)]
-        self.bt = BatchTracker(cfg, model, self.S, tokenizer=tokenizer)
+        self.bt = BatchTracker(cfg, model, self.S, tokenizer=tokenizer, graphs=False)
         self.lats, self.peak = [], 0
 
     def initialize(self):
@@ -1439,7 +1456,7 @@ class LockstepCell:
         # (a), (b): every step from a shared state
         tallies = {"kernel_vs_plain": AbTally(f"{label} kernel/plain"),
                    "batch_vs_single": AbTally(f"{label} batch/single")}
-        single = Tracker(self.cfg, self.model, tokenizer=self.tokenizer)
+        single = Tracker(self.cfg, self.model, tokenizer=self.tokenizer, graphs=False)
         attention.force_backend("cuda")
         self.initialize()
         for batch, active in zip(self.batches, self.actives):
@@ -1449,7 +1466,7 @@ class LockstepCell:
         grounding = []
         for i in (i for i in range(S) if self.modes[i] == "NL"):
             self.cfg.TEST.MODE = "NL"  # read by Tracker.initialize
-            alone = Tracker(self.cfg, self.model, tokenizer=self.tokenizer)
+            alone = Tracker(self.cfg, self.model, tokenizer=self.tokenizer, graphs=False)
             attention.force_backend("cuda")
             want = alone.initialize(self.frames0[i], {"language": self.languages[i]})
             self.cfg.TEST.MODE = "BBOX"
@@ -1498,7 +1515,7 @@ def tracker_run(model, cfg, seq, frames: int):
     from uvltrack_tpu_torch.track.tracker import Tracker
 
     cfg.TEST.MODE = "BBOX"
-    tracker = Tracker(cfg, model)
+    tracker = Tracker(cfg, model, graphs=False)
     attention.force_backend("cuda")
     tracker.initialize(seq[0][0], {"init_bbox": seq[1][0]})
     lat = []
@@ -1531,7 +1548,8 @@ def runner_cell(model, cfg, seqs, languages, lengths, tokenizer, direct) -> None
     cfg.TEST.MODE = "NLBBOX"  # a stream with no sentence gets flag 0
     attention.force_backend("cuda")
     t0 = time.perf_counter()
-    stats = run_dataset_batched(lambda S: BatchTracker(cfg, model, S, tokenizer=tokenizer), ds,
+    stats = run_dataset_batched(lambda S: BatchTracker(cfg, model, S, tokenizer=tokenizer,
+                                                       graphs=False), ds,
                                 str(rdir), num_streams=len(lengths), image_loader=frames.get,
                                 rerun=True, verbose=False)
     wall = time.perf_counter() - t0
@@ -1550,6 +1568,35 @@ def runner_cell(model, cfg, seqs, languages, lengths, tokenizer, direct) -> None
           "boxes_equal_the_direct_run": same})
 
 
+POOL_OPENS = {0: ["A"], 3: ["B"], 7: ["C"], 12: ["D"]}
+POOL_CLOSES, POOL_SKIPS = {12: ["A"]}, {15: ["C"], 16: ["C"]}
+POOL_SEQ = {"A": 0, "B": 1, "C": 2, "D": 3}
+
+
+def pool_schedule(pool, seqs, languages, on_open, on_round, rounds: int = 24):
+    """Drive a StreamPool through the pool cell's rounds: opens, closes and
+    skips as POOL_*; each open stream sends its sequence's next frame every
+    round it does not skip; on_open(do) runs an open, on_round(pool,
+    {stream: frame}) a round. Returns {stream: frames sent}."""
+    sent = {}
+    for r in range(rounds):
+        for s in POOL_CLOSES.get(r, []):
+            pool.close(s)
+            del sent[s]
+        for s in POOL_OPENS.get(r, []):
+            i = POOL_SEQ[s]
+            on_open(lambda: pool.open(s, seqs[i][0][0], {"init_bbox": seqs[i][1][0],
+                                                        "language": languages[i]}))
+            sent[s] = 0
+        pending = {}
+        for s in sent:
+            if s not in POOL_SKIPS.get(r, []):
+                sent[s] += 1
+                pending[s] = seqs[POOL_SEQ[s]][0][sent[s]]
+        on_round(pool, pending)
+    return sent
+
+
 def pool_cell(model, cfg, seqs, languages, tokenizer, per_fwd, rounds: int = 24):
     """A StreamPool of 4 slots in NLBBOX mode (streams without a sentence
     get flag 0): streams open at rounds 0, 3 and 7, C skips rounds 15-16
@@ -1566,33 +1613,14 @@ def pool_cell(model, cfg, seqs, languages, tokenizer, per_fwd, rounds: int = 24)
     from uvltrack_tpu_torch.track.pool import StreamPool
     from uvltrack_tpu_torch.track.tracker import Tracker
 
-    opens = {0: ["A"], 3: ["B"], 7: ["C"], 12: ["D"]}
-    closes, skips = {12: ["A"]}, {15: ["C"], 16: ["C"]}
-    seq_of = {"A": 0, "B": 1, "C": 2, "D": 3}
+    opens, closes, skips, seq_of = POOL_OPENS, POOL_CLOSES, POOL_SKIPS, POOL_SEQ
     cfg.TEST.MODE = "NLBBOX"
 
     def schedule(pool, on_open, on_round):
-        """Drive the pool through the rounds; on_round(pool, {stream: frame})."""
-        sent = {}
-        for r in range(rounds):
-            for s in closes.get(r, []):
-                pool.close(s)
-                del sent[s]
-            for s in opens.get(r, []):
-                i = seq_of[s]
-                on_open(lambda: pool.open(s, seqs[i][0][0], {"init_bbox": seqs[i][1][0],
-                                                            "language": languages[i]}))
-                sent[s] = 0
-            pending = {}
-            for s in sent:
-                if s not in skips.get(r, []):
-                    sent[s] += 1
-                    pending[s] = seqs[seq_of[s]][0][sent[s]]
-            on_round(pool, pending)
-        return sent
+        return pool_schedule(pool, seqs, languages, on_open, on_round, rounds)
 
     def timed():
-        pool = StreamPool(cfg, model, capacity=4, tokenizer=tokenizer)
+        pool = StreamPool(cfg, model, capacity=4, tokenizer=tokenizer, graphs=False)
         lat, open_s, counts = [], [], {"open": {}, "submit": {}}
 
         def count(kind):
@@ -1643,7 +1671,7 @@ def pool_cell(model, cfg, seqs, languages, tokenizer, per_fwd, rounds: int = 24)
 
     tallies = {"kernel_vs_plain": AbTally("pool kernel/plain"),
                "batch_vs_single": AbTally("pool batch/single")}
-    single = Tracker(cfg, model, tokenizer=tokenizer)
+    single = Tracker(cfg, model, tokenizer=tokenizer, graphs=False)
 
     def checked(pool, pending):
         """submit's batch and active rows, stepped by checked_step."""
@@ -1656,7 +1684,8 @@ def pool_cell(model, cfg, seqs, languages, tokenizer, per_fwd, rounds: int = 24)
         checked_step(pool.bt, single, batch, tallies)
 
     attention.force_backend("cuda")
-    schedule(StreamPool(cfg, model, capacity=4, tokenizer=tokenizer), lambda do: do(), checked)
+    schedule(StreamPool(cfg, model, capacity=4, tokenizer=tokenizer, graphs=False),
+             lambda do: do(), checked)
     attention.force_backend(None)
     stream_frames = int(lat[:, 1].sum())
     emit({"phase": "multistream_pool", "capacity": 4, "rounds": rounds,
@@ -1676,7 +1705,7 @@ def pool_cell(model, cfg, seqs, languages, tokenizer, per_fwd, rounds: int = 24)
 
 
 def multistream_phase(model, cfg, model_q8, cfg_q8, tokenizer, language, per_fwd_fp,
-                      per_fwd_q8, seed: int) -> dict:
+                      per_fwd_q8, seqs) -> dict:
     """Lockstep tracking of UVLTrack-B at S = 1, 4 and 8 (bf16) and 4
     (int8), the batched runner at S=4, and a StreamPool of 4 slots, on
     720p synthetic sequences (a seed and a start on the path each; frame 0
@@ -1693,7 +1722,6 @@ def multistream_phase(model, cfg, model_q8, cfg_q8, tokenizer, language, per_fwd
             launches[k] = launches.get(k, 0) + v
 
     t0 = time.perf_counter()
-    seqs = [synthetic_sequence(32, seed + 1 + i, phase=11 * i) for i in range(8)]
     mix = ["BBOX", "NLBBOX"] * 4
     langs = [language] * 8
     lengths4 = [33, 33, 25, 33]  # stream 2 is 8 frames shorter: frozen for 8 steps
@@ -1732,6 +1760,626 @@ def multistream_phase(model, cfg, model_q8, cfg_q8, tokenizer, language, per_fwd
     return launches
 
 
+# --------------------------------------------------------------- compiled
+COMPILED_TIMER = ("host clock per Tracker.track (BatchTracker.step, StreamPool.submit), each "
+                  "ending in the box read-back; graph and eager runs of one cell in turns "
+                  "eager/graph/graph/eager; the frames are on the host before the clock starts")
+
+
+def graph_launches(*jts) -> dict:
+    """{instantiation: launches} made by the JitTrackers' graphs: each graph's
+    captured calls times its replays (a replay calls no wrapper, so
+    build.launch counts nothing)."""
+    out = {}
+    for jt in jts:
+        for key in jt.keys():
+            cap, rep = jt.captured_launches(key), jt.replays(key)
+            for name in ("step", "remine"):
+                for k, n in cap[name].items():
+                    out[k] = out.get(k, 0) + n * rep[name]
+    return out
+
+
+def eager_remine_launches(tracker) -> dict:
+    """The kernel launches of one eager re-mine body at the tracker's S."""
+    import torch
+
+    from uvltrack_tpu_torch.ops import build
+
+    st, c = tracker._tensors()
+    due = torch.ones((tracker.S,), dtype=torch.bool, device=tracker.device)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    tracker.jt.remine_body(due, st, c)
+    torch.cuda.synchronize()
+    return build.instantiation_counts()
+
+
+def check_captures(jt, keys, per_fwd: dict, remine: dict, what: str) -> dict:
+    """The step graph of each key recorded the eager forward's launches
+    (per_fwd), its re-mine graph the eager re-mine's (remine). Returns the
+    captures, by key."""
+    caps = {}
+    for key in keys:
+        cap = jt.captured_launches(key)
+        if cap["step"] != per_fwd or (cap["remine"] and cap["remine"] != remine):
+            raise AssertionError(f"{what}: graph {key} captured {cap}, the eager forward "
+                                 f"launches {per_fwd} and the re-mine {remine}")
+        caps[str(key)] = cap
+    return caps
+
+
+def lat_stats(lat, unit: str = "frame") -> dict:
+    import numpy as np
+
+    lat = np.asarray(lat)
+    return {f"{unit}s": int(len(lat)), f"{unit}s_per_s": len(lat) / float(lat.sum()),
+            "p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "p90_ms": float(np.percentile(lat, 90) * 1e3)}
+
+
+def turns(run, eager, graph):
+    """run(eager), run(graph), run(graph), run(eager): A B B A in one call.
+    Returns {"eager": [r, r], "graph": [r, r]}."""
+    out = {"eager": [], "graph": []}
+    for name, t in (("eager", eager), ("graph", graph), ("graph", graph), ("eager", eager)):
+        out[name].append(run(t))
+    return out
+
+
+def compiled_single(label, mode, cfg, jt, frames, boxes, tokenizer, language, per_fwd,
+                    remine_fwd) -> dict:
+    """One stream (B-BBOX, B-NLBBOX, B-NL or B-BBOX-Q8) on jt's graphs
+    against the eager step, in turns; then every frame from a shared state,
+    the graph step's box and maps against the eager debug step's
+    (paired_ab's rule, and bitwise); re-mines and remine replays counted;
+    the captures checked; a profiler window each."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.track.tracker import Tracker
+
+    cfg.TEST.MODE = mode
+    info = {"init_bbox": boxes[0], "language": language}
+    graph = Tracker(cfg, tokenizer=tokenizer, jit_tracker=jt)
+    eager = Tracker(cfg, tokenizer=tokenizer, jit_tracker=jt, graphs=False)
+    hw = frames[0].shape[:2]
+
+    def run(t):
+        t.initialize(frames[0], info)
+        torch.cuda.synchronize()
+        lat, out = [], []
+        for f in frames[1:]:
+            t0 = time.perf_counter()
+            r = t.track(f)
+            lat.append(time.perf_counter() - t0)
+            out.append(r["target_bbox"] + [r["score"]])
+        return np.asarray(out), np.asarray(lat), t.remines
+
+    attention.force_backend("cuda")
+    n0, s0 = jt.graphs_captured, jt.capture_seconds
+    t0 = time.perf_counter()
+    run(graph)  # warm-up: captures this frame size's graphs unless another cell did
+    first_run_s = time.perf_counter() - t0
+    run(eager)
+    captured, capture_s = jt.graphs_captured - n0, jt.capture_seconds - s0
+    key = jt.graph_key(hw, 1)
+    reps0 = jt.replays(key)
+    torch.cuda.reset_peak_memory_stats()
+    res = turns(run, eager, graph)
+    peak = torch.cuda.max_memory_allocated()
+    reps = {k: v - reps0[k] for k, v in jt.replays(key).items()}
+    n = len(frames) - 1
+    want_remines = n // int(cfg.TEST.UPDATE_INTERVAL)
+    remines = [r[2] for rr in res.values() for r in rr]
+    if remines != [want_remines] * 4:
+        raise AssertionError(f"{label}: re-mines {remines} (eager, eager, graph, graph), "
+                             f"not {want_remines} each")
+    if reps != {"step": 2 * n, "remine": 2 * want_remines}:
+        raise AssertionError(f"{label}: replays {reps} over two runs of {n} frames")
+    caps = check_captures(jt, [key], per_fwd, remine_fwd, label)
+    free_equal = all(np.array_equal(g[0], e[0]) for g in res["graph"] for e in res["eager"])
+    # every frame from a shared state: the graph step, then the eager debug step
+    tally, bitwise = AbTally(f"{label} graph/eager"), 0
+    graph.initialize(frames[0], info)
+    for f in frames[1:]:
+        st = graph.state
+        crop = crop_side(st.box[0].tolist(), graph.search_factor)
+        g = graph.track(f)
+        gmap = graph.graph_maps()[0, 2].cpu().numpy()
+        after = graph.state
+        graph.state = st
+        e = graph.track_debug(f)
+        graph.state = after
+        tally.add(e["target_bbox"], e["merged_map"], g["target_bbox"], gmap, crop)
+        bitwise += int(g["target_bbox"] == e["target_bbox"] and g["score"] == e["score"])
+    prof = {}
+    for name, t in (("graph", graph), ("eager", eager)):
+        t.initialize(frames[0], info)
+        t.track(frames[1])
+        prof[name] = profile_window(lambda i, t=t: t.track(frames[2 + i]), 16, "frame")
+    # track_many: a chunk's frames in one upload, one read-back a chunk
+    chunked = {}
+    for name, t in (("graph", graph), ("eager", eager)):
+        t.initialize(frames[0], info)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        many = t.track_many(frames[1:], chunk=32)
+        chunked[name] = {"frames_per_s": n / (time.perf_counter() - t0),
+                         "boxes_equal_track": bool(np.array_equal(many, res[name][0][0]))}
+        if label == "B-BBOX":  # where the card waits within a chunk
+            t.initialize(frames[0], info)
+            chunked[name]["device_profile"] = profile_window(
+                lambda i, t=t: t.track_many(frames[1:17], chunk=16), 1, "chunk_of_16")
+    if not all(c["boxes_equal_track"] for c in chunked.values()):
+        raise AssertionError(f"{label}: track_many's boxes differ from track's")
+    attention.force_backend(None)
+    out = {"phase": f"compiled_{label}", "mode": mode, "frames": n, "frame_hw": list(hw),
+           "track_many_chunk32": chunked,
+           "timer": COMPILED_TIMER,
+           **{name: {**lat_stats(np.concatenate([r[1] for r in rr])),
+                     "p50_ms_by_run": [float(np.percentile(r[1], 50) * 1e3) for r in rr],
+                     "device_profile": prof[name]} for name, rr in res.items()},
+           "bitwise_equal_frames": bitwise, "paired_graph_vs_eager": tally.summary(),
+           "free_running_runs_bitwise_equal": free_equal, "remines": want_remines,
+           "replays_over_two_runs": reps, "captured_launches": caps,
+           "graphs_captured": captured, "capture_s": capture_s,
+           "first_graph_run_s": first_run_s, "peak_mem_bytes": int(peak),
+           "reserved_bytes": int(torch.cuda.memory_reserved())}
+    emit(out)
+    return out
+
+
+def compiled_lockstep(label, cell, jt, per_fwd, remine_fwd) -> dict:
+    """A LockstepCell's streams (S4, S8) through a BatchTracker on jt's
+    graphs against one on the eager step, in turns; then each step from a
+    shared state, every active row of the graph step against the eager debug
+    step's (paired_ab's rule, and bitwise); re-mines as the eager path's."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.track.batch import BatchTracker
+
+    S, T = cell.S, cell.T
+    graph = BatchTracker(cell.cfg, None, S, tokenizer=cell.tokenizer, jit_tracker=jt)
+    eager = BatchTracker(cell.cfg, None, S, tokenizer=cell.tokenizer, jit_tracker=jt,
+                         graphs=False)
+
+    def init(bt):
+        return bt.initialize(cell.frames0, cell.boxes0, languages=cell.languages,
+                             modes=cell.modes)
+
+    def run(bt):
+        init(bt)
+        torch.cuda.synchronize()
+        lat, out = [], []
+        for batch, active in zip(cell.batches, cell.actives):
+            bt.set_active(active)
+            t0 = time.perf_counter()
+            out.append(bt.step(batch))
+            lat.append(time.perf_counter() - t0)
+        return np.stack(out), np.asarray(lat), bt.remines.tolist()
+
+    attention.force_backend("cuda")
+    n0, s0 = jt.graphs_captured, jt.capture_seconds
+    run(graph)
+    run(eager)
+    captured, capture_s = jt.graphs_captured - n0, jt.capture_seconds - s0
+    torch.cuda.reset_peak_memory_stats()
+    res = turns(run, eager, graph)
+    peak = torch.cuda.max_memory_allocated()
+    frames_done = np.sum(cell.actives, axis=0)
+    want = (frames_done // int(cell.cfg.TEST.UPDATE_INTERVAL)).tolist()
+    for name, rr in res.items():
+        for r in rr:
+            if r[2] != want:
+                raise AssertionError(f"{label} {name}: re-mines {r[2]}, not {want}")
+    caps = check_captures(jt, [jt.graph_key(cell.frames0[0].shape[:2], S)], per_fwd,
+                          remine_fwd, label)
+    tally, bitwise, rows = AbTally(f"{label} graph/eager"), 0, 0
+    init(graph)
+    for batch, active in zip(cell.batches, cell.actives):
+        graph.set_active(active)
+        st = graph.state
+        g = graph.step(batch)
+        gm = graph.graph_maps().float().cpu().numpy()
+        after = graph.state
+        graph.state = st
+        e, em = (t.float().cpu().numpy() for t in graph.step_async(batch, debug=True))
+        e = e.astype(np.float64)
+        graph.state = after
+        for i in map(int, st.active.nonzero()[0]):
+            crop = crop_side(st.box[i].tolist(), graph.search_factor)
+            tally.add(e[i, :4], em[i, 2], g[i, :4], gm[i, 2], crop)
+            bitwise += int(np.array_equal(g[i], e[i]))
+            rows += 1
+    prof = {}
+    for name, bt in (("graph", graph), ("eager", eager)):
+        init(bt)
+        bt.step(cell.batches[0])
+        prof[name] = profile_window(lambda j, bt=bt: bt.step(cell.batches[1 + j]),
+                                    min(8, T - 1), "step")
+    attention.force_backend(None)
+    stream_frames = int(frames_done.sum())
+    out = {"phase": f"compiled_{label}", "S": S, "steps": T, "modes": cell.modes,
+           "timer": COMPILED_TIMER,
+           **{name: {**lat_stats(np.concatenate([r[1] for r in rr]), "step"),
+                     "stream_frames_per_s": stream_frames * len(rr)
+                     / float(sum(r[1].sum() for r in rr)),
+                     "p50_ms_by_run": [float(np.percentile(r[1], 50) * 1e3) for r in rr],
+                     "device_profile": prof[name]} for name, rr in res.items()},
+           "bitwise_equal_rows": bitwise, "rows": rows,
+           "paired_graph_vs_eager": tally.summary(), "remines": want,
+           "free_running_runs_bitwise_equal": all(
+               np.array_equal(g[0], e[0]) for g in res["graph"] for e in res["eager"]),
+           "captured_launches": caps, "graphs_captured": captured, "capture_s": capture_s,
+           "peak_mem_bytes": int(peak)}
+    emit(out)
+    return out
+
+
+def compiled_pool(cfg, jt, seqs, languages, tokenizer, per_fwd, remine_fwd) -> dict:
+    """The pool cell's schedule (pool_schedule) on a StreamPool over jt's
+    graphs against one on the eager step, in turns; then each round from a
+    shared state, the graph step's active rows against the eager debug
+    step's; re-mines by slot as the eager pool's."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.track.pool import StreamPool
+
+    cfg.TEST.MODE = "NLBBOX"
+
+    def run(graphs):
+        pool = StreamPool(cfg, None, 4, tokenizer=tokenizer, jit_tracker=jt, graphs=graphs)
+        lat = []
+
+        def on_round(p, pending):
+            t0 = time.perf_counter()
+            p.submit(pending)
+            lat.append((time.perf_counter() - t0, len(pending)))
+
+        pool_schedule(pool, seqs, languages, lambda do: do(), on_round)
+        return np.asarray(lat), pool.bt.remines.tolist()
+
+    attention.force_backend("cuda")
+    n0, s0 = jt.graphs_captured, jt.capture_seconds
+    run(True)
+    run(False)
+    captured, capture_s = jt.graphs_captured - n0, jt.capture_seconds - s0
+    torch.cuda.reset_peak_memory_stats()
+    res = turns(run, False, True)
+    peak = torch.cuda.max_memory_allocated()
+    remines = {name: [r[1] for r in rr] for name, rr in res.items()}
+    if len({str(r) for rr in remines.values() for r in rr}) != 1:
+        raise AssertionError(f"pool: re-mines by slot differ: {remines}")
+    caps = check_captures(jt, [jt.graph_key(seqs[0][0][0].shape[:2], 4)], per_fwd, remine_fwd,
+                          "pool")
+    tally, bitwise, rows = AbTally("pool graph/eager"), 0, 0
+    pool = StreamPool(cfg, None, 4, tokenizer=tokenizer, jit_tracker=jt)
+
+    def checked(p, pending):
+        nonlocal bitwise, rows
+        (h, w), = {f.shape[:2] for f in pending.values()}
+        batch = np.zeros((p.capacity, h, w, 3), np.uint8)
+        active = np.zeros((p.capacity,), bool)
+        for s, f in pending.items():
+            batch[p.slot_of[s]], active[p.slot_of[s]] = f, True
+        bt = p.bt
+        bt.set_active(active)
+        st = bt.state
+        g = bt.step(batch)
+        gm = bt.graph_maps().float().cpu().numpy()
+        after = bt.state
+        bt.state = st
+        e, em = (t.float().cpu().numpy() for t in bt.step_async(batch, debug=True))
+        e = e.astype(np.float64)
+        bt.state = after
+        for i in map(int, active.nonzero()[0]):
+            tally.add(e[i, :4], em[i, 2], g[i, :4], gm[i, 2],
+                      crop_side(st.box[i].tolist(), bt.search_factor))
+            bitwise += int(np.array_equal(g[i], e[i]))
+            rows += 1
+
+    pool_schedule(pool, seqs, languages, lambda do: do(), checked)
+    attention.force_backend(None)
+    out = {"phase": "compiled_pool", "capacity": 4, "timer": COMPILED_TIMER,
+           **{name: {"stream_frames_per_s": float(sum(r[0][:, 1].sum() for r in rr)
+                                                  / sum(r[0][:, 0].sum() for r in rr)),
+                     "submit_p50_ms": float(np.percentile(
+                         np.concatenate([r[0][:, 0] for r in rr]), 50) * 1e3),
+                     "submit_p90_ms": float(np.percentile(
+                         np.concatenate([r[0][:, 0] for r in rr]), 90) * 1e3)}
+              for name, rr in res.items()},
+           "bitwise_equal_rows": bitwise, "rows": rows,
+           "paired_graph_vs_eager": tally.summary(), "remines_by_slot": remines["graph"][0],
+           "captured_launches": caps, "graphs_captured": captured, "capture_s": capture_s,
+           "peak_mem_bytes": int(peak)}
+    emit(out)
+    return out
+
+
+def shared_and_knob(cfg, model, jt, frames, boxes) -> dict:
+    """A second Tracker on jt captures no graph, and its boxes equal a fresh
+    Tracker's (its own JitTracker, its own captures); then
+    UVLTRACK_FUSED_PREFIX=0 set after the capture gets a graph of its own,
+    recording 12 qkv_attention launches and no ln_qkv."""
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.track.tracker import Tracker
+
+    cfg.TEST.MODE = "BBOX"
+    info = {"init_bbox": boxes[0]}
+    attention.force_backend("cuda")
+    second, fresh = Tracker(cfg, jit_tracker=jt), Tracker(cfg, model)
+    n0 = jt.graphs_captured
+    second.initialize(frames[0], info)
+    got = [second.track(f) for f in frames[1:17]]
+    if jt.graphs_captured != n0:
+        raise AssertionError(f"a second Tracker captured {jt.graphs_captured - n0} graphs")
+    fresh.initialize(frames[0], info)
+    want = [fresh.track(f) for f in frames[1:17]]
+    if got != want:
+        raise AssertionError("the second Tracker's boxes differ from a fresh Tracker's")
+    os.environ["UVLTRACK_FUSED_PREFIX"] = "0"
+    try:
+        key = jt.graph_key(frames[0].shape[:2], 1)
+        second.track(frames[17])
+        cap = jt.captured_launches(key)["step"]
+    finally:
+        del os.environ["UVLTRACK_FUSED_PREFIX"]
+        attention.force_backend(None)
+    if cap != {"qkv_attention[bf16]": 12}:
+        raise AssertionError(f"UVLTRACK_FUSED_PREFIX=0 graph captured {cap}")
+    out = {"phase": "compiled_shared", "second_tracker_frames": len(got),
+           "second_tracker_new_graphs": 0, "boxes_equal_a_fresh_trackers": True,
+           "fresh_tracker_graphs": fresh.jt.graphs_captured,
+           "fused_prefix_off_graph_launches": cap, "graph_keys": [str(k) for k in jt.keys()]}
+    emit(out)
+    return out
+
+
+def compiled_phase(model, cfg, model_q8, cfg_q8, tokenizer, language, frames, boxes, seqs,
+                   per_fwd_fp, per_fwd_q8):
+    """The compiled step (CUDA graphs through a shared JitTracker) against
+    the eager step, in turns, cell by cell: B-BBOX, B-NLBBOX, B-NL,
+    B-BBOX-Q8, lockstep S4 and S8 (the multistream phase's sequences) and
+    the S=4 pool. Returns (the bf16 JitTracker, the int8 one)."""
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.track.tracker import JitTracker
+
+    from uvltrack_tpu_torch.track.tracker import Tracker
+
+    t0 = time.perf_counter()
+    jt, jt_q8 = JitTracker(cfg, model), JitTracker(cfg_q8, model_q8)
+    # what one eager re-mine launches (none: forward_prompt is the head's)
+    cfg.TEST.MODE = "BBOX"
+    probe = Tracker(cfg, jit_tracker=jt, graphs=False)
+    probe.initialize(frames[0], {"init_bbox": boxes[0]})
+    attention.force_backend("cuda")
+    remine = eager_remine_launches(probe)
+    attention.force_backend(None)
+    summary = {}
+    for label, mode in (("B-BBOX", "BBOX"), ("B-NLBBOX", "NLBBOX"), ("B-NL", "NL")):
+        summary[label] = compiled_single(label, mode, cfg, jt, frames, boxes, tokenizer,
+                                         language, per_fwd_fp, remine)
+    summary["B-BBOX-Q8"] = compiled_single("B-BBOX-Q8", "BBOX", cfg_q8, jt_q8, frames, boxes,
+                                           tokenizer, language, per_fwd_q8, remine)
+    shared_and_knob(cfg, model, jt, frames, boxes)
+    mix, langs = ["BBOX", "NLBBOX"] * 4, [language] * 8
+    cells = [LockstepCell("S4", model, cfg, seqs, mix[:4], langs[:4], [33, 33, 25, 33],
+                          tokenizer, per_fwd_fp),
+             LockstepCell("S8", model, cfg, seqs, mix[:7] + ["NL"], langs,
+                          [33, 33, 25] + [33] * 5, tokenizer, per_fwd_fp)]
+    for cell in cells:
+        summary[cell.label] = compiled_lockstep(cell.label, cell, jt, per_fwd_fp, remine)
+    summary["pool"] = compiled_pool(cfg, jt, seqs, [None, language, language, None],
+                                    tokenizer, per_fwd_fp, remine)
+    emit({"phase": "compiled_summary", "seconds": time.perf_counter() - t0,
+          "eager_remine_launches": remine,
+          "graphs_captured": jt.graphs_captured + jt_q8.graphs_captured,
+          "capture_s": jt.capture_seconds + jt_q8.capture_seconds,
+          "graph_launches": graph_launches(jt, jt_q8),
+          "fps_graph_over_eager": {k: v["graph"].get("frames_per_s", v["graph"].get(
+              "stream_frames_per_s")) / v["eager"].get("frames_per_s", v["eager"].get(
+                  "stream_frames_per_s")) for k, v in summary.items()}})
+    return jt, jt_q8
+
+
+# ------------------------------------------------------------------ serve
+def serve_phase(cfg, jt, tokenizer, language, seqs) -> dict:
+    """The port's HTTP service (cli/serve.py::make_server) in this process
+    on 127.0.0.1, on the compiled step's JitTracker: per-stream, a BBOX and
+    an NLBBOX stream (two servers of one JitTracker, so one device lock), 32
+    720p frames each as "npy" bodies from two client threads; --lockstep 4,
+    four streams (two with a sentence) for 24 rounds, each round's requests
+    from four threads, stream C closed and reopened at round 12. Served
+    boxes against a direct Tracker / StreamPool on the same JitTracker
+    (bitwise); the --max_streams 429 and /close as tests/test_serve.py
+    has them. Request latency on the client's clock."""
+    import base64
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from uvltrack_tpu_torch.cli.serve import make_server
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.track.pool import StreamPool
+    from uvltrack_tpu_torch.track.tracker import Tracker
+
+    def body(img):
+        buf = io.BytesIO()
+        np.save(buf, img)
+        return base64.b64encode(buf.getvalue()).decode()
+
+    def post(url, route, payload):
+        req = urllib.request.Request(url + route, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def start(proto, **kw):
+        server = make_server(proto, "127.0.0.1", 0, **kw)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        return f"http://127.0.0.1:{server.server_address[1]}", server
+
+    def stop(server):
+        if server.dispatcher is not None:
+            server.dispatcher.stop()
+        server.shutdown()
+        server.server_close()
+
+    def timed_post(lat, url, route, payload):
+        t0 = time.perf_counter()
+        code, out = post(url, route, payload)
+        lat.append(time.perf_counter() - t0)
+        if code != 200:
+            raise AssertionError(f"serve {route}: HTTP {code} {out}")
+        return out
+
+    t_phase = time.perf_counter()
+    attention.force_backend("cuda")
+    n0 = jt.graphs_captured
+    cfgs = {m: cfg.clone() for m in ("BBOX", "NLBBOX")}
+    for m, c in cfgs.items():
+        c.TEST.MODE = m
+    # per-stream: a BBOX server (at most one stream) and an NLBBOX server
+    streams = {"cam_bbox": ("BBOX", 0, None), "cam_text": ("NLBBOX", 1, language)}
+    servers = {m: start(Tracker(cfgs[m], tokenizer=tokenizer, jit_tracker=jt),
+                        max_streams=1 if m == "BBOX" else 0) for m in cfgs}
+    lat, results, errs = {s: [] for s in streams}, {s: [] for s in streams}, []
+    for s, (m, i, lang) in streams.items():
+        payload = {"stream": s, "image": body(seqs[i][0][0]), "format": "npy",
+                   "bbox": seqs[i][1][0]}
+        if lang:
+            payload["language"] = lang
+        timed_post([], servers[m][0], "/initialize", payload)
+    bodies = {s: [body(f) for f in seqs[i][0][1:33]] for s, (_, i, _) in streams.items()}
+
+    def client(s):
+        try:
+            for b in bodies[s]:
+                results[s].append(timed_post(lat[s], servers[streams[s][0]][0], "/track",
+                                             {"stream": s, "image": b, "format": "npy"}))
+        except Exception as e:  # fails the phase below
+            errs.append(f"{s}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(s,)) for s in streams]
+    [t.start() for t in threads]
+    [t.join() for t in threads]
+    wall = time.perf_counter() - t0
+    if errs:
+        raise AssertionError(f"serve per-stream: {errs}")
+    health = {m: json.loads(urllib.request.urlopen(u + "/health", timeout=60).read())
+              for m, (u, _) in servers.items()}
+    # the served boxes against a direct Tracker on the same JitTracker
+    for s, (m, i, lang) in streams.items():
+        direct = Tracker(cfgs[m], tokenizer=tokenizer, jit_tracker=jt)
+        direct.initialize(seqs[i][0][0], {"init_bbox": seqs[i][1][0], "language": lang})
+        for got, f in zip(results[s], seqs[i][0][1:33]):
+            want = direct.track(f)
+            if got["bbox"] != want["target_bbox"] or got["score"] != want["score"]:
+                raise AssertionError(f"serve {s}: served box {got} != direct {want}")
+    # admission and /close (tests/test_serve.py)
+    url_b = servers["BBOX"][0]
+    gates = {"429": post(url_b, "/initialize", {"stream": "extra", "image": bodies["cam_bbox"][0],
+                                                "format": "npy", "bbox": seqs[0][1][0]})[0],
+             "close": post(url_b, "/close", {"stream": "cam_bbox"})[0],
+             "track_closed": post(url_b, "/track", {"stream": "cam_bbox",
+                                                    "image": bodies["cam_bbox"][0],
+                                                    "format": "npy"})[0],
+             "admit_after_close": post(url_b, "/initialize", {
+                 "stream": "extra", "image": bodies["cam_bbox"][0], "format": "npy",
+                 "bbox": seqs[0][1][0]})[0]}
+    if gates != {"429": 429, "close": 200, "track_closed": 404, "admit_after_close": 200}:
+        raise AssertionError(f"serve admission/close: {gates}")
+    for _, server in servers.values():
+        stop(server)
+    per_stream = {"streams": {s: lat_stats(v, "request") for s, v in lat.items()},
+                  "request_p50_ms": float(np.percentile(sum(lat.values(), []), 50) * 1e3),
+                  "request_p90_ms": float(np.percentile(sum(lat.values(), []), 90) * 1e3),
+                  "served_frames_per_s": sum(map(len, results.values())) / wall,
+                  "health": health, "gates": gates}
+
+    # --lockstep 4: four streams, 24 rounds, C closed and reopened at round 12
+    langs = {"A": None, "B": language, "C": language, "D": None}
+    url, server = start(Tracker(cfgs["NLBBOX"], tokenizer=tokenizer, jit_tracker=jt),
+                        lockstep=4, batch_window=1.0)
+    direct = StreamPool(cfgs["NLBBOX"], None, 4, tokenizer=tokenizer, jit_tracker=jt)
+    llat, served, wanted, sent = [], [], [], {}
+
+    def open_(s, i, t):
+        payload = {"stream": s, "image": body(seqs[i][0][t]), "format": "npy",
+                   "bbox": seqs[i][1][t]}
+        if langs[s]:
+            payload["language"] = langs[s]
+        timed_post([], url, "/initialize", payload)
+        with jt.lock:
+            direct.open(s, seqs[i][0][t], {"init_bbox": seqs[i][1][t], "language": langs[s]})
+        sent[s] = t
+
+    for i, s in enumerate("ABCD"):
+        open_(s, i, 0)
+    t0 = time.perf_counter()
+    for r in range(24):
+        if r == 12:
+            code, _ = post(url, "/close", {"stream": "C"})
+            with jt.lock:
+                direct.close("C")
+            if code != 200:
+                raise AssertionError(f"lockstep /close: HTTP {code}")
+            open_("C", 2, sent["C"])
+        pending, out, errs = {}, {}, []
+        for s in "ABCD":
+            sent[s] += 1
+            pending[s] = seqs["ABCD".index(s)][0][sent[s]]
+        msgs = {s: body(f) for s, f in pending.items()}
+
+        def go(s):
+            try:
+                out[s] = timed_post(llat, url, "/track", {"stream": s, "image": msgs[s],
+                                                          "format": "npy"})
+            except Exception as e:  # fails the phase below
+                errs.append(f"{s}: {e}")
+
+        threads = [threading.Thread(target=go, args=(s,)) for s in pending]
+        [t.start() for t in threads]
+        [t.join() for t in threads]
+        if errs:
+            raise AssertionError(f"serve lockstep round {r}: {errs}")
+        served.append(out)
+        with jt.lock:
+            wanted.append(direct.submit(pending))
+    lwall = time.perf_counter() - t0
+    stop(server)
+    attention.force_backend(None)
+    for r, (got, want) in enumerate(zip(served, wanted)):
+        for s in got:
+            if got[s]["bbox"] != want[s]["bbox"] or got[s]["score"] != want[s]["score"]:
+                raise AssertionError(f"serve lockstep round {r} {s}: {got[s]} != {want[s]}")
+    out = {"phase": "serve", "timer": "client clock per HTTP request (npy body of a 720p "
+           "frame, base64 JSON), from the request's start to its parsed reply",
+           "per_stream": per_stream,
+           "lockstep": {"S": 4, "rounds": 24, "requests": len(llat),
+                        "request_p50_ms": float(np.percentile(llat, 50) * 1e3),
+                        "request_p90_ms": float(np.percentile(llat, 90) * 1e3),
+                        "served_frames_per_s": len(llat) / lwall,
+                        "closed_and_reopened": "C at round 12"},
+           "served_equal_direct": True, "new_graphs": jt.graphs_captured - n0,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def box_iou(a, b) -> float:
     """IoU of two [x, y, w, h] boxes."""
     iw = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
@@ -1745,7 +2393,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=64)
+    ap.add_argument("--only", default="", help="comma-separated groups of phases to run "
+                    f"({', '.join(GROUPS)}; all by default); a partial run prints no "
+                    "kernels line")
     args = ap.parse_args()
+    only = set(filter(None, args.only.split(","))) or set(GROUPS)
+    if only - set(GROUPS):
+        ap.error(f"--only: unknown groups {sorted(only - set(GROUPS))}")
 
     import torch
 
@@ -1774,9 +2428,10 @@ def main() -> int:
                           "cached": r.cached, "ptxas": r.ptxas}
                       for n, r in recs.items()}})
 
-    worst, times = kernel_phase(dev, args.seed)
-    q8_worst, q8_times = q8_kernel_phase(dev, args.seed)
-    fused_worst, fused_times = fused_kernel_phase(dev, args.seed)
+    if "kernels" in only:
+        worst, times = kernel_phase(dev, args.seed)
+        q8_worst, q8_times = q8_kernel_phase(dev, args.seed)
+        fused_worst, fused_times = fused_kernel_phase(dev, args.seed)
 
     from uvltrack_tpu_torch.config import load_cfg
     from uvltrack_tpu_torch.core.tokenizer import BertTokenizer
@@ -1810,12 +2465,15 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + v
 
     per_fwd_fp = {"ln_qkv[bf16x-bf16w]": 6, "ln_qkv[fp32x-bf16w]": 6, "qkv_attention[bf16]": 12}
-    for mode in ("BBOX", "NLBBOX", "NL"):
-        add(track_phase(mode, model, cfg, frames, boxes, BertTokenizer(str(vocab)), language,
-                        expect=per_fwd_fp))
-    reference_phase(model, cfg, frames, boxes)
-    reference_phase(model, cfg, frames, boxes, label="_grounding",
-                    tokenizer=BertTokenizer(str(vocab)), language=language)
+    if "track" in only:
+        # NLBBOX and NL on the first 32 frames (a re-mine at 20): the compiled
+        # phase tracks all 64 in every mode, on both steps
+        for mode, n in (("BBOX", len(frames)), ("NLBBOX", 33), ("NL", 33)):
+            add(track_phase(mode, model, cfg, frames[:n], boxes, BertTokenizer(str(vocab)),
+                            language, expect=per_fwd_fp))
+        reference_phase(model, cfg, frames, boxes)
+        reference_phase(model, cfg, frames, boxes, label="_grounding",
+                        tokenizer=BertTokenizer(str(vocab)), language=language)
 
     # weight-only int8: the same cells, the same seed
     cfg_q8 = config("int8")
@@ -1829,10 +2487,49 @@ def main() -> int:
         raise AssertionError(f"{quant.count_quantized(model_q8)} tensors quantized, not 56")
     per_fwd_q8 = {"ln_qkv[bf16x-int8w]": 6, "ln_qkv[fp32x-int8w]": 6,
                   "qkv_attention[bf16]": 6, "qkv_attention[fp32]": 6}
+    if "track" in only:
+        track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, language,
+                           per_fwd_fp, per_fwd_q8, add)
+    # the multistream cells' sequences (a seed and a start on the path each)
+    seqs = [synthetic_sequence(32, args.seed + 1 + i, phase=11 * i) for i in range(8)]
+    if "multistream" in only:
+        add(multistream_phase(model, cfg, model_q8, cfg_q8, BertTokenizer(str(vocab)),
+                              language, per_fwd_fp, per_fwd_q8, seqs))
+        drift_phase(model, cfg, model_q8, cfg_q8, frames, boxes)
+        reference_phase(model_q8, cfg_q8, frames, boxes, label="_q8")
+    jts = []
+    if "compiled" in only or "serve" in only:
+        jts = compiled_phase(model, cfg, model_q8, cfg_q8, BertTokenizer(str(vocab)),
+                             language, frames, boxes, seqs, per_fwd_fp, per_fwd_q8)
+    if "serve" in only:
+        serve_phase(cfg, jts[0], BertTokenizer(str(vocab)), language, seqs)
+    if only != set(GROUPS):
+        emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+              "groups": sorted(only)})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    # launches the graphs made (captured calls x replays), beside the host-counted ones
+    glaunch = graph_launches(*jts)
+    src = "uvltrack_tpu_torch/csrc"
+    lb = f"B{LOCKSTEP_B}_"
+    return finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst,
+                  q8_times, fused_worst, fused_times)
+
+
+def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, language,
+                       per_fwd_fp, per_fwd_q8, add) -> None:
+    """The Q8 track cells and the knob phases (fused_proj, fused_prefix_off,
+    fused_mlp, bert_kernel), each adding its launches."""
+    from uvltrack_tpu_torch.core.tokenizer import BertTokenizer
+
+    # the first 32 frames (a re-mine at 20): the compiled phase tracks all
+    # 64 with int8 weights, on both steps
     for mode in ("BBOX", "NLBBOX"):
-        add(track_phase(mode, model_q8, cfg_q8, frames, boxes, BertTokenizer(str(vocab)),
+        add(track_phase(mode, model_q8, cfg_q8, frames[:33], boxes, BertTokenizer(str(vocab)),
                         language, expect=per_fwd_q8, label="_q8"))
-    fused = frames[:17]
+    fused = frames[:9]
     add(knob_phase("fused_proj_bf16", "UVLTRACK_FUSED_PROJ", "1", model, cfg, fused, boxes,
                    dict(per_fwd_fp, **{"proj_residual[bf16x-bf16a-bf16w]": 6,
                                        "proj_residual[fp32x-bf16a-bf16w]": 6})))
@@ -1854,14 +2551,12 @@ def main() -> int:
                    per_fwd_fp, mode="NL", tokenizer=BertTokenizer(str(vocab)), language=language,
                    expect_init=dict({k: 2 * v for k, v in per_fwd_fp.items()},
                                     **{"attention[bf16]": 18})))
-    add(multistream_phase(model, cfg, model_q8, cfg_q8, BertTokenizer(str(vocab)), language,
-                          per_fwd_fp, per_fwd_q8, args.seed))
-    drift_phase(model, cfg, model_q8, cfg_q8, frames, boxes)
-    reference_phase(model_q8, cfg_q8, frames, boxes, label="_q8")
 
-    src = "uvltrack_tpu_torch/csrc"
-    lb = f"B{LOCKSTEP_B}_"
 
+def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst, q8_times,
+           fused_worst, fused_times) -> int:
+    """The kernels line, the compositions and per-launch lines, the total,
+    the nvidia-smi line and the ok line."""
     def at(table, shape, name):
         """A kernel's times at one shape, at B=1 and (under its key) at the
         lockstep batch."""
@@ -1896,7 +2591,9 @@ def main() -> int:
         rows.append((name, f"{src}/{name.split('[')[0]}.cu", line, launches.get(name, 0),
                      fused_worst[err], at(fused_times, shape, name)))
     kernels = [{"name": name, "route": "cuda", "source": source,
-                "replaces": f"{TPU_KERNEL}:{line}", "launches": n, "max_abs_err": err, **t}
+                "replaces": f"{TPU_KERNEL}:{line}", "launches": n,
+                "graph_launches": sum(glaunch.get(i, 0) for i in NAMED_BY_BASE.get(name, (name,))),
+                "max_abs_err": err, **t}
                for name, source, line, n, err, t in rows]
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

@@ -14,6 +14,7 @@ helpers, :57-139 and :324-363).
   with `backbone.text_proj` (BERT width != ViT width) loads only a state
   that carries it (from_jax_variables'); a reference checkpoint never does,
   and is refused, as the JAX package's convert_uvltrack refuses it.
+- `load_torch_file(path)`: a checkpoint file's state dict ('net' entry).
 """
 
 from __future__ import annotations
@@ -176,6 +177,19 @@ def from_jax_variables(params: dict, batch_stats: dict) -> Dict[str, torch.Tenso
         nb = src.rsplit(".", 1)[0] + ".num_batches_tracked"
         state.setdefault(nb, torch.tensor(0, dtype=torch.int64))
     return state
+
+
+def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a torch checkpoint file, on the CPU: its 'net'
+    ('model', 'state_dict') entry where it has one, as the reference's
+    .pth.tar keeps the network under 'net' (tensor entries only)."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict):
+        for key in ("net", "model", "state_dict"):
+            if key in obj and isinstance(obj[key], dict):
+                obj = obj[key]
+                break
+    return {k: v for k, v in obj.items() if torch.is_tensor(v) or isinstance(v, np.ndarray)}
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
 """Native (C++) runtime pieces, loaded via ctypes (a copy of
 uvltrack_tpu/native/__init__.py).
 
-Currently: libjpeg-backed frame decoding (jpeg_loader.cc), built with g++
+Currently: libjpeg-backed frame decoding (jpeg_loader.cc; from a file, or
+from bytes for the HTTP service), built with g++
 at first use into the build directory of ops/build.py (build/kernels/ at
 the root of the checkout, listed in .gitignore, or
 $UVLTRACK_TORCH_BUILD_DIR), with a cv2 fallback, plus a threaded sequence
@@ -67,6 +68,16 @@ def load_library():
                                         ctypes.POINTER(ctypes.c_int),
                                         ctypes.POINTER(ctypes.c_int)]
         lib.uvl_jpeg_decode.restype = ctypes.c_int
+        lib.uvl_jpeg_dims_mem.argtypes = [ctypes.c_char_p, ctypes.c_long,
+                                          ctypes.POINTER(ctypes.c_int),
+                                          ctypes.POINTER(ctypes.c_int)]
+        lib.uvl_jpeg_dims_mem.restype = ctypes.c_int
+        lib.uvl_jpeg_decode_mem.argtypes = [ctypes.c_char_p, ctypes.c_long,
+                                            ctypes.POINTER(ctypes.c_ubyte),
+                                            ctypes.c_long,
+                                            ctypes.POINTER(ctypes.c_int),
+                                            ctypes.POINTER(ctypes.c_int)]
+        lib.uvl_jpeg_decode_mem.restype = ctypes.c_int
         _lib = lib
     except OSError:
         _lib = None
@@ -88,6 +99,26 @@ def decode_jpeg(path: str) -> Optional[np.ndarray]:
         buf.nbytes, ctypes.byref(h), ctypes.byref(w))
     if rc != 0:
         return None
+    return buf
+
+
+def decode_jpeg_bytes(data: bytes) -> Optional[np.ndarray]:
+    """Decode JPEG bytes to an RGB uint8 (H, W, 3) array; None if the
+    native library is unavailable. Raises ValueError on bytes libjpeg
+    cannot decode."""
+    lib = load_library()
+    if lib is None:
+        return None
+    h = ctypes.c_int()
+    w = ctypes.c_int()
+    if lib.uvl_jpeg_dims_mem(data, len(data), ctypes.byref(h), ctypes.byref(w)) != 0:
+        raise ValueError("undecodable image bytes")
+    buf = np.empty((h.value, w.value, 3), np.uint8)
+    rc = lib.uvl_jpeg_decode_mem(
+        data, len(data), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+        buf.nbytes, ctypes.byref(h), ctypes.byref(w))
+    if rc != 0:
+        raise ValueError("undecodable image bytes")
     return buf
 
 

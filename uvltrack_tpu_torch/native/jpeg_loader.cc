@@ -6,6 +6,9 @@
 // decode (called through ctypes), writes RGB8 straight into a caller-owned
 // numpy buffer that is copied to the device.
 //
+// Decodes from a file path or from bytes in memory (the HTTP service's
+// request bodies, cli/serve.py).
+//
 // Build: g++ -O3 -shared -fPIC jpeg_loader.cc -ljpeg -o _jpeg_loader.so
 
 #include <cstdio>
@@ -26,52 +29,32 @@ void error_exit(j_common_ptr cinfo) {
   longjmp(err->jump, 1);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Returns 0 on success; fills *h, *w with image dimensions.
-int uvl_jpeg_dims(const char* path, int* h, int* w) {
-  FILE* f = fopen(path, "rb");
-  if (!f) return -1;
+// One decode from a file (f) or a buffer (data, size): the dimensions
+// only when out is null, else RGB8 into out (capacity cap bytes). Returns
+// 0 on success, -2 on a decode error, -3 if out is too small.
+int decode(FILE* f, const unsigned char* data, unsigned long size, unsigned char* out,
+           long cap, int* h, int* w) {
   jpeg_decompress_struct cinfo;
   ErrorMgr jerr;
   cinfo.err = jpeg_std_error(&jerr.pub);
   jerr.pub.error_exit = error_exit;
   if (setjmp(jerr.jump)) {
     jpeg_destroy_decompress(&cinfo);
-    fclose(f);
     return -2;
   }
   jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, f);
+  if (f) {
+    jpeg_stdio_src(&cinfo, f);
+  } else {
+    jpeg_mem_src(&cinfo, const_cast<unsigned char*>(data), size);
+  }
   jpeg_read_header(&cinfo, TRUE);
-  *h = static_cast<int>(cinfo.image_height);
-  *w = static_cast<int>(cinfo.image_width);
-  jpeg_destroy_decompress(&cinfo);
-  fclose(f);
-  return 0;
-}
-
-// Decodes `path` as RGB8 into `out` (capacity `cap` bytes).
-// Returns 0 on success, fills *h/*w; -1 file error, -2 decode error,
-// -3 buffer too small.
-int uvl_jpeg_decode(const char* path, unsigned char* out, long cap,
-                    int* h, int* w) {
-  FILE* f = fopen(path, "rb");
-  if (!f) return -1;
-  jpeg_decompress_struct cinfo;
-  ErrorMgr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = error_exit;
-  if (setjmp(jerr.jump)) {
+  if (!out) {
+    *h = static_cast<int>(cinfo.image_height);
+    *w = static_cast<int>(cinfo.image_width);
     jpeg_destroy_decompress(&cinfo);
-    fclose(f);
-    return -2;
+    return 0;
   }
-  jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, f);
-  jpeg_read_header(&cinfo, TRUE);
   cinfo.out_color_space = JCS_RGB;
   jpeg_start_decompress(&cinfo);
   const int width = static_cast<int>(cinfo.output_width);
@@ -80,7 +63,6 @@ int uvl_jpeg_decode(const char* path, unsigned char* out, long cap,
   if (static_cast<long>(stride) * height > cap) {
     jpeg_abort_decompress(&cinfo);
     jpeg_destroy_decompress(&cinfo);
-    fclose(f);
     return -3;
   }
   while (cinfo.output_scanline < cinfo.output_height) {
@@ -89,10 +71,44 @@ int uvl_jpeg_decode(const char* path, unsigned char* out, long cap,
   }
   jpeg_finish_decompress(&cinfo);
   jpeg_destroy_decompress(&cinfo);
-  fclose(f);
   *h = height;
   *w = width;
   return 0;
+}
+
+int decode_file(const char* path, unsigned char* out, long cap, int* h, int* w) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return -1;
+  const int rc = decode(f, nullptr, 0, out, cap, h, w);
+  fclose(f);
+  return rc;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0 on success; fills *h, *w with image dimensions.
+int uvl_jpeg_dims(const char* path, int* h, int* w) {
+  return decode_file(path, nullptr, 0, h, w);
+}
+
+// Decodes `path` as RGB8 into `out` (capacity `cap` bytes).
+// Returns 0 on success, fills *h/*w; -1 file error, -2 decode error,
+// -3 buffer too small.
+int uvl_jpeg_decode(const char* path, unsigned char* out, long cap,
+                    int* h, int* w) {
+  return decode_file(path, out, cap, h, w);
+}
+
+// The same two for `size` bytes of JPEG at `data`.
+int uvl_jpeg_dims_mem(const unsigned char* data, long size, int* h, int* w) {
+  return decode(nullptr, data, static_cast<unsigned long>(size), nullptr, 0, h, w);
+}
+
+int uvl_jpeg_decode_mem(const unsigned char* data, long size, unsigned char* out,
+                        long cap, int* h, int* w) {
+  return decode(nullptr, data, static_cast<unsigned long>(size), out, cap, h, w);
 }
 
 }  // extern "C"

@@ -128,6 +128,11 @@ def library(name: str) -> ctypes.CDLL:
 PTR, INT, I64, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # (kernel, instantiation) -> launches since the last reset
 LAUNCHES: Counter = Counter()
+# (kernel, instantiation) -> calls recorded into a CUDA graph under stream
+# capture: they launch nothing until the graph is replayed, and a replay
+# calls no wrapper, so the graph's owner counts its replays
+# (track/tracker.py::JitTracker)
+CAPTURED: Counter = Counter()
 _FNS: Dict[str, object] = {}  # kernel -> its bound entry point
 
 
@@ -147,6 +152,12 @@ def instantiation_counts() -> dict:
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+def captured_counts() -> dict:
+    """{"kernel[instantiation]": calls} recorded into CUDA graphs so far
+    (never reset: a caller takes the difference around its capture)."""
+    return {f"{k}[{i}]": n for (k, i), n in sorted(CAPTURED.items()) if n}
 
 
 def dtype_tag(t: torch.Tensor) -> str:
@@ -173,7 +184,8 @@ def launch(kernel: str, inst: str, argtypes, *args, stream_of: torch.Tensor) -> 
     """Call `uvl_<kernel>` of lib<kernel> with args and, as its last
     argument, PyTorch's current stream on the device of `stream_of`; raise
     on the CUDA error code it returns, and count one launch of
-    kernel[inst]."""
+    kernel[inst] (in CAPTURED instead when the stream is capturing a CUDA
+    graph: nothing runs then)."""
     fn = _FNS.get(kernel)
     if fn is None:
         fn = getattr(library(kernel), f"uvl_{kernel}")
@@ -184,4 +196,4 @@ def launch(kernel: str, inst: str, argtypes, *args, stream_of: torch.Tensor) -> 
     if rc != 0:
         msg = _LIBS[kernel].uvl_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")
-    LAUNCHES[(kernel, inst)] += 1
+    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)[(kernel, inst)] += 1

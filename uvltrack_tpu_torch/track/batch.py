@@ -22,13 +22,16 @@ mines prompts against the half-batch-rotated search features
 (models/head.py), which at batch S would pair one stream's template with
 another's search. A box supplied for an NL stream is ignored.
 
-frame_id and active stay on the host, as in the port's Tracker: the
-re-mine (every UPDATE_INTERVAL frames, for streams whose best score beat
-TEST.THRESHOLD) makes its one host read, max_score > threshold, only on a
-step where some active stream is due, and runs forward_prompt at batch S
-where some stream refreshes, where-selecting each row's prompt.
+frame_id and active stay on the host, as in the port's Tracker. On a CUDA
+device a step replays the JitTracker's CUDA graphs at batch S (the step,
+and the re-mine on a step where some active stream is due, its refresh =
+due & (max_score > threshold) decided on the device), with the S frames
+staged through a pinned buffer; step_many replays them T times after one
+upload. graphs=False (and CPU tensors) run the eager step, whose re-mine
+makes its one host read, max_score > threshold, on due steps.
 UVLTRACK_BATCH_COND_REMINE=0 (read at call time) re-mines every step,
-where-selected, with no host read: the same boxes.
+where-selected, with no host read: the same boxes. BatchTrackers and
+Trackers that share a JitTracker (jit_tracker=) share its graphs.
 """
 
 from __future__ import annotations
@@ -43,19 +46,17 @@ import torch
 from .tracker import LockstepTracker
 
 
+def always_remine() -> bool:
+    """UVLTRACK_BATCH_COND_REMINE="0" (read at call time): re-mine every step."""
+    return os.environ.get("UVLTRACK_BATCH_COND_REMINE", "1") != "1"
+
+
 class BatchTracker(LockstepTracker):
     """Tracks S streams in lockstep: initialize(frames, boxes) from their
     first frames, then step(frames (S, H, W, 3)). The model's weights are
     prepared in place by prepare_inference_model, as by Tracker:
-    BatchTracker(cfg, model, num_streams, tokenizer=None)."""
-
-    def device_frames(self, frames) -> torch.Tensor:
-        """S frames (a list, an (S, H, W, 3) array or tensor) on the device."""
-        if isinstance(frames, torch.Tensor):
-            return frames.to(self.device)
-        if isinstance(frames, (list, tuple)):
-            frames = np.stack(frames)
-        return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+    BatchTracker(cfg, model, num_streams, tokenizer=None, jit_tracker=None,
+    graphs=True)."""
 
     def text_row(self, language: Optional[str], mode: str):
         """(ids (Nt,), mask (Nt,), flag) of one stream: flag 2 with a
@@ -105,6 +106,7 @@ class BatchTracker(LockstepTracker):
                     if self.cache_text else self.text_ids)
         self.state = self.fresh_state(box, prompt, np.ones((S,), bool))
         self._remines.zero_()
+        self.consts_changed()
         return boxes.copy()
 
     def set_active(self, active) -> None:
@@ -118,8 +120,7 @@ class BatchTracker(LockstepTracker):
         """Advance every active stream one frame; returns the (S, 5)
         [x, y, w, h, score] device tensor without reading it back, and with
         debug=True also the (S, 3, fsz*fsz) [cls, cont, merged] maps."""
-        always = os.environ.get("UVLTRACK_BATCH_COND_REMINE", "1") != "1"
-        return self.step_rows(self.device_frames(frames), always_remine=always, debug=debug)
+        return self.step_rows(frames, always_remine=always_remine(), debug=debug)
 
     def step(self, frames) -> np.ndarray:
         """frames: (S, H, W, 3) or a list of S frames. Returns (S, 5)
@@ -129,7 +130,11 @@ class BatchTracker(LockstepTracker):
     def step_many_async(self, frames_t) -> torch.Tensor:
         """frames_t: (T, S, H, W, 3), or T lists of S frames: T lockstep
         steps; returns the (T, S, 5) device tensor without reading it back
-        (the JAX package scans the T steps in one dispatch)."""
+        (the JAX package scans the T steps in one dispatch; on the graph
+        path the frames go up in one pinned copy, up to STAGE_BYTES, and
+        the step graph is replayed T times)."""
+        if self.graphs:
+            return self._chunk_steps(frames_t, always_remine())
         return torch.stack([self.step_async(f) for f in frames_t])
 
     def step_many(self, frames_t) -> np.ndarray:

@@ -82,10 +82,23 @@ def crop_resize(frame: torch.Tensor, x1, y1, crop_sz, out_sz: int) -> torch.Tens
             + rows[b, r, rx1[:, None, :]] * wx1[:, None, :, None])
 
 
+_NORM = {}  # device -> (mean, std): made once per device, never inside a capture
+
+
+def _norm_consts(device: torch.device):
+    consts = _NORM.get(device)
+    if consts is None:
+        consts = _NORM[device] = (
+            torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+    return consts
+
+
 def normalize(img: torch.Tensor) -> torch.Tensor:
-    """uint8-range (H,W,3) -> ImageNet-normalized fp32."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=img.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=img.device)
+    """uint8-range (H,W,3) -> ImageNet-normalized fp32. The mean and std
+    are device constants made on a device's first call, so a step copies
+    nothing from the host and can be captured in a CUDA graph."""
+    mean, std = _norm_consts(img.device)
     return (img / 255.0 - mean) / std
 
 

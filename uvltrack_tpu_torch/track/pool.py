@@ -10,7 +10,10 @@ slots of one BatchTracker and lets streams come and go:
   writing its rows in place into the batched tensors; the other slots'
   rows are not touched;
 - submit({stream: frame}): one BatchTracker.step over the full capacity
-  with only the pending slots active; the others keep their state;
+  with only the pending slots active; the others keep their state. On a
+  CUDA device it replays the JitTracker's graphs at batch `capacity`: each
+  replay copies the BatchTracker's state in, so the rows open wrote reach
+  the graph (and its constants, whose token open renews);
 - close(stream): frees the slot; its stale rows wait for the next open.
 
 All frames of one submit share a resolution; a stream may change
@@ -28,12 +31,16 @@ from .batch import BatchTracker
 
 
 class StreamPool:
-    """Continuous-batching pool over one BatchTracker of `capacity` streams."""
+    """Continuous-batching pool over one BatchTracker of `capacity` streams:
+    StreamPool(cfg, model, capacity, tokenizer=None, jit_tracker=None,
+    graphs=True)."""
 
-    def __init__(self, cfg, model, capacity: int, tokenizer=None):
+    def __init__(self, cfg, model, capacity: int, tokenizer=None, jit_tracker=None,
+                 graphs: bool = True):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
-        self.bt = bt = BatchTracker(cfg, model, capacity, tokenizer=tokenizer)
+        self.bt = bt = BatchTracker(cfg, model, capacity, tokenizer=tokenizer,
+                                    jit_tracker=jit_tracker, graphs=graphs)
         self.capacity = capacity
         self.slot_of: Dict[str, int] = {}
         self._free = list(range(capacity - 1, -1, -1))  # pop() -> slot 0 first
@@ -53,6 +60,7 @@ class StreamPool:
         prompt = torch.zeros((S, 3, bt.embed_dim), dtype=bt.model.box_head.dtype, device=dev)
         bt.state = bt.fresh_state(torch.zeros((S, 4), dtype=torch.float32, device=dev),
                                   prompt, np.zeros((S,), bool))
+        bt.consts_changed()
 
     # ------------------------------------------------------------ lifecycle
     @torch.no_grad()
@@ -88,6 +96,8 @@ class StreamPool:
                         st.best_vis_token, st.best_txt_token, bt._remines):
             batched[i] = 0
         st.frame_id[i] = 0
+        # the rows were written in place: a graph copies the constants in again
+        bt.consts_changed()
         self.slot_of[stream] = i
         return box
 
