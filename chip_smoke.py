@@ -108,8 +108,31 @@ Phases, one JSON line each:
                  reopened); served boxes equal a direct Tracker / StreamPool
                  on the same JitTracker bit for bit; the --max_streams 429
                  and /close; request p50/p90 and served frames/s.
+  7. eval     -- kernels #1, #2 and #5 at UVLTrack-L's width (C=1024, H=16;
+                 N=321 bf16 x and N=361 fp32 x at B=1 and 8, 3 masks)
+                 against their plain versions, with times (kernel_check_L,
+                 q8_kernel_check_L, *_times_L); then the evaluation path:
+                 a synthetic OTB99-layout dataset of 8 ragged 720p JPEG
+                 sequences (32-48 frames, a sentence each) and a GOT-10k test
+                 split (one-row ground truth) in a temporary directory, and
+                 uvltrack_tpu_torch.cli.test.main in five runs: B BBOX
+                 --chunk 16; B NLBBOX --streams 4; B BBOX --quant int8; L
+                 (baseline_large) BBOX; L NLBBOX --streams 8. Each run's
+                 result files equal, byte for byte, a direct Tracker /
+                 BatchTracker run on the CLI's JitTracker from the same
+                 decoded frames; its kernels launched (counts from 0 just
+                 before the run); runner FPS, decode ms a frame, step
+                 p50/p90 of the direct replay, peak memory, capture seconds.
+                 L: 24 + 24 launches a forward (eager and in the graph),
+                 kernel vs plain frame by frame (paired_ab), graph vs eager
+                 debug step bitwise at B=1 and S=8, a profiler window each,
+                 frame_cost. Then cli.analyze (--per_seq --save_file, and
+                 the scores) on runs a and d, the server-split message on
+                 the GOT-10k split and cli.pack's zip, a file a sequence.
 --only runs some groups (kernels = phase 2, track = 3-4 but the
-multistream ones, multistream, compiled, serve) and prints no kernels line.
+multistream ones, multistream, compiled, serve, eval) and prints no kernels
+line; in a full run the kernels line counts the eval runs' launches, and
+the rows of the instantiations on L's path carry their L times ("C1024").
 Then the script's total seconds, the {"kernels": [...]} line (each
 kernel's times at B=1 and, under "B8", at the lockstep batch; "launches"
 counted by the wrappers on the eager paths, "graph_launches" the graphs'
@@ -170,7 +193,7 @@ MLP_N = (48, 321, 361, 681)  # kernel #7's check shapes
 # the instantiations the kernels line's two bf16 rows count
 NAMED_BY_BASE = {"ln_qkv": ("ln_qkv[bf16x-bf16w]", "ln_qkv[fp32x-bf16w]"),
                  "qkv_attention": ("qkv_attention[bf16]",)}
-GROUPS = ("kernels", "track", "multistream", "compiled", "serve")
+GROUPS = ("kernels", "track", "multistream", "compiled", "serve", "eval")
 ATTN_N = (40, 48, 128, 321, 361, 681)  # kernel #3's: BERT's N, 128 and the ViT's
 
 TIMER = ("CUDA events, L2-warm: *ms = mean of 200 back-to-back eager calls after 20 "
@@ -301,6 +324,21 @@ GRID_DOC = (f"B=1: N in {{48, 321, 361, 681}} x 3 masks x {{bf16, fp32}} x; B in
             "the main path's shapes, N=321 bf16 x and N=361 fp32 x, x 3 masks, a mask a row")
 
 
+# UVLTrack-L's shapes (experiments/uvltrack/baseline_large.yaml: C=1024, 16
+# heads): the main path's two at B=1 and at the batch of L's lockstep run
+L_WIDTH, L_HEADS, L_STREAMS = 1024, 16, 8
+L_GRID_DOC = (f"C={L_WIDTH} H={L_HEADS}: B in {{1, {L_STREAMS}}} x (N=321 bf16 x, N=361 fp32 x) "
+              "x 3 masks, a mask a row")
+
+
+def l_grid():
+    import torch
+
+    return [(b, n, kind, dt) for b in (1, L_STREAMS)
+            for n, dt in ((321, torch.bfloat16), (361, torch.float32))
+            for kind in ("flag0", "flag2", "open")]
+
+
 def check_grid():
     """(B, N, mask, x dtype) of every kernel check: the B=1 grid, then the
     main path's two shapes at each lockstep batch."""
@@ -312,14 +350,17 @@ def check_grid():
                    for n, dt in ((321, dtypes[0]), (361, dtypes[1])) for kind in masks]
 
 
-def kernel_phase(dev, seed: int):
+def kernel_phase(dev, seed: int, c: int = 768, heads: int = 12, grid=None, tag: str = ""):
+    """Kernels #1/#2 (ln_qkv, qkv_attention and the pair) against their
+    plain versions over `grid` (check_grid() by default) at width c with
+    `heads` heads, then times at the main path's two shapes, B=1 and
+    LOCKSTEP_B. `tag` suffixes the phase names (UVLTrack-L's width: "_L")."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
 
-    c, heads = 768, 12
     rng = np.random.default_rng(seed)
 
     def case(n, kind, x_dtype, b=1):
@@ -339,7 +380,7 @@ def kernel_phase(dev, seed: int):
         return float((a - b).abs().max()), ok
 
     worst = {"ln_qkv": 0.0, "qkv_attention": 0.0, "ln_qkv_attention": 0.0}
-    for b, n, kind, x_dtype in check_grid():
+    for b, n, kind, x_dtype in grid or check_grid():
         x, g, be, w, wb, kb = case(n, kind, x_dtype, b)
         qkv = lqa.ln_qkv(x, g, be, w, wb)
         out = lqa.qkv_attention(qkv, kb, heads)
@@ -360,7 +401,8 @@ def kernel_phase(dev, seed: int):
                 raise AssertionError(f"{name} B={b} N={n} mask={kind} x={x_dtype}: "
                                      f"max abs err {e} over tolerance")
             worst[name] = max(worst[name], e)
-    emit({"phase": "kernel_check", "grid": GRID_DOC,
+    emit({"phase": f"kernel_check{tag}", "C": c, "heads": heads,
+          "grid": GRID_DOC if grid is None else L_GRID_DOC,
           "qkv_attention_repeatable": "bitwise, two calls at every check",
           "tolerance": {k: f"|kernel-plain| <= {a} + {KERNEL_RTOL}*|plain|"
                         for k, a in KERNEL_ATOL.items()},
@@ -421,15 +463,18 @@ def kernel_phase(dev, seed: int):
              for b, prefix in ((1, ""), (LOCKSTEP_B, f"B{LOCKSTEP_B}_"))}
     times.update({f"{prefix}N361_fp32x_flag0": timed(361, "flag0", torch.float32, b)
                   for b, prefix in ((1, ""), (LOCKSTEP_B, f"B{LOCKSTEP_B}_"))})
-    emit({"phase": "kernel_times", "timer": TIMER, "times": times})
+    emit({"phase": f"kernel_times{tag}", "C": c, "heads": heads, "timer": TIMER,
+          "times": times})
     return worst, times
 
 
-def q8_kernel_phase(dev, seed: int):
+def q8_kernel_phase(dev, seed: int, c: int = 768, heads: int = 12, grid=None, tag: str = "",
+                    names=None):
     """Every int8 and fused-projection instantiation against its plain
     version on the card, over the grid of kernel_phase, then CUDA-event
     times at the main path's two shapes. Returns ({name: worst error},
-    {shape: {name: times}})."""
+    {shape: {name: times}}). c, heads, grid and tag as kernel_phase's;
+    `names`, prefixes of the instantiations to check (all by default)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -438,7 +483,7 @@ def q8_kernel_phase(dev, seed: int):
     from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
     from uvltrack_tpu_torch.ops import quant
 
-    c, heads, f = 768, 12, 3 * 768
+    f = 3 * c
     rng = np.random.default_rng(seed + 1)
 
     def case(n, kind, x_dtype, b=1):
@@ -494,7 +539,7 @@ def q8_kernel_phase(dev, seed: int):
         if f32:
             out["qkv_attention[fp32]"] = (lambda: lqa.qkv_attention(qkv, kb, heads),
                                           lambda: lqa.qkv_attention_plain(qkv, kb, heads), None)
-        return out
+        return {k: v for k, v in out.items() if names is None or k.startswith(names)}
 
     def proj_only(x, g, be, w, wb, wp, bp, kb, wq, wpq):
         """Each proj_residual instantiation on a zero residual stream, where
@@ -506,6 +551,8 @@ def q8_kernel_phase(dev, seed: int):
         z = torch.zeros_like(x)
         attn = lqa.qkv_attention(lqa.ln_qkv_q8(x, g, be, wq.q, wq.scale, wb), kb, heads)
         a16 = attn.to(torch.bfloat16)
+        if names is not None and not "proj_residual".startswith(names):
+            return {}
         return {
             f"proj_residual[{xt}x-{xt}a-int8w] proj only": (
                 lambda: lqp.proj_residual(z, attn, wpq.q, bp, wpq.scale),
@@ -524,7 +571,7 @@ def q8_kernel_phase(dev, seed: int):
         return float((a - b).abs().max()), bool(ok)
 
     worst, proj_abs_max = {}, 0.0
-    for b, n, kind, x_dtype in check_grid():
+    for b, n, kind, x_dtype in grid or check_grid():
         args = case(n, kind, x_dtype, b)
         for name, (kern, plain, tol_key) in {**checks(*args), **proj_only(*args)}.items():
             got = kern()
@@ -546,7 +593,8 @@ def q8_kernel_phase(dev, seed: int):
                                      "differs (not bitwise repeatable)")
             if name.endswith("proj only"):
                 proj_abs_max = max(proj_abs_max, float(want.float().abs().max()))
-    emit({"phase": "q8_kernel_check", "grid": GRID_DOC,
+    emit({"phase": f"q8_kernel_check{tag}", "C": c, "heads": heads,
+          "grid": GRID_DOC if grid is None else L_GRID_DOC,
           "proj_only_abs_max": proj_abs_max,
           "proj_residual_repeatable": "bitwise, two calls of every proj_residual check",
           "qkv_attention_fp32_repeatable": "bitwise, two calls of every qkv_attention[fp32] check",
@@ -645,7 +693,8 @@ def q8_kernel_phase(dev, seed: int):
     for b, prefix in ((1, ""), (LOCKSTEP_B, f"B{LOCKSTEP_B}_")):
         times[f"{prefix}N321_bf16x_open"] = timed(321, "open", torch.bfloat16, b)
         times[f"{prefix}N361_fp32x_flag0"] = timed(361, "flag0", torch.float32, b)
-    emit({"phase": "q8_kernel_times", "timer": TIMER, "times": times})
+    emit({"phase": f"q8_kernel_times{tag}", "C": c, "heads": heads, "timer": TIMER,
+          "times": times})
     return worst, times
 
 
@@ -1827,6 +1876,27 @@ def turns(run, eager, graph):
     return out
 
 
+def graph_vs_eager(graph, frames, info, label: str):
+    """Every frame from a shared state: the graph step, then the eager debug
+    step from the state before it (paired_ab's rule on the box and merged
+    map). Returns (the AbTally, the frames whose box and score are bitwise
+    equal)."""
+    tally, bitwise = AbTally(f"{label} graph/eager"), 0
+    graph.initialize(frames[0], info)
+    for f in frames[1:]:
+        st = graph.state
+        crop = crop_side(st.box[0].tolist(), graph.search_factor)
+        g = graph.track(f)
+        gmap = graph.graph_maps()[0, 2].cpu().numpy()
+        after = graph.state
+        graph.state = st
+        e = graph.track_debug(f)
+        graph.state = after
+        tally.add(e["target_bbox"], e["merged_map"], g["target_bbox"], gmap, crop)
+        bitwise += int(g["target_bbox"] == e["target_bbox"] and g["score"] == e["score"])
+    return tally, bitwise
+
+
 def compiled_single(label, mode, cfg, jt, frames, boxes, tokenizer, language, per_fwd,
                     remine_fwd) -> dict:
     """One stream (B-BBOX, B-NLBBOX, B-NL or B-BBOX-Q8) on jt's graphs
@@ -1880,20 +1950,7 @@ def compiled_single(label, mode, cfg, jt, frames, boxes, tokenizer, language, pe
         raise AssertionError(f"{label}: replays {reps} over two runs of {n} frames")
     caps = check_captures(jt, [key], per_fwd, remine_fwd, label)
     free_equal = all(np.array_equal(g[0], e[0]) for g in res["graph"] for e in res["eager"])
-    # every frame from a shared state: the graph step, then the eager debug step
-    tally, bitwise = AbTally(f"{label} graph/eager"), 0
-    graph.initialize(frames[0], info)
-    for f in frames[1:]:
-        st = graph.state
-        crop = crop_side(st.box[0].tolist(), graph.search_factor)
-        g = graph.track(f)
-        gmap = graph.graph_maps()[0, 2].cpu().numpy()
-        after = graph.state
-        graph.state = st
-        e = graph.track_debug(f)
-        graph.state = after
-        tally.add(e["target_bbox"], e["merged_map"], g["target_bbox"], gmap, crop)
-        bitwise += int(g["target_bbox"] == e["target_bbox"] and g["score"] == e["score"])
+    tally, bitwise = graph_vs_eager(graph, frames, info, label)
     prof = {}
     for name, t in (("graph", graph), ("eager", eager)):
         t.initialize(frames[0], info)
@@ -2380,6 +2437,416 @@ def serve_phase(cfg, jt, tokenizer, language, seqs) -> dict:
     return out
 
 
+# -------------------------------------------------------------------- eval
+# the eval group's OTB99-layout dataset: 8 sequences of 720p frames, ragged
+# (--streams freezes the short ones), each with a sentence
+EVAL_LENGTHS = (32, 48, 36, 44, 40, 34, 46, 38)
+EVAL_WORDS = ("the", "red", "checkered", "box", "moving", "left", "right", "target", "small",
+              "textured", "patch", "on", "a", "busy", "background")
+# UVLTrack-L's launches per backbone forward: 12 visual blocks (bf16 stream)
+# and 12 joint blocks (fp32 stream) through kernel #1, every block through #2
+L_PER_FWD = {"ln_qkv[bf16x-bf16w]": 12, "ln_qkv[fp32x-bf16w]": 12, "qkv_attention[bf16]": 24}
+EVAL_TIMER = ("host clock: runner FPS as the CLI prints it (frames over the summed sequence "
+              "times, decode overlapped by the prefetcher at S=1, inline at S>1); step p50/p90 "
+              "of the direct replay of the same run (Tracker.track / BatchTracker.step on the "
+              "CLI's JitTracker, frames decoded beforehand)")
+def write_eval_dataset(root: Path, seed: int) -> dict:
+    """An OTB99-layout dataset under root/otb99 (OTB_videos/<seq>/
+    {groundtruth_rect.txt,img/%04d.jpg}, OTB_query_test/<seq>.txt) of
+    EVAL_LENGTHS 720p sequences from synthetic_sequence, each with a
+    sentence; and a GOT-10k test split under root/got10k (3 sequences of 8
+    frames, a one-row ground truth: server-evaluated). Returns the writer's
+    name and seconds."""
+    import cv2
+    import numpy as np
+
+    def write(path, rgb):
+        if not cv2.imwrite(str(path), np.ascontiguousarray(rgb[..., ::-1]),
+                           [cv2.IMWRITE_JPEG_QUALITY, 90]):
+            raise IOError(f"cv2 could not write {path}")
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 100)
+    otb = root / "otb99"
+    (otb / "OTB_query_test").mkdir(parents=True)
+    for i, n in enumerate(EVAL_LENGTHS):
+        name = f"Seq{i:02d}"
+        frames, boxes = synthetic_sequence(n - 1, seed + 40 + i, phase=7 * i)
+        img = otb / "OTB_videos" / name / "img"
+        img.mkdir(parents=True)
+        for t, f in enumerate(frames):
+            write(img / f"{t + 1:04d}.jpg", f)
+        np.savetxt(otb / "OTB_videos" / name / "groundtruth_rect.txt", boxes, delimiter=",",
+                   fmt="%.1f")
+        words = rng.choice(EVAL_WORDS, size=5 + i % 3)
+        (otb / "OTB_query_test" / f"{name}.txt").write_text(" ".join(words) + "\n")
+    got = root / "got10k" / "test"
+    names = [f"GOT-10k_Test_{i:06d}" for i in (1, 2, 3)]
+    got.mkdir(parents=True)
+    (got / "list.txt").write_text("\n".join(names) + "\n")
+    for i, name in enumerate(names):
+        frames, boxes = synthetic_sequence(7, seed + 60 + i, phase=5 * i)
+        (got / name).mkdir()
+        for t, f in enumerate(frames):
+            write(got / name / f"{t + 1:08d}.jpg", f)
+        np.savetxt(got / name / "groundtruth.txt", boxes[:1], delimiter=",", fmt="%.4f")
+    return {"jpeg_writer": f"cv2 {cv2.__version__}", "write_s": time.perf_counter() - t0}
+
+
+def cli_run(label: str, argv, results: Path, expect: dict) -> dict:
+    """uvltrack_tpu_torch.cli.test.main(argv) in this process, its stdout
+    captured; the Tracker the CLI builds is kept (build_tracker wrapped).
+    The launch counts are set to 0 just before and read just after: the
+    wrappers' eager calls (initialize's forwards, each graph's warm-up)
+    and the graphs' (captured calls x replays). Fails if a run printed an
+    error, or if an instantiation of `expect` never launched. Returns
+    {proto, out, results_dir, launches, graph_launches, seconds}."""
+    import contextlib
+    import io
+
+    from uvltrack_tpu_torch.cli import test as cli_test
+    from uvltrack_tpu_torch.ops import build
+
+    built, orig = [], cli_test.build_tracker
+
+    def keep(*a, **kw):
+        built.append(orig(*a, **kw))
+        return built[-1]
+
+    cli_test.build_tracker = keep
+    buf = io.StringIO()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli_test.main(argv)
+    finally:
+        cli_test.build_tracker = orig
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    eager, graph = build.instantiation_counts(), graph_launches(built[0].jt)
+    if "ERROR" in out or "failed" in out or "Traceback" in out:
+        raise AssertionError(f"{label}: the run reported a failure:\n{out[-2000:]}")
+    idle = [k for k in expect if eager.get(k, 0) + graph.get(k, 0) == 0]
+    if idle:
+        raise AssertionError(f"{label}: {idle} never launched (eager {eager}, graphs {graph})")
+    return {"proto": built[0], "out": out, "seconds": seconds, "launches": eager,
+            "graph_launches": graph}
+
+
+def runner_fps(out: str) -> float:
+    """The overall frames/s the runner printed last ("overall X FPS" or
+    "X FPS aggregate")."""
+    import re
+
+    m = re.findall(r"([0-9.]+) FPS", out)
+    if not m:
+        raise AssertionError(f"no FPS line in the runner's output:\n{out[-1000:]}")
+    return float(m[-1])
+
+
+class Decoded(dict):
+    """Each sequence's frames through the runner's decoder (native libjpeg,
+    cv2 where it did not build), decoded once for all the direct runs:
+    self(seq) -> (frames, host ms a frame the decode took)."""
+
+    def __call__(self, seq) -> tuple:
+        from uvltrack_tpu_torch.native import imread_rgb
+
+        if seq.name not in self:
+            t0 = time.perf_counter()
+            frames = [imread_rgb(f) for f in seq.frames]
+            self[seq.name] = frames, (time.perf_counter() - t0) * 1e3 / len(frames)
+        return self[seq.name]
+
+
+def direct_single(proto, seqs, results: Path, decoded: Decoded) -> dict:
+    """Each sequence through a Tracker on the CLI's JitTracker, frame by
+    frame (track), from the same decoded frames; its result files written
+    by the runners' save_results. Returns the step latencies and decode ms."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.eval.running import save_results
+    from uvltrack_tpu_torch.track.tracker import Tracker
+
+    t = Tracker(proto.cfg, tokenizer=proto.tokenizer, jit_tracker=proto.jt)
+    lat, dec = [], []
+    for seq in seqs:
+        frames, ms = decoded(seq)
+        dec.append(ms)
+        boxes = [t.initialize(frames[0], seq.init_info())["target_bbox"]]
+        torch.cuda.synchronize()
+        for f in frames[1:]:
+            t0 = time.perf_counter()
+            boxes.append(t.track(f)["target_bbox"])
+            lat.append(time.perf_counter() - t0)
+        save_results(str(results), seq.name, np.asarray(boxes, np.float64),
+                     np.zeros(len(boxes)))
+    return {"lat": lat, "decode_ms_per_frame": float(np.mean(dec))}
+
+
+def direct_batched(proto, seqs, S: int, results: Path, decoded: Decoded) -> dict:
+    """The lockstep runner's groups (S sequences at a time, in dataset
+    order: one resolution) through a BatchTracker on the CLI's JitTracker,
+    from the same decoded frames: initialize from each first frame and
+    ground-truth box with its sentence, then a step a frame index with the
+    finished streams frozen and fed their first frame (run_dataset_batched's
+    rule). Returns the step latencies."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.eval.running import save_results
+    from uvltrack_tpu_torch.track.batch import BatchTracker
+
+    bts, lat = {}, []
+    for g in range(0, len(seqs), S):
+        group = seqs[g:g + S]
+        n = len(group)
+        if n not in bts:
+            bts[n] = BatchTracker(proto.cfg, None, n, tokenizer=proto.tokenizer,
+                                  jit_tracker=proto.jt)
+        bt = bts[n]
+        frames = [decoded(s)[0] for s in group]
+        boxes0 = np.stack([np.asarray(s.ground_truth_rect[0], np.float32) for s in group])
+        init = bt.initialize([f[0] for f in frames], boxes0, languages=[s.language for s in group])
+        outs = [[list(np.asarray(init[i], np.float64))] for i in range(n)]
+        torch.cuda.synchronize()
+        for k in range(1, max(len(f) for f in frames)):
+            active = np.array([k < len(f) for f in frames])
+            rows = np.stack([f[k] if k < len(f) else f[0] for f in frames])
+            bt.set_active(active)
+            t0 = time.perf_counter()
+            packed = bt.step(rows)
+            lat.append(time.perf_counter() - t0)
+            for i in np.flatnonzero(active):
+                outs[i].append(packed[i, :4].tolist())
+        for i, s in enumerate(group):
+            save_results(str(results), s.name, np.asarray(outs[i], np.float64),
+                         np.zeros(len(outs[i])))
+    return {"lat": lat}
+
+
+def same_files(label: str, cli_dir: Path, direct_dir: Path, seqs) -> int:
+    """The CLI's <seq>.txt files byte for byte the direct run's; each a
+    finite (n, 4) box list. Returns the number of files."""
+    import numpy as np
+
+    for s in seqs:
+        got = (cli_dir / f"{s.name}.txt").read_bytes()
+        if got != (direct_dir / f"{s.name}.txt").read_bytes():
+            raise AssertionError(f"{label}: {s.name}.txt differs from the direct run's")
+        boxes = np.loadtxt(cli_dir / f"{s.name}.txt", delimiter="\t", ndmin=2)
+        if boxes.shape != (len(s.frames), 4) or not np.isfinite(boxes).all():
+            raise AssertionError(f"{label}: {s.name}.txt holds {boxes.shape}")
+    return len(seqs)
+
+
+def large_checks(proto, seq, frames) -> dict:
+    """UVLTrack-L on the CLI's JitTracker: L_PER_FWD launches per eager
+    forward and in the step graph; the kernel path against the plain path
+    frame by frame from a shared state (paired_ab); the graph step against
+    the eager debug step from a shared state, every box bitwise; a profiler
+    window of 16 frames."""
+    import torch
+
+    from uvltrack_tpu_torch.ops import attention, build
+    from uvltrack_tpu_torch.track.tracker import Tracker
+
+    jt, info = proto.jt, seq.init_info()
+    key = jt.graph_key(frames[0].shape[:2], 1)
+    cap = jt.captured_launches(key)
+    if cap["step"] != L_PER_FWD or cap["remine"]:
+        raise AssertionError(f"L: the step graph captured {cap}, not {L_PER_FWD}")
+    eager = Tracker(proto.cfg, tokenizer=proto.tokenizer, jit_tracker=jt, graphs=False)
+    eager.initialize(frames[0], info)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    eager.track(frames[1])
+    torch.cuda.synchronize()
+    if build.instantiation_counts() != L_PER_FWD:
+        raise AssertionError(f"L: an eager forward launched {build.instantiation_counts()}")
+    ab = paired_ab(eager, frames[:17], info)
+    graph = Tracker(proto.cfg, tokenizer=proto.tokenizer, jit_tracker=jt)
+    attention.force_backend("cuda")
+    tally, bitwise = graph_vs_eager(graph, frames, info, "L")
+    attention.force_backend(None)
+    if bitwise != len(frames) - 1:
+        raise AssertionError(f"L: {bitwise} of {len(frames) - 1} graph boxes bitwise the "
+                             "eager step's")
+    graph.initialize(frames[0], info)
+    graph.track(frames[1])
+    prof = profile_window(lambda i: graph.track(frames[2 + i]), 16, "frame")
+    return {"paired_kernel_vs_plain": ab, "paired_graph_vs_eager": tally.summary(),
+            "graph_bitwise_equal_frames": bitwise, "captured_launches": cap,
+            "device_profile": prof}
+
+
+def large_lockstep_checks(proto, seqs, decoded: Decoded) -> dict:
+    """UVLTrack-L at S=L_STREAMS: a BatchTracker on the graphs against one
+    on the eager step, the same 16 steps of the first L_STREAMS sequences
+    (all active), every step's boxes bitwise; a profiler window of 8 steps."""
+    import numpy as np
+
+    from uvltrack_tpu_torch.track.batch import BatchTracker
+
+    group = seqs[:L_STREAMS]
+    frames = [decoded(s)[0][:25] for s in group]
+    boxes0 = np.stack([np.asarray(s.ground_truth_rect[0], np.float32) for s in group])
+    langs = [s.language for s in group]
+    outs = []
+    for graphs in (False, True):
+        bt = BatchTracker(proto.cfg, None, L_STREAMS, tokenizer=proto.tokenizer,
+                          jit_tracker=proto.jt, graphs=graphs)
+        bt.initialize([f[0] for f in frames], boxes0, languages=langs)
+        outs.append(np.stack([bt.step(np.stack([f[k] for f in frames])) for k in range(1, 17)]))
+    if not np.array_equal(outs[0], outs[1]):
+        raise AssertionError("L S=8: the graph steps' boxes differ from the eager steps'")
+    prof = profile_window(lambda i: bt.step(np.stack([f[17 + i] for f in frames])), 8, "step")
+    return {"steps_bitwise_equal": 16, "device_profile": prof}
+
+
+def eval_phase(args, vocab: Path, tmp: Path) -> dict:
+    """The `eval` group: cli.test.main over a synthetic OTB99 dataset in
+    five runs (B: BBOX --chunk 16, NLBBOX --streams 4, --quant int8; L:
+    BBOX, NLBBOX --streams 8), each run's result files bitwise against a
+    direct run on its JitTracker; L's launches, kernel-vs-plain and
+    graph-vs-eager; analyze on runs a and d; the server-split message and
+    pack. Returns {"launches", "graph_launches"} summed over the runs."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch import native
+    from uvltrack_tpu_torch.cli import analyze as cli_analyze
+    from uvltrack_tpu_torch.cli import pack as cli_pack
+    from uvltrack_tpu_torch.eval import environment, get_dataset
+    from uvltrack_tpu_torch.track.tracker import frame_cost
+
+    t_group = time.perf_counter()
+    decoder = ("native libjpeg (uvltrack_tpu_torch/native)" if native.load_library() is not None
+               else "cv2 (the native libjpeg decoder did not build)")
+    ds_info = write_eval_dataset(tmp, args.seed)
+    decoded = Decoded()
+    results = tmp / "results"
+    os.environ.update({"UVLTRACK_REPO": str(REPO), "UVLTRACK_OTB99_PATH": str(tmp / "otb99"),
+                       "UVLTRACK_GOT10K_PATH": str(tmp / "got10k"),
+                       "UVLTRACK_RESULTS_PATH": str(results)})
+    environment.reset_env_cache()
+    seqs = list(get_dataset("otb99"))
+    emit({"phase": "eval_dataset", "sequences": len(seqs),
+          "frames": [len(s.frames) for s in seqs], "frame_hw": [720, 1280],
+          "layout": "OTB99 (OTB_videos/<seq>/img/%04d.jpg, OTB_query_test/<seq>.txt)",
+          "decoder": decoder, **ds_info})
+    common = ["--dataset_name", "otb99", "--set", "TEST.THRESHOLD=-1",
+              "--set", f"MODEL.BACKBONE.LANGUAGE.VOCAB_PATH={vocab}"]
+    q8 = {"ln_qkv[bf16x-int8w]": 6, "ln_qkv[fp32x-int8w]": 6, "qkv_attention[bf16]": 6,
+          "qkv_attention[fp32]": 6}
+    b_fwd = {"ln_qkv[bf16x-bf16w]": 6, "ln_qkv[fp32x-bf16w]": 6, "qkv_attention[bf16]": 12}
+    runs = [  # (label, param, extra args, report dir, streams, launches per forward)
+        ("a_B_BBOX_chunk16", "baseline_base", ["--set", "TEST.MODE=BBOX", "--chunk", "16"],
+         "baseline_base/otb99_BBOX_0300", 1, b_fwd),
+        ("b_B_NLBBOX_S4", "baseline_base", ["--set", "TEST.MODE=NLBBOX", "--streams", "4"],
+         "baseline_base/otb99_NLBBOX_0300", 4, b_fwd),
+        ("c_B_BBOX_int8", "baseline_base", ["--set", "TEST.MODE=BBOX", "--quant", "int8",
+                                            "--runid", "3"],
+         "baseline_base_003/otb99_BBOX_0300", 1, q8),
+        ("d_L_BBOX", "baseline_large", ["--set", "TEST.MODE=BBOX"],
+         "baseline_large/otb99_BBOX_0300", 1, L_PER_FWD),
+        ("e_L_NLBBOX_S8", "baseline_large", ["--set", "TEST.MODE=NLBBOX", "--streams",
+                                             str(L_STREAMS)],
+         "baseline_large/otb99_NLBBOX_0300", L_STREAMS, L_PER_FWD),
+    ]
+    launches, glaunch = {}, {}
+    for label, param, extra, report, S, per_fwd in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = cli_run(label, ["uvltrack", param] + common + extra, results, per_fwd)
+        peak = torch.cuda.max_memory_allocated()
+        proto, out = run["proto"], run["out"]
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in run["graph_launches"].items():
+            glaunch[k] = glaunch.get(k, 0) + v
+        direct_dir = tmp / "direct" / label
+        if S == 1:
+            d = direct_single(proto, seqs, direct_dir, decoded)
+        else:
+            d = direct_batched(proto, seqs, S, direct_dir, decoded)
+            d["decode_ms_per_frame"] = float(np.mean([decoded(s)[1] for s in seqs]))
+        files = same_files(label, results / "uvltrack" / report, direct_dir, seqs)
+        scores = [line for line in out.splitlines() if "AUC=" in line]
+        if len(scores) != 1:
+            raise AssertionError(f"{label}: no score line in the CLI's output")
+        lat = np.asarray(d["lat"])
+        rec = {"phase": f"eval_{label}", "argv": extra, "timer": EVAL_TIMER,
+               "runner_fps": runner_fps(out), "cli_seconds": run["seconds"],
+               "decode_ms_per_frame": d["decode_ms_per_frame"],
+               "step_ms_p50": float(np.percentile(lat, 50) * 1e3),
+               "step_ms_p90": float(np.percentile(lat, 90) * 1e3),
+               "direct_frames_per_s": (S if S > 1 else 1) * len(lat) / float(lat.sum()),
+               "result_files_bitwise_direct": files, "scores": scores[0].split(": ", 1)[-1],
+               "launches": run["launches"], "graph_launches": run["graph_launches"],
+               "peak_mem_bytes": int(peak), "capture_s": proto.jt.capture_seconds,
+               "graphs_captured": proto.jt.graphs_captured}
+        if param == "baseline_large":
+            nt = int(proto.cfg.MODEL.BACKBONE.LANGUAGE.BERT.MAX_QUERY_LEN)
+            rec.update({"params": sum(p.numel() for p in proto.model.parameters()),
+                        **frame_work(proto.model, nt),
+                        "frame_cost_gflops": frame_cost(proto.model, nt)["flops"] / 1e9})
+            if S == 1:
+                rec["large"] = large_checks(proto, seqs[0], decoded(seqs[0])[0])
+            else:
+                rec["large"] = large_lockstep_checks(proto, seqs, decoded)
+        emit(rec)
+        del run, proto
+        torch.cuda.empty_cache()
+    # analyze on runs a and d: the per-sequence table into a file, and the scores
+    for label, param, mode in (("a", "baseline_base", "BBOX"), ("d", "baseline_large", "BBOX")):
+        import contextlib
+        import io
+
+        save = tmp / f"analyze_{label}.txt"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_analyze.main(["--tracker_param", param, "--mode", mode, "--per_seq",
+                              "--save_file", str(save)])
+            cli_analyze.main(["--tracker_param", param, "--mode", mode])
+        table = save.read_text()
+        rows = [s.name for s in seqs if f"\n{s.name} " in table]
+        if len(rows) != len(seqs) or "AUC=" not in buf.getvalue():
+            raise AssertionError(f"analyze {label}: {len(rows)} sequence rows, output "
+                                 f"{buf.getvalue()[-500:]}")
+        emit({"phase": f"eval_analyze_{label}", "per_seq_rows": len(rows),
+              "scores": buf.getvalue().strip().splitlines()[-1]})
+    # the server-evaluated split: no local score, the pack CLI named; then pack
+    run = cli_run("got10k_split", ["uvltrack", "baseline_base", "--dataset_name", "got10k_test",
+                                   "--set", "TEST.MODE=BBOX"], results, b_fwd)
+    if "cannot score locally" not in run["out"] or \
+            "python -m uvltrack_tpu_torch.cli.pack" not in run["out"] or "AUC=" in run["out"]:
+        raise AssertionError(f"got10k_test: no server-split message:\n{run['out'][-800:]}")
+    for k, v in run["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in run["graph_launches"].items():
+        glaunch[k] = glaunch.get(k, 0) + v
+    del run
+    import contextlib
+    import io
+    import zipfile
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_pack.main(["got10k", "--tracker_param", "baseline_base", "--dataset_name",
+                       "got10k_test", "--mode", "BBOX", "--out_dir", str(tmp / "submit")])
+    with zipfile.ZipFile(tmp / "submit" / "uvltrack_baseline_base_got10k_test.zip") as z:
+        members = sorted(n for n in z.namelist() if n.endswith("_001.txt"))
+    want = [f"GOT-10k_Test_{i:06d}/GOT-10k_Test_{i:06d}_001.txt" for i in (1, 2, 3)]
+    if members != want:
+        raise AssertionError(f"pack: {members}, not {want}")
+    torch.cuda.empty_cache()
+    emit({"phase": "eval_server_split", "message": "named the pack CLI", "zip_files": members,
+          "group_seconds": time.perf_counter() - t_group})
+    return {"launches": launches, "graph_launches": glaunch}
+
+
 def box_iou(a, b) -> float:
     """IoU of two [x, y, w, h] boxes."""
     iw = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
@@ -2503,6 +2970,21 @@ def main() -> int:
                              language, frames, boxes, seqs, per_fwd_fp, per_fwd_q8)
     if "serve" in only:
         serve_phase(cfg, jts[0], BertTokenizer(str(vocab)), language, seqs)
+    large, eval_counts = None, {"launches": {}, "graph_launches": {}}
+    if "eval" in only:
+        import tempfile
+
+        # kernels #1, #2 and #5 at UVLTrack-L's width, then the eval runs
+        l_worst, l_times = kernel_phase(dev, args.seed, L_WIDTH, L_HEADS, l_grid(), "_L")
+        l_q8_worst, l_q8_times = q8_kernel_phase(
+            dev, args.seed, L_WIDTH, L_HEADS, l_grid(), "_L",
+            names=("ln_qkv[", "#5", "qkv_attention[fp32]"))
+        large = {"worst": l_worst, "times": l_times, "q8_worst": l_q8_worst,
+                 "q8_times": l_q8_times}
+        write_vocab(vocab, list(EVAL_WORDS) + language.split(), args.seed)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+            eval_counts = eval_phase(args, vocab, Path(tmp))
+        add(eval_counts["launches"])
     if only != set(GROUPS):
         emit({"phase": "total", "seconds": time.perf_counter() - t_start,
               "groups": sorted(only)})
@@ -2512,10 +2994,12 @@ def main() -> int:
         return 0
     # launches the graphs made (captured calls x replays), beside the host-counted ones
     glaunch = graph_launches(*jts)
+    for k, v in eval_counts["graph_launches"].items():
+        glaunch[k] = glaunch.get(k, 0) + v
     src = "uvltrack_tpu_torch/csrc"
     lb = f"B{LOCKSTEP_B}_"
     return finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst,
-                  q8_times, fused_worst, fused_times)
+                  q8_times, fused_worst, fused_times, large)
 
 
 def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, language,
@@ -2554,9 +3038,11 @@ def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, langu
 
 
 def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst, q8_times,
-           fused_worst, fused_times) -> int:
+           fused_worst, fused_times, large) -> int:
     """The kernels line, the compositions and per-launch lines, the total,
-    the nvidia-smi line and the ok line."""
+    the nvidia-smi line and the ok line. `large`: the kernel checks and
+    times at UVLTrack-L's width, which the rows of the instantiations on
+    L's path carry under "C1024"."""
     def at(table, shape, name):
         """A kernel's times at one shape, at B=1 and (under its key) at the
         lockstep batch."""
@@ -2595,6 +3081,18 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                 "graph_launches": sum(glaunch.get(i, 0) for i in NAMED_BY_BASE.get(name, (name,))),
                 "max_abs_err": err, **t}
                for name, source, line, n, err, t in rows]
+    # UVLTrack-L's width (C=1024, H=16): the instantiations its BBOX/NLBBOX
+    # and int8 paths run, at their main-path shape, B=1 and B=8
+    l_rows = {"ln_qkv": ("times", "N361_fp32x_flag0", "worst", "ln_qkv"),
+              "qkv_attention": ("times", "N361_fp32x_flag0", "worst", "qkv_attention"),
+              "ln_qkv[bf16x-int8w]": ("q8_times", "N321_bf16x_open", "q8_worst", None),
+              "ln_qkv[fp32x-int8w]": ("q8_times", "N361_fp32x_flag0", "q8_worst", None),
+              "qkv_attention[fp32]": ("q8_times", "N361_fp32x_flag0", "q8_worst", None)}
+    for k in kernels:
+        if k["name"] in l_rows:
+            table, shape, errs, err_key = l_rows[k["name"]]
+            k["C1024"] = {"shape": shape, "max_abs_err": large[errs][err_key or k["name"]],
+                          **at(large[table], shape, err_key or k["name"])}
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

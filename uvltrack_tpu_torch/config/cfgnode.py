@@ -1,6 +1,6 @@
 """Lightweight attribute-dict config tree with strict YAML merge (the PyTorch
-port's own copy of uvltrack_tpu/config/cfgnode.py, without the command-line
-overrides and the YAML dump that no part of the port uses yet).
+port's own copy of uvltrack_tpu/config/cfgnode.py, with its command-line
+overrides, merge_from_list, and its YAML dump).
 
 Matches the semantics of the reference config system
 (lib/config/uvltrack/config.py:169-187): overriding a key that does not exist
@@ -15,7 +15,7 @@ import yaml
 
 
 def _coerce_leaf(value: Any, old: Any, key: str) -> Any:
-    """Type-guard an override against the default leaf's type.
+    """Type-guard a CLI override against the default leaf's type.
 
     Follows the reference's vendored-yacs semantics
     (_check_and_coerce_cfg_value_type): same type passes, int widens to
@@ -104,13 +104,55 @@ class CfgNode(dict):
                     raise ValueError(f"{here}: cannot merge dict into non-dict")
                 self[k].merge_from_dict(v, here)
             else:
-                # a YAML leaf may not silently install a wrong-typed value
-                # (yacs _check_and_coerce semantics)
+                # same type guard as the CLI path: a dict-valued --set
+                # override (`TPU={GRAD_ACCUM: fast}`) and a YAML leaf both
+                # land here, and neither may silently install a
+                # wrong-typed value (yacs _check_and_coerce semantics)
                 super(CfgNode, self).__setitem__(
                     k, _coerce_leaf(v, self[k], here))
+
+    def merge_from_list(self, overrides) -> None:
+        """Apply `KEY.SUBKEY=value` command-line overrides (yacs-style,
+        cf. reference lib/config/__init__.py's yacs CfgNode). Values are
+        parsed with yaml.safe_load so `2`, `2.5e-4`, `true`, `[1,2]` and
+        quoted strings all work; unknown keys raise like merge_from_dict.
+        The parsed value is type-checked against the default leaf (mirroring
+        yacs _check_and_coerce_cfg_value_type): pyyaml leaves dotless
+        exponent floats like `1e-4` as str, so numeric strings are coerced
+        to the leaf's numeric type and real mismatches raise instead of
+        silently installing a str. Dict values merge strictly into the
+        target section; a scalar can never clobber a whole section."""
+        for item in overrides:
+            key, sep, raw = item.partition("=")
+            if not sep:
+                raise ValueError(f"override {item!r} is not KEY=VALUE")
+            node, parts = self, key.strip().split(".")
+            for p in parts[:-1]:
+                if not isinstance(node.get(p), CfgNode):
+                    raise ValueError(f"{key}: {p} not a config section")
+                node = node[p]
+            leaf = parts[-1]
+            if leaf not in node:
+                raise ValueError(f"{key} not exist in default config")
+            value = yaml.safe_load(raw)
+            old = node[leaf]
+            if isinstance(old, CfgNode):
+                if not isinstance(value, dict):
+                    raise ValueError(
+                        f"{key}: cannot replace config section with "
+                        f"{type(value).__name__}")
+                old.merge_from_dict(value, key.strip())
+            else:
+                # goes through __setitem__, so a dict value on a dict-typed
+                # (non-section) leaf still gets CfgNode-wrapped
+                node[leaf] = _coerce_leaf(value, old, key.strip())
 
     def merge_from_file(self, filename: str) -> None:
         with open(filename) as f:
             data = yaml.safe_load(f)
         if data:
             self.merge_from_dict(data)
+
+    def dump_yaml(self, filename: str) -> None:
+        with open(filename, "w") as f:
+            yaml.dump(self.to_dict(), f, default_flow_style=False)

@@ -43,7 +43,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .tracker import LockstepTracker
+from .tracker import LockstepTracker, frame_cost
 
 
 def always_remine() -> bool:
@@ -139,3 +139,19 @@ class BatchTracker(LockstepTracker):
 
     def step_many(self, frames_t) -> np.ndarray:
         return self.step_many_async(frames_t).double().cpu().numpy()
+
+    def step_many_cost(self, frames_t) -> dict:
+        """{"flops", "bytes", "streams"} of one lockstep step of a frame
+        block shaped like `frames_t` ((T, S, H, W, 3), or T lists of S
+        frames), counted from the shapes (frame_cost): S streams' products,
+        the weights read once for the batch at their stored width, and the
+        S frames' bytes. "streams" is the S the step runs at (S_pad in the
+        JAX package, whose step_many_cost reads XLA's cost analysis of the
+        scan body, a step's program, and which callers divide by it for
+        per-frame figures)."""
+        first = frames_t[0]
+        hw = first[0].shape[:2] if isinstance(first, (list, tuple)) else first.shape[1:3]
+        cost = frame_cost(self.model, self.nt)
+        return {"flops": cost["flops"] * self.S,
+                "bytes": cost["weight_bytes"] + self.S * int(np.prod(tuple(hw))) * 3,
+                "streams": self.S}
