@@ -129,14 +129,35 @@ Phases, one JSON line each:
                  frame_cost. Then cli.analyze (--per_seq --save_file, and
                  the scores) on runs a and d, the server-split message on
                  the GOT-10k split and cli.pack's zip, a file a sequence.
+  8. train    -- (a) the four autograd Functions of ops/autograd.py
+                 (kernels #1, #2, #4, #7 under autograd) at B=16, C=768,
+                 H=12, N=321 bf16 x and N=361 fp32 x, 3 masks: the kernel
+                 forward against the plain version (the KERNEL_* rule) and
+                 every input's gradient against the plain recompute's (the
+                 bitwise count reported). (b) B-TRAIN: UVLTrack-B at full
+                 width, batch 8 x 2 search frames, seed-0 init and one
+                 synthetic batch, 6 steps on the kernels and 6 on the plain
+                 backend in turns: step 1 gated (loss within 1%, grad_norm
+                 within TRAIN_NORM_REL or twice the plain backend's move under
+                 a 2^-12 input change), losses, step p50, samples/s, peak
+                 memory, launches a step (12 + 12, none in the backward), a
+                 profiler window of 2 steps. (c) 2 steps each under
+                 UVLTRACK_FUSED_PROJ=1, UVLTRACK_FUSED_MLP=1 and
+                 UVLTRACK_FUSED_PREFIX=0 (#4, #7, #2 inside the model). (d)
+                 TPU.REMAT's gradients bitwise the plain step's from one
+                 state; 2 REMAT and 2 TPU.GRAD_ACCUM=2 steps (24 + 24
+                 launches a step), peak memory. (e) cli.train.main
+                 --synthetic 3 --epochs 2 in a temporary directory, then a
+                 resume to epoch 3. ~50 s.
 --only runs some groups (kernels = phase 2, track = 3-4 but the
-multistream ones, multistream, compiled, serve, eval) and prints no kernels
+multistream ones, multistream, compiled, serve, eval, train) and prints no kernels
 line; in a full run the kernels line counts the eval runs' launches, and
 the rows of the instantiations on L's path carry their L times ("C1024").
 Then the script's total seconds, the {"kernels": [...]} line (each
 kernel's times at B=1 and, under "B8", at the lockstep batch; "launches"
 counted by the wrappers on the eager paths, "graph_launches" the graphs'
-captured calls times their replays), the
+captured calls times their replays, "train_launches" the train group's
+B-TRAIN runs (b)-(e)), the
 nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failure raises: no ok line, exit 1.
 Without a CUDA card, or outside a checkout, it exits 2 and prints no result.
@@ -193,7 +214,7 @@ MLP_N = (48, 321, 361, 681)  # kernel #7's check shapes
 # the instantiations the kernels line's two bf16 rows count
 NAMED_BY_BASE = {"ln_qkv": ("ln_qkv[bf16x-bf16w]", "ln_qkv[fp32x-bf16w]"),
                  "qkv_attention": ("qkv_attention[bf16]",)}
-GROUPS = ("kernels", "track", "multistream", "compiled", "serve", "eval")
+GROUPS = ("kernels", "track", "multistream", "compiled", "serve", "eval", "train")
 ATTN_N = (40, 48, 128, 321, 361, 681)  # kernel #3's: BERT's N, 128 and the ViT's
 
 TIMER = ("CUDA events, L2-warm: *ms = mean of 200 back-to-back eager calls after 20 "
@@ -2855,6 +2876,399 @@ def box_iou(a, b) -> float:
     return inter / (a[2] * a[3] + b[2] * b[3] - inter)
 
 
+# ------------------------------------------------------------------ train
+TRAIN_B = 16  # rows of the train forward: TRAIN.BATCH_SIZE 8 x DATA.SEARCH.NUMBER 2
+# the Functions' forward tolerance (the KERNEL_* rule), at their outputs' scale:
+# the attention output as #1/#2's, x + proj as the post-residual stream, the MLP's
+TRAIN_ATOL = {"LnQkvAttention": KERNEL_ATOL["ln_qkv_attention"],
+              "QkvAttention": KERNEL_ATOL["qkv_attention"],
+              "LnQkvAttnProj": Q8_KERNEL_ATOL["proj_residual"],
+              "LnMlp": KERNEL_ATOL["ln_mlp"]}
+# kernel vs plain gradients from the same saved inputs and cotangent: the same
+# recompute, so bitwise expected; gated at 1e-3 of each input's largest |g|
+TRAIN_GRAD_REL = 1e-3
+# launches a train step makes (one forward at the default knobs; the
+# backward recomputes the plain versions and launches nothing)
+TRAIN_PER_FWD = {"ln_qkv[bf16x-bf16w]": 6, "ln_qkv[fp32x-bf16w]": 6, "qkv_attention[bf16]": 12}
+TRAIN_KNOBS = (
+    ("UVLTRACK_FUSED_PROJ", "1", dict(TRAIN_PER_FWD, **{"proj_residual[bf16x-bf16a-bf16w]": 6,
+                                                        "proj_residual[fp32x-bf16a-bf16w]": 6})),
+    ("UVLTRACK_FUSED_MLP", "1", dict(TRAIN_PER_FWD, **{"ln_mlp[bf16x-bf16w]": 6,
+                                                       "ln_mlp[fp32x-bf16w]": 6})),
+    ("UVLTRACK_FUSED_PREFIX", "0", {"qkv_attention[bf16]": 12}))
+# B-TRAIN's gate, kernel backend against plain from one init, step 1: the loss
+# within 1% (bf16 rounding of 12 blocks' attention); grad_norm within 5%, or
+# within twice the plain backend's own move when its search images change by
+# 2^-12 relative (TRAIN_PROBE_EPS, 16x under one bf16 rounding step), if that
+# is larger: the losses supervise one argmax-selected box a row, and where two
+# cells nearly tie (random weights) either backend's rounding flips the
+# selection and reroutes the box losses' gradient (measured on an H100 at
+# seed 0: one row of 16 flips either way, the plain backend's grad_norm moves
+# 9.6% under the 2^-12 change, and the kernels' is 10.7% from plain's)
+TRAIN_LOSS_REL, TRAIN_NORM_REL, TRAIN_PROBE_EPS = 1e-2, 5e-2, 2.0 ** -12
+TRAIN_TIMER = ("host clock per train_step (forward, backward, clip, AdamW on fp32 master "
+               "parameters), each ending in a read of its loss; p50 over steps 2-6")
+
+
+def function_phase(dev, seed: int) -> dict:
+    """(a) The four autograd Functions at B=16, C=768, H=12, N=321 (bf16 x)
+    and N=361 (fp32 x; #2's qkv is bf16 at both, as the model makes it),
+    3 masks: the kernel forward against the plain version (TRAIN_ATOL +
+    KERNEL_RTOL), and every input's gradient against torch.autograd.grad of
+    the plain version from the same inputs and cotangent."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.ops import autograd as ag
+    from uvltrack_tpu_torch.ops import ln_mlp as lm
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+    from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c, heads = 768, 12
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    def w(o, i):
+        return t(rng.normal(size=(o, i)) / np.sqrt(i), torch.bfloat16)
+
+    plain = {"LnQkvAttention": lqa.ln_qkv_attention_plain, "QkvAttention": lqa.qkv_attention_plain,
+             "LnQkvAttnProj": lqp.ln_qkv_attn_proj_plain, "LnMlp": lm.ln_mlp_plain}
+    worst = {k: 0.0 for k in plain}
+    worst_grad = {k: 0.0 for k in plain}
+    bitwise, grads = 0, 0
+    for n, x_dtype in ((321, torch.bfloat16), (361, torch.float32)):
+        for kind in ("flag0", "flag2", "open"):
+            x = t(rng.normal(size=(TRAIN_B, n, c)), x_dtype)
+            g, be = t(1 + 0.1 * rng.normal(size=c)), t(0.1 * rng.normal(size=c))
+            wq, bq = w(3 * c, c), t(0.02 * rng.normal(size=3 * c))
+            wp, bp = w(c, c), t(0.02 * rng.normal(size=c))
+            w1, b1 = w(4 * c, c), t(0.02 * rng.normal(size=4 * c))
+            w2, b2 = w(c, 4 * c), t(0.02 * rng.normal(size=c))
+            kb = t(np.where(key_masks(TRAIN_B, n, kind, rng), -1e10, 0.0))
+            cases = {"LnQkvAttention": ((x, g, be, wq, bq, kb), (heads, 1e-6)),
+                     "QkvAttention": ((lqa.ln_qkv_plain(x, g, be, wq, bq), kb), (heads,)),
+                     "LnQkvAttnProj": ((x, g, be, wq, bq, wp, bp, kb), (heads, 1e-6)),
+                     "LnMlp": ((x, g, be, w1, b1, w2, b2), (1e-6,))}
+            for name, (inputs, static) in cases.items():
+                kin = [a.detach().clone().requires_grad_(True) for a in inputs]
+                pin = [a.detach().clone().requires_grad_(True) for a in inputs]
+                out = getattr(ag, name).apply(*kin, *static)
+                ref = plain[name](*pin, *static)
+                d = (out.detach().float() - ref.detach().float()).abs()
+                if not bool((d <= TRAIN_ATOL[name] + KERNEL_RTOL * ref.float().abs()).all()):
+                    raise AssertionError(f"{name} N={n} mask={kind}: forward max abs err "
+                                         f"{float(d.max())} over tolerance")
+                worst[name] = max(worst[name], float(d.max()))
+                ct = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+                for a, b in zip(torch.autograd.grad(out, kin, ct),
+                                torch.autograd.grad(ref, pin, ct)):
+                    grads += 1
+                    bitwise += int(torch.equal(a, b))
+                    rel = float((a.float() - b.float()).abs().max()
+                                / b.float().abs().max().clamp_min(1e-30))
+                    if rel > TRAIN_GRAD_REL:
+                        raise AssertionError(f"{name} N={n} mask={kind}: a gradient differs "
+                                             f"from the plain recompute's by {rel} of its max")
+                    worst_grad[name] = max(worst_grad[name], rel)
+    torch.cuda.synchronize()
+    out = {"phase": "train_functions", "B": TRAIN_B, "C": c, "heads": heads,
+           "grid": "N=321 bf16 x, N=361 fp32 x (#2: bf16 qkv) x 3 masks",
+           "forward_tolerance": {k: f"|kernel-plain| <= {a} + {KERNEL_RTOL}*|plain|"
+                                 for k, a in TRAIN_ATOL.items()},
+           "forward_max_abs_err": worst, "grad_max_rel_err": worst_grad,
+           "grads_bitwise": f"{bitwise}/{grads}"}
+    emit(out)
+    return out
+
+
+def train_config(**over):
+    """baseline_base.yaml as B-TRAIN runs it, with `over` (KEY=value) set."""
+    from uvltrack_tpu_torch.config import load_cfg
+
+    cfg = load_cfg(str(REPO / "experiments/uvltrack/baseline_base.yaml"))
+    cfg.merge_from_list([f"{k}={v}" for k, v in over.items()])
+    return cfg
+
+
+def launches_since(before: dict) -> dict:
+    """Launches per instantiation since the counts `before` were read."""
+    from uvltrack_tpu_torch.ops import build
+
+    now = build.instantiation_counts()
+    return {k: v - before.get(k, 0) for k, v in now.items() if v > before.get(k, 0)}
+
+
+def _train_run(state, step, batch, backend: str, n: int, per_fwd=None, forwards: int = 1):
+    """n steps on `backend` ("cuda" kernels or "plain"): per step the host
+    ms, loss, grad_norm and, on the kernels, launches checked against
+    per_fwd x forwards (TRAIN_PER_FWD by default)."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.ops import attention, build
+
+    out = []
+    attention.force_backend(backend)
+    try:
+        for _ in range(n):
+            before = build.instantiation_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss = float(m["Loss/total"])
+            out.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                        "grad_norm": float(m["grad_norm"])})
+            got = launches_since(before)
+            if backend == "cuda":
+                expect_launches(per_fwd or TRAIN_PER_FWD, forwards, got, "train step")
+            elif got:
+                raise AssertionError(f"plain train step launched {got}")
+            if not (np.isfinite(loss) and np.isfinite(out[-1]["grad_norm"])):
+                raise AssertionError(f"train step on {backend}: loss {loss}, {out[-1]}")
+    finally:
+        attention.force_backend(None)
+    return state, out
+
+
+def _probe(model, batch, cfg, backend: str, eps: float = 0.0, seed: int = 0) -> dict:
+    """One forward and backward of the train loss from the model's current
+    state, no update (BN running stats and gradients restored): loss,
+    grad_norm and each row's supervised cell (the argmax of cls x cont that
+    selects pred_boxes); eps > 0 scales the search images by 1 + eps * N(0, 1)."""
+    import torch
+
+    from uvltrack_tpu_torch.core.geometry import anno2mask, rotate_half_batch
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.train.actor import flatten_batch, forward_and_loss
+    from uvltrack_tpu_torch.train.optim import global_norm
+
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    stats = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    b = dict(batch)
+    if eps:
+        gen = torch.Generator(device=b["search_images"].device).manual_seed(seed)
+        b["search_images"] = b["search_images"] * (1 + eps * torch.randn(
+            b["search_images"].shape, generator=gen, device=gen.device))
+    attention.force_backend(backend)
+    try:
+        fb = flatten_batch(b)
+        ws, wt = fb["search_images"].shape[2] // 16, fb["template_images"].shape[2] // 16
+        with torch.no_grad():
+            out = model(fb["template_images"], fb["search_images"], fb["text"], fb["text_mask"],
+                        anno2mask(fb["template_anno"], wt),
+                        rotate_half_batch(anno2mask(fb["search_anno"], ws)), fb["flag"],
+                        train=True)
+            cells = torch.argmax(out["cls_score"] * torch.softmax(
+                out["cont_score"].float(), -1)[:, :, 0], -1).tolist()
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = forward_and_loss(model, b, cfg, train=True)
+        loss.backward()
+        norm = float(global_norm([p.grad for p in model.parameters()]))
+    finally:
+        attention.force_backend(None)
+        for p in model.parameters():
+            p.grad = None
+        for m, (rm, rv) in zip(bns, stats):
+            m.running_mean.copy_(rm)
+            m.running_var.copy_(rv)
+    return {"loss": float(loss), "grad_norm": norm, "cells": cells}
+
+
+def _p50(xs):
+    import numpy as np
+
+    return float(np.percentile(xs, 50))
+
+
+def train_phase(args, dev, tmp: Path) -> dict:
+    """(b)-(e): UVLTrack-B training at full width (B-TRAIN). Returns the
+    launches per instantiation counted over (b)-(e), set to 0 just before."""
+    import gc
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.data.synthetic import synthetic_batch_from_cfg
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.train.actor import forward_and_loss
+    from uvltrack_tpu_torch.train.step import make_train_step, setup_training
+
+    t_group = time.perf_counter()
+    cfg = train_config()
+    bsz = int(cfg.TRAIN.BATCH_SIZE)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             synthetic_batch_from_cfg(np.random.default_rng(args.seed), cfg, bsz).items()}
+    total = Counter()
+
+    def counted(fn):
+        before = build.instantiation_counts()
+        res = fn()
+        total.update(launches_since(before))
+        return res
+
+    # (b) the kernels against plain, from one init, in turns K P P K K P ...
+    t0 = time.perf_counter()
+    _, k_state, k_step = setup_training(cfg, 1, device=dev, seed=args.seed)
+    _, p_state, p_step = setup_training(cfg, 1, device=dev, seed=args.seed)
+    build_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() / 2 ** 20
+    # the gate's yardstick from the shared init: the plain backend's own
+    # grad_norm move under the 2^-12 input change, and the supervised cells
+    probes = {"plain": _probe(p_state.model, batch, cfg, "plain"),
+              "plain_eps": _probe(p_state.model, batch, cfg, "plain", TRAIN_PROBE_EPS, args.seed),
+              "cuda": counted(lambda: _probe(k_state.model, batch, cfg, "cuda"))}
+    sens = abs(probes["plain_eps"]["grad_norm"] - probes["plain"]["grad_norm"]) / probes[
+        "plain"]["grad_norm"]
+    norm_bound = max(TRAIN_NORM_REL, 2 * sens)
+    flips = {k: sum(a != b for a, b in zip(probes[k]["cells"], probes["plain"]["cells"]))
+             for k in ("plain_eps", "cuda")}
+    runs = {"cuda": [], "plain": []}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(6):
+        order = ("cuda", "plain") if i % 2 == 0 else ("plain", "cuda")
+        for backend in order:
+            if backend == "cuda":
+                k_state, r = counted(lambda: _train_run(k_state, k_step, batch, "cuda", 1))
+            else:
+                p_state, r = _train_run(p_state, p_step, batch, "plain", 1)
+            runs[backend] += r
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    k1, p1 = runs["cuda"][0], runs["plain"][0]
+    loss_rel = abs(k1["loss"] - p1["loss"]) / abs(p1["loss"])
+    norm_rel = abs(k1["grad_norm"] - p1["grad_norm"]) / abs(p1["grad_norm"])
+    if loss_rel > TRAIN_LOSS_REL or norm_rel > norm_bound:
+        raise AssertionError(f"B-TRAIN step 1, kernels vs plain: loss {k1['loss']} vs "
+                             f"{p1['loss']} ({loss_rel}), grad_norm {k1['grad_norm']} vs "
+                             f"{p1['grad_norm']} ({norm_rel})")
+    del p_state, p_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = counted(lambda: profile_window(
+        lambda i: _train_run(k_state, k_step, batch, "cuda", 1), 2, "step"))
+    step_ms = {b: _p50([r["ms"] for r in runs[b][1:]]) for b in runs}
+    emit({"phase": "train_B", "cell": "B-TRAIN",
+          "config": "experiments/uvltrack/baseline_base.yaml",
+          "rows": f"{bsz} x {cfg.DATA.SEARCH.NUMBER} search frames = {TRAIN_B}",
+          "params": sum(p.numel() for p in k_state.model.parameters()), "build_s": build_s,
+          "timer": TRAIN_TIMER, "gate": f"step 1, kernels vs plain (relative): loss within "
+          f"{TRAIN_LOSS_REL}, grad_norm within max({TRAIN_NORM_REL}, 2 x the plain backend's "
+          f"move under a {TRAIN_PROBE_EPS:g} input change) = {norm_bound}",
+          "step1": {"loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+                    "plain_grad_norm_move_at_eps": sens,
+                    "supervised_cells_differing_from_plain": flips,
+                    "probes": {k: {"loss": v["loss"], "grad_norm": v["grad_norm"]}
+                               for k, v in probes.items()}},
+          "losses": {b: [r["loss"] for r in runs[b]] for b in runs},
+          "grad_norms": {b: [r["grad_norm"] for r in runs[b]] for b in runs},
+          "step_ms_p50": step_ms, "step_ms": {b: [r["ms"] for r in runs[b]] for b in runs},
+          "samples_per_s": {b: TRAIN_B / (step_ms[b] / 1e3) for b in runs},
+          "launches_per_step": TRAIN_PER_FWD, "resident_mb_two_models": resident,
+          "peak_mb_two_models": peak, "profile_kernels_2_steps": prof})
+
+    # (c) the knobs: #4, #7 and #2's Functions inside the model, 2 steps each
+    knobs = {}
+    for knob, value, per_fwd in TRAIN_KNOBS:
+        old = os.environ.get(knob)
+        os.environ[knob] = value
+        try:
+            k_state, r = counted(lambda: _train_run(k_state, k_step, batch, "cuda", 2, per_fwd))
+        finally:
+            os.environ.pop(knob) if old is None else os.environ.__setitem__(knob, old)
+        knobs[f"{knob}={value}"] = {"losses": [x["loss"] for x in r],
+                                    "ms": [x["ms"] for x in r], "launches_per_step": per_fwd}
+    emit({"phase": "train_knobs", "runs": knobs})
+
+    # (d) TPU.REMAT: the same gradients, bitwise, from the same state; then
+    # REMAT and GRAD_ACCUM=2 steps with their launches and peak memory
+    model = k_state.model
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    stats = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+
+    def grads(remat):
+        model.backbone.remat = remat
+        for p in model.parameters():
+            p.grad = None
+        for m, (rm, rv) in zip(bns, stats):
+            m.running_mean.copy_(rm)
+            m.running_var.copy_(rv)
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = forward_and_loss(model, batch, cfg, train=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        return ([p.grad.clone() for p in model.parameters()],
+                torch.cuda.max_memory_allocated() / 2 ** 20)
+
+    (g0, peak0), (g1, peak1) = counted(lambda: grads(False)), counted(lambda: grads(True))
+    same = sum(int(torch.equal(a, b)) for a, b in zip(g0, g1))
+    if same != len(g0):
+        raise AssertionError(f"TPU.REMAT: {len(g0) - same} of {len(g0)} gradients differ from "
+                             "the plain step's")
+    del g0, g1
+    rcfg, acfg = train_config(**{"TPU.REMAT": True}), train_config(**{"TPU.GRAD_ACCUM": 2})
+    model.backbone.remat = True
+    torch.cuda.reset_peak_memory_stats()
+    k_state, r_remat = counted(lambda: _train_run(
+        k_state, make_train_step(model, k_state.optimizer, rcfg), batch, "cuda", 2, forwards=2))
+    peak_remat = torch.cuda.max_memory_allocated() / 2 ** 20
+    model.backbone.remat = False
+    torch.cuda.reset_peak_memory_stats()
+    k_state, r_acc = counted(lambda: _train_run(
+        k_state, make_train_step(model, k_state.optimizer, acfg), batch, "cuda", 2, forwards=2))
+    peak_acc = torch.cuda.max_memory_allocated() / 2 ** 20
+    emit({"phase": "train_remat_accum",
+          "remat_grads_bitwise": f"{same}/{same}",
+          "peak_mb_one_backward": {"remat_off": peak0, "remat_on": peak1},
+          "remat": {"losses": [x["loss"] for x in r_remat], "ms": [x["ms"] for x in r_remat],
+                    "launches_per_step": {k: 2 * v for k, v in TRAIN_PER_FWD.items()},
+                    "peak_mb": peak_remat},
+          "grad_accum_2": {"losses": [x["loss"] for x in r_acc], "ms": [x["ms"] for x in r_acc],
+                           "launches_per_step": {k: 2 * v for k, v in TRAIN_PER_FWD.items()},
+                           "peak_mb": peak_acc}})
+    del k_state, k_step, model, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the CLI: 2 epochs of 3 synthetic batches, then a resume to epoch 3
+    from uvltrack_tpu_torch.cli import train as ctrain
+
+    argv = ["--config", "baseline_base", "--synthetic", "3", "--seed", str(args.seed),
+            "--save_dir", str(tmp)]
+    t0 = time.perf_counter()
+    first = counted(lambda: ctrain.main(argv + ["--epochs", "2"]))
+    t_first = time.perf_counter() - t0
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    second = counted(lambda: ctrain.main(argv + ["--epochs", "3"]))
+    t_second = time.perf_counter() - t0
+    ck = tmp / "checkpoints" / "train" / "uvltrack" / "baseline_base"
+    log = tmp / "logs" / "uvltrack-baseline_base.log"
+    recs = [json.loads(x) for x in (log.parent / (log.name + ".jsonl")).read_text().splitlines()]
+    files = sorted(os.listdir(ck))
+    if (second.epoch, second.state.step) != (3, 9) or files != [
+            "ep0001.pt", "ep0002.pt", "ep0003.pt"] or "resumed from epoch 2" not in log.read_text():
+        raise AssertionError(f"cli.train: epoch {second.epoch}, step {second.state.step}, "
+                             f"checkpoints {files}")
+    if not all(np.isfinite(v) for r in recs for v in r["train"].values()):
+        raise AssertionError(f"cli.train: a loss is not finite: {recs}")
+    emit({"phase": "train_cli", "argv": " ".join(argv), "epochs": [r["epoch"] for r in recs],
+          "loss_per_epoch": [r["train"]["Loss/total"] for r in recs],
+          "checkpoints": files, "checkpoint_mb": (ck / files[-1]).stat().st_size / 2 ** 20,
+          "seconds_epochs_1_2": t_first, "seconds_resume_epoch_3": t_second})
+    del second
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_group", "seconds": time.perf_counter() - t_group,
+          "launches": dict(total)})
+    return dict(total)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2985,6 +3399,14 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
             eval_counts = eval_phase(args, vocab, Path(tmp))
         add(eval_counts["launches"])
+    train_counts = {}
+    if "train" in only:
+        import tempfile
+
+        # the Functions alone, then B-TRAIN (counts from 0 just before it)
+        function_phase(dev, args.seed)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+            train_counts = train_phase(args, dev, Path(tmp))
     if only != set(GROUPS):
         emit({"phase": "total", "seconds": time.perf_counter() - t_start,
               "groups": sorted(only)})
@@ -2999,7 +3421,7 @@ def main() -> int:
     src = "uvltrack_tpu_torch/csrc"
     lb = f"B{LOCKSTEP_B}_"
     return finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst,
-                  q8_times, fused_worst, fused_times, large)
+                  q8_times, fused_worst, fused_times, large, train_counts)
 
 
 def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, language,
@@ -3038,11 +3460,12 @@ def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, langu
 
 
 def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst, q8_times,
-           fused_worst, fused_times, large) -> int:
+           fused_worst, fused_times, large, train_counts) -> int:
     """The kernels line, the compositions and per-launch lines, the total,
     the nvidia-smi line and the ok line. `large`: the kernel checks and
     times at UVLTrack-L's width, which the rows of the instantiations on
-    L's path carry under "C1024"."""
+    L's path carry under "C1024"; `train_counts`: the launches of the train
+    group's B-TRAIN runs, each row's "train_launches"."""
     def at(table, shape, name):
         """A kernel's times at one shape, at B=1 and (under its key) at the
         lockstep batch."""
@@ -3079,6 +3502,8 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": f"{TPU_KERNEL}:{line}", "launches": n,
                 "graph_launches": sum(glaunch.get(i, 0) for i in NAMED_BY_BASE.get(name, (name,))),
+                "train_launches": sum(train_counts.get(i, 0)
+                                      for i in NAMED_BY_BASE.get(name, (name,))),
                 "max_abs_err": err, **t}
                for name, source, line, n, err, t in rows]
     # UVLTrack-L's width (C=1024, H=16): the instantiations its BBOX/NLBBOX

@@ -4,6 +4,7 @@ the tracking step never reads a box back to the host.
 
 - anno2mask     (lib/test/tracker/uvltrack.py:183-194)
 - rotate_half_batch (the head's prompt mining without a prompt)
+- cont_gt       (the training actor's contrastive target)
 - crop_params / crop_box_normalized / map_box_back
                 (lib/train/data/processing_utils.py:159-193,
                  lib/test/tracker/uvltrack.py:167-173)
@@ -13,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from .box_ops import box_xywh_to_xyxy
+from .box_ops import (box_cxcywh_to_xyxy, box_xywh_to_cxcywh,
+                      box_xywh_to_cxcywh_scale, box_xywh_to_xyxy)
 
 
 def anno2mask(boxes_xywh: torch.Tensor, size: int) -> torch.Tensor:
@@ -42,6 +44,31 @@ def rotate_half_batch(x: torch.Tensor) -> torch.Tensor:
     prompt-mining forward); batch 1 is left as it is."""
     h = x.shape[0] // 2
     return torch.cat([x[h:], x[:h]], dim=0)
+
+
+def _inside(bx: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, 4) xyxy boxes in grid units -> (B, size, size): cell centers
+    strictly inside."""
+    cood = torch.arange(size, dtype=bx.dtype, device=bx.device) + 0.5
+    x_in = (cood[None, :] > bx[:, 0:1]) & (cood[None, :] < bx[:, 2:3])
+    y_in = (cood[None, :] > bx[:, 1:2]) & (cood[None, :] < bx[:, 3:4])
+    return y_in[:, :, None] & x_in[:, None, :]
+
+
+def cont_gt(boxes_xywh: torch.Tensor, size: int, ctr_ratio: float = 0.75) -> torch.Tensor:
+    """Per-cell contrastive target (B, size*size) int32: 0 = center region
+    (the box shrunk by ctr_ratio about its center, plus the center cell),
+    -1 = ignore (inside the box, outside the center region), 1 = outside."""
+    b = boxes_xywh.shape[0]
+    bx_c = box_cxcywh_to_xyxy(box_xywh_to_cxcywh_scale(boxes_xywh, ctr_ratio)) * float(size)
+    cx = torch.floor((bx_c[:, 0] + bx_c[:, 2]) / 2).to(torch.int32).clamp(0, size - 1)
+    cy = torch.floor((bx_c[:, 1] + bx_c[:, 3]) / 2).to(torch.int32).clamp(0, size - 1)
+    idx = torch.arange(size, device=boxes_xywh.device)
+    ctr = (idx[None, :, None] == cy[:, None, None]) & (idx[None, None, :] == cx[:, None, None])
+    mask_c = _inside(bx_c, size) | ctr
+    bx_t = box_cxcywh_to_xyxy(box_xywh_to_cxcywh(boxes_xywh)) * float(size)
+    mask_t = 1 - 2 * _inside(bx_t, size).to(torch.int32)
+    return torch.where(mask_c, 0, mask_t).to(torch.int32).reshape(b, size * size)
 
 
 def crop_params(box_xywh: torch.Tensor, search_area_factor: float,

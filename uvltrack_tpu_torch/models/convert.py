@@ -15,6 +15,11 @@ helpers, :57-139 and :324-363).
   that carries it (from_jax_variables'); a reference checkpoint never does,
   and is refused, as the JAX package's convert_uvltrack refuses it.
 - `load_torch_file(path)`: a checkpoint file's state dict ('net' entry).
+- `load_pretrained(cfg, model)`: the training start (convert.py:247-288 of
+  the JAX package): an MAE-pretrained ViT (`convert_mae_vit`) and a BERT
+  archive (`load_bert_archive`, `convert_bert`) from local paths, each
+  skipped with a warning when its file is missing, so synthetic training
+  runs from the seeded init.
 """
 
 from __future__ import annotations
@@ -168,6 +173,9 @@ def from_jax_variables(params: dict, batch_stats: dict) -> Dict[str, torch.Tenso
     if "text_proj" in bk:  # BERT width != ViT width: the port's own key
         rules += [("text_proj.weight", ["backbone", "text_proj", "kernel"], _t_linear),
                   ("text_proj.bias", ["backbone", "text_proj", "bias"], None)]
+    for i in range(depth):  # LayerScale, where the blocks carry it
+        rules += [(f"vit.blocks.{i}.ls{j}.gamma", ["backbone", f"block_{i}", f"ls{j}_gamma"], None)
+                  for j in (1, 2) if f"ls{j}_gamma" in bk[f"block_{i}"]]
     state = {}
     for src, dst, tf in rules:
         v = _get(params, dst)
@@ -192,6 +200,13 @@ def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in obj.items() if torch.is_tensor(v) or isinstance(v, np.ndarray)}
 
 
+def _bert_norm_name(key: str) -> str:
+    """Old BERT checkpoints' LayerNorm.gamma / .beta -> .weight / .bias (a
+    LayerScale's own `gamma` keeps its name)."""
+    return re.sub(r"LayerNorm\.gamma$", "LayerNorm.weight",
+                  re.sub(r"LayerNorm\.beta$", "LayerNorm.bias", key))
+
+
 @torch.no_grad()
 def load_reference_state(model: torch.nn.Module, state: dict,
                          strict: bool = True) -> List[str]:
@@ -200,8 +215,7 @@ def load_reference_state(model: torch.nn.Module, state: dict,
     names are normalized. Raises on missing keys when strict (a truncated or
     wrong-config checkpoint would otherwise track with random weights) and
     on any shape mismatch; returns the keys the model has no place for."""
-    state = {re.sub(r"\.gamma$", ".weight", re.sub(r"\.beta$", ".bias", k)): v
-             for k, v in state.items()}
+    state = {_bert_norm_name(k): v for k, v in state.items()}
     own = model.state_dict()
     proj = [k for k in own if k.startswith("backbone.text_proj.")]
     if proj and not all(k in state for k in proj):
@@ -226,3 +240,99 @@ def load_reference_state(model: torch.nn.Module, state: dict,
         t.copy_(v.to(device=t.device, dtype=t.dtype))
     return [k for k in state if k not in own]
 
+
+
+# ------------------------------------------------------------- pretrained
+def _copy_matching(model: torch.nn.Module, pairs) -> List[str]:
+    """Copy (source key, value, model key) triples whose model key exists
+    into the model (shape-checked, cast to each parameter's dtype); return
+    the source keys used."""
+    own = model.state_dict()
+    used = []
+    with torch.no_grad():
+        for src, v, dst in pairs:
+            if dst not in own:
+                continue
+            v = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+            if tuple(v.shape) != tuple(own[dst].shape):
+                raise ValueError(f"shape mismatch at {dst}: {tuple(v.shape)} vs "
+                                 f"{tuple(own[dst].shape)}")
+            own[dst].copy_(v.to(device=own[dst].device, dtype=own[dst].dtype))
+            used.append(src)
+    return used
+
+
+def convert_mae_vit(state: dict, model: torch.nn.Module) -> List[str]:
+    """An MAE-pretrained ViT ('model' dict: blocks.{i}.*, patch_embed.proj.*,
+    cls_token) into the model's ViT, in place, for the blocks it has; the
+    MAE pos_embed is not used (the tracker has its own sin-cos embeddings,
+    strict=False in the reference). Returns the unused keys."""
+    pairs = [(k, v, "backbone.vit." + k) for k, v in state.items()
+             if k.startswith(("blocks.", "patch_embed.proj.")) or k == "cls_token"]
+    used = set(_copy_matching(model, pairs))
+    return [k for k in state if k not in used]
+
+
+def convert_bert(state: dict, model: torch.nn.Module) -> List[str]:
+    """A BERT pytorch_model.bin state (keys with or without 'bert.', old
+    gamma/beta names normalized) into the model's embeddings and its
+    pre-fusion encoder layers, in place. Returns the unused keys."""
+    pairs = []
+    for k, v in state.items():
+        name = _bert_norm_name(k)
+        name = name[len("bert."):] if name.startswith("bert.") else name
+        if name.startswith(("embeddings.", "encoder.layer.")):
+            pairs.append((k, v, "backbone.bert." + name))
+    used = set(_copy_matching(model, pairs))
+    return [k for k in state if k not in used]
+
+
+def load_bert_archive(path: str) -> Dict[str, torch.Tensor]:
+    """Released-BERT weights from any shape the reference accepts
+    (bert_backbone.py:584-623): a tar.gz holding pytorch_model.bin, a
+    directory holding it, or a bare .bin/.pth state-dict file."""
+    import os
+    import tarfile
+    import tempfile
+
+    weights_name = "pytorch_model.bin"
+    if os.path.isdir(path):
+        return load_torch_file(os.path.join(path, weights_name))
+    if tarfile.is_tarfile(path):
+        with tarfile.open(path, "r:*") as archive, tempfile.TemporaryDirectory() as tmp:
+            member = next((m for m in archive.getmembers()
+                           if os.path.basename(m.name) == weights_name), None)
+            if member is None:
+                raise FileNotFoundError(f"{weights_name} not in {path}")
+            archive.extract(member, tmp, filter="data")
+            return load_torch_file(os.path.join(tmp, member.name))
+    return load_torch_file(path)
+
+
+def load_pretrained(cfg, model: torch.nn.Module, settings=None) -> torch.nn.Module:
+    """MAE-ViT + BERT pretrained weights into a freshly built model, in
+    place (modality_unified_feature_extractor.py:20-37). Paths resolve
+    against the repo (eval/environment.py::resolve_path); a missing file is
+    skipped with a warning on stderr, so the model keeps its seeded init."""
+    import os
+    import sys
+
+    from ..eval.environment import env_settings, resolve_path
+
+    settings = settings or env_settings()
+    mae_path = resolve_path(settings, cfg.MODEL.BACKBONE.PRETRAINED_PATH)
+    if mae_path and os.path.exists(mae_path):
+        unused = convert_mae_vit(load_torch_file(mae_path), model)
+        sys.stderr.write(f"loaded MAE ViT from {mae_path} ({len(unused)} unused keys)\n")
+    elif cfg.MODEL.BACKBONE.PRETRAINED_PATH:
+        sys.stderr.write(f"MAE weights not found at {mae_path}; training from random init\n")
+    bert_path = resolve_path(settings, cfg.MODEL.BACKBONE.LANGUAGE.PATH or "")
+    if not (bert_path and os.path.exists(bert_path)):
+        # the reference passes LANGUAGE.TYPE to from_pretrained (a directory)
+        bert_path = resolve_path(settings, cfg.MODEL.BACKBONE.LANGUAGE.TYPE)
+    if bert_path and os.path.exists(bert_path):
+        unused = convert_bert(load_bert_archive(bert_path), model)
+        sys.stderr.write(f"loaded BERT from {bert_path} ({len(unused)} unused keys)\n")
+    else:
+        sys.stderr.write("BERT archive not found; language branch keeps random init\n")
+    return model

@@ -50,20 +50,36 @@ def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
 
 
 class ConvBnRelu(nn.Sequential):
-    """3x3 conv -> BatchNorm from running stats in fp32 (eps 1e-5) -> ReLU
-    (uvltrack/utils.py:5-18)."""
+    """3x3 conv -> BatchNorm in fp32 (eps 1e-5) -> ReLU (uvltrack/utils.py:
+    5-18). Inference normalizes by the running stats; train=True by the
+    batch's, as flax's BatchNorm(momentum=0.9) does: fast variance
+    E[x^2] - E[x]^2 clamped at 0 (biased), and the running stats updated in
+    place to 0.9 * running + 0.1 * batch, the variance biased too
+    (nn.BatchNorm2d's own training mode keeps the unbiased one, so it is
+    not used)."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, c_in: int, c_out: int, dtype: torch.dtype):
         super().__init__(nn.Conv2d(c_in, c_out, 3, padding=1),
                          nn.BatchNorm2d(c_out, eps=1e-5), nn.ReLU())
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         conv, bn = self[0], self[1]
         y = _conv(x, conv, self.dtype).float()
+        if train:
+            mean = y.mean((0, 2, 3))
+            var = ((y * y).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+                bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+        else:
+            mean, var = bn.running_mean.float(), bn.running_var.float()
         # flax BatchNorm: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
-        y = (y - bn.running_mean.float()[None, :, None, None]) * mul[None, :, None, None]
+        mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+        y = (y - mean[None, :, None, None]) * mul[None, :, None, None]
         return torch.relu(y + bn.bias.float()[None, :, None, None])
 
 
@@ -76,9 +92,9 @@ class ConvTower(nn.Sequential):
                          nn.Conv2d(chans[4], out, 1))
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         for stage in list(self)[:4]:
-            x = stage(x)
+            x = stage(x, train)
         return _conv(x, self[4], self.dtype)
 
 
@@ -200,12 +216,14 @@ class MABH(nn.Module):
         bbox = torch.gather(bbox_map, 1, best[:, None, None].expand(-1, 1, 4))
         return bbox_map, bbox
 
-    def forward(self, out_dict: dict, prompt: torch.Tensor | None = None) -> dict:
+    def forward(self, out_dict: dict, prompt: torch.Tensor | None = None,
+                train: bool = False) -> dict:
         """The test path when a prompt is given. With prompt=None (the
-        grounding forward) the prompter mines prompts from the template and
-        the half-batch-rotated search features, under out_dict's
-        template_mask and context_mask, and the contrastive score keeps the
-        two non-test columns."""
+        grounding forward and training) the prompter mines prompts from the
+        template and the half-batch-rotated search features, under
+        out_dict's template_mask and context_mask, and the contrastive score
+        keeps the two non-test columns. train=True runs the towers' BN on
+        batch statistics and updates their running stats."""
         flag, search = out_dict["flag"], out_dict["search"]
         b, s, c = search.shape
         f = self.feat_sz
@@ -218,13 +236,13 @@ class MABH(nn.Module):
             cont_score = self.cont_score_from_prompt(search, prompt, test=True)
         x2d = search.reshape(b, f, f, c).permute(0, 3, 1, 2)  # NCHW
         cls_in = x2d * self._token(out_dict)[:, :, None, None] if self.cls_tokenize else x2d
-        cls_map = torch.sigmoid(self.conv_cls(cls_in).float()).reshape(b, s)
-        offset = self.conv_offset(x2d).float()
+        cls_map = torch.sigmoid(self.conv_cls(cls_in, train).float()).reshape(b, s)
+        offset = self.conv_offset(x2d, train).float()
         if self.offset_sigmoid:
             offset = torch.sigmoid(offset)
         offset = offset.reshape(b, 2, s)
-        size_tr = torch.sigmoid(self.conv_bbox(x2d).float()).reshape(b, 2, s)
-        size_gr = torch.sigmoid(self.conv_bbox_grounding(x2d).float()).reshape(b, 2, s)
+        size_tr = torch.sigmoid(self.conv_bbox(x2d, train).float()).reshape(b, 2, s)
+        size_gr = torch.sigmoid(self.conv_bbox_grounding(x2d, train).float()).reshape(b, 2, s)
         size_map = select_by_flag(torch.stack([size_tr, size_gr, size_tr], dim=1), flag)
         bbox_map, bbox = self.convert2bbox(cls_map, offset, size_map, cont_score)
         cont0 = torch.softmax(cont_score.float(), dim=-1)[:, :, 0]

@@ -16,14 +16,25 @@ MUFE.text_proj): a Linear from the BERT width to the ViT width, fp32
 parameters computing in the compute dtype, applied to the embeddings in both
 text paths (forward and encode_text). No reference checkpoint carries it
 (models/convert.py).
+
+Training (forward(train=True)): stochastic depth when drop_path_rate > 0,
+linear over depth from 0 (the masks drawn from the caller's
+torch.Generator, two rows a block); `remat` (cfg TPU.REMAT) runs each ViT
+block and BERT layer under torch.utils.checkpoint, which stores the block's
+input only and recomputes the block in the backward, as jax.checkpoint
+does. The position embeddings are parameters either way: `learnable_pos`
+(MODEL.LEARNABLE_POSITION) tells the optimizer whether to update them
+(train/optim.py), as the JAX package's optax mask does.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .bert import BertConfig, BertEmbeddings, BertLayer, bert_attention_bias, dense
 from .vit import PatchEmbed, VitBlock, sincos_2d
@@ -46,7 +57,7 @@ class VisionTransformer(nn.Module):
     """Parameter container named like the reference's `vit` submodule."""
 
     def __init__(self, embed_dim, depth, num_heads, template_size, search_size,
-                 patch_size, dtype):
+                 patch_size, dtype, drop_path_rate: float = 0.0):
         super().__init__()
         gz, gx = template_size // patch_size, search_size // patch_size
         self.patch_embed = PatchEmbed(embed_dim, patch_size, dtype)
@@ -56,8 +67,10 @@ class VisionTransformer(nn.Module):
         self.pos_embed_x = nn.Parameter(
             torch.tensor(sincos_2d(embed_dim, gx)[None], dtype=torch.float32))
         self.modal_embed = nn.Parameter(torch.zeros(2, embed_dim))
+        dpr = np.linspace(0.0, drop_path_rate, depth)
         self.blocks = nn.ModuleList(
-            VitBlock(embed_dim, num_heads, 4.0, dtype) for _ in range(depth))
+            VitBlock(embed_dim, num_heads, 4.0, dtype, drop_path=float(dpr[i]))
+            for i in range(depth))
 
 
 class BertEncoder(nn.Module):
@@ -82,9 +95,12 @@ class MUFE(nn.Module):
                  fusion_layers: Sequence[int] = (),
                  cont_loss_layers: Sequence[int] = (),
                  txt_token_mode: str = "cls", bert: BertConfig = BertConfig(),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, learnable_pos: bool = False,
+                 remat: bool = False, drop_path_rate: float = 0.0):
         super().__init__()
         self.embed_dim, self.depth, self.dtype = embed_dim, depth, dtype
+        self.learnable_pos, self.remat = learnable_pos, remat
+        self.drop_path_rate = float(drop_path_rate)
         self.num_patches_z = (template_size // patch_size) ** 2
         self.num_patches_x = (search_size // patch_size) ** 2
         self.fusion_layers = tuple(fusion_layers)
@@ -92,7 +108,7 @@ class MUFE(nn.Module):
         self.txt_token_mode = txt_token_mode
         n_bert = min(fusion_layers) if len(fusion_layers) else bert.num_layers
         self.vit = VisionTransformer(embed_dim, depth, num_heads, template_size,
-                                     search_size, patch_size, dtype)
+                                     search_size, patch_size, dtype, drop_path_rate)
         self.bert = BertModel(bert, n_bert, dtype)
         self.text_proj = (nn.Linear(bert.hidden_size, embed_dim)
                           if bert.hidden_size != embed_dim else None)
@@ -139,11 +155,30 @@ class MUFE(nn.Module):
                              (vis_logits + txt_logits) / 2], dim=1)
         return select_by_flag(group, flag)  # (B, Nx, 1)
 
-    def _joint(self, i, img_feat, txt_feat, joint_masked):
+    def _run(self, layer, *args):
+        """A ViT block or BERT layer, under activation checkpointing with
+        `remat` while autograd records."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
+
+    def _keep_masks(self, b: int, device, generator):
+        """Per block: None (drop path 0 or inference), or the (2, B) keep
+        masks of its two branches, uniform < 1 - drop_path."""
+        masks = []
+        for blk in self.vit.blocks:
+            if blk.drop_path <= 0.0:
+                masks.append(None)
+                continue
+            u = torch.rand((2, b), generator=generator, device=device)
+            masks.append(u < 1.0 - blk.drop_path)
+        return masks
+
+    def _joint(self, i, img_feat, txt_feat, joint_masked, keep=None):
         dt, me = self.dtype, self.vit.modal_embed
         # bf16 visual + fp32 text -> fp32 joint stream, as jnp.concatenate
         e = torch.cat([img_feat + me[0].to(dt), txt_feat + me[1].to(dt)], dim=1)
-        e = self.vit.blocks[i](e, joint_masked)
+        e = self._run(self.vit.blocks[i], e, joint_masked, keep)
         n_img = img_feat.shape[1]
         return e[:, :n_img], e[:, n_img:]
 
@@ -190,22 +225,31 @@ class MUFE(nn.Module):
         return self._outputs(img_feat, txt_feat, text_mask, flag)
 
     # ---------------------------------------------------------------- forward
-    def forward(self, template, search, text_ids, text_mask, flag):
+    def forward(self, template, search, text_ids, text_mask, flag, train: bool = False,
+                generator: torch.Generator | None = None):
         """template/search: NHWC float; text_ids: (B,Nt) int; text_mask:
         (B,Nt); flag: (B,) int. Returns the backbone feature dict, with the
-        per-layer contrastive "logits" of the cont_loss_layers."""
+        per-layer contrastive "logits" of the cont_loss_layers. train=True
+        with drop_path_rate > 0 drops paths, drawing from `generator` (a
+        torch.Generator on the inputs' device)."""
         img_feat = self.patchify(template, search)
         txt_feat = self.embed_text(text_ids)
         bert_bias = bert_attention_bias(text_mask)
         joint_masked, visual_masked = self.cat_mask(text_mask, flag)
+        keep = [None] * self.depth
+        if train and self.drop_path_rate > 0:
+            if generator is None:
+                raise ValueError("stochastic depth (DROP_PATH_RATE > 0) draws from an "
+                                 "explicit torch.Generator: pass generator=")
+            keep = self._keep_masks(img_feat.shape[0], img_feat.device, generator)
         fusion, cont = set(self.fusion_layers), set(self.cont_loss_layers)
         logits_list: List[torch.Tensor] = []
         for i in range(self.depth):
             if i in fusion:
-                img_feat, txt_feat = self._joint(i, img_feat, txt_feat, joint_masked)
+                img_feat, txt_feat = self._joint(i, img_feat, txt_feat, joint_masked, keep[i])
             else:
-                img_feat = self.vit.blocks[i](img_feat, visual_masked)
-                txt_feat = self.bert.encoder.layer[i](txt_feat, bert_bias)
+                img_feat = self._run(self.vit.blocks[i], img_feat, visual_masked, keep[i])
+                txt_feat = self._run(self.bert.encoder.layer[i], txt_feat, bert_bias)
             if i in cont:
                 logits_list.append(self.contrastive_logits(img_feat, txt_feat,
                                                            text_mask, flag))

@@ -4,9 +4,9 @@ lib/models/uvltrack/uvltrack.py:8-57).
 
 The module tree is named like the reference ('backbone.vit...',
 'backbone.bert...', 'box_head...'), so a reference-keyed state dict loads
-through models/convert.py. `forward` is the JAX package's __call__ at
-train=False, which the tracker's NL mode runs as its grounding forward; the
-training forward (train=True) lands with the training slice.
+through models/convert.py. `forward` is the JAX package's __call__: at
+train=False the tracker's NL mode runs it as its grounding forward, and
+train=True is the training forward (train/actor.py).
 """
 
 from __future__ import annotations
@@ -29,15 +29,18 @@ class UVLTrack(nn.Module):
         self.box_head = box_head
 
     def forward(self, template, search, text_ids, text_mask, template_mask,
-                context_mask, flag):
-        """The full forward without a prompt (UVLTrack.__call__, train=False):
-        MUFE with live BERT, then the head mining prompts from the rotated
-        batch (MABH.forward with prompt=None); the grounding-size tower's
-        boxes under flag 1."""
-        out = self.backbone(template, search, text_ids, text_mask, flag)
+                context_mask, flag, train: bool = False,
+                generator: torch.Generator | None = None):
+        """The full forward without a prompt (UVLTrack.__call__): MUFE with
+        live BERT, then the head mining prompts from the rotated batch
+        (MABH.forward with prompt=None); the grounding-size tower's boxes
+        under flag 1. train=True: stochastic depth from `generator` where
+        DROP_PATH_RATE > 0, and batch-statistics BN in the head."""
+        out = self.backbone(template, search, text_ids, text_mask, flag, train=train,
+                            generator=generator)
         out["template_mask"] = template_mask
         out["context_mask"] = context_mask
-        return self.box_head(out)
+        return self.box_head(out, train=train)
 
     def forward_prompt_init(self, template, search, text_ids, text_mask,
                             template_mask, context_mask, flag):
@@ -117,8 +120,11 @@ def configure_attention(cfg) -> None:
 
 def build_model(cfg, device=None, seed: int = 0) -> UVLTrack:
     """UVLTrack from a config, on `device` ("cuda" by default), computing in
-    cfg.TPU.COMPUTE_DTYPE, with seeded random weights (init_model); load real
-    weights with models/convert.py."""
+    cfg.TPU.COMPUTE_DTYPE with fp32 parameters (prepare_inference_model casts
+    them for inference; training keeps them), with seeded random weights
+    (init_model); load real weights with models/convert.py. Reads the
+    training knobs MODEL.BACKBONE.DROP_PATH_RATE, MODEL.LEARNABLE_POSITION
+    and TPU.REMAT."""
     configure_attention(cfg)
     device = resolve_device(device)
     variant = VIT_VARIANTS[vit_variant_from_path(cfg.MODEL.BACKBONE.PRETRAINED_PATH)]
@@ -133,7 +139,9 @@ def build_model(cfg, device=None, seed: int = 0) -> UVLTrack:
             cont_loss_layers=tuple(cfg.MODEL.BACKBONE.CONT_LOSS_LAYER),
             txt_token_mode=cfg.MODEL.BACKBONE.TXT_TOKEN_MODE,
             bert=bert_config_from_type(cfg.MODEL.BACKBONE.LANGUAGE.TYPE),
-            dtype=dtype)
+            dtype=dtype, learnable_pos=bool(cfg.MODEL.LEARNABLE_POSITION),
+            remat=bool(cfg.TPU.REMAT),
+            drop_path_rate=float(cfg.MODEL.BACKBONE.DROP_PATH_RATE))
         head = MABH(
             inplanes=cfg.MODEL.HIDDEN_DIM, channel=cfg.MODEL.HEAD.HEAD_DIM,
             feat_sz=cfg.DATA.SEARCH.SIZE // 16, stride=16,

@@ -4,8 +4,9 @@ patch embedding and the pre-LN transformer block with additive key masking.
 
 Module and parameter names follow the reference ViT (lib/models/backbones/
 mae_vit.py: blocks.{i}.norm1 / attn.qkv / attn.proj / norm2 / mlp.fc1 /
-mlp.fc2), so reference-keyed state dicts load directly. LayerScale and
-DropPath are inference-dead in the shipped configs and are not ported.
+mlp.fc2; LayerScale's ls1.gamma / ls2.gamma), so reference-keyed state
+dicts load directly. DropPath and LayerScale (off in the shipped configs)
+take the composed branch of the block, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.attention import attention_block_core, key_padding_bias, ln_mlp_core
+from ..ops.attention import (attention_block_core, attention_ln_qkv_core, attn_proj_core,
+                             key_padding_bias, ln_mlp_core)
 from ..ops.quant import weight_of
 
 
@@ -52,33 +54,69 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
 
+class LayerScale(nn.Module):
+    """Per-channel residual-branch scale (backbones/utils.py:24-31)."""
+
+    def __init__(self, dim: int, init_values: float):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
+
+
 class VitBlock(nn.Module):
     """Pre-LN block: x += proj(attn(LN1 x)); x += mlp(LN2 x). The LN and
     Linear modules hold parameters only; the math is ops/attention.py's, so
     the attention half reaches the CUDA kernels on the "cuda" backend. The
     four Linear weights go as they are held: bf16/fp32 tensors, or int8
-    QuantizedTensors after prepare_inference_model (weight_of)."""
+    QuantizedTensors after prepare_inference_model (weight_of).
+
+    drop_path > 0 is stochastic depth on both residual branches: forward's
+    `keep`, a (2, B) bool mask a sample (one row a branch, drawn by the
+    caller from its generator: models/mufe.py), zeroes a sample's branch or
+    divides it by 1 - drop_path. init_values enables LayerScale (ls1, ls2).
+    Either one needs the branch before the residual add, so the attention
+    half then runs composed (attention_ln_qkv_core, attn_proj_core), as the
+    JAX VitBlock does."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop_path: float = 0.0,
+                 init_values: float | None = None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.drop_path = dtype, drop_path
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.ls1 = LayerScale(dim, init_values) if init_values is not None else None
+        self.ls2 = LayerScale(dim, init_values) if init_values is not None else None
 
-    def forward(self, x: torch.Tensor, key_masked: torch.Tensor | None = None):
+    def _branch(self, delta, ls, keep):
+        if ls is not None:
+            delta = delta * ls.gamma.to(delta.dtype)
+        if keep is not None:
+            delta = delta * keep.to(delta.dtype)[:, None, None] / (1.0 - self.drop_path)
+        return delta
+
+    def forward(self, x: torch.Tensor, key_masked: torch.Tensor | None = None,
+                keep: torch.Tensor | None = None):
         bias = key_padding_bias(key_masked) if key_masked is not None else None
-        a = self.attn
-        x = attention_block_core(
-            x, self.norm1.weight, self.norm1.bias, weight_of(a.qkv), a.qkv.bias,
-            weight_of(a.proj), a.proj.bias, a.num_heads, bias,
-            compute_dtype=self.dtype)
+        a, ln = self.attn, self.norm1
+        if self.ls1 is None and keep is None:
+            # proj + residual fusable into the kernel (attention_block_core)
+            x = attention_block_core(
+                x, ln.weight, ln.bias, weight_of(a.qkv), a.qkv.bias,
+                weight_of(a.proj), a.proj.bias, a.num_heads, bias,
+                compute_dtype=self.dtype)
+        else:
+            attn = attention_ln_qkv_core(x, ln.weight, ln.bias, weight_of(a.qkv), a.qkv.bias,
+                                         a.num_heads, bias, compute_dtype=self.dtype)
+            attn = attn_proj_core(attn, weight_of(a.proj), a.proj.bias, compute_dtype=self.dtype)
+            x = x + self._branch(attn.to(x.dtype), self.ls1,
+                                 None if keep is None else keep[0])
         m = self.mlp
-        return x + ln_mlp_core(x, self.norm2.weight, self.norm2.bias,
-                               weight_of(m.fc1), m.fc1.bias, weight_of(m.fc2),
-                               m.fc2.bias, compute_dtype=self.dtype)
+        mlp_out = ln_mlp_core(x, self.norm2.weight, self.norm2.bias,
+                              weight_of(m.fc1), m.fc1.bias, weight_of(m.fc2),
+                              m.fc2.bias, compute_dtype=self.dtype)
+        return x + self._branch(mlp_out, self.ls2, None if keep is None else keep[1])
 
 
 class PatchEmbed(nn.Module):

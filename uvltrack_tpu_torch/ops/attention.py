@@ -35,6 +35,13 @@ below uses it; CPU tensors take the plain math.
   default off) for fp weights; int8 weights stay plain, as in the JAX
   package.
 
+Under autograd (grad mode on and an input that needs a gradient) every
+entry above takes the kernel through its torch.autograd.Function of
+ops/autograd.py (#1, #2, #4, #7: kernel forward, plain recompute
+backward), as the JAX package takes its custom VJPs. #3, #5 and #6 have no
+VJP there; their wrappers raise under autograd, naming the knob
+(UVLTRACK_PALLAS_MIN_N, TPU.WEIGHT_QUANT) that keeps training off them.
+
 The bf16 kernels take bf16 weights and activations only, so an fp32 model on
 the card raises there; it runs on the "plain" backend. The JAX package's
 VMEM caps (UVLTRACK_FUSED_VMEM_MB, and the 14 MB gate of its fused MLP)
@@ -59,10 +66,12 @@ import os
 
 import torch
 
+from . import autograd as ag
 from . import fused_attention as fa
 from . import ln_mlp as lm
 from . import ln_qkv_attention as lqa
 from . import ln_qkv_attn_proj as lqp
+from .build import grad_needed
 from .quant import is_quantized, quant_dot
 
 _BACKENDS = ("plain", "cuda")
@@ -171,6 +180,8 @@ def attention_qkv_core(qkv, heads: int, bias=None):
     if _on_kernels(qkv, n):
         key_bias = _key_padding(bias, b, n, qkv.device)
         if key_bias is not None:
+            if grad_needed(qkv):
+                return ag.QkvAttention.apply(qkv.contiguous(), key_bias, heads)
             return lqa.qkv_attention(qkv.contiguous(), key_bias, heads)
     q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
     return plain_attention(q, k, v, bias).transpose(1, 2).reshape(b, n, heads * d)
@@ -196,8 +207,10 @@ def attention_ln_qkv_core(x, ln_scale, ln_bias, w_qkv, b_qkv, heads: int,
         if is_quantized(w):
             return lqa.ln_qkv_attention_q8(x.contiguous(), ln_scale, ln_bias, w.q, w.scale,
                                            b_qkv, key_bias, heads, eps)
-        return lqa.ln_qkv_attention(x.contiguous(), ln_scale, ln_bias, w,
-                                    b_qkv, key_bias, heads, eps)
+        args = (x.contiguous(), ln_scale, ln_bias, w, b_qkv, key_bias, heads, eps)
+        if grad_needed(x, ln_scale, ln_bias, w, b_qkv):
+            return ag.LnQkvAttention.apply(*args)
+        return lqa.ln_qkv_attention(*args)
     return lqa.ln_qkv_attention_plain(x, ln_scale, ln_bias, w, b_qkv,
                                       key_bias, heads, eps)
 
@@ -227,9 +240,11 @@ def attention_block_core(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                 x.contiguous(), ln_scale, ln_bias, w_qkv.q, w_qkv.scale, b_qkv,
                 w_proj.q, w_proj.scale, b_proj, key_bias, heads, eps)
         if not (quant_qkv or quant_proj):
-            return lqp.ln_qkv_attn_proj(
-                x.contiguous(), ln_scale, ln_bias, w_qkv.to(compute_dtype), b_qkv,
-                w_proj.to(compute_dtype), b_proj, key_bias, heads, eps)
+            w, wp = w_qkv.to(compute_dtype), w_proj.to(compute_dtype)
+            args = (x.contiguous(), ln_scale, ln_bias, w, b_qkv, wp, b_proj, key_bias, heads, eps)
+            if grad_needed(x, ln_scale, ln_bias, w, b_qkv, wp, b_proj):
+                return ag.LnQkvAttnProj.apply(*args)
+            return lqp.ln_qkv_attn_proj(*args)
     attn = attention_ln_qkv_core(x, ln_scale, ln_bias, w_qkv, b_qkv, heads,
                                  bias, compute_dtype=compute_dtype, eps=eps)
     return x + attn_proj_core(attn, w_proj, b_proj,
@@ -246,5 +261,8 @@ def ln_mlp_core(x, ln_scale, ln_bias, w1, b1, w2, b2, compute_dtype=None,
     w1, w2 = w1.to(compute_dtype), w2.to(compute_dtype)
     if (_on_kernels(x, x.shape[1]) and os.environ.get("UVLTRACK_FUSED_MLP", "0") == "1"
             and not (is_quantized(w1) or is_quantized(w2))):
-        return lm.ln_mlp(x.contiguous(), ln_scale, ln_bias, w1, b1, w2, b2, eps)
+        args = (x.contiguous(), ln_scale, ln_bias, w1, b1, w2, b2, eps)
+        if grad_needed(x, ln_scale, ln_bias, w1, b1, w2, b2):
+            return ag.LnMlp.apply(*args)
+        return lm.ln_mlp(*args)
     return lm.ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)

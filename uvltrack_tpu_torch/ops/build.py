@@ -11,7 +11,9 @@ starts one nvcc per source, all at once, and waits for all of them.
 Every wrapper under ops/ launches its kernel through `launch()`, which
 calls the library's `uvl_<name>` entry point, raises on the CUDA error code
 it returns and counts the launch in LAUNCHES per kernel and instantiation;
-`require()` and `check_cuda()` are the wrappers' argument checks.
+`require()` and `check_cuda()` are the wrappers' argument checks, and
+`no_grad_through()` refuses a launch that autograd would need a gradient
+through (ops/autograd.py holds the kernels that have a backward).
 
 Nothing here runs at import: the CPU tests import every module of the port,
 and this machine class has no nvcc.
@@ -178,6 +180,21 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
                 f"{name}: all tensors must be on one CUDA device, got {t.device}")
         require(t.is_contiguous(), f"{name}: tensors must be contiguous")
         require(t.data_ptr() % 16 == 0, f"{name}: tensors must be 16-byte aligned")
+
+
+def grad_needed(*tensors: torch.Tensor) -> bool:
+    """Autograd records and one of the tensors needs a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def no_grad_through(name: str, tensors, remedy: str) -> None:
+    """Refuse a launch whose output autograd would need a gradient through:
+    the kernel writes into a tensor of its own, which has no grad_fn, so the
+    gradient would silently stop there. The autograd Functions of
+    ops/autograd.py launch with autograd off and pass."""
+    if grad_needed(*tensors):
+        raise RuntimeError(f"{name}: an input needs a gradient, and the kernel has none of "
+                           f"its own; {remedy}")
 
 
 def launch(kernel: str, inst: str, argtypes, *args, stream_of: torch.Tensor) -> None:

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .build import FLOAT, I64, INT, PTR, require
+from .build import FLOAT, I64, INT, PTR, no_grad_through, require
 from .ln_qkv_attention import CLAMP
 
 
@@ -54,6 +54,9 @@ def fused_attention(q, k, v, key_bias):
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, key_bias)
     b, h, n, d = q.shape
+    no_grad_through("attention", (q, k, v, key_bias),
+                    "kernel #3 has no VJP (nor has the JAX package's): train with "
+                    f"UVLTRACK_PALLAS_MIN_N above BERT's sequence length (N={n})")
     require(all(t.dtype == torch.bfloat16 for t in (q, k, v)),
             f"attention: q, k, v must be bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
     require(d == 64, f"attention: head dim must be 64, got {d}")

@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .build import FLOAT, INT, PTR, check_cuda, require
+from .build import FLOAT, INT, PTR, check_cuda, no_grad_through, require
 from .ln_qkv_attention import LN_MAX_C, layer_norm_fast_var
 from .quant import quant_dot
 
@@ -90,6 +90,8 @@ def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float 
     require(hidden.dtype == torch.bfloat16 and tuple(hidden.shape) == (b * n, f)
             and out.dtype == torch.bfloat16 and tuple(out.shape) == (b, n, c),
             "ln_mlp: hidden must be (B*N, F) bf16 and out (B, N, C) bf16")
+    no_grad_through("ln_mlp", (x, ln_scale, ln_bias, w1, b1, w2, b2),
+                    "call it through ops/autograd.py (LnMlp)")
     check_cuda("ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out)
     build.launch("ln_mlp", f"{build.dtype_tag(x)}x-bf16w",
                  [PTR, INT, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, FLOAT, INT],

@@ -42,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .build import FLOAT, INT, PTR, check_cuda, require
+from .build import FLOAT, INT, PTR, check_cuda, no_grad_through, require
 from .quant import QuantizedTensor, quant_dot
 
 CLAMP = 80.0  # exp-safe score range of the kernels (pallas_attention._CLAMP)
@@ -51,6 +51,9 @@ CLAMP = 80.0  # exp-safe score range of the kernels (pallas_attention._CLAMP)
 # ring (csrc/gemm_sm90.cuh MAX_C; at C=1024 the fc1 launch uses 205,880 of a
 # block's 232,448 bytes)
 LN_MAX_C = 1024
+# the int8 launches' answer under autograd: kernels #5/#6 have no VJP
+INT8_NO_GRAD = ("weight-only int8 (TPU.WEIGHT_QUANT) is inference-only, as in the JAX "
+                "package: train with TPU.WEIGHT_QUANT unset")
 
 
 # ----------------------------------------------------------------- plain
@@ -123,6 +126,8 @@ def _launch_ln_qkv(x, ln_scale, ln_bias, w, w_scale, b_qkv, eps, out_dtype):
             f"ln_qkv: bad shapes for C={c}")
     require(c % 64 == 0, f"ln_qkv: C must be a multiple of 64, got {c}")
     tensors = (x, ln_scale, ln_bias, w, b_qkv) + ((w_scale,) if w_scale is not None else ())
+    no_grad_through("ln_qkv", tensors, INT8_NO_GRAD if w_scale is not None else
+                    "call it through ops/autograd.py (LnQkvAttention, LnQkvAttnProj)")
     check_cuda("ln_qkv", *tensors)
     out = torch.empty((b, n, f), dtype=out_dtype, device=x.device)
     build.launch("ln_qkv", f"{build.dtype_tag(x)}x-{build.dtype_tag(w)}w",
@@ -170,6 +175,8 @@ def qkv_attention(qkv, key_bias, heads: int):
     require(key_bias.dtype == torch.float32 and tuple(key_bias.shape) == (b, n),
             "qkv_attention: key_bias must be (B, N) fp32")
     require(f == 3 * heads * 64, f"qkv_attention: head dim must be 64 (F={f}, H={heads})")
+    no_grad_through("qkv_attention", (qkv, key_bias),
+                    "call it through ops/autograd.py (QkvAttention, LnQkvAttention)")
     check_cuda("qkv_attention", qkv, key_bias)
     out = torch.empty((b, n, f // 3), dtype=qkv.dtype, device=qkv.device)
     build.launch("qkv_attention", build.dtype_tag(qkv),

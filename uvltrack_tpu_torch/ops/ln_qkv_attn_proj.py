@@ -34,7 +34,7 @@ import torch
 
 from . import build
 from . import ln_qkv_attention as lqa
-from .build import INT, PTR, check_cuda, require
+from .build import INT, PTR, check_cuda, no_grad_through, require
 from .quant import QuantizedTensor, quant_dot
 
 PROJ_SPLIT = 3  # blocks of a cluster that split K (csrc/proj_residual.cu SPLIT)
@@ -96,6 +96,8 @@ def proj_residual(x, attn, w_proj, b_proj, wp_scale=None):
     if scale:
         require(wp_scale.dtype == torch.float32 and tuple(wp_scale.shape) == (c,),
                 "proj_residual: wp_scale must be (C,) fp32")
+    no_grad_through("proj_residual", (x, attn, w_proj, b_proj, *scale),
+                    lqa.INT8_NO_GRAD if scale else "call it through ops/autograd.py (LnQkvAttnProj)")
     check_cuda("proj_residual", x, attn, w_proj, b_proj, *scale)
     out = torch.empty_like(x)
     tag = build.dtype_tag

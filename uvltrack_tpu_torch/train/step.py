@@ -1,0 +1,137 @@
+"""The training step on one device: loss -> gradients -> clip -> AdamW
+(port of uvltrack_tpu/train/step.py; the reference's DDP step,
+lib/train/trainers/ltr_trainer.py:75-100, on one card).
+
+TrainState holds the model (fp32 parameters and the BN running stats, its
+buffers), the TrainOptimizer (Adam moments) and the step count; the step
+updates all three in place. The mesh, buffer donation and ZeRO-1 of the
+JAX package's setup_sharded_training wait for the port's parallel slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from .actor import forward_and_loss
+from .optim import TrainOptimizer, build_optimizer
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: TrainOptimizer
+    step: int = 0
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+
+def create_train_state(model: nn.Module, optimizer: TrainOptimizer) -> TrainState:
+    return TrainState(model, optimizer, 0)
+
+
+def _split_microbatches(batch: dict, k: int) -> dict:
+    """Every leaf's B axis split into k leading microbatches (the JAX
+    package's axis rule, step.py:38-56): leaves of ndim >= 3 are frame-major
+    (n, B, ...) -> (k, n, B/k, ...); ndim <= 2 leaves are batch-leading,
+    text/text_mask (B, Nt) and flag (B,) or (B, 1) -> (k, B/k, ...)."""
+    b = batch["flag"].shape[0]
+
+    def split(x):
+        if x.ndim >= 3:
+            assert x.shape[1] == b, (x.shape, b)
+            return x.reshape(x.shape[0], k, b // k, *x.shape[2:]).transpose(0, 1)
+        assert x.shape[0] == b, (x.shape, b)
+        return x.reshape(k, b // k, *x.shape[1:])
+
+    return {key: split(v) for key, v in batch.items()}
+
+
+def _batch_norms(model: nn.Module):
+    return [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+
+
+def make_train_step(model: nn.Module, optimizer: TrainOptimizer, cfg,
+                    generator: torch.Generator | None = None):
+    """train_step(state, batch) -> (state, metrics), metrics 0-d tensors on
+    the device (the caller reads them when it logs).
+
+    cfg.TPU.GRAD_ACCUM > 1 sums the gradients of that many microbatches
+    (backward after each, so activation memory scales with B/accum), then
+    scales them by 1/accum under TRAIN.REDUCTION='mean', averages the
+    metrics and keeps the BN running stats of the last microbatch's update
+    (each microbatch starts from the step's stats), as the JAX scan does."""
+    accum = int(getattr(cfg.TPU, "GRAD_ACCUM", 1) or 1)
+    mean = str(cfg.TRAIN.REDUCTION).lower() == "mean"
+
+    def train_step(state: TrainState, batch: dict):
+        for p in state.model.parameters():
+            p.grad = None
+        if accum > 1:
+            bsz = batch["flag"].shape[0]
+            if bsz % accum:
+                raise ValueError(f"batch size {bsz} not divisible by TPU.GRAD_ACCUM={accum}")
+            micro = _split_microbatches(batch, accum)
+            bns = _batch_norms(state.model)
+            stats0 = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+            steps = []
+            for i in range(accum):
+                for m, (rm, rv) in zip(bns, stats0):
+                    m.running_mean.copy_(rm)
+                    m.running_var.copy_(rv)
+                loss, metrics = forward_and_loss(state.model, {k: v[i] for k, v in micro.items()},
+                                                 cfg, train=True, generator=generator)
+                loss.backward()
+                steps.append(metrics)
+            if mean:
+                for p in state.model.parameters():
+                    if p.grad is not None:
+                        p.grad.mul_(1.0 / accum)
+            metrics = {k: torch.stack([m[k] for m in steps]).mean(0) for k in steps[0]}
+        else:
+            loss, metrics = forward_and_loss(state.model, batch, cfg, train=True,
+                                             generator=generator)
+            loss.backward()
+        metrics["grad_norm"] = state.optimizer.step(state.step)
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module, cfg):
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: dict):
+        _, metrics = forward_and_loss(state.model, batch, cfg, train=False)
+        return metrics
+
+    return eval_step
+
+
+def setup_training(cfg, steps_per_epoch: int, device=None, seed: int = 0,
+                   prepare_model=None):
+    """cfg -> (model, state, train_step): build_model (fp32 parameters on
+    `device`, "cuda" by default, seeded init), prepare_model(model) (where
+    cli/train loads pretrained weights), the optimizer, the TrainState and
+    the step, whose stochastic depth draws from a torch.Generator on the
+    device seeded with `seed`."""
+    from ..models.uvltrack import build_model, resolve_device
+
+    device = resolve_device(device)
+    model = build_model(cfg, device=device, seed=seed)
+    if prepare_model is not None:
+        model = prepare_model(model)
+    optimizer = build_optimizer(cfg, model, steps_per_epoch)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    state = create_train_state(model, optimizer)
+    return model, state, make_train_step(model, optimizer, cfg, generator)
