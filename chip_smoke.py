@@ -149,15 +149,41 @@ Phases, one JSON line each:
                  launches a step), peak memory. (e) cli.train.main
                  --synthetic 3 --epochs 2 in a temporary directory, then a
                  resume to epoch 3. ~50 s.
+  9. data     -- training on datasets on disk (B-TRAIN-REAL). (a) The
+                 config's seven training and four validation datasets as
+                 fixture trees from --seed (uvltrack_tpu_torch/tools/
+                 data_fixtures.py: 1280x720 JPEG frames, 640x480 COCO and
+                 RefCOCOg images) and a GOT-10k LMDB pack written by the
+                 port's write_lmdb, read back against the folder and
+                 pre-warmed by cli.prewarm. (b) The loader alone
+                 (build_train_loader, TRAIN.NUM_WORKER=10), 2 epochs of 8
+                 batches in thread and in process mode: samples/s, the task
+                 mix against 0.45 / 0.11 / 0.44, os.cpu_count(). (c)
+                 cli.train.main --config baseline_base with only the
+                 SAMPLE_PER_EPOCH keys cut (8 steps an epoch, 2 batches of
+                 VALTRACK and VALVL, VAL's every sequence) and the script's
+                 vocab: epochs 1-2, then a resume to 3 under thread and one
+                 to 4 under process workers, each of 48 steps so that the
+                 loader still draws batches through all but the epoch's
+                 last prefetch + 2 steps (a real epoch's steady state),
+                 synthetic B-TRAIN steps on the same trainer after each run
+                 (in turns): step p50 and the loader wait a step over the
+                 loader-active steps and over the tail apart, samples/s,
+                 the train loop's rows/s an epoch, peak memory, 12 + 12
+                 launches every step, a profiler window of 2 loader-active
+                 steps in each long epoch and of 2 synthetic steps (busy
+                 share, device ops), validation on all three families
+                 every epoch. (d) Step 1 on one real batch from one init,
+                 kernels against plain, B-TRAIN's gate.
 --only runs some groups (kernels = phase 2, track = 3-4 but the
-multistream ones, multistream, compiled, serve, eval, train) and prints no kernels
+multistream ones, multistream, compiled, serve, eval, train, data) and prints no kernels
 line; in a full run the kernels line counts the eval runs' launches, and
 the rows of the instantiations on L's path carry their L times ("C1024").
 Then the script's total seconds, the {"kernels": [...]} line (each
 kernel's times at B=1 and, under "B8", at the lockstep batch; "launches"
 counted by the wrappers on the eager paths, "graph_launches" the graphs'
 captured calls times their replays, "train_launches" the train group's
-B-TRAIN runs (b)-(e)), the
+B-TRAIN runs (b)-(e) and the data group's (c)-(d)), the
 nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failure raises: no ok line, exit 1.
 Without a CUDA card, or outside a checkout, it exits 2 and prints no result.
@@ -214,7 +240,7 @@ MLP_N = (48, 321, 361, 681)  # kernel #7's check shapes
 # the instantiations the kernels line's two bf16 rows count
 NAMED_BY_BASE = {"ln_qkv": ("ln_qkv[bf16x-bf16w]", "ln_qkv[fp32x-bf16w]"),
                  "qkv_attention": ("qkv_attention[bf16]",)}
-GROUPS = ("kernels", "track", "multistream", "compiled", "serve", "eval", "train")
+GROUPS = ("kernels", "track", "multistream", "compiled", "serve", "eval", "train", "data")
 ATTN_N = (40, 48, 128, 321, 361, 681)  # kernel #3's: BERT's N, 128 and the ViT's
 
 TIMER = ("CUDA events, L2-warm: *ms = mean of 200 back-to-back eager calls after 20 "
@@ -1253,22 +1279,41 @@ def device_profile(tracker, frames, info, n: int = 16):
     return {"frames": n, **profile_window(lambda i: tracker.track(frames[2 + i]), n, "frame")}
 
 
-def profile_window(call, n: int, unit: str) -> dict:
-    """torch.profiler over call(0) .. call(n-1), each ending in a read-back
-    and each one `unit`: the device's own events (kernels, copies, memsets)
-    summed over the host-clock window, per unit, and the 12 that take most
-    of it."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+class ProfileWindow:
+    """torch.profiler from its construction to close(n, unit), a stretch of
+    n units of work, the last ending in a read-back: the device's own
+    events (kernels, copies, memsets) summed over the host-clock window,
+    per unit, and the 12 that take most of it."""
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def __init__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof.__enter__()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(n):
-            call(i)
+        self.t0 = time.perf_counter()
+
+    def close(self, n: int, unit: str) -> dict:
+        import torch
+
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - self.t0) * 1e6
+        self.prof.__exit__(None, None, None)
+        return _profile_summary(self.prof, wall_us, n, unit)
+
+
+def profile_window(call, n: int, unit: str) -> dict:
+    """ProfileWindow over call(0) .. call(n-1), each ending in a read-back
+    and each one `unit`."""
+    window = ProfileWindow()
+    for i in range(n):
+        call(i)
+    return window.close(n, unit)
+
+
+def _profile_summary(prof, wall_us: float, n: int, unit: str) -> dict:
+    from torch.autograd import DeviceType
 
     def dev_us(e):
         return float(e.self_device_time_total)
@@ -3078,6 +3123,34 @@ def _probe(model, batch, cfg, backend: str, eps: float = 0.0, seed: int = 0) -> 
     return {"loss": float(loss), "grad_norm": norm, "cells": cells}
 
 
+def gate_probes(k_model, p_model, batch, cfg, seed: int, counted):
+    """The step-1 gate's yardstick from a shared init: the probes (plain,
+    plain under the 2^-12 input change, kernels), the plain backend's own
+    relative grad_norm move, the grad_norm bound max(TRAIN_NORM_REL, 2 x
+    that move) and the supervised cells that differ from plain's."""
+    probes = {"plain": _probe(p_model, batch, cfg, "plain"),
+              "plain_eps": _probe(p_model, batch, cfg, "plain", TRAIN_PROBE_EPS, seed),
+              "cuda": counted(lambda: _probe(k_model, batch, cfg, "cuda"))}
+    sens = abs(probes["plain_eps"]["grad_norm"] - probes["plain"]["grad_norm"]) / probes[
+        "plain"]["grad_norm"]
+    flips = {k: sum(a != b for a, b in zip(probes[k]["cells"], probes["plain"]["cells"]))
+             for k in ("plain_eps", "cuda")}
+    return probes, sens, max(TRAIN_NORM_REL, 2 * sens), flips
+
+
+def step1_gate(k1: dict, p1: dict, norm_bound: float, what: str):
+    """Step 1 on the kernels (k1) against plain (p1), from one init: the
+    loss within TRAIN_LOSS_REL and grad_norm within norm_bound (relative);
+    returns (loss_rel, grad_norm_rel)."""
+    loss_rel = abs(k1["loss"] - p1["loss"]) / abs(p1["loss"])
+    norm_rel = abs(k1["grad_norm"] - p1["grad_norm"]) / abs(p1["grad_norm"])
+    if loss_rel > TRAIN_LOSS_REL or norm_rel > norm_bound:
+        raise AssertionError(f"{what} step 1, kernels vs plain: loss {k1['loss']} vs "
+                             f"{p1['loss']} ({loss_rel}), grad_norm {k1['grad_norm']} vs "
+                             f"{p1['grad_norm']} ({norm_rel}, bound {norm_bound})")
+    return loss_rel, norm_rel
+
+
 def _p50(xs):
     import numpy as np
 
@@ -3117,16 +3190,8 @@ def train_phase(args, dev, tmp: Path) -> dict:
     _, p_state, p_step = setup_training(cfg, 1, device=dev, seed=args.seed)
     build_s = time.perf_counter() - t0
     resident = torch.cuda.memory_allocated() / 2 ** 20
-    # the gate's yardstick from the shared init: the plain backend's own
-    # grad_norm move under the 2^-12 input change, and the supervised cells
-    probes = {"plain": _probe(p_state.model, batch, cfg, "plain"),
-              "plain_eps": _probe(p_state.model, batch, cfg, "plain", TRAIN_PROBE_EPS, args.seed),
-              "cuda": counted(lambda: _probe(k_state.model, batch, cfg, "cuda"))}
-    sens = abs(probes["plain_eps"]["grad_norm"] - probes["plain"]["grad_norm"]) / probes[
-        "plain"]["grad_norm"]
-    norm_bound = max(TRAIN_NORM_REL, 2 * sens)
-    flips = {k: sum(a != b for a, b in zip(probes[k]["cells"], probes["plain"]["cells"]))
-             for k in ("plain_eps", "cuda")}
+    probes, sens, norm_bound, flips = gate_probes(k_state.model, p_state.model, batch, cfg,
+                                                  args.seed, counted)
     runs = {"cuda": [], "plain": []}
     torch.cuda.reset_peak_memory_stats()
     for i in range(6):
@@ -3138,13 +3203,7 @@ def train_phase(args, dev, tmp: Path) -> dict:
                 p_state, r = _train_run(p_state, p_step, batch, "plain", 1)
             runs[backend] += r
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    k1, p1 = runs["cuda"][0], runs["plain"][0]
-    loss_rel = abs(k1["loss"] - p1["loss"]) / abs(p1["loss"])
-    norm_rel = abs(k1["grad_norm"] - p1["grad_norm"]) / abs(p1["grad_norm"])
-    if loss_rel > TRAIN_LOSS_REL or norm_rel > norm_bound:
-        raise AssertionError(f"B-TRAIN step 1, kernels vs plain: loss {k1['loss']} vs "
-                             f"{p1['loss']} ({loss_rel}), grad_norm {k1['grad_norm']} vs "
-                             f"{p1['grad_norm']} ({norm_rel})")
+    loss_rel, norm_rel = step1_gate(runs["cuda"][0], runs["plain"][0], norm_bound, "B-TRAIN")
     del p_state, p_step
     gc.collect()
     torch.cuda.empty_cache()
@@ -3267,6 +3326,369 @@ def train_phase(args, dev, tmp: Path) -> dict:
     emit({"phase": "train_group", "seconds": time.perf_counter() - t_group,
           "launches": dict(total)})
     return dict(total)
+
+
+# ------------------------------------------------------------------- data
+# B-TRAIN-REAL: baseline_base.yaml as it is, on the fixture trees, with only
+# the SAMPLE_PER_EPOCH keys cut to fit the run, and the vocab the script
+# writes in place of BERT's, which does not ship
+DATA_STEPS = 8  # training steps an epoch of epochs 1-2
+# the resumed epochs: long enough that the loader still draws batches through
+# all but the last prefetch + 2 steps, as through a real epoch of 30,000 samples
+DATA_LONG_STEPS = 48
+DATA_PROFILE_AT = (12, 2)  # the profiler window in a long epoch: steps 13-14
+DATA_VAL_STEPS = 2  # batches of the VALTRACK and VALVL families an epoch
+DATA_LOADER_STEPS = 8  # the loader alone: batches an epoch, 2 epochs a mode
+DATA_SYN_STEPS = 6  # synthetic B-TRAIN steps a turn
+DATA_WATCHDOG_S = 420  # the group takes 80-140 s
+DATA_TIMER = ("host clock per train_step inside cli.train's loop (forward, backward, clip, "
+              "AdamW), each ending in a read of its loss; loader wait = host time in the train "
+              "loader's next() before each step. Loader-active steps: each epoch's steps 2 .. "
+              "n - prefetch - 2, before which the loader has drawn at most step + prefetch + 1 "
+              "of the epoch's n batches, so it still has batches to draw (a real epoch's steady "
+              "state); tail: the epoch's last prefetch + 2 steps, where it may have drawn them "
+              "all; the profiled steps are in neither")
+
+
+def write_data_fixtures(args, tmp: Path) -> Path:
+    """(a) The config's seven training and four validation datasets as
+    fixture trees (uvltrack_tpu_torch/tools/data_fixtures.py, from --seed:
+    1280x720 JPEG frames, 640x480 COCO/RefCOCOg images) and a GOT-10k LMDB
+    pack written by the port's write_lmdb, the environment pointed at them;
+    the pack read back against the folder (the same sequences, boxes and
+    decoded frames) and pre-warmed by cli.prewarm. Returns the vocab."""
+    import numpy as np
+
+    from uvltrack_tpu_torch.cli import prewarm
+    from uvltrack_tpu_torch.data.builders import names2datasets
+    from uvltrack_tpu_torch.eval.environment import reset_env_cache
+    from uvltrack_tpu_torch.tools.data_fixtures import vocab_words, write_trees
+
+    t0 = time.perf_counter()
+    env = write_trees(tmp / "trees", seed=args.seed, frame_hw=(720, 1280), image_hw=(480, 640),
+                      n_seq=3, n_frames=24)
+    write_s = time.perf_counter() - t0
+    os.environ.update(env)
+    reset_env_cache()
+    vocab = tmp / "vocab.txt"
+    write_vocab(vocab, vocab_words(), args.seed)
+    folder, packed = names2datasets(["GOT10K_vottrain", "GOT10K_vottrain_lmdb"])
+    equal = checked = 0
+    for i in range(len(folder)):
+        a, b = folder.get_sequence_info(i), packed.get_sequence_info(i)
+        if not all(np.array_equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"GOT10K_vottrain_lmdb sequence {i}: info differs from the folder")
+        ids = [0, len(a["bbox"]) // 2, len(a["bbox"]) - 1]
+        for x, y in zip(folder.get_frames(i, ids, a)[0], packed.get_frames(i, ids, b)[0]):
+            equal += int(np.array_equal(x, y))
+            checked += 1
+    if equal != checked:
+        raise AssertionError(f"GOT10K_vottrain_lmdb: {equal} of {checked} frames equal the folder's")
+    t0 = time.perf_counter()
+    prewarm.main(["--data_dir", str(tmp / "trees"), "--dataset_str", "g", "--full"])
+    emit({"phase": "data_fixtures", "seed": args.seed, "write_s": write_s,
+          "prewarm_s": time.perf_counter() - t0, "frame": "1280x720 JPEG q90",
+          "image": "640x480 JPEG", "sequences_a_dataset": 3, "frames_a_sequence": 24,
+          "env": sorted(env), "got10k_lmdb_frames_equal_folder": f"{equal}/{checked}"})
+    return vocab
+
+
+def loader_alone(cfg, bsz: int, seed: int, mode: str) -> dict:
+    """(b) build_train_loader over 2 epochs of DATA_LOADER_STEPS batches in
+    one worker mode: each epoch's samples/s (the pool's start included),
+    the first batch's seconds and the samples/s after it, and the flags
+    drawn."""
+    from collections import Counter
+
+    from uvltrack_tpu_torch.data.loader import build_train_loader
+
+    cfg.TPU.LOADER_WORKER_MODE = mode
+    cfg.DATA.TRAIN.SAMPLE_PER_EPOCH = DATA_LOADER_STEPS * bsz
+    loader = build_train_loader(cfg, bsz, seed=seed)
+    flags, out = Counter(), {"samples_per_s_epochs": [], "first_batch_s": [],
+                             "samples_per_s_after_first": []}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        n, t_first = 0, None
+        for b in loader:
+            t_first = t_first or time.perf_counter()
+            flags.update(int(f) for f in b["flag"])
+            n += len(b["flag"])
+        t_end = time.perf_counter()
+        out["samples_per_s_epochs"].append(n / (t_end - t0))
+        out["first_batch_s"].append(t_first - t0)
+        out["samples_per_s_after_first"].append((n - bsz) / (t_end - t_first))
+    return dict(out, flags=dict(flags))
+
+
+class _TimedLoader:
+    """A train loader whose next() the host's clock times (the loader
+    wait). With run["profile_at"] = (i, n) it opens a ProfileWindow before
+    the next() of the i-th batch of the run, which the timed step closes
+    after step i + n - 1: the window spans n whole turns of the loop
+    (next(), upload, step)."""
+
+    def __init__(self, inner, run: dict):
+        self.inner, self.run = inner, run
+        run["prefetch"] = inner.prefetch
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __iter__(self):
+        it = iter(self.inner)
+        at = self.run.get("profile_at")
+        while True:
+            if at and len(self.run["wait_ms"]) == at[0]:
+                self.run["window"] = ProfileWindow()
+            t0 = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            self.run["wait_t0"].append(t0)
+            self.run["wait_ms"].append((time.perf_counter() - t0) * 1e3)
+            yield b
+
+
+def real_cli(argv, run: dict):
+    """cli.train.main(argv) with each train step timed and its launches
+    counted (run["steps"]: ms, loss, launches) and the train loader's waits
+    recorded (run["wait_ms"]); run["profile_at"] = (i, n), if given, puts
+    steps i .. i + n - 1 in a profiler window (run["profile"]). The
+    returned trainer's train_step carries the untimed step as .step."""
+    import math
+
+    import torch
+
+    from uvltrack_tpu_torch.cli import train as ctrain
+    from uvltrack_tpu_torch.data import loader as tloader
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.train import step as tstep
+
+    run.update(steps=[], wait_ms=[], wait_t0=[])
+    at = run.get("profile_at")
+    setup0, build0 = tstep.setup_training, tloader.build_train_loader
+
+    def setup(*a, **k):
+        model, state, step = setup0(*a, **k)
+
+        def timed(state, batch):
+            i = len(run["steps"])
+            before = build.instantiation_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss = float(m["Loss/total"])
+            run["steps"].append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                                 "launches": launches_since(before), "end": time.perf_counter(),
+                                 "profiled": bool(at) and at[0] <= i < at[0] + at[1]})
+            if at and i == at[0] + at[1] - 1:
+                t1 = time.perf_counter()
+                run["profile"] = run.pop("window").close(at[1], "step")
+                run["profile_close_s"] = time.perf_counter() - t1
+            return state, m
+        timed.step = step
+        return model, state, timed
+
+    tstep.setup_training = setup
+    tloader.build_train_loader = lambda *a, **k: _TimedLoader(build0(*a, **k), run)
+    try:
+        t0 = time.perf_counter()
+        trainer = ctrain.main(argv)
+        run["seconds"] = time.perf_counter() - t0
+    finally:
+        tstep.setup_training, tloader.build_train_loader = setup0, build0
+    for i, st in enumerate(run["steps"]):
+        expect_launches(TRAIN_PER_FWD, 1, st["launches"], f"B-TRAIN-REAL step {i + 1}")
+        if not math.isfinite(st["loss"]):
+            raise AssertionError(f"B-TRAIN-REAL step {i + 1}: loss {st['loss']}")
+    return trainer
+
+
+def loader_phases(run: dict) -> tuple:
+    """The indices of run's loader-active steps and of its tail steps
+    (DATA_TIMER), each epoch's first step (the pool's start) and the
+    profiled steps in neither."""
+    n, tail = run["per_epoch"], run["prefetch"] + 2
+    active, idle = [], []
+    for i, st in enumerate(run["steps"]):
+        if st["profiled"] or i % n == 0:
+            continue
+        (active if i % n < n - tail else idle).append(i)
+    return active, idle
+
+
+def data_phase(args, dev, tmp: Path) -> dict:
+    """The `data` group: (a) fixture trees; (b) the loader alone in thread
+    and process mode; (c) B-TRAIN-REAL (cli.train on the trees) in turns
+    with synthetic B-TRAIN steps; (d) step 1 on one real batch, kernels
+    against plain. Returns the launches per instantiation of (c) and (d),
+    each counted from the counts just before it."""
+    import gc
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.data.loader import build_train_loader
+    from uvltrack_tpu_torch.data.synthetic import synthetic_batch_from_cfg
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.train.step import setup_training
+
+    t_group = time.perf_counter()
+    vocab = write_data_fixtures(args, tmp)
+    cfg = train_config(**{"MODEL.BACKBONE.LANGUAGE.VOCAB_PATH": vocab})
+    bsz = int(cfg.TRAIN.BATCH_SIZE)
+    mp_context = os.environ.get("UVLTRACK_LOADER_MP_CONTEXT", "fork")
+    alone = {m: loader_alone(cfg, bsz, args.seed, m) for m in ("thread", "process")}
+    flags = Counter()
+    for r in alone.values():
+        flags.update(r["flags"])
+    n = sum(flags.values())
+    emit({"phase": "data_loader", "config": "experiments/uvltrack/baseline_base.yaml",
+          "num_worker": int(cfg.TRAIN.NUM_WORKER), "process_mp_context": mp_context,
+          "cpu_count": os.cpu_count(), "batch": bsz, "batches_an_epoch": DATA_LOADER_STEPS,
+          "samples_per_s": {m: r["samples_per_s_epochs"] for m, r in alone.items()},
+          "first_batch_s": {m: r["first_batch_s"] for m, r in alone.items()},
+          "samples_per_s_after_first": {m: r["samples_per_s_after_first"]
+                                        for m, r in alone.items()},
+          "task_mix": {str(f): flags.get(f, 0) / n for f in (0, 1, 2)},
+          "task_mix_config": {"0": 0.45, "1": 0.11, "2": 0.44}, "samples": n})
+    if set(flags) != {0, 1, 2}:
+        raise AssertionError(f"the loader drew flags {dict(flags)}, not all three tasks")
+
+    # (c) 2 epochs, then a resume to 3 (thread workers, the config's) and
+    # one to 4 under process workers, each of DATA_LONG_STEPS steps with a
+    # profiler window inside its loader-active steps; synthetic steps on the
+    # same trainer after each run, the second turn profiled
+    total = Counter()
+    sets = [f"DATA.TRAIN.SAMPLE_PER_EPOCH={DATA_STEPS * bsz}",
+            f"DATA.VALTRACK.SAMPLE_PER_EPOCH={DATA_VAL_STEPS * bsz}",
+            f"DATA.VALVL.SAMPLE_PER_EPOCH={DATA_VAL_STEPS * bsz}",
+            f"MODEL.BACKBONE.LANGUAGE.VOCAB_PATH={vocab}"]
+    argv = ["--config", "baseline_base", "--seed", str(args.seed), "--save_dir", str(tmp / "run")]
+    for s in sets:
+        argv += ["--set", s]
+    long = ["--set", f"DATA.TRAIN.SAMPLE_PER_EPOCH={DATA_LONG_STEPS * bsz}"]
+    syn = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch_from_cfg(
+        np.random.default_rng(args.seed), cfg, bsz).items()}
+    runs, syn_runs, syn_prof, peak = {}, [], None, {}
+    for label, extra, per_epoch in (
+            ("epochs_1_2", ["--epochs", "2"], DATA_STEPS),
+            ("resume_3", ["--epochs", "3"] + long, DATA_LONG_STEPS),
+            ("resume_4_process", ["--epochs", "4", "--set", "TPU.LOADER_WORKER_MODE=process"]
+             + long, DATA_LONG_STEPS)):
+        torch.cuda.reset_peak_memory_stats()
+        before = build.instantiation_counts()
+        runs[label] = {"per_epoch": per_epoch}
+        if per_epoch == DATA_LONG_STEPS:
+            runs[label]["profile_at"] = DATA_PROFILE_AT
+        trainer = real_cli(argv + extra, runs[label])
+        total.update(launches_since(before))
+        peak[label] = torch.cuda.max_memory_allocated() / 2 ** 20
+        step = trainer.train_step.step
+        before = build.instantiation_counts()
+        trainer.state, r = _train_run(trainer.state, step, syn, "cuda", DATA_SYN_STEPS)
+        syn_runs.append(r)
+        if label == "resume_3":
+            def syn_step(i):
+                trainer.state, m = step(trainer.state, syn)
+                return float(m["Loss/total"])
+
+            syn_prof = profile_window(syn_step, DATA_PROFILE_AT[1], "step")
+            expect_launches(TRAIN_PER_FWD, DATA_SYN_STEPS + DATA_PROFILE_AT[1],
+                            launches_since(before), "synthetic steps between the real runs")
+        total.update(launches_since(before))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    log = tmp / "run" / "logs" / "uvltrack-baseline_base.log"
+    recs = [json.loads(x) for x in (log.parent / (log.name + ".jsonl")).read_text().splitlines()]
+    ck = sorted(os.listdir(tmp / "run" / "checkpoints" / "train" / "uvltrack" / "baseline_base"))
+    text = log.read_text()
+    if [r["epoch"] for r in recs] != [1, 2, 3, 4] or ck != [f"ep{e:04d}.pt" for e in (1, 2, 3, 4)] \
+            or "resumed from epoch 2" not in text or "resumed from epoch 3" not in text:
+        raise AssertionError(f"B-TRAIN-REAL: epochs {[r['epoch'] for r in recs]}, checkpoints {ck}")
+    for r in recs:
+        if set(r["val"]) != {"valtrack", "valground", "valvl"}:
+            raise AssertionError(f"B-TRAIN-REAL epoch {r['epoch']} validated {sorted(r['val'])}")
+        vals = list(r["train"].values()) + [x for v in r["val"].values() for x in v.values()]
+        if not all(np.isfinite(vals)):
+            raise AssertionError(f"B-TRAIN-REAL epoch {r['epoch']}: a metric is not finite: {r}")
+    def pick(xs, idx):
+        return [xs[i] for i in idx]
+
+    cells = {}
+    for label, run in runs.items():
+        active, idle = loader_phases(run)
+        n = run["per_epoch"]
+        step_ms = [s["ms"] for s in run["steps"]]
+        ms, waits = pick(step_ms, active), pick(run["wait_ms"], active)
+        # the train loop's wall an epoch: the first batch's wait to the
+        # last step's end (uploads included; validation, saves and the
+        # profiler's close not)
+        loop_s = [run["steps"][e + n - 1]["end"] - run["wait_t0"][e]
+                  for e in range(0, len(run["steps"]), n)]
+        if "profile_at" in run:
+            loop_s[run["profile_at"][0] // n] -= run["profile_close_s"]
+        cells[label] = {"steps": len(run["steps"]), "steps_an_epoch": n,
+                        "loader_active_steps": len(active), "step_ms_p50": _p50(ms),
+                        "samples_per_s": TRAIN_B / (_p50(ms) / 1e3),
+                        "loader_wait_ms_p50": _p50(waits), "loader_wait_ms_max": max(waits),
+                        "tail_steps": len(idle), "tail_step_ms_p50": _p50(pick(step_ms, idle)),
+                        "tail_loader_wait_ms_p50": _p50(pick(run["wait_ms"], idle)),
+                        "first_step_wait_ms": run["wait_ms"][::n],
+                        "seconds_cli": run["seconds"], "epoch_loop_s": loop_s,
+                        "rows_per_s_epoch_loop": [TRAIN_B * n / t for t in loop_s],
+                        "profile_loader_active": run.get("profile"),
+                        "profile_close_s": run.get("profile_close_s"),
+                        "step_ms": step_ms, "wait_ms": run["wait_ms"], "peak_mb": peak[label],
+                        "losses": [s["loss"] for s in run["steps"]]}
+    syn_ms = [x["ms"] for r in syn_runs for x in r[1:]]
+    emit({"phase": "data_train", "cell": "B-TRAIN-REAL",
+          "config": "experiments/uvltrack/baseline_base.yaml", "argv": " ".join(argv),
+          "rows": f"{bsz} x {cfg.DATA.SEARCH.NUMBER} search frames = {TRAIN_B}",
+          "timer": DATA_TIMER, "runs": cells,
+          "synthetic_turns": {"step_ms": [[x["ms"] for x in r] for r in syn_runs],
+                              "step_ms_p50": _p50(syn_ms),
+                              "samples_per_s": TRAIN_B / (_p50(syn_ms) / 1e3)},
+          "order": "real epochs 1-2, synthetic, real epoch 3, synthetic (profiled), "
+                   "real epoch 4 (process), synthetic",
+          "launches_per_step": TRAIN_PER_FWD, "profile_synthetic": syn_prof,
+          "val_per_epoch": {r["epoch"]: r["val"] for r in recs},
+          "loss_per_epoch": [r["train"]["Loss/total"] for r in recs], "checkpoints": ck})
+
+    # (d) step 1 on one real batch from one init, kernels against plain
+    before = build.instantiation_counts()
+    _, k_state, k_step = setup_training(cfg, 1, device=dev, seed=args.seed)
+    _, p_state, p_step = setup_training(cfg, 1, device=dev, seed=args.seed)
+    cfg.TPU.LOADER_WORKER_MODE = "thread"
+    cfg.DATA.TRAIN.SAMPLE_PER_EPOCH = bsz
+    batch = next(iter(build_train_loader(cfg, bsz, seed=args.seed)))
+    real = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    probes, sens, norm_bound, flips = gate_probes(k_state.model, p_state.model, real, cfg,
+                                                  args.seed, lambda fn: fn())
+    _, k1 = _train_run(k_state, k_step, real, "cuda", 1)
+    _, p1 = _train_run(p_state, p_step, real, "plain", 1)
+    loss_rel, norm_rel = step1_gate(k1[0], p1[0], norm_bound, "B-TRAIN-REAL")
+    total.update(launches_since(before))
+    emit({"phase": "data_step1", "batch_flags": batch["flag"].tolist(),
+          "gate": f"loss within {TRAIN_LOSS_REL}, grad_norm within max({TRAIN_NORM_REL}, 2 x "
+          f"the plain backend's move under a {TRAIN_PROBE_EPS:g} input change) = {norm_bound}",
+          "loss_rel": loss_rel, "grad_norm_rel": norm_rel, "plain_grad_norm_move_at_eps": sens,
+          "supervised_cells_differing_from_plain": flips,
+          "step1": {"cuda": k1[0], "plain": p1[0]},
+          "probes": {k: {"loss": v["loss"], "grad_norm": v["grad_norm"]}
+                     for k, v in probes.items()}})
+    del k_state, k_step, p_state, p_step, real
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "data_group", "seconds": time.perf_counter() - t_group,
+          "launches": dict(total)})
+    return dict(total)
+
 
 
 def main() -> int:
@@ -3407,6 +3829,18 @@ def main() -> int:
         function_phase(dev, args.seed)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
             train_counts = train_phase(args, dev, Path(tmp))
+    if "data" in only:
+        import faulthandler
+        import tempfile
+
+        # a loader pool that hangs (a fork beside the CUDA context) ends the
+        # run with every thread's stack instead of holding the card
+        faulthandler.dump_traceback_later(DATA_WATCHDOG_S, exit=True)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+            data_counts = data_phase(args, dev, Path(tmp))
+        faulthandler.cancel_dump_traceback_later()
+        for k, v in data_counts.items():
+            train_counts[k] = train_counts.get(k, 0) + v
     if only != set(GROUPS):
         emit({"phase": "total", "seconds": time.perf_counter() - t_start,
               "groups": sorted(only)})

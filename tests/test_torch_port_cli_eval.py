@@ -264,24 +264,15 @@ def test_registries_hold_the_same_datasets():
 
 
 @pytest.mark.parametrize("name", sorted(_port_registry()))
-def test_dataset_adapter_matches_jax(name, bench_env, monkeypatch):
+def test_dataset_adapter_matches_jax(name, bench_env):
     """The port's adapter reads the same sequences as the JAX package's:
     names, frames, ground truth (NaN rows included), language, object class
-    and target_visible. lasot_lmdb reads through the port's
-    utils/lmdb_utils.py, its environment handle served by the JAX
-    package's self-contained reader where the lmdb binding is absent."""
+    and target_visible. lasot_lmdb reads through the port's own
+    utils/lmdb_utils.py (its pure-Python reader where the lmdb binding is
+    absent)."""
     from uvltrack_tpu.eval import get_dataset as jget
     from uvltrack_tpu_torch.eval import get_dataset
-    from uvltrack_tpu_torch.utils import lmdb_utils
 
-    if name == "lasot_lmdb":
-        try:
-            import lmdb  # noqa: F401
-        except ImportError:
-            from uvltrack_tpu.utils.lmdb_native import Reader
-
-            path = os.environ["UVLTRACK_LASOT_LMDB_PATH"]
-            monkeypatch.setitem(lmdb_utils._ENVS, path, Reader(path))
     _assert_same_sequences(get_dataset(name), jget(name))
 
 

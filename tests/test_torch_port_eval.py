@@ -184,23 +184,24 @@ def test_runners_route_lmdb_frame_refs_to_lmdb_utils(built, tmp_path, monkeypatc
 
 def test_batched_runner_dispatches_lmdb_frame_refs(built, tmp_path):
     """(db_path, key) frame refs decode through utils/lmdb_utils (the lmdb
-    binding) in the batched runner, as plain paths through the loader."""
-    lmdb = pytest.importorskip("lmdb")
+    binding, or the port's own reader where it is absent) in the batched
+    runner, as plain paths through the loader. The environment is written
+    by the port's utils/lmdb_native.write_lmdb."""
     cv2 = pytest.importorskip("cv2")
+    from uvltrack_tpu_torch.utils.lmdb_native import write_lmdb
+
     _, _, tm = built
     rng = np.random.default_rng(1)
     env_path = str(tmp_path / "env")
-    env = lmdb.open(env_path, map_size=1 << 24)
-    frames = []
-    with env.begin(write=True) as txn:
-        for i in range(4):
-            img = rng.integers(0, 255, size=HW + (3,)).astype(np.uint8)
-            ok, buf = cv2.imencode(".png", img[..., ::-1])
-            assert ok
-            key = f"seq/{i:08d}.png"
-            txn.put(key.encode(), bytes(buf))
-            frames.append((env_path, key))
-    env.close()
+    frames, items = [], []
+    for i in range(4):
+        img = rng.integers(0, 255, size=HW + (3,)).astype(np.uint8)
+        ok, buf = cv2.imencode(".png", img[..., ::-1])
+        assert ok
+        key = f"seq/{i:08d}.png"
+        items.append((key, bytes(buf)))
+        frames.append((env_path, key))
+    write_lmdb(env_path, items)
     gt = np.tile(np.array([[10.0, 12.0, 20.0, 18.0]]), (4, 1))
     ds = SequenceList([Sequence("lm0", frames, "otb99", gt)])
     rdir = str(tmp_path / "results")

@@ -239,7 +239,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {"ops/quant.py", "ops/ln_qkv_attn_proj.py", "ops/ln_qkv_attention.py",
             "track/batch.py", "track/pool.py", "eval/__init__.py", "eval/data.py",
             "eval/running.py", "eval/running_batched.py", "eval/visualize.py",
-            "native/__init__.py", "utils/lmdb_utils.py"} <= names
+            "native/__init__.py", "utils/lmdb_utils.py", "utils/lmdb_native.py",
+            "data/transforms.py", "data/processing_utils.py", "data/grounding_aug.py",
+            "data/processing.py", "data/sampler.py", "data/builders.py", "data/loader.py",
+            "data/datasets/base.py", "data/datasets/video_datasets.py",
+            "data/datasets/image_datasets.py", "data/datasets/lmdb_datasets.py",
+            "cli/train.py", "cli/prewarm.py", "tools/data_fixtures.py"} <= names
     offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
                  for p in files for m in _IMPORT.finditer(p.read_text())]
     assert offenders == []

@@ -4,9 +4,11 @@ experiments/uvltrack/*.yaml).
 
 Key names/values mirror the reference defaults (lib/config/uvltrack/config.py:7-147)
 so that experiment YAMLs written for the reference parse unchanged. Runtime
-knobs live under cfg.TPU; the port reads COMPUTE_DTYPE, CACHE_TEXT and
+knobs live under cfg.TPU; the port reads COMPUTE_DTYPE, CACHE_TEXT,
 USE_PALLAS_ATTENTION (True selects the hand-written CUDA attention kernel,
-ops/attention.py) and ignores the mesh, compile-cache and loader keys.
+ops/attention.py), WEIGHT_QUANT, REMAT, GRAD_ACCUM and LOADER_WORKER_MODE
+(thread or process workers of data/loader.py, TRAIN.NUM_WORKER of them),
+and ignores the mesh and compile-cache keys.
 """
 
 from __future__ import annotations

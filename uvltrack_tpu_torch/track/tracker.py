@@ -59,6 +59,7 @@ from ..core.geometry import anno2mask, crop_box_normalized, map_box_back
 from ..core.hann import hanning2d_flat
 from ..models.uvltrack import UVLTrack, prepare_inference_model
 from ..ops import attention, build
+from ..utils.pinned import PinnedStage
 from .pipeline import grounding_letterbox, sample_target_device
 
 # the device tensors of a state, and a sequence's per-stream constants
@@ -94,46 +95,6 @@ def graph_knobs() -> tuple:
     return (attention.get_backend(), attention.fused_prefix(),
             os.environ.get("UVLTRACK_FUSED_PROJ", "0") == "1",
             os.environ.get("UVLTRACK_FUSED_MLP", "0") == "1", attention.min_seq_len())
-
-
-class PinnedStage:
-    """Host-to-device uploads through pinned host buffers, two of each
-    shape used in turn: a buffer is rewritten only after the copy that last
-    read it has finished (its event), so the host never changes memory that
-    a non-blocking copy still reads. On the CPU a plain copy."""
-
-    def __init__(self):
-        self._slots: Dict[tuple, list] = {}
-
-    def upload(self, rows, out: torch.Tensor) -> None:
-        """Copy `rows` -- an array, or a sequence of arrays, one per index
-        of out's first dimension -- into the device tensor `out`."""
-        if out.device.type != "cuda":
-            arr = np.stack(rows) if isinstance(rows, (list, tuple)) else rows
-            out.copy_(torch.from_numpy(np.ascontiguousarray(arr)).reshape(out.shape))
-            return
-        key = (tuple(out.shape), out.dtype)
-        slots = self._slots.get(key)
-        if slots is None:
-            if len(self._slots) >= 8:  # a few shapes at a time
-                for old in self._slots.values():
-                    for _, ev in old[:2]:
-                        ev.synchronize()
-                self._slots.clear()
-            slots = self._slots[key] = [
-                [torch.empty(out.shape, dtype=out.dtype, pin_memory=True), torch.cuda.Event()]
-                for _ in range(2)] + [0]
-        buf, ev = slots[slots[2]]
-        slots[2] ^= 1
-        ev.synchronize()  # the copy that read this buffer last has finished
-        host = buf.numpy()
-        if isinstance(rows, (list, tuple)):
-            for i, row in enumerate(rows):
-                host[i] = row
-        else:
-            host[...] = np.asarray(rows).reshape(host.shape)
-        out.copy_(buf, non_blocking=True)
-        ev.record(torch.cuda.current_stream(out.device))
 
 
 class _GraphSet:

@@ -1,9 +1,10 @@
 """LMDB-backed dataset IO (parity: lib/utils/lmdb_utils.py:11-42; a copy of
-uvltrack_tpu/utils/lmdb_utils.py without its pure-Python reader).
+uvltrack_tpu/utils/lmdb_utils.py).
 
-Cached per-path LMDB handles with image/str/json decode, through the lmdb C
-binding, imported at first use (it raises ImportError where the binding is
-not installed), and cv2 for images.
+Cached per-path LMDB handles with image/str/json decode. Backend order, the
+JAX package's: the lmdb C binding when installed, otherwise the port's own
+pure-Python reader (utils/lmdb_native.py), two complete readers of the same
+file format; the *_lmdb dataset adapters work either way.
 """
 
 from __future__ import annotations
@@ -13,15 +14,21 @@ from typing import Dict
 
 import numpy as np
 
+try:
+    import lmdb
+
+    HAS_LMDB = True
+except ImportError:
+    lmdb = None
+    HAS_LMDB = False
+
 _ENVS: Dict[str, object] = {}
 
 
 class _CReader:
-    """A read-only lmdb environment with a .get(key) surface."""
+    """Adapter giving the lmdb package the native Reader's .get() surface."""
 
     def __init__(self, db_path: str):
-        import lmdb
-
         self.env = lmdb.open(db_path, readonly=True, lock=False,
                              readahead=False, meminit=False)
 
@@ -34,7 +41,12 @@ class _CReader:
 
 def get_env(db_path: str):
     if db_path not in _ENVS:
-        _ENVS[db_path] = _CReader(db_path)
+        if HAS_LMDB:
+            _ENVS[db_path] = _CReader(db_path)
+        else:
+            from .lmdb_native import Reader
+
+            _ENVS[db_path] = Reader(db_path)
     return _ENVS[db_path]
 
 
