@@ -175,15 +175,37 @@ Phases, one JSON line each:
                  share, device ops), validation on all three families
                  every epoch. (d) Step 1 on one real batch from one init,
                  kernels against plain, B-TRAIN's gate.
+  10. cli     -- the tool CLIs. (a) ln_qkv[fp32x-fp32w] (kernel #1's prefix at
+                 TPU.COMPUTE_DTYPE=float32: fp32 weights, three bf16 hi/lo passes)
+                 and the fp32 attention after it against their plain versions at
+                 B in {1, 8}, N in {321, 361}, C in {768, 1024}, 3 masks, two calls
+                 bitwise equal; times beside F.layer_norm + F.linear in fp32 and the
+                 bound. (b) cli.profile.main on UVLTrack-B: forward on the kernels
+                 (a torch.profiler trace read back: the GEMM core's launches in it)
+                 and with --xla (the counted FLOPs and bytes equal), forward with
+                 --quant int8, the step on both backends, and UVLTrack-L's step; the
+                 printed p50/FPS parsed, the launches per forward checked. (c)
+                 cli.export.main --check at fp32 compute: 12 ln_qkv + 12
+                 qkv_attention ops in the exported graph, the loaded program within
+                 1e-5 of the direct call, 12 + 12 fp32-weight launches a forward.
+                 (d) cli.parity.main on a .pth.tar of the seeded model, on the
+                 kernels and on the plain backend, fp32 and --quant int8: the dumps
+                 key by key within 2e-4 + 2e-4*|plain|. (e) cli.demo.main on a
+                 48-frame 1280x720 MJPG video: 48 frames out, every box bitwise a
+                 direct Tracker's over the same decoded frames. (f) cli.test.main on
+                 a trainer checkpoint (ep0001.pt, train/checkpoint.py) over one
+                 24-frame OTB99 sequence: its result file byte for byte a direct
+                 replay, the tracker's weights the checkpoint's.
 --only runs some groups (kernels = phase 2, track = 3-4 but the
-multistream ones, multistream, compiled, serve, eval, train, data) and prints no kernels
+multistream ones, multistream, compiled, serve, eval, train, data, cli) and prints no kernels
 line; in a full run the kernels line counts the eval runs' launches, and
 the rows of the instantiations on L's path carry their L times ("C1024").
 Then the script's total seconds, the {"kernels": [...]} line (each
 kernel's times at B=1 and, under "B8", at the lockstep batch; "launches"
 counted by the wrappers on the eager paths, "graph_launches" the graphs'
 captured calls times their replays, "train_launches" the train group's
-B-TRAIN runs (b)-(e) and the data group's (c)-(d)), the
+B-TRAIN runs (b)-(e) and the data group's (c)-(d); the fp32-weight row's
+launches come from the cli group's export and parity runs), the
 nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failure raises: no ok line, exit 1.
 Without a CUDA card, or outside a checkout, it exits 2 and prints no result.
@@ -234,13 +256,18 @@ Q8_KERNEL_ATOL = {"ln_qkv": KERNEL_ATOL["ln_qkv"], "qkv_attention": KERNEL_ATOL[
 # another order, and the hi/lo bf16 passes keep 2^-17 of each operand:
 # |kernel - plain| <= F32_ATOL + F32_RTOL*|plain|
 F32_ATOL, F32_RTOL = 2e-4, 2e-4
+# launches per UVLTrack-B backbone forward: bf16 weights (blocks 0-5 on the
+# bf16 stream, 6-11 on the fp32 one), int8 weights
+PER_FWD_FP = {"ln_qkv[bf16x-bf16w]": 6, "ln_qkv[fp32x-bf16w]": 6, "qkv_attention[bf16]": 12}
+PER_FWD_Q8 = {"ln_qkv[bf16x-int8w]": 6, "ln_qkv[fp32x-int8w]": 6, "qkv_attention[bf16]": 6,
+              "qkv_attention[fp32]": 6}
 
 
 MLP_N = (48, 321, 361, 681)  # kernel #7's check shapes
 # the instantiations the kernels line's two bf16 rows count
 NAMED_BY_BASE = {"ln_qkv": ("ln_qkv[bf16x-bf16w]", "ln_qkv[fp32x-bf16w]"),
                  "qkv_attention": ("qkv_attention[bf16]",)}
-GROUPS = ("kernels", "track", "multistream", "compiled", "serve", "eval", "train", "data")
+GROUPS = ("kernels", "track", "multistream", "compiled", "serve", "eval", "train", "data", "cli")
 ATTN_N = (40, 48, 128, 321, 361, 681)  # kernel #3's: BERT's N, 128 and the ViT's
 
 TIMER = ("CUDA events, L2-warm: *ms = mean of 200 back-to-back eager calls after 20 "
@@ -2516,10 +2543,10 @@ EVAL_TIMER = ("host clock: runner FPS as the CLI prints it (frames over the summ
               "times, decode overlapped by the prefetcher at S=1, inline at S>1); step p50/p90 "
               "of the direct replay of the same run (Tracker.track / BatchTracker.step on the "
               "CLI's JitTracker, frames decoded beforehand)")
-def write_eval_dataset(root: Path, seed: int) -> dict:
+def write_eval_dataset(root: Path, seed: int, lengths=EVAL_LENGTHS) -> dict:
     """An OTB99-layout dataset under root/otb99 (OTB_videos/<seq>/
     {groundtruth_rect.txt,img/%04d.jpg}, OTB_query_test/<seq>.txt) of
-    EVAL_LENGTHS 720p sequences from synthetic_sequence, each with a
+    720p sequences of `lengths` frames from synthetic_sequence, each with a
     sentence; and a GOT-10k test split under root/got10k (3 sequences of 8
     frames, a one-row ground truth: server-evaluated). Returns the writer's
     name and seconds."""
@@ -2535,7 +2562,7 @@ def write_eval_dataset(root: Path, seed: int) -> dict:
     rng = np.random.default_rng(seed + 100)
     otb = root / "otb99"
     (otb / "OTB_query_test").mkdir(parents=True)
-    for i, n in enumerate(EVAL_LENGTHS):
+    for i, n in enumerate(lengths):
         name = f"Seq{i:02d}"
         frames, boxes = synthetic_sequence(n - 1, seed + 40 + i, phase=7 * i)
         img = otb / "OTB_videos" / name / "img"
@@ -3691,6 +3718,357 @@ def data_phase(args, dev, tmp: Path) -> dict:
 
 
 
+# ------------------------------------------------------------------ cli
+# kernel #1 at fp32 compute (TPU.COMPUTE_DTYPE=float32: fp32 weights, an
+# fp32 stream in every block): launches per backbone forward of UVLTrack-B
+F32_PER_FWD = {"ln_qkv[fp32x-fp32w]": 12, "qkv_attention[fp32]": 12}
+F32W_GRID_DOC = ("B in {1, 8} x N in {321, 361} x C in {768, 1024} (H = C/64) x 3 masks, "
+                 "fp32 x and W; ln_qkv called twice (bitwise equal), then qkv_attention[fp32]")
+CLI_PROFILE = ["--warmup", "5", "--iters", "30"]  # iterations of each cli.profile run
+CLI_DEMO_FRAMES = 48
+CLI_TIMER = ("cli.profile's own host clock per call (mean/p50/p90 over --iters, each call "
+             "ending in torch.cuda.synchronize or the step's box read-back), as it prints it")
+
+
+def f32w_kernel_phase(dev, seed: int):
+    """(a) ln_qkv[fp32x-fp32w] (kernel #1's prefix with fp32 weights: three
+    bf16 hi/lo passes on the GEMM core) and the fp32 attention after it
+    against their plain fp32 versions over F32W_GRID_DOC, under the fp32
+    rule; then times of the kernel, its plain version and its library call
+    (F.layer_norm + F.linear in fp32, TF32 off) at B in {1, 8}, N in {321,
+    361}, C in {768, 1024}. Returns (worst errors, times)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+
+    rng = np.random.default_rng(seed + 14)
+
+    def case(b, n, c, kind):
+        def t(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+        return (t(rng.normal(size=(b, n, c))), t(1 + 0.1 * rng.normal(size=c)),
+                t(0.1 * rng.normal(size=c)), t(rng.normal(size=(3 * c, c)) / np.sqrt(c)),
+                t(0.02 * rng.normal(size=3 * c)),
+                t(np.where(key_masks(b, n, kind, rng), -1e10, 0.0)))
+
+    def err(a, b):
+        d = (a - b).abs()
+        return float(d.max()), bool((d <= F32_ATOL + F32_RTOL * b.abs()).all())
+
+    name = "ln_qkv[fp32x-fp32w]"
+    worst = {name: 0.0, "ln_qkv_attention[fp32x-fp32w]": 0.0}
+    shapes = [(b, n, c) for b in (1, LOCKSTEP_B) for n in (321, 361) for c in (768, L_WIDTH)]
+    for b, n, c in shapes:
+        for kind in ("flag0", "flag2", "open"):
+            x, g, be, w, wb, kb = case(b, n, c, kind)
+            qkv = lqa.ln_qkv(x, g, be, w, wb)
+            again = lqa.ln_qkv(x, g, be, w, wb)
+            out = lqa.qkv_attention(qkv, kb, c // 64)
+            torch.cuda.synchronize()
+            if not torch.equal(qkv, again):
+                raise AssertionError(f"{name} B={b} N={n} C={c}: a second call differs")
+            if qkv.dtype != torch.float32 or out.dtype != torch.float32:
+                raise AssertionError(f"{name}: {qkv.dtype} qkv, {out.dtype} attention")
+            for key, (e, ok) in (
+                    (name, err(qkv, lqa.ln_qkv_plain(x, g, be, w, wb))),
+                    ("ln_qkv_attention[fp32x-fp32w]",
+                     err(out, lqa.ln_qkv_attention_plain(x, g, be, w, wb, kb, c // 64)))):
+                if not ok:
+                    raise AssertionError(f"{key} B={b} N={n} C={c} mask={kind}: max abs err "
+                                         f"{e} over {F32_ATOL} + {F32_RTOL}*|plain|")
+                worst[key] = max(worst[key], e)
+    emit({"phase": "f32w_kernel_check", "grid": F32W_GRID_DOC, "max_abs_err": worst,
+          "tolerance": f"|kernel-plain| <= {F32_ATOL} + {F32_RTOL}*|plain|",
+          "repeatable": "bitwise, two calls at every check"})
+    times = {}
+    for b, n, c in shapes:
+        x, g, be, w, wb, _ = case(b, n, c, "open")
+        m, f = b * n, 3 * c
+        # three bf16 passes a product; x, W, LN, bias read once, fp32 qkv written once
+        b_ms, b_by = bound(3 * 2 * m * c * f, m * c * 4 + f * c * 4 + f * 4 + 2 * c * 4 + m * f * 4)
+        t = timings(lambda: lqa.ln_qkv(x, g, be, w, wb), lambda: lqa.ln_qkv_plain(x, g, be, w, wb),
+                    lambda: F.linear(F.layer_norm(x, (c,), g, be, 1e-6), w, wb))
+        key = f"{'' if b == 1 else f'B{b}_'}N{n}_C{c}"
+        times[key] = {name: {**t, "bound_ms": b_ms, "bound_by": b_by}}
+    emit({"phase": "f32w_kernel_times", "timer": TIMER, "library": "F.layer_norm + F.linear, "
+          "fp32, TF32 off", "times": times})
+    return worst, times
+
+
+def cli_capture(fn, argv) -> tuple:
+    """fn(argv) with stdout captured and the launch counts set to 0 just
+    before and read just after: (return value, stdout, launches, seconds)."""
+    import contextlib
+    import io
+
+    from uvltrack_tpu_torch.ops import build
+
+    buf = io.StringIO()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(argv)
+    return ret, buf.getvalue(), build.instantiation_counts(), time.perf_counter() - t0
+
+
+def profile_runs(tmp: Path) -> tuple:
+    """(b) cli.profile.main on UVLTrack-B: forward on the kernels and on the
+    plain backend (--xla), both counted by utils/costs.py (the counts must be
+    equal), forward on the kernels under a torch.profiler trace (read back:
+    the GEMM core's launches in it), forward with int8
+    weights, the step on both backends, and UVLTrack-L's step; each run's
+    printed latency line parsed, its launches counted from 0. Returns
+    (records, launches summed)."""
+    import re
+
+    from uvltrack_tpu_torch.cli import profile as cli_profile
+    from uvltrack_tpu_torch.utils import costs
+
+    lat_re = re.compile(r"^(forward|step) \(batch=(\d+)\): mean=([\d.]+)ms p50=([\d.]+)ms "
+                        r"p90=([\d.]+)ms fps=([\d.]+)$", re.M)
+    counted, orig = [], costs.program_cost
+
+    def record(*a, **k):
+        counted.append(orig(*a, **k))
+        return counted[-1]
+
+    costs.program_cost = record
+    runs = [("forward_B", ["--what", "forward"], PER_FWD_FP),
+            ("forward_B_xla", ["--what", "forward", "--xla"], {}),
+            # the profiler's host cost would lift the timed calls: a run of its own
+            ("forward_B_trace", ["--what", "forward", "--trace_dir", str(tmp / "trace")],
+             PER_FWD_FP),
+            ("forward_B_int8", ["--what", "forward", "--quant", "int8"], PER_FWD_Q8),
+            ("step_B", ["--what", "step"], {}),
+            ("step_B_xla", ["--what", "step", "--xla"], {}),
+            ("step_L", ["--what", "step", "--config", "baseline_large"], {})]
+    recs, launches = {}, {}
+    try:
+        for label, extra, per_fwd in runs:
+            n0 = len(counted)
+            _, out, got, secs = cli_capture(cli_profile.main, extra + CLI_PROFILE)
+            m = lat_re.search(out)
+            if not m:
+                raise AssertionError(f"profile {label}: no latency line:\n{out[-800:]}")
+            rec = {"p50_ms": float(m.group(4)), "p90_ms": float(m.group(5)),
+                   "mean_ms": float(m.group(3)), "fps": float(m.group(6)), "launches": got,
+                   "cli_seconds": secs}
+            if len(counted) > n0:
+                rec["cost"] = counted[-1]
+            if "xla" in label and got:
+                raise AssertionError(f"profile {label}: the plain backend launched {got}")
+            if "xla" not in label and not got:
+                raise AssertionError(f"profile {label}: no kernel launched")
+            forwards = int(CLI_PROFILE[1]) + int(CLI_PROFILE[3]) + 1  # + the counted call
+            if per_fwd:
+                expect_launches(per_fwd, forwards, got, f"profile {label}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            recs[label] = rec
+    finally:
+        costs.program_cost = orig
+    if recs["forward_B"]["cost"] != recs["forward_B_xla"]["cost"]:
+        raise AssertionError(f"cost count differs: kernels {recs['forward_B']['cost']}, "
+                             f"plain {recs['forward_B_xla']['cost']}")
+    recs["trace"] = trace_kernels(tmp / "trace" / "trace.json")
+    if not any("ln_gemm_kernel" in k for k in recs["trace"]["ours"]):
+        raise AssertionError(f"the profiler trace holds none of the GEMM core's launches: "
+                             f"{recs['trace']}")
+    return recs, launches
+
+
+def trace_kernels(path: Path) -> dict:
+    """A Chrome trace read back: its events, its device kernels and the
+    names of the port's kernels among them."""
+    trace = json.loads(path.read_text())["traceEvents"]
+    kernels = [e["name"] for e in trace if e.get("cat") == "kernel"]
+    ours = sorted({k.split("<")[0].split("(")[0] for k in kernels
+                   if "ln_gemm_kernel" in k or "attention_bf16_kernel" in k})
+    return {"events": len(trace), "device_kernels": len(kernels), "ours": ours}
+
+
+def cli_phase(args, dev, vocab: Path, tmp: Path) -> dict:
+    """The `cli` group: (a) the fp32-weight instantiation; (b) cli.profile;
+    (c) cli.export --check at fp32 compute, the exported graph's kernel ops
+    counted by name; (d) cli.parity on a .pth.tar of the seeded model, on the
+    kernels and on the plain backend, in fp32 and with --quant int8, the
+    dumps held key by key to the fp32 rule; (e) cli.demo on a 48-frame 720p
+    video against a direct Tracker over the same decoded frames; (f)
+    cli.test on a trainer checkpoint (ep0001.pt) against a direct replay.
+    Returns {"f32w": (worst, times), "launches", "graph_launches"}."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.cli import demo as cli_demo
+    from uvltrack_tpu_torch.cli import export as cli_export
+    from uvltrack_tpu_torch.cli import parity as cli_parity
+    from uvltrack_tpu_torch.cli import test as cli_test
+    from uvltrack_tpu_torch.config import load_cfg
+    from uvltrack_tpu_torch.eval import environment, get_dataset
+    from uvltrack_tpu_torch.models.uvltrack import build_model
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.track.tracker import Tracker
+    from uvltrack_tpu_torch.train.checkpoint import CheckpointManager
+    from uvltrack_tpu_torch.train.optim import build_optimizer
+    from uvltrack_tpu_torch.train.step import create_train_state
+
+    t_group = time.perf_counter()
+    launches, glaunch = {}, {}
+
+    def add(d, into=launches):
+        for k, v in d.items():
+            into[k] = into.get(k, 0) + v
+
+    f32w = f32w_kernel_phase(dev, args.seed)
+    results = tmp / "results"
+    os.environ.update({"UVLTRACK_REPO": str(REPO), "UVLTRACK_RESULTS_PATH": str(results),
+                       "UVLTRACK_OTB99_PATH": str(tmp / "otb99")})
+    environment.reset_env_cache()
+
+    # (b) the profiler
+    recs, got = profile_runs(tmp)
+    add(got)
+    emit({"phase": "cli_profile", "config": "B: baseline_base.yaml, L: baseline_large.yaml, "
+          "seed 0", "argv": CLI_PROFILE, "timer": CLI_TIMER, **recs})
+
+    # (c) export at fp32 compute, --check: the loaded program against the direct call
+    out_pt2 = tmp / "uvltrack_b.pt2"
+    _, out, got, secs = cli_capture(cli_export.main, ["--config", "baseline_base", "--out",
+                                                      str(out_pt2), "--check"])
+    manifest = json.loads(Path(str(out_pt2) + ".json").read_text())
+    if "check: loaded program matches the direct call" not in out:
+        raise AssertionError(f"export --check: {out[-800:]}")
+    if manifest["kernel_ops"] != {"ln_qkv": 12, "qkv_attention": 12}:
+        raise AssertionError(f"exported graph's kernel ops {manifest['kernel_ops']}, not 12 "
+                             "ln_qkv + 12 qkv_attention")
+    expect_launches(F32_PER_FWD, 2, got, "export --check (the loaded program and the direct call)")
+    add(got)
+    emit({"phase": "cli_export", "seconds": secs, "file_bytes": manifest["bytes"],
+          "kernel_ops": manifest["kernel_ops"], "n_args_flat": manifest["n_args_flat"],
+          "platforms": manifest["platforms"], "launches": got,
+          "check": "loaded program within 1e-5 of the direct call"})
+    out_pt2.unlink()
+
+    # (d) parity: a .pth.tar of the seeded model, kernels against plain
+    ckpt = tmp / "UVLTrack_seeded.pth.tar"
+    seeded = build_model(load_cfg(str(REPO / "experiments/uvltrack/baseline_base.yaml")),
+                         device=dev, seed=args.seed + 3)
+    torch.save({"net": seeded.state_dict()}, ckpt)
+    del seeded
+    parity = {}
+    for quant in ([], ["--quant", "int8"]):
+        dumps = {}
+        for backend in ("cuda", "plain"):
+            attention.force_backend(backend)
+            try:
+                path = tmp / f"parity_{backend}{'_q8' if quant else ''}.npz"
+                _, out, got, _ = cli_capture(cli_parity.main, [
+                    "--checkpoint", str(ckpt), "--out", str(path), "--seed", str(args.seed),
+                    *quant])
+            finally:
+                attention.force_backend(None)
+            per_fwd = ({"ln_qkv[fp32x-int8w]": 12, "qkv_attention[fp32]": 12} if quant
+                       else F32_PER_FWD)
+            if backend == "cuda":
+                expect_launches(per_fwd, 2, got, f"parity {backend} {quant}")
+            elif got:
+                raise AssertionError(f"parity on the plain backend launched {got}")
+            add(got)
+            dumps[backend] = dict(np.load(path))
+        worst = 0.0
+        if sorted(dumps["cuda"]) != sorted(dumps["plain"]):
+            raise AssertionError("parity dumps hold different keys")
+        for k, ref in dumps["plain"].items():
+            a, ref = dumps["cuda"][k].astype(np.float64), ref.astype(np.float64)
+            d = np.abs(a - ref)
+            if not (d <= F32_ATOL + F32_RTOL * np.abs(ref)).all() or not np.isfinite(a).all():
+                raise AssertionError(f"parity {quant} {k}: kernels vs plain max abs err "
+                                     f"{d.max()} over the fp32 rule")
+            worst = max(worst, float(d.max()))
+        parity["int8" if quant else "fp32"] = {"keys": len(dumps["cuda"]), "max_abs_err": worst}
+    emit({"phase": "cli_parity", "dumps": parity, "tolerance":
+          f"|kernels-plain| <= {F32_ATOL} + {F32_RTOL}*|plain| every key"})
+    torch.cuda.empty_cache()
+
+    # (e) demo: a 48-frame 720p video, boxes against a direct Tracker
+    frames, boxes = synthetic_sequence(CLI_DEMO_FRAMES - 1, args.seed + 21)
+    video = tmp / "clip.avi"
+    writer = cv2.VideoWriter(str(video), cv2.VideoWriter_fourcc(*"MJPG"), 30, (1280, 720))
+    for f in frames:
+        writer.write(np.ascontiguousarray(f[..., ::-1]))
+    writer.release()
+    cap, decoded = cv2.VideoCapture(str(video)), []
+    while True:
+        ok, bgr = cap.read()
+        if not ok:
+            break
+        decoded.append(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+    cap.release()
+    built, orig = [], cli_test.build_tracker
+    cli_test.build_tracker = lambda *a, **k: built.append(orig(*a, **k)) or built[-1]
+    try:
+        init = [str(v) for v in boxes[0]]
+        dboxes, out, got, secs = cli_capture(cli_demo.main, [
+            "--video", str(video), "--output", str(tmp / "demo.mp4"), "--init_bbox", *init])
+    finally:
+        cli_test.build_tracker = orig
+    proto = built[0]
+    g = graph_launches(proto.jt)
+    add(got)
+    add(g, glaunch)
+    cap, n_out = cv2.VideoCapture(str(tmp / "demo.mp4")), 0
+    while cap.read()[0]:
+        n_out += 1
+    cap.release()
+    direct = Tracker(proto.cfg, tokenizer=proto.tokenizer, jit_tracker=proto.jt)
+    want = [direct.initialize(decoded[0], {"init_bbox": [float(v) for v in init]})["target_bbox"]]
+    want += [direct.track(f)["target_bbox"] for f in decoded[1:]]
+    if not (len(decoded) == n_out == len(dboxes) == CLI_DEMO_FRAMES):
+        raise AssertionError(f"demo: {len(decoded)} frames in, {n_out} out, {len(dboxes)} boxes")
+    if np.asarray(dboxes, np.float64).tolist() != np.asarray(want, np.float64).tolist():
+        raise AssertionError("demo: the boxes differ from a direct Tracker's")
+    emit({"phase": "cli_demo", "frames_in": len(decoded), "frames_out": n_out,
+          "boxes_bitwise_direct": len(want), "seconds": secs, "launches": got,
+          "graph_launches": g, "video": "MJPG 1280x720 (cv2), out mp4v"})
+    del proto, direct, built
+    torch.cuda.empty_cache()
+
+    # (f) cli.test on a trainer checkpoint (ep0001.pt) against a direct replay
+    cfg = load_cfg(str(REPO / "experiments/uvltrack/baseline_base.yaml"))
+    trained = build_model(cfg, device=dev, seed=args.seed + 5)
+    pt = CheckpointManager(str(tmp / "ckpt")).save(
+        1, create_train_state(trained, build_optimizer(cfg, trained)))
+    w_saved = trained.backbone.vit.blocks[0].attn.qkv.weight.detach().to(torch.bfloat16)
+    del trained
+    write_eval_dataset(tmp, args.seed, lengths=(24,))
+    environment.reset_env_cache()
+    seqs = list(get_dataset("otb99"))
+    run = cli_run("f_B_trainer_ckpt", ["uvltrack", "baseline_base", "--dataset_name", "otb99",
+                                       "--set", "TEST.MODE=BBOX", "--set", "TEST.THRESHOLD=-1",
+                                       "--set", f"MODEL.BACKBONE.LANGUAGE.VOCAB_PATH={vocab}",
+                                       "--test_checkpoint", pt], results, PER_FWD_FP)
+    proto = run["proto"]
+    if not torch.equal(proto.model.backbone.vit.blocks[0].attn.qkv.weight, w_saved):
+        raise AssertionError("cli.test: the tracker's weights are not the checkpoint's")
+    d = direct_single(proto, seqs, tmp / "direct_f", Decoded())
+    files = same_files("f_B_trainer_ckpt", results / "uvltrack" / "baseline_base" /
+                       "otb99_BBOX_0300", tmp / "direct_f", seqs)
+    add(run["launches"])
+    add(run["graph_launches"], glaunch)
+    emit({"phase": "cli_test_trainer_ckpt", "checkpoint": "ep0001.pt (train/checkpoint.py, "
+          "a TrainState of the seed+5 model)", "result_files_bitwise_direct": files,
+          "frames": len(seqs[0].frames), "step_ms_p50": float(np.percentile(d["lat"], 50) * 1e3),
+          "launches": run["launches"], "graph_launches": run["graph_launches"],
+          "group_seconds": time.perf_counter() - t_group})
+    del run, proto
+    torch.cuda.empty_cache()
+    return {"f32w": f32w, "launches": launches, "graph_launches": glaunch}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3767,7 +4145,7 @@ def main() -> int:
         for k, v in inst.items():
             launches[k] = launches.get(k, 0) + v
 
-    per_fwd_fp = {"ln_qkv[bf16x-bf16w]": 6, "ln_qkv[fp32x-bf16w]": 6, "qkv_attention[bf16]": 12}
+    per_fwd_fp = PER_FWD_FP
     if "track" in only:
         # NLBBOX and NL on the first 32 frames (a re-mine at 20): the compiled
         # phase tracks all 64 in every mode, on both steps
@@ -3788,8 +4166,7 @@ def main() -> int:
           "build_s": time.perf_counter() - t0, **frame_work(model_q8, nt)})
     if quant.count_quantized(model_q8) != 56:
         raise AssertionError(f"{quant.count_quantized(model_q8)} tensors quantized, not 56")
-    per_fwd_q8 = {"ln_qkv[bf16x-int8w]": 6, "ln_qkv[fp32x-int8w]": 6,
-                  "qkv_attention[bf16]": 6, "qkv_attention[fp32]": 6}
+    per_fwd_q8 = PER_FWD_Q8
     if "track" in only:
         track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, language,
                            per_fwd_fp, per_fwd_q8, add)
@@ -3841,6 +4218,13 @@ def main() -> int:
         faulthandler.cancel_dump_traceback_later()
         for k, v in data_counts.items():
             train_counts[k] = train_counts.get(k, 0) + v
+    cli_counts = {"graph_launches": {}}
+    if "cli" in only:
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+            cli_counts = cli_phase(args, dev, vocab, Path(tmp))
+        add(cli_counts["launches"])
     if only != set(GROUPS):
         emit({"phase": "total", "seconds": time.perf_counter() - t_start,
               "groups": sorted(only)})
@@ -3850,12 +4234,13 @@ def main() -> int:
         return 0
     # launches the graphs made (captured calls x replays), beside the host-counted ones
     glaunch = graph_launches(*jts)
-    for k, v in eval_counts["graph_launches"].items():
-        glaunch[k] = glaunch.get(k, 0) + v
+    for counts in (eval_counts, cli_counts):
+        for k, v in counts["graph_launches"].items():
+            glaunch[k] = glaunch.get(k, 0) + v
     src = "uvltrack_tpu_torch/csrc"
     lb = f"B{LOCKSTEP_B}_"
     return finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst,
-                  q8_times, fused_worst, fused_times, large, train_counts)
+                  q8_times, fused_worst, fused_times, large, train_counts, cli_counts["f32w"])
 
 
 def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, language,
@@ -3894,12 +4279,14 @@ def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, langu
 
 
 def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst, q8_times,
-           fused_worst, fused_times, large, train_counts) -> int:
+           fused_worst, fused_times, large, train_counts, f32w) -> int:
     """The kernels line, the compositions and per-launch lines, the total,
     the nvidia-smi line and the ok line. `large`: the kernel checks and
     times at UVLTrack-L's width, which the rows of the instantiations on
     L's path carry under "C1024"; `train_counts`: the launches of the train
-    group's B-TRAIN runs, each row's "train_launches"."""
+    group's B-TRAIN runs, each row's "train_launches"; `f32w`: the cli
+    group's checks and times of ln_qkv[fp32x-fp32w] (its row carries its
+    C=1024 times under "C1024")."""
     def at(table, shape, name):
         """A kernel's times at one shape, at B=1 and (under its key) at the
         lockstep batch."""
@@ -3927,6 +4314,11 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
         source = f"{src}/{name.split('[')[0]}.cu"
         rows.append((name, source, line, launches.get(name, 0), q8_worst[name],
                      at(q8_times, shape, name)))
+    # kernel #1's prefix at fp32 compute (the fp32 weights of export and parity)
+    f32_worst, f32_times = f32w
+    f32_name = "ln_qkv[fp32x-fp32w]"
+    rows.append((f32_name, f"{src}/ln_qkv.cu", 167, launches.get(f32_name, 0),
+                 f32_worst[f32_name], at(f32_times, "N361_C768", f32_name)))
     # kernel #3 at BERT's N=40, kernel #7 at the ViT's two shapes
     for name, line, shape, err in (("attention[bf16]", 78, "N40_bert", "attention"),
                                    ("ln_mlp[bf16x-bf16w]", 551, "N321_bf16x", "ln_mlp"),
@@ -3952,6 +4344,10 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
             table, shape, errs, err_key = l_rows[k["name"]]
             k["C1024"] = {"shape": shape, "max_abs_err": large[errs][err_key or k["name"]],
                           **at(large[table], shape, err_key or k["name"])}
+    for k in kernels:
+        if k["name"] == f32_name:
+            k["C1024"] = {"shape": "N361_C1024", "max_abs_err": f32_worst[f32_name],
+                          **at(f32_times, "N361_C1024", f32_name)}
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

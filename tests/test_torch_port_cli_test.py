@@ -316,7 +316,7 @@ def test_checkpoint_discovery(root, env, tmp_path, monkeypatch):
                   "--test_checkpoint", str(root / "UVLTrack_ep0001.pth.tar")],
           tmp_path / "given", monkeypatch)
     np.testing.assert_array_equal(found, env[("port", "Car")])
-    with pytest.raises(ValueError, match="trainer checkpoints come with training"):
+    with pytest.raises(ValueError, match="not a trainer checkpoint of the JAX package"):
         _main(ttest, ["uvltrack", "tiny_msgpack", "--device", "cpu"], tmp_path / "m",
               monkeypatch)
 

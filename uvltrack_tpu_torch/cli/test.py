@@ -9,8 +9,9 @@ Results land in <results>/<tracker>/<param>[_NNN]/<dataset>_<MODE>_<EPOCH>/
 
 The model runs on the card unless --device cpu is given: without a card and
 without that flag the run stops with an error. Weights are seeded random
-(seed 0) or a reference checkpoint (.pth, .pth.tar, .bin; build_tracker);
-trainer checkpoints (.msgpack) come with training. The single-stream runner
+(seed 0), a reference checkpoint (.pth, .pth.tar, .bin), or a trainer
+checkpoint: the port's ep%04d.pt or the JAX trainer's ep%04d.msgpack
+(build_tracker). The single-stream runner
 steps the JitTracker's CUDA graphs (Tracker.track, or Tracker.track_many
 with --chunk); --streams S runs S sequences in lockstep, one BatchTracker per
 group size, all on the prototype's JitTracker, so every group shares its
@@ -26,25 +27,53 @@ import numpy as np
 
 from ..core.tokenizer import BertTokenizer
 from ..eval.environment import env_settings, resolve_path
-from ..models.convert import load_reference_state, load_torch_file
+from ..models.convert import from_jax_variables, load_reference_state, load_torch_file
 from ..models.uvltrack import build_model
 from ..track.tracker import Tracker
 
 
+def checkpoint_state(checkpoint: str) -> dict:
+    """The reference-keyed state dict of a checkpoint file, by its suffix:
+    a reference checkpoint (.pth, .pth.tar, .bin: the network under 'net'),
+    the port's trainer checkpoint (ep%04d.pt: the model's state dict,
+    train/checkpoint.py) or the JAX trainer's (ep%04d.msgpack: its flax
+    params and batch_stats, read without the msgpack package and converted
+    by from_jax_variables). Any other suffix raises."""
+    if checkpoint.endswith((".pth", ".pth.tar", ".bin")):
+        return load_torch_file(checkpoint)
+    if checkpoint.endswith(".pt"):
+        from ..train.checkpoint import CheckpointManager
+
+        state, _, _ = CheckpointManager(os.path.dirname(checkpoint)).restore_raw(checkpoint)
+        if "model" not in state:
+            raise ValueError(f"{checkpoint!r}: not a trainer checkpoint of the port "
+                             "(no model state)")
+        return state["model"]
+    if checkpoint.endswith(".msgpack"):
+        from ..utils.msgpack_native import read_checkpoint
+
+        try:
+            state, _, _ = read_checkpoint(checkpoint)
+            params = state["params"]
+        except (KeyError, TypeError) as e:
+            raise ValueError(f"{checkpoint!r}: not a trainer checkpoint of the JAX "
+                             f"package (no {e} entry)") from e
+        return from_jax_variables(params, state.get("batch_stats", {}))
+    raise ValueError(f"{checkpoint!r}: unknown checkpoint type (reference .pth, .pth.tar, "
+                     ".bin; trainer ep%04d.pt or ep%04d.msgpack)")
+
+
 def build_tracker(cfg, checkpoint: str | None = None, device=None) -> Tracker:
     """A Tracker of the model `cfg` describes, on `device` ("cuda" by
-    default), with random weights from seed 0 (build_model) or, given a
-    reference checkpoint (.pth, .pth.tar or .bin: the network under 'net'),
-    its weights through load_reference_state. The tokenizer's vocab is
-    resolved against the repo and the pretrained directory
-    (eval/environment.py::resolve_path); NL and NLBBOX modes warn when it
-    is missing and then track with empty text, as the JAX package does."""
+    default), with random weights from seed 0 (build_model) or the weights
+    of a checkpoint (checkpoint_state) through load_reference_state. The
+    tokenizer's vocab is resolved against the repo and the pretrained
+    directory (eval/environment.py::resolve_path); NL and NLBBOX modes warn
+    when it is missing and then track with empty text, as the JAX package
+    does."""
     model = build_model(cfg, device=device)
     if checkpoint:
-        if not checkpoint.endswith((".pth", ".pth.tar", ".bin")):
-            raise ValueError(f"{checkpoint!r}: the port loads reference checkpoints "
-                             "(.pth, .pth.tar, .bin); trainer checkpoints come with training")
-        unused = load_reference_state(model, load_torch_file(checkpoint))
+        unused = load_reference_state(model, checkpoint_state(checkpoint))
         if unused:
             print(f"converter: {len(unused)} unused keys (e.g. {unused[:3]})")
     tok = None

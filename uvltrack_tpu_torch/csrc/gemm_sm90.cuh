@@ -9,12 +9,14 @@
 //
 //   out[m, n] = TO( EPI( sum_k A[m, k] * W[n, k] (* s[n]) + b[n] ) )   fp32 acc
 //
-// W is a Linear-layout (N_out, K) weight, K-major: bf16, or an int8 payload
+// W is a Linear-layout (N_out, K) weight, K-major: bf16, an int8 payload
 // with its fp32 per-row scale s, which multiplies the fp32 accumulator in the
-// epilogue (rounded before the bias add: the Pallas kernels' order). Kinds:
+// epilogue (rounded before the bias add: the Pallas kernels' order), or fp32
+// (LN_BIAS with an fp32 x and output only: the qkv of an fp32-compute model).
+// Kinds:
 //   - LN_BIAS (ln_qkv) and LN_BIAS_GELU (ln_fc1_gelu): A = LN(x), K = C; EPI
-//     is the identity or the erf GELU; TO is bf16, or fp32 for the int8 qkv
-//     of an fp32 x;
+//     is the identity or the erf GELU; TO is bf16, or fp32 for the int8 or
+//     fp32 qkv of an fp32 x;
 //   - SPLITK_BIAS (fc2_bias): A is the bf16 hidden tensor (M, F), K = F;
 //   - SPLITK_RESIDUAL (proj_residual): A is the attention output (M, K), bf16
 //     or fp32, and out = x + TX(proj) in x's type TX.
@@ -44,6 +46,14 @@
 //     common.cuh; |y - hi - lo| <= 2^-17 |y|, against a B operand that bf16
 //     holds exactly): fp32-accurate, no TF32. An fp32 A tile of the SPLITK
 //     kinds (TMA, 256 bytes a row) is split by both warpgroups, 32 rows each.
+//   - an fp32 W tile (TMA without swizzle, 256 bytes a row) is split into its
+//     hi and lo bf16 tiles in place, in its own ring stage, each warpgroup its
+//     rows (split_w_in_place: the fp32 rows into registers, a warpgroup
+//     barrier, the two tiles written over them); with an fp32 A as well the
+//     product runs three passes, hi.hi + lo.hi + hi.lo, as the attention
+//     body's fp32 products do (attention.cuh): the dropped lo.lo term is at
+//     most 2^-18 |a||w| a product. The split and the products of a tile do
+//     not overlap: the simple form, for the fp32-compute model's qkv.
 //
 // A operand:
 //   - LN kinds: the consumers compute each row's statistics once (fp32,
@@ -370,6 +380,29 @@ __device__ __forceinline__ void split_a_tile(const float* src, uint8_t* hi, uint
   }
 }
 
+// The WN rows of an fp32 W k-tile a warpgroup owns (TMA without swizzle: 256
+// bytes a row, at buf) -> their hi bf16 tile at buf and their lo tile at buf
+// + WN * 128 bytes, in the swizzled K-major layout, over the fp32 rows: each
+// thread holds its WN/16 chunks of 8 values in registers across the
+// warpgroup's barrier `bar`, then writes their halves.
+template <int WN>
+__device__ __forceinline__ void split_w_in_place(uint8_t* buf, int t, int bar) {
+  constexpr int PER = WN * 8 / 128;  // 8-value chunks a thread
+  float v[PER][8];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = t + 128 * j;
+    load8(reinterpret_cast<const float*>(buf + (i >> 3) * 256 + (i & 7) * 32), v[j]);
+  }
+  named_barrier_sync(bar, 128);
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = t + 128 * j;
+    const int r = i >> 3;
+    store_split8(v[j], buf, buf + WN * 128, r * 128 + (((i & 7) ^ (r & 7)) << 4));
+  }
+}
+
 // ------------------------------------------------------ the LN prologue
 // Rows m0..m0+63 of x (M, C) -> LN(x) in shared memory as swizzled 64 x 64
 // bf16 k-tiles (a_smem, 1024-byte aligned): the byte of element (r, k) is
@@ -532,8 +565,11 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtens
                                           int M, int K, int N_out, float eps) {
   constexpr bool LN = KIND == LN_BIAS || KIND == LN_BIAS_GELU;
   constexpr bool W8 = std::is_same<TW, int8_t>::value;
+  constexpr bool W32 = std::is_same<TW, float>::value;  // split in place: a third pass
   constexpr bool A32 = !LN && std::is_same<TA, float>::value;
   constexpr bool HILO = A32 || (LN && std::is_same<TO, float>::value);  // two bf16 passes
+  static_assert(!W32 || (KIND == LN_BIAS && HILO && std::is_same<TX, float>::value),
+                "an fp32 W: LN_BIAS with an fp32 x and output");
   constexpr bool CONVERT = W8 || A32;
   constexpr bool XS = LN && std::is_same<TX, bf16>::value;  // x block staged by TMA
   // the ring stage is free once converted, unless wgmma reads it directly
@@ -645,7 +681,16 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtens
       if constexpr (W8)
         b0 = smem_u32(wcv + cb * BN * 128 + wg * WN * 128);
       else
-        b0 = smem_u32(b_ring + s * B_STAGE + wg * WN * 128);
+        b0 = smem_u32(b_ring + s * B_STAGE + wg * WN * BK * sizeof(TW));
+      const uint32_t b_lo = b0 + WN * 128;  // W32: the lo tile
+
+      if constexpr (W32) {
+        // this warpgroup's rows of tile kt, split in place; the previous
+        // tile's products are complete (waited below)
+        split_w_in_place<WN>(b_ring + s * B_STAGE + wg * WN * BK * 4, t, 2 + wg);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_barrier_sync(2 + wg, 128);
+      }
 
       if constexpr (CONVERT) {
         // convert tile kt while the products of tile kt-1 run; its buffers
@@ -676,6 +721,7 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtens
       for (int kk = 0; kk < BK / 16; ++kk) {
         wgmma<WN>(acc, desc_sw128(a_hi + kk * 32), desc_sw128(b0 + kk * 32));
         if constexpr (HILO) wgmma<WN>(acc, desc_sw128(a_lo + kk * 32), desc_sw128(b0 + kk * 32));
+        if constexpr (W32) wgmma<WN>(acc, desc_sw128(a_hi + kk * 32), desc_sw128(b_lo + kk * 32));
       }
       wgmma_commit();
       if constexpr (!CONVERT) {
@@ -892,7 +938,7 @@ constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
 namespace {
 
 // LN kinds: out (M, N_out) = TO(EPI(LN(x) . W^T (* s) + b)); W (N_out, C)
-// bf16, or int8 with its per-row scale s
+// bf16, int8 with its per-row scale s, or fp32 (fp32 x and out)
 template <int KIND, typename TX, typename TW, typename TO, int BN, int STAGES>
 inline int launch_ln_gemm(const TX* x, const float* gamma, const float* beta, const TW* w,
                           const float* wscale, const float* bias, TO* out, int M, int C,

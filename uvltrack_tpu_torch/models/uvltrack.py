@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import registry
 from ..ops import attention, quant
 from .bert import bert_config_from_type
 from .head import MABH
@@ -118,6 +119,7 @@ def configure_attention(cfg) -> None:
     attention.set_backend("cuda" if bool(cfg.TPU.USE_PALLAS_ATTENTION) else "plain")
 
 
+@registry.MODELS.register("uvltrack")
 def build_model(cfg, device=None, seed: int = 0) -> UVLTrack:
     """UVLTrack from a config, on `device` ("cuda" by default), computing in
     cfg.TPU.COMPUTE_DTYPE with fp32 parameters (prepare_inference_model casts
@@ -193,3 +195,50 @@ def init_model(model: UVLTrack, seed: int = 0) -> UVLTrack:
         v = _init_value(name, tuple(t.shape), rng)
         t.copy_(torch.as_tensor(np.asarray(v)).to(t.dtype))
     return model
+
+
+class ForwardTest(nn.Module):
+    """The deployable per-frame inference program (forward_test_fn): the
+    model's forward_test returning (bbox_map, cls_score_test, cont_score).
+    Its parameters are the model's own, so `torch.export` lifts them as the
+    program's inputs (never constants baked into the graph)."""
+
+    def __init__(self, model: UVLTrack):
+        super().__init__()
+        self.model = model
+
+    def forward(self, template, search, text_ids, text_mask, prompt, flag):
+        out = self.model.forward_test(template, search, text_ids, text_mask, prompt, flag)
+        return out["bbox_map"], out["cls_score_test"], out["cont_score"]
+
+
+def forward_test_fn(model: UVLTrack) -> ForwardTest:
+    """The program that cli/export.py exports and cli/profile.py times
+    (uvltrack_tpu/models/uvltrack.py::forward_test_fn): a module over the
+    model's own parameters; call it with example_test_inputs."""
+    return ForwardTest(model)
+
+
+def example_test_inputs(cfg, model: UVLTrack, batch: int = 1, seed: int = 0) -> tuple:
+    """Concrete example arguments for forward_test_fn, on the model's device
+    (the JAX example_test_inputs from the same numpy draws): random NHWC
+    images at the configured template/search sizes, in-vocab text ids with a
+    full mask, a (B, 3, C) prompt, flag=2 (NL+BBOX)."""
+    tz, sx = int(cfg.DATA.TEMPLATE.SIZE), int(cfg.DATA.SEARCH.SIZE)
+    nt = int(cfg.MODEL.BACKBONE.LANGUAGE.BERT.MAX_QUERY_LEN)
+    c = model.backbone.embed_dim
+    vocab = model.backbone.bert.embeddings.word_embeddings.num_embeddings
+    dev = next(model.parameters()).device
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    return (
+        t(rng.normal(size=(batch, tz, tz, 3)), torch.float32),
+        t(rng.normal(size=(batch, sx, sx, 3)), torch.float32),
+        t(rng.integers(0, vocab, size=(batch, nt)), torch.int32),
+        t(np.ones((batch, nt)), torch.int32),
+        t(rng.normal(size=(batch, 3, c)), torch.float32),
+        t(np.full((batch,), 2), torch.int32),
+    )

@@ -42,9 +42,12 @@ backward), as the JAX package takes its custom VJPs. #3, #5 and #6 have no
 VJP there; their wrappers raise under autograd, naming the knob
 (UVLTRACK_PALLAS_MIN_N, TPU.WEIGHT_QUANT) that keeps training off them.
 
-The bf16 kernels take bf16 weights and activations only, so an fp32 model on
-the card raises there; it runs on the "plain" backend. The JAX package's
-VMEM caps (UVLTRACK_FUSED_VMEM_MB, and the 14 MB gate of its fused MLP)
+Kernel #1 takes bf16 weights, and the fp32 weights of a model at
+TPU.COMPUTE_DTYPE=float32 (`ln_qkv[fp32x-fp32w]`, then `qkv_attention[fp32]`),
+so an fp32 model runs its attention prefix on the kernels in every block. The
+fused projection (#4) and MLP (#7) take bf16 weights only: under
+UVLTRACK_FUSED_PROJ=1 / UVLTRACK_FUSED_MLP=1 an fp32 model's launch raises,
+naming its knob. The JAX package's VMEM caps (UVLTRACK_FUSED_VMEM_MB, and the 14 MB gate of its fused MLP)
 bound a TPU resource that the port's tiled kernels do not have, and are not
 ported: under UVLTRACK_FUSED_MLP=1 the port's #7 runs in every ViT block at
 N=321/361, where the JAX package, over its cap, runs the kernel's XLA twin
@@ -71,6 +74,7 @@ from . import fused_attention as fa
 from . import ln_mlp as lm
 from . import ln_qkv_attention as lqa
 from . import ln_qkv_attn_proj as lqp
+from ..utils.costs import counted
 from .build import grad_needed
 from .quant import is_quantized, quant_dot
 
@@ -134,6 +138,7 @@ def fused_prefix() -> bool:
     return os.environ.get("UVLTRACK_FUSED_PREFIX", "1") != "0"
 
 
+@counted(fa.attention_work)
 def plain_attention(q, k, v, bias=None):
     """Counterpart of xla_attention: q,k,v (B, H, N, D), fp32 logits and
     softmax, probs cast to v's dtype for the product. Returns v.dtype."""

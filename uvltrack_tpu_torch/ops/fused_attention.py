@@ -28,12 +28,24 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from ..utils.costs import counted, nbytes
+from . import build, library
 from .build import FLOAT, I64, INT, PTR, no_grad_through, require
 from .ln_qkv_attention import CLAMP
 
 
+def attention_work(q, k, v, bias=None):
+    """(FLOPs, bytes) of one attention over (B, H, N, D) q, k, v and an
+    additive bias (utils/costs.py): kernel #3's, its plain version's and
+    ops/attention.py::plain_attention's, so BERT's layers count the same on
+    either side of the kernel gate (a key-padding bias is (B, N) fp32 on
+    both)."""
+    b, h, n, d = q.shape
+    return 4 * b * h * n * n * d, nbytes(q, k, v, bias) + nbytes(q) // q.element_size() * v.element_size()
+
+
 # ----------------------------------------------------------------- plain
+@counted(attention_work)
 def fused_attention_plain(q, k, v, key_bias):
     """q, k, v (B, H, N, D); key_bias (B, N) fp32 additive -> (B, H, N, D)
     in v's dtype: fp32 scores times D^-1/2, exp(clip(s + bias, +-80)), e cast
@@ -47,10 +59,13 @@ def fused_attention_plain(q, k, v, key_bias):
 
 
 # ---------------------------------------------------------------- kernel
+@counted(attention_work)
 def fused_attention(q, k, v, key_bias):
     """q, k, v (B, H, N, 64) bf16, any strides with a contiguous head dim (the
     same for all three); key_bias (B, N) fp32 -> (B, H, N, 64) bf16, a view
     of a contiguous (B, N, H, 64) tensor."""
+    if torch.compiler.is_exporting():
+        return library.attention(q, k, v, key_bias).transpose(1, 2)
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, key_bias)
     b, h, n, d = q.shape

@@ -37,7 +37,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import build
+from ..utils.costs import counted, nbytes
+from . import build, library
 from .build import FLOAT, INT, PTR, check_cuda, no_grad_through, require
 from .ln_qkv_attention import LN_MAX_C, layer_norm_fast_var
 from .quant import quant_dot
@@ -58,6 +59,17 @@ def fc2_bias_plain(h, w2, b2):
     return (quant_dot(h.to(w2.dtype), w2) + b2.float()).to(w2.dtype)
 
 
+def ln_mlp_work(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6):
+    """(FLOPs, bytes) of kernel #7's function (utils/costs.py), the kernel's
+    and the plain version's: fc1 and fc2, the (M, F) hidden tensor written
+    and read once in w2's dtype."""
+    c, f = x.shape[-1], w1.shape[0]
+    m = x.numel() // c
+    return (4 * m * c * f, nbytes(x, ln_scale, ln_bias, w1, b1, w2, b2)
+            + (2 * m * f + m * c) * w2.dtype.itemsize)
+
+
+@counted(ln_mlp_work)
 def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6):
     """Kernel #7's function (pallas_attention._xla_ln_mlp): x (B, N, C);
     w1 (F, C), w2 (C, F) in Linear layout, dense or QuantizedTensor ->
@@ -77,7 +89,8 @@ def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float 
     require(x.dtype in (torch.bfloat16, torch.float32),
             f"ln_mlp: x must be bf16 or fp32, got {x.dtype}")
     require(w1.dtype == torch.bfloat16 and w2.dtype == torch.bfloat16,
-            f"ln_mlp: w1, w2 must be bf16, got {w1.dtype}, {w2.dtype}")
+            f"ln_mlp: w1, w2 must be bf16, got {w1.dtype}, {w2.dtype} (an fp32 model, "
+            "TPU.COMPUTE_DTYPE=float32, has no instantiation: unset UVLTRACK_FUSED_MLP)")
     require(all(t.dtype == torch.float32 for t in (ln_scale, ln_bias, b1, b2)),
             "ln_mlp: LN scale/bias and the biases must be fp32")
     require(tuple(w1.shape) == (f, c) and tuple(w2.shape) == (c, f)
@@ -102,10 +115,13 @@ def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float 
     return out
 
 
+@counted(ln_mlp_work)
 def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6):
     """x (B, N, C) bf16|fp32; ln_scale, ln_bias (C,) fp32; w1 (F, C), w2 (C, F)
     bf16 (Linear layout); b1 (F,), b2 (C,) fp32 -> (B, N, C) bf16, the MLP
     output before the residual. Two kernel launches on a CUDA tensor."""
+    if torch.compiler.is_exporting():
+        return library.ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
     if x.device.type == "cpu":
         return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
     b, n, c = x.shape

@@ -21,12 +21,14 @@ of the H100's 132 SMs, so the port splits each in two kernels
   fp32 row sums, P.V, division at the end; out (B, N, C) before the output
   projection. In fp32 every product runs as three bf16 hi/lo passes.
 
-Compute dtype, as in the Pallas kernels: the bf16-weight kernel (#1)
-computes in the weight's dtype, bf16, whatever x is. The int8 kernel (#5)
+Compute dtype, as in the Pallas kernels: kernel #1 computes in the weight's
+dtype: bf16 for a bf16 weight, whatever x is; fp32 for the fp32 weight of a
+model at TPU.COMPUTE_DTYPE=float32, whose stream is fp32 in every block (its
+product runs as three bf16 hi/lo passes, no TF32). The int8 kernel (#5)
 computes in x's dtype: bf16 in the visual blocks, fp32 in the joint blocks,
 where nothing is rounded to bf16 (normalized rows, qkv, scores, e, P.V and
-the output all stay fp32). So `ln_qkv` has four instantiations (x bf16/fp32
-x weight bf16/int8) and `qkv_attention` two (bf16, fp32).
+the output all stay fp32). So `ln_qkv` has five instantiations (x bf16/fp32
+x weight bf16/int8, and fp32x-fp32w) and `qkv_attention` two (bf16, fp32).
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises on a nonzero cudaGetLastError, and counts
@@ -41,7 +43,8 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from ..utils.costs import counted, nbytes
+from . import build, library
 from .build import FLOAT, INT, PTR, check_cuda, no_grad_through, require
 from .quant import QuantizedTensor, quant_dot
 
@@ -51,9 +54,33 @@ CLAMP = 80.0  # exp-safe score range of the kernels (pallas_attention._CLAMP)
 # ring (csrc/gemm_sm90.cuh MAX_C; at C=1024 the fc1 launch uses 205,880 of a
 # block's 232,448 bytes)
 LN_MAX_C = 1024
+# csrc/ln_qkv.cu's w_kind by the weight's dtype
+W_KIND = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 # the int8 launches' answer under autograd: kernels #5/#6 have no VJP
 INT8_NO_GRAD = ("weight-only int8 (TPU.WEIGHT_QUANT) is inference-only, as in the JAX "
                 "package: train with TPU.WEIGHT_QUANT unset")
+
+
+# ------------------------------------------------------------- work
+# A kernel and its plain version count the same work (utils/costs.py): the
+# products' FLOPs, each input read once and each output written once.
+def _rows(x):
+    return x.numel() // x.shape[-1], x.shape[-1]
+
+
+def ln_qkv_work(x, ln_scale, ln_bias, w_qkv, b_qkv, eps=1e-6):
+    (m, c), f = _rows(x), w_qkv.shape[0]
+    return 2 * m * c * f, nbytes(x, ln_scale, ln_bias, w_qkv, b_qkv) + m * f * w_qkv.dtype.itemsize
+
+
+def ln_qkv_q8_work(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps=1e-6):
+    (m, c), f = _rows(x), w_q.shape[0]
+    return 2 * m * c * f, nbytes(x, ln_scale, ln_bias, w_q, w_scale, b_qkv) + m * f * x.dtype.itemsize
+
+
+def qkv_attention_work(qkv, key_bias, heads):
+    b, n, f = qkv.shape
+    return 4 * b * n * n * f // 3, nbytes(qkv, key_bias) + nbytes(qkv) // 3
 
 
 # ----------------------------------------------------------------- plain
@@ -68,6 +95,7 @@ def layer_norm_fast_var(x: torch.Tensor, scale: torch.Tensor,
     return y * scale.float() + bias.float()
 
 
+@counted(ln_qkv_work)
 def ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps: float = 1e-6):
     """Plain version of `ln_qkv` (pallas_attention._xla_ln_qkv): the
     normalized rows and the result in w_qkv's dtype, which for a
@@ -76,6 +104,7 @@ def ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps: float = 1e-6):
     return (quant_dot(y, w_qkv) + b_qkv.float()).to(w_qkv.dtype)
 
 
+@counted(ln_qkv_q8_work)
 def ln_qkv_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps: float = 1e-6):
     """Plain version of `ln_qkv_q8`: the q8 kernel's prefix
     (_ln_qkv_attn_kernel_q8 :441-453), computing in x's dtype."""
@@ -83,6 +112,7 @@ def ln_qkv_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps: float = 1e-6
                         b_qkv, eps)
 
 
+@counted(qkv_attention_work)
 def qkv_attention_plain(qkv, key_bias, heads: int):
     """Plain version of `qkv_attention`: the kernel's clamped, late-divided
     softmax (pallas_attention._attn_kernel_qkv's math), e cast to qkv's
@@ -133,27 +163,36 @@ def _launch_ln_qkv(x, ln_scale, ln_bias, w, w_scale, b_qkv, eps, out_dtype):
     build.launch("ln_qkv", f"{build.dtype_tag(x)}x-{build.dtype_tag(w)}w",
                  [PTR, INT, PTR, PTR, PTR, INT, PTR, PTR, PTR, INT, INT, INT, FLOAT],
                  x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(),
-                 ln_bias.data_ptr(), w.data_ptr(), int(w_scale is not None),
+                 ln_bias.data_ptr(), w.data_ptr(), W_KIND[w.dtype],
                  w_scale.data_ptr() if w_scale is not None else None, b_qkv.data_ptr(),
                  out.data_ptr(), b * n, c, f, eps, stream_of=x)
     return out
 
 
+@counted(ln_qkv_work)
 def ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, eps: float = 1e-6):
-    """x (B, N, C) bf16|fp32; ln_scale, ln_bias (C,) fp32; w_qkv (3C, C) bf16
-    (Linear layout); b_qkv (3C,) fp32 -> (B, N, 3C) bf16 (kernel #1's
-    prefix)."""
+    """x (B, N, C) bf16|fp32; ln_scale, ln_bias (C,) fp32; w_qkv (3C, C) bf16,
+    or fp32 with an fp32 x (Linear layout); b_qkv (3C,) fp32 -> (B, N, 3C) in
+    w_qkv's dtype (kernel #1's prefix)."""
+    if torch.compiler.is_exporting():
+        return library.ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
     if x.device.type == "cpu":
         return ln_qkv_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
-    require(w_qkv.dtype == torch.bfloat16, f"ln_qkv: w_qkv must be bf16, got {w_qkv.dtype}")
+    require(w_qkv.dtype in (torch.bfloat16, torch.float32),
+            f"ln_qkv: w_qkv must be bf16 or fp32, got {w_qkv.dtype}")
+    require(w_qkv.dtype == torch.bfloat16 or x.dtype == torch.float32,
+            f"ln_qkv: an fp32 w_qkv (fp32 compute) needs an fp32 x, got {x.dtype}")
     require(x.shape[-1] <= LN_MAX_C, f"ln_qkv: C must be at most {LN_MAX_C} (the LN block of 64 "
             f"rows in shared memory), got {x.shape[-1]}")
-    return _launch_ln_qkv(x, ln_scale, ln_bias, w_qkv, None, b_qkv, eps, torch.bfloat16)
+    return _launch_ln_qkv(x, ln_scale, ln_bias, w_qkv, None, b_qkv, eps, w_qkv.dtype)
 
 
+@counted(ln_qkv_q8_work)
 def ln_qkv_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps: float = 1e-6):
     """x (B, N, C) bf16|fp32; w_q (3C, C) int8 payload; w_scale (3C,) fp32
     per-row scale -> (B, N, 3C) in x's dtype (kernel #5's prefix)."""
+    if torch.compiler.is_exporting():
+        return library.ln_qkv_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps)
     if x.device.type == "cpu":
         return ln_qkv_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps)
     require(w_q.dtype == torch.int8, f"ln_qkv_q8: w_q must be int8, got {w_q.dtype}")
@@ -164,9 +203,12 @@ def ln_qkv_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps: float = 1e-6):
     return _launch_ln_qkv(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps, x.dtype)
 
 
+@counted(qkv_attention_work)
 def qkv_attention(qkv, key_bias, heads: int):
     """qkv (B, N, 3*H*64) bf16|fp32; key_bias (B, N) fp32 additive ->
     (B, N, H*64) in qkv's dtype."""
+    if torch.compiler.is_exporting():
+        return library.qkv_attention(qkv, key_bias, heads)
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, key_bias, heads)
     b, n, f = qkv.shape
@@ -188,9 +230,9 @@ def qkv_attention(qkv, key_bias, heads: int):
 
 def ln_qkv_attention(x, ln_scale, ln_bias, w_qkv, b_qkv, key_bias,
                      heads: int, eps: float = 1e-6):
-    """Kernel #1's function: (B, N, C) residual stream -> (B, N, C) bf16
-    attention output before the projection. On a CUDA tensor: `ln_qkv`
-    then `qkv_attention`, two launches."""
+    """Kernel #1's function: (B, N, C) residual stream -> (B, N, C)
+    attention output before the projection, in w_qkv's dtype. On a CUDA
+    tensor: `ln_qkv` then `qkv_attention`, two launches."""
     qkv = ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
     return qkv_attention(qkv, key_bias, heads)
 

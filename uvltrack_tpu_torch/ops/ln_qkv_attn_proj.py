@@ -32,7 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from ..utils.costs import counted, nbytes
+from . import build, library
 from . import ln_qkv_attention as lqa
 from .build import INT, PTR, check_cuda, no_grad_through, require
 from .quant import QuantizedTensor, quant_dot
@@ -46,7 +47,16 @@ _OK = {  # (x, A, Wp) dtypes the kernel is instantiated for
 }
 
 
+def proj_residual_work(x, attn, w_proj, b_proj, wp_scale=None):
+    """(FLOPs, bytes) of one projection + residual (utils/costs.py): the
+    kernel's and the plain version's."""
+    k = attn.shape[-1]
+    return (2 * (attn.numel() // k) * k * w_proj.shape[0],
+            nbytes(x, attn, w_proj, b_proj, wp_scale) + nbytes(x))
+
+
 # ----------------------------------------------------------------- plain
+@counted(proj_residual_work)
 def proj_residual_plain(x, attn, w_proj, b_proj):
     """x + (attn @ w_proj.T (scaled) + b_proj) rounded to x's dtype; w_proj
     a dense weight or a QuantizedTensor."""
@@ -72,15 +82,21 @@ def ln_qkv_attn_proj_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, wp_q,
 
 
 # ---------------------------------------------------------------- kernels
+@counted(proj_residual_work)
 def proj_residual(x, attn, w_proj, b_proj, wp_scale=None):
     """x (B, N, C) bf16|fp32 residual stream; attn (B, N, K) bf16|fp32;
     w_proj (C, K) bf16, or int8 with wp_scale (C,) fp32; b_proj (C,) fp32
     -> x + proj, (B, N, C) in x's dtype."""
+    if torch.compiler.is_exporting():
+        return library.proj_residual(x, attn, w_proj, b_proj, wp_scale)
     if x.device.type == "cpu":
         w = w_proj if wp_scale is None else QuantizedTensor(w_proj, wp_scale, attn.dtype)
         return proj_residual_plain(x, attn, w, b_proj)
     b, n, c = x.shape
     k = attn.shape[-1]
+    require(w_proj.dtype != torch.float32,
+            "proj_residual: no fp32-weight instantiation (TPU.COMPUTE_DTYPE=float32); "
+            "unset UVLTRACK_FUSED_PROJ to run the projection plain")
     require((x.dtype, attn.dtype, w_proj.dtype) in _OK,
             f"proj_residual: no instantiation for x {x.dtype}, attn {attn.dtype}, "
             f"w_proj {w_proj.dtype}")
