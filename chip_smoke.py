@@ -196,15 +196,41 @@ Phases, one JSON line each:
                  a trainer checkpoint (ep0001.pt, train/checkpoint.py) over one
                  24-frame OTB99 sequence: its result file byte for byte a direct
                  replay, the tracker's weights the checkpoint's.
+  11. parallel -- (a) dp=2 on one card: two processes on cuda:0 over gloo
+                 (named in the phase: NCCL refuses two ranks on one GPU), each
+                 stepping its half of B-TRAIN's global batch (8 samples x 2
+                 search frames; seed 0) with the gradient all_reduce, ZeRO-1 off
+                 and on, and 16 samples x 1 search frame (the half-batch
+                 rotation exchanged across the ranks), 3 steps each, against the
+                 dp=1 step on the same 16 rows in turns (dp=1, dp=2, dp=1): step
+                 1 under B-TRAIN's gate, ZeRO-1's parameters against the
+                 replicated update of the same gradients (rtol 1e-3 / atol
+                 1e-4), each rank's Adam moment bytes, step ms, 12 + 12 launches
+                 a step on each rank. (b) cli.train.main --multihost at world
+                 size 1 on NCCL (torchrun's environment set for this process):
+                 2 synthetic steps and a checkpoint. (c) The stream mesh: two
+                 replicas on cuda:0 (make_mesh(devices=[cuda:0, cuda:0]))
+                 against the unsharded BatchTracker at S=8 and S=5 (S_pad 6):
+                 16 steps from a shared state on the eager debug step
+                 (paired_ab's rule, the bitwise rows counted, one forward's
+                 launches per replica a step), then 24 steps on the CUDA graphs
+                 in turns (step ms, stream-frames/s, busy share; each replica's
+                 step graph holds one forward's launches). (d) cli.test.main
+                 --multichip --streams 4 over 4 ragged 720p sequences: the
+                 result files of --streams 4 without it, byte for byte; the
+                 --multichip --lockstep 4 server (make_server on the CLI's mesh)
+                 against a direct StreamPool, 12 rounds, bit for bit. On one
+                 card the CLIs' mesh of the visible cards has one replica.
 --only runs some groups (kernels = phase 2, track = 3-4 but the
-multistream ones, multistream, compiled, serve, eval, train, data, cli) and prints no kernels
+multistream ones, multistream, compiled, serve, eval, train, data, cli, parallel) and prints no kernels
 line; in a full run the kernels line counts the eval runs' launches, and
 the rows of the instantiations on L's path carry their L times ("C1024").
 Then the script's total seconds, the {"kernels": [...]} line (each
 kernel's times at B=1 and, under "B8", at the lockstep batch; "launches"
 counted by the wrappers on the eager paths, "graph_launches" the graphs'
 captured calls times their replays, "train_launches" the train group's
-B-TRAIN runs (b)-(e) and the data group's (c)-(d); the fp32-weight row's
+B-TRAIN runs (b)-(e), the data group's (c)-(d) and the parallel group's
+(a)-(b), both dp=2 ranks included; the fp32-weight row's
 launches come from the cli group's export and parity runs), the
 nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failure raises: no ok line, exit 1.
@@ -267,7 +293,8 @@ MLP_N = (48, 321, 361, 681)  # kernel #7's check shapes
 # the instantiations the kernels line's two bf16 rows count
 NAMED_BY_BASE = {"ln_qkv": ("ln_qkv[bf16x-bf16w]", "ln_qkv[fp32x-bf16w]"),
                  "qkv_attention": ("qkv_attention[bf16]",)}
-GROUPS = ("kernels", "track", "multistream", "compiled", "serve", "eval", "train", "data", "cli")
+GROUPS = ("kernels", "track", "multistream", "compiled", "serve", "eval", "train", "data", "cli",
+          "parallel")
 ATTN_N = (40, 48, 128, 321, 361, 681)  # kernel #3's: BERT's N, 128 and the ViT's
 
 TIMER = ("CUDA events, L2-warm: *ms = mean of 200 back-to-back eager calls after 20 "
@@ -3495,7 +3522,7 @@ def real_cli(argv, run: dict):
 
     run.update(steps=[], wait_ms=[], wait_t0=[])
     at = run.get("profile_at")
-    setup0, build0 = tstep.setup_training, tloader.build_train_loader
+    setup0, build0 = tstep.setup_sharded_training, tloader.build_train_loader
 
     def setup(*a, **k):
         model, state, step = setup0(*a, **k)
@@ -3518,14 +3545,14 @@ def real_cli(argv, run: dict):
         timed.step = step
         return model, state, timed
 
-    tstep.setup_training = setup
+    tstep.setup_sharded_training = setup
     tloader.build_train_loader = lambda *a, **k: _TimedLoader(build0(*a, **k), run)
     try:
         t0 = time.perf_counter()
         trainer = ctrain.main(argv)
         run["seconds"] = time.perf_counter() - t0
     finally:
-        tstep.setup_training, tloader.build_train_loader = setup0, build0
+        tstep.setup_sharded_training, tloader.build_train_loader = setup0, build0
     for i, st in enumerate(run["steps"]):
         expect_launches(TRAIN_PER_FWD, 1, st["launches"], f"B-TRAIN-REAL step {i + 1}")
         if not math.isfinite(st["loss"]):
@@ -4069,6 +4096,540 @@ def cli_phase(args, dev, vocab: Path, tmp: Path) -> dict:
     return {"f32w": f32w, "launches": launches, "graph_launches": glaunch}
 
 
+# ---------------------------------------------------------------- parallel
+# dp=2 on one card: two processes on cuda:0 over gloo, chosen and named here:
+# NCCL refuses two ranks on one GPU, so gloo is the one cross-process check one
+# card allows (gloo runs its all_reduce and all_gather of CUDA tensors through
+# the host). Cases: B-TRAIN (8 samples x 2 search frames, the rotation local)
+# with ZeRO-1 off and on, and 16 samples x 1 search frame (the rotation
+# crosses ranks: the all_gather exchange under autograd).
+DP_BACKEND = "gloo"
+# ZeRO-1 against the replicated step (the JAX package's test_train_stack bound)
+Z1_RTOL, Z1_ATOL = 1e-3, 1e-4
+DP_CASES = (("replicated", {}, False), ("zero1", {}, True),
+            ("search1", {"DATA.SEARCH.NUMBER": 1, "TRAIN.BATCH_SIZE": 16}, False))
+DP_STEPS = 3  # step 1 gated, steps 2-3 timed
+DP_TIMEOUT_S = 600
+# the stream mesh on one card: two replicas on cuda:0 against the unsharded
+# BatchTracker, frame by frame from a shared state, at S=8 and S=5 (S_pad 6)
+MESH_AB_STEPS = 16  # before the first re-mine (frame 20)
+MESH_TIMED_STEPS = 24  # a re-mine at 20 in each run
+PAR_EVAL_LENGTHS = (24, 30, 20, 26)  # cli.test --streams 4 over 4 ragged sequences
+DP_TIMER = ("host clock per train_step (forward, backward, the gradient all_reduce, clip, "
+            "AdamW), each ending in a read of its loss; dp=2: the two processes share one "
+            "card and reduce through gloo over the host")
+MESH_TIMER = ("host clock per BatchTracker.step on the CUDA graphs (upload, every replica's "
+              "replays, the read-back of the (S, 5) rows); runs in turns unsharded, mesh, "
+              "mesh, unsharded")
+
+
+class PairedOptimizer:
+    """ZeRO-1 against the replicated update of the same gradients: step()
+    hands the gradients the train step left on `model` to a second model's
+    parameters, then steps both optimizers (the backward on the card is not
+    bitwise repeatable, and Adam's first step moves a parameter whose
+    gradient is rounding noise by +-lr either way, so two runs are compared
+    from one backward)."""
+
+    def __init__(self, model, zero1, follow_model, follow):
+        self.model, self.zero1 = model, zero1
+        self.follow_model, self.follow = follow_model, follow
+
+    def step(self, step: int):
+        for a, b in zip(self.model.parameters(), self.follow_model.parameters()):
+            b.grad = None if a.grad is None else a.grad.clone()
+        norm = self.zero1.step(step)
+        self.follow.step(step)
+        return norm
+
+
+def dp_worker(args) -> int:
+    """One rank of the dp=2 run (a child of the parallel group): every case
+    of DP_CASES from the seed's init on this rank's rows of the global
+    batch, DP_STEPS steps; writes rank<R>.json (losses, grad_norms, step
+    ms, launches, Adam moment bytes; step 1 under ZeRO-1 against the
+    replicated update of the same gradients)."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.data.synthetic import synthetic_batch_from_cfg
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.parallel.mesh import init_distributed, make_mesh, shard_batch
+    from uvltrack_tpu_torch.train.step import setup_sharded_training
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = Path(args.dp_worker)
+    dev = init_distributed(torch.device("cuda"), backend=DP_BACKEND)
+    mesh = make_mesh(data=-1, devices=[dev])
+    res = {"rank": mesh.rank, "world": mesh.world, "device": str(dev), "backend": DP_BACKEND}
+    for case, over, zero1 in DP_CASES:
+        cfg = train_config(**over)
+        batch = synthetic_batch_from_cfg(np.random.default_rng(args.seed), cfg,
+                                         int(cfg.TRAIN.BATCH_SIZE))
+        local = {k: torch.from_numpy(v).to(dev) for k, v in shard_batch(mesh, batch).items()}
+        _, state, step = setup_sharded_training(cfg, mesh, 1, device=dev, seed=args.seed,
+                                                zero1=zero1)
+        ref = None
+        if zero1:  # the replicated update of step 1's gradients beside it
+            _, ref, _ = setup_sharded_training(cfg, mesh, 1, device=dev, seed=args.seed)
+            z1_opt = state.optimizer
+            state.optimizer = PairedOptimizer(state.model, z1_opt, ref.model, ref.optimizer)
+        before = build.instantiation_counts()
+        runs = []
+        for i in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, local)
+            loss = float(m["Loss/total"])
+            runs.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                         "grad_norm": float(m["grad_norm"])})
+            if ref is not None:
+                worst = max(float(((p - r).abs() - Z1_RTOL * r.abs()).max() / Z1_ATOL)
+                            for p, r in zip(state.model.parameters(), ref.model.parameters()))
+                same = sum(int(torch.equal(p, r)) for p, r in zip(state.model.parameters(),
+                                                                  ref.model.parameters()))
+                res["zero1_vs_replicated_step1"] = {
+                    "max_excess_over_atol": worst,
+                    "parameters_bitwise_equal": f"{same}/{len(list(ref.model.parameters()))}",
+                    "rule": f"|zero1 - replicated| <= {Z1_ATOL} + {Z1_RTOL} x |replicated|, "
+                            "both updates from the same gradients"}
+                state.optimizer, ref = z1_opt, None
+                torch.cuda.empty_cache()
+        res[case] = {"rows": int(local["flag"].shape[0] * local["search_images"].shape[0]),
+                     "losses": [r["loss"] for r in runs],
+                     "grad_norms": [r["grad_norm"] for r in runs], "ms": [r["ms"] for r in runs],
+                     "launches": launches_since(before),
+                     "moment_bytes": state.optimizer.moment_bytes()}
+        del state, step, local
+        torch.cuda.empty_cache()
+    (out_dir / f"rank{mesh.rank}.json").write_text(json.dumps(res))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_phase(args, dev, tmp: Path) -> dict:
+    """dp=2 on one card (two gloo processes, dp_worker) against the dp=1 step
+    on the same rows in turns (dp=1, dp=2, dp=1): step 1 under B-TRAIN's
+    gate (loss within TRAIN_LOSS_REL; grad_norm within max(TRAIN_NORM_REL,
+    2 x the plain backend's move under a 2^-12 input change)), ZeRO-1's
+    parameters within Z1_RTOL / Z1_ATOL of the replicated step's, each rank's
+    Adam moment bytes. Returns the launches of the dp=1 steps and of both
+    ranks' steps."""
+    import gc
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.data.synthetic import synthetic_batch_from_cfg
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.train.step import setup_training
+
+    total = Counter()
+
+    def dp1(case_over, n):
+        cfg = train_config(**case_over)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch_from_cfg(
+            np.random.default_rng(args.seed), cfg, int(cfg.TRAIN.BATCH_SIZE)).items()}
+        _, state, step = setup_training(cfg, 1, device=dev, seed=args.seed)
+        probes = {"plain": _probe(state.model, batch, cfg, "plain"),
+                  "plain_eps": _probe(state.model, batch, cfg, "plain", TRAIN_PROBE_EPS,
+                                      args.seed)}
+        before = build.instantiation_counts()
+        state, runs = _train_run(state, step, batch, "cuda", n)
+        total.update(launches_since(before))
+        moments = state.optimizer.moment_bytes()
+        del state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        sens = abs(probes["plain_eps"]["grad_norm"] - probes["plain"]["grad_norm"]) / probes[
+            "plain"]["grad_norm"]
+        return runs, sens, moments
+
+    t0 = time.perf_counter()
+    first = {case: dp1(over, DP_STEPS) for case, over, _ in DP_CASES if case != "zero1"}
+    port = free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
+                   RANK=str(rank), LOCAL_RANK="0")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--seed", str(args.seed),
+             "--dp-worker", str(tmp)], env=env, cwd=str(REPO), text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    t_dp2 = time.perf_counter()
+    try:
+        logs = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    t_dp2 = time.perf_counter() - t_dp2
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"dp=2 rank {rank} exited {p.returncode}:\n{log[-3000:]}")
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+    second = {case: dp1(over, 2) for case, over, _ in DP_CASES if case != "zero1"}
+    gates = {}
+    for case, _, _ in DP_CASES:
+        ref_case = "replicated" if case == "zero1" else case
+        runs, sens, _ = first[ref_case]
+        bound = max(TRAIN_NORM_REL, 2 * sens)
+        for r in ranks:
+            for k in r[case]["launches"]:
+                total[k] += r[case]["launches"][k]
+            if r[case]["losses"] != ranks[0][case]["losses"]:
+                raise AssertionError(f"dp=2 {case}: the ranks' losses differ: "
+                                     f"{[x[case]['losses'] for x in ranks]}")
+            expect_launches(TRAIN_PER_FWD, DP_STEPS, r[case]["launches"],
+                            f"dp=2 {case} rank {r['rank']}")
+        loss_rel, norm_rel = step1_gate(
+            {"loss": ranks[0][case]["losses"][0], "grad_norm": ranks[0][case]["grad_norms"][0]},
+            runs[0], bound, f"dp=2 {case} vs dp=1")
+        gates[case] = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_norm_bound": bound,
+                       "plain_grad_norm_move_at_eps": sens}
+    z = ranks[0]["zero1_vs_replicated_step1"]
+    if z["max_excess_over_atol"] > 1.0:
+        raise AssertionError(f"ZeRO-1 vs replicated after step 1: {z}")
+    dp1_ms = {case: _p50([r["ms"] for r in first[case][0][1:] + second[case][0]])
+              for case in first}
+    dp2_ms = {case: _p50(sum((r[case]["ms"][1:] for r in ranks), [])) for case, _, _ in DP_CASES}
+    out = {"phase": "parallel_dp", "config": "experiments/uvltrack/baseline_base.yaml",
+           "backend": DP_BACKEND, "why_gloo": "NCCL refuses two ranks on one GPU; gloo is the "
+           "cross-process check one card allows (all_reduce and all_gather of CUDA tensors, "
+           "through the host)",
+           "processes": 2, "device": ranks[0]["device"], "timer": DP_TIMER,
+           "cases": {case: {"over": over, "zero1": z1, "global_rows": TRAIN_B,
+                            "rows_per_rank": ranks[0][case]["rows"]}
+                     for case, over, z1 in DP_CASES},
+           "gate": f"step 1, dp=2 vs dp=1 on the same rows (relative): loss within "
+                   f"{TRAIN_LOSS_REL}, grad_norm within max({TRAIN_NORM_REL}, 2 x the plain "
+                   "backend's move under a 2^-12 input change)",
+           "step1": gates, "zero1_vs_replicated_step1": z,
+           "losses": {"dp1": {c: [r["loss"] for r in first[c][0]] for c in first},
+                      "dp2": {c: ranks[0][c]["losses"] for c, _, _ in DP_CASES}},
+           "grad_norms": {"dp1": {c: [r["grad_norm"] for r in first[c][0]] for c in first},
+                          "dp2": {c: ranks[0][c]["grad_norms"] for c, _, _ in DP_CASES}},
+           "step_ms_p50": {"dp1": dp1_ms, "dp2": dp2_ms},
+           "samples_per_s": {"dp1": {c: TRAIN_B / (dp1_ms[c] / 1e3) for c in dp1_ms},
+                             "dp2": {c: TRAIN_B / (dp2_ms[c] / 1e3) for c in dp2_ms}},
+           "adam_moment_mb_per_rank": {
+               "dp1": first["replicated"][2] / 2 ** 20,
+               **{f"dp2_{c}": [r[c]["moment_bytes"] / 2 ** 20 for r in ranks]
+                  for c in ("replicated", "zero1")}},
+           "launches_per_step_per_rank": TRAIN_PER_FWD, "dp2_wall_s": t_dp2,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return dict(total)
+
+
+def multihost_cli(args, tmp: Path) -> dict:
+    """cli.train.main --multihost at world size 1 on NCCL (this process as
+    rank 0 of torchrun's environment): 2 synthetic steps and a checkpoint.
+    Returns its launches."""
+    import torch
+
+    from uvltrack_tpu_torch.cli import train as ctrain
+    from uvltrack_tpu_torch.ops import build
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "WORLD_SIZE": "1",
+           "RANK": "0", "LOCAL_RANK": "0"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    argv = ["--config", "baseline_base", "--synthetic", "2", "--epochs", "1", "--multihost",
+            "--seed", str(args.seed), "--save_dir", str(tmp)]
+    dist, backends = torch.distributed, []
+    init = dist.init_process_group
+
+    def record(backend, *a, **kw):  # the backend the CLI chose
+        backends.append(backend)
+        return init(backend, *a, **kw)
+
+    before = build.instantiation_counts()
+    t0 = time.perf_counter()
+    dist.init_process_group = record
+    try:
+        trainer = ctrain.main(argv)
+    finally:
+        dist.init_process_group = init
+        for k, v in old.items():
+            os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+    seconds = time.perf_counter() - t0
+    launches = launches_since(before)
+    ck = tmp / "checkpoints" / "train" / "uvltrack" / "baseline_base"
+    files = sorted(os.listdir(ck))
+    if trainer.state.step != 2 or files != ["ep0001.pt"] or torch.distributed.is_initialized():
+        raise AssertionError(f"cli.train --multihost: step {trainer.state.step}, {files}")
+    expect_launches(TRAIN_PER_FWD, 2, launches, "cli.train --multihost")
+    if backends != ["nccl"]:
+        raise AssertionError(f"cli.train --multihost on the card initialized {backends}")
+    emit({"phase": "parallel_multihost_cli", "argv": " ".join(argv), "backend": backends[0],
+          "world_size": 1, "env": sorted(env), "checkpoints": files, "seconds": seconds,
+          "launches": launches})
+    del trainer
+    return launches
+
+
+def stream_mesh_phase(model, cfg, seqs, per_fwd) -> list:
+    """Two replicas on cuda:0 (make_mesh(devices=[cuda:0, cuda:0])) against
+    the unsharded BatchTracker at S=8 and S=5 (S_pad 6, a pad stream): every
+    step from the unsharded tracker's state on the eager debug step
+    (paired_ab's rule; the rows bitwise equal counted; each replica launches
+    one forward's kernels a step); then the CUDA graphs in turns: step ms,
+    stream-frames/s, the profiler's busy share, and each replica's step
+    graph holding one forward's launches. Returns the JitTrackers."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.ops import attention, build
+    from uvltrack_tpu_torch.parallel.mesh import make_mesh
+    from uvltrack_tpu_torch.track.batch import BatchTracker
+
+    dev = next(model.parameters()).device
+    mesh = make_mesh(devices=[dev, dev])
+    jts = []
+    attention.force_backend("cuda")
+    for S in (8, 5):
+        t_cell = time.perf_counter()
+        frames0 = [seqs[i][0][0] for i in range(S)]
+        boxes0 = np.asarray([seqs[i][1][0] for i in range(S)], np.float32)
+        batches = [np.stack([seqs[i][0][t] for i in range(S)])
+                   for t in range(1, MESH_TIMED_STEPS + 1)]
+        one = BatchTracker(cfg, model, S)
+        sharded = BatchTracker(cfg, model, S, mesh=mesh)
+        if (sharded.S_pad, [r.S for r in sharded.replicas]) != (2 * -(-S // 2), [-(-S // 2)] * 2):
+            raise AssertionError(f"mesh S={S}: S_pad {sharded.S_pad}")
+        one.initialize(frames0, boxes0)
+        sharded.initialize(frames0, boxes0)
+        tally, bitwise, rows = AbTally(f"mesh S={S} sharded/unsharded"), 0, 0
+        for batch in batches[:MESH_AB_STEPS]:
+            st = one.state
+            sharded.state = st
+            a, am = (t.float().cpu().numpy() for t in one.step_async(batch, debug=True))
+            before = build.instantiation_counts()
+            b, bm = (t.float().cpu().numpy() for t in sharded.step_async(batch, debug=True))
+            expect_launches(per_fwd, len(sharded.replicas), launches_since(before),
+                            f"mesh S={S} step")
+            for i in range(S):
+                tally.add(a[i, :4], am[i, 2], b[i, :4], bm[i, 2],
+                          crop_side(st.box[i].tolist(), one.search_factor))
+                bitwise += int(np.array_equal(a[i], b[i]))
+                rows += 1
+
+        def run(bt):
+            bt.initialize(frames0, boxes0)
+            lat = []
+            for batch in batches:
+                t0 = time.perf_counter()
+                out = bt.step(batch)
+                lat.append(time.perf_counter() - t0)
+            if not np.isfinite(out).all() or out.shape != (S, 5):
+                raise AssertionError(f"mesh S={S}: output {out.shape}")
+            return lat
+
+        lats = {"unsharded": [], "mesh": []}
+        for name, bt in (("unsharded", one), ("mesh", sharded), ("mesh", sharded),
+                         ("unsharded", one)):
+            lats[name].append(run(bt))
+        if sharded.remines.tolist() != [MESH_TIMED_STEPS // 20] * S:
+            raise AssertionError(f"mesh S={S}: re-mines {sharded.remines.tolist()}")
+        caps = {}
+        for r, rep in enumerate(sharded.replicas):
+            keys = rep.jt.keys()
+            remine = eager_remine_launches(rep)
+            caps[f"replica{r}"] = check_captures(rep.jt, keys, per_fwd, remine,
+                                                 f"mesh S={S} replica {r}")
+            jts.append(rep.jt)
+        busy = {}
+        for name, bt in (("unsharded", one), ("mesh", sharded)):
+            bt.initialize(frames0, boxes0)
+            bt.step(batches[0])
+            busy[name] = profile_window(lambda j, bt=bt: bt.step(batches[1 + j]), 8, "step")
+        stats = {k: lat_stats(sum(v, []), "step") for k, v in lats.items()}
+        emit({"phase": f"parallel_stream_mesh_S{S}", "S": S, "S_pad": sharded.S_pad,
+              "replicas": len(sharded.replicas), "device": str(dev),
+              "rows_per_replica": sharded.per, "timer": MESH_TIMER,
+              "paired": tally.summary(), "rows_bitwise_equal": f"{bitwise}/{rows}",
+              "launches_per_replica_step": per_fwd,
+              "graph_captures": caps,
+              "step_ms_p50": {k: v["p50_ms"] for k, v in stats.items()},
+              "step_ms_p90": {k: v["p90_ms"] for k, v in stats.items()},
+              "stream_frames_per_s": {k: S * v["steps_per_s"] for k, v in stats.items()},
+              "device_profile": busy, "seconds": time.perf_counter() - t_cell})
+    attention.force_backend(None)
+    return jts
+
+
+def mesh_cli_phase(args, model, cfg, vocab: Path, tmp: Path, seqs) -> dict:
+    """cli.test --multichip --streams 4 over 4 ragged 720p sequences of the
+    eval group's kind: the same result files, byte for byte, as --streams 4
+    without it; then cli/serve's --multichip --lockstep 4 server (make_server
+    on the mesh the CLI makes) against a direct unsharded StreamPool, bit
+    for bit. On one card the mesh of the visible cards has one replica.
+    Returns the JitTrackers of the meshes' replicas and the eager launches."""
+    import threading
+
+    import numpy as np
+
+    from uvltrack_tpu_torch.cli.serve import make_server
+    from uvltrack_tpu_torch.eval import environment
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.parallel.mesh import local_devices, make_mesh
+    from uvltrack_tpu_torch.track import batch as tbatch
+    from uvltrack_tpu_torch.track.pool import StreamPool
+    from uvltrack_tpu_torch.track.tracker import Tracker
+
+    t0 = time.perf_counter()
+    write_eval_dataset(tmp, args.seed, PAR_EVAL_LENGTHS)
+    results = tmp / "results"
+    os.environ.update({"UVLTRACK_REPO": str(REPO), "UVLTRACK_OTB99_PATH": str(tmp / "otb99"),
+                       "UVLTRACK_GOT10K_PATH": str(tmp / "got10k"),
+                       "UVLTRACK_RESULTS_PATH": str(results)})
+    environment.reset_env_cache()
+    made, orig = [], tbatch.MeshBatchTracker.__init__
+
+    def spy(self, *a, **kw):
+        orig(self, *a, **kw)
+        made.append(self)
+
+    tbatch.MeshBatchTracker.__init__ = spy
+    common = ["uvltrack", "baseline_base", "--dataset_name", "otb99", "--set",
+              "TEST.THRESHOLD=-1", "--set", "TEST.MODE=NLBBOX", "--set",
+              f"MODEL.BACKBONE.LANGUAGE.VOCAB_PATH={vocab}", "--streams", "4"]
+    launches = {}
+    try:
+        runs = {label: cli_run(label, common + extra, results, PER_FWD_FP)
+                for label, extra in (("streams4", ["--runid", "1"]),
+                                     ("streams4_multichip", ["--runid", "2", "--multichip"]))}
+    finally:
+        tbatch.MeshBatchTracker.__init__ = orig
+    for run in runs.values():
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    a, b = (results / "uvltrack" / f"baseline_base_00{i}" / "otb99_NLBBOX_0300" for i in (1, 2))
+    names = sorted(f.name for f in a.iterdir() if f.suffix == ".txt"
+                   and not f.name.endswith("_time.txt"))
+    differ = [n for n in names if (a / n).read_bytes() != (b / n).read_bytes()]
+    if len(names) != len(PAR_EVAL_LENGTHS) or differ or not made:
+        raise AssertionError(f"cli.test --multichip: result files {names}, differing {differ}, "
+                             f"meshes {len(made)}")
+    jts = [rep.jt for bt in made for rep in bt.replicas]
+
+    # cli/serve --multichip --lockstep 4: the mesh the CLI makes, 12 rounds
+    attention.force_backend("cuda")
+    scfg = cfg.clone()
+    scfg.TEST.MODE = "BBOX"
+    proto = Tracker(scfg, model)
+    mesh = make_mesh(data=-1, model=1, devices=local_devices(proto.device))
+    server = make_server(proto, "127.0.0.1", 0, lockstep=4, batch_window=1.0, mesh=mesh)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    direct = StreamPool(scfg, None, 4, jit_tracker=proto.jt)
+    served, wanted = [], []
+    try:
+        for i, s in enumerate("ABCD"):
+            _post_npy(url, "/initialize", {"stream": s, "bbox": seqs[i][1][0]}, seqs[i][0][0])
+            direct.open(s, seqs[i][0][0], {"init_bbox": seqs[i][1][0]})
+        for r in range(1, 13):
+            out, errs = {}, []
+
+            def go(s, r=r):
+                try:
+                    out[s] = _post_npy(url, "/track", {"stream": s}, seqs["ABCD".index(s)][0][r])
+                except Exception as e:  # fails the phase below
+                    errs.append(f"{s}: {e}")
+
+            threads = [threading.Thread(target=go, args=(s,)) for s in "ABCD"]
+            [t.start() for t in threads]
+            [t.join() for t in threads]
+            if errs:
+                raise AssertionError(f"serve --multichip round {r}: {errs}")
+            served.append(out)
+            with proto.jt.lock:
+                wanted.append(direct.submit({s: seqs["ABCD".index(s)][0][r] for s in "ABCD"}))
+    finally:
+        server.dispatcher.stop()
+        server.shutdown()
+        server.server_close()
+        attention.force_backend(None)
+    for r, (got, want) in enumerate(zip(served, wanted)):
+        for s in got:
+            if got[s]["bbox"] != want[s]["bbox"] or got[s]["score"] != want[s]["score"]:
+                raise AssertionError(f"serve --multichip round {r} {s}: {got[s]} != {want[s]}")
+    jts += [rep.jt for rep in server.pool.bt.replicas]
+    emit({"phase": "parallel_mesh_cli", "cards_visible": len(local_devices(proto.device)),
+          "replicas": {"cli_test": [len(bt.replicas) for bt in made],
+                       "serve": len(server.pool.bt.replicas)},
+          "cli_test": {label: {"seconds": run["seconds"], "fps": runner_fps(run["out"])}
+                       for label, run in runs.items()},
+          "result_files_equal": f"{len(names)}/{len(names)}",
+          "serve_lockstep4_rounds": len(served), "served_equal_direct": True,
+          "seconds": time.perf_counter() - t0})
+    return {"jts": jts, "launches": launches}
+
+
+def _post_npy(url: str, route: str, payload: dict, img) -> dict:
+    """POST payload with `img` as an "npy" body; the parsed 200 reply."""
+    import base64
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, img)
+    body = dict(payload, image=base64.b64encode(buf.getvalue()).decode(), format="npy")
+    req = urllib.request.Request(url + route, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def parallel_phase(args, dev, model, cfg, vocab: Path, seqs) -> dict:
+    """The `parallel` group: dp_phase, multihost_cli, stream_mesh_phase and
+    mesh_cli_phase. Returns {"train_launches" (dp=1, both dp=2 ranks and the
+    CLI), "launches" (the eager tracking paths), "jts" (the replicas'
+    JitTrackers, whose graphs' launches the kernels line counts)}."""
+    import gc
+    import tempfile
+
+    import torch
+
+    t_group = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        train = dp_phase(args, dev, Path(tmp))
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as tmp:
+        for k, v in multihost_cli(args, Path(tmp)).items():
+            train[k] = train.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    from uvltrack_tpu_torch.ops import build
+
+    before = build.instantiation_counts()
+    jts = stream_mesh_phase(model, cfg, seqs, PER_FWD_FP)
+    launches = launches_since(before)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_cli_") as tmp:
+        cli = mesh_cli_phase(args, model, cfg, vocab, Path(tmp), seqs)
+    for k, v in cli["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    emit({"phase": "parallel_group", "seconds": time.perf_counter() - t_group})
+    return {"train_launches": train, "launches": launches, "jts": jts + cli["jts"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4077,6 +4638,7 @@ def main() -> int:
     ap.add_argument("--only", default="", help="comma-separated groups of phases to run "
                     f"({', '.join(GROUPS)}; all by default); a partial run prints no "
                     "kernels line")
+    ap.add_argument("--dp-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = set(filter(None, args.only.split(","))) or set(GROUPS)
     if only - set(GROUPS):
@@ -4091,6 +4653,8 @@ def main() -> int:
         print("chip_smoke: run from a checkout holding uvltrack_tpu_torch/", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if args.dp_worker:  # one rank of the parallel group's dp=2 run
+        return dp_worker(args)
     # fp32 comparisons must not run convolutions in TF32 (cuDNN's default)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4225,6 +4789,13 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
             cli_counts = cli_phase(args, dev, vocab, Path(tmp))
         add(cli_counts["launches"])
+    if "parallel" in only:
+        # dp=2 over gloo on one card, cli.train --multihost, the stream mesh
+        par = parallel_phase(args, dev, model, cfg, vocab, seqs)
+        add(par["launches"])
+        jts = list(jts) + par["jts"]
+        for k, v in par["train_launches"].items():
+            train_counts[k] = train_counts.get(k, 0) + v
     if only != set(GROUPS):
         emit({"phase": "total", "seconds": time.perf_counter() - t_start,
               "groups": sorted(only)})

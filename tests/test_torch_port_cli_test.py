@@ -322,13 +322,38 @@ def test_checkpoint_discovery(root, env, tmp_path, monkeypatch):
 
 
 def test_multichip_is_refused(root, env, tmp_path, monkeypatch):
-    err = io.StringIO()
-    with redirect_stderr(err), pytest.raises(SystemExit) as e:
-        _main(ttest, ["uvltrack", "tiny_cli", "--multichip", "--streams", "2"], tmp_path,
-              monkeypatch)
-    assert e.value.code == 2
-    assert "--multichip" in err.getvalue() and "ROADMAP queue 1, item 4" in err.getvalue()
-    assert not (tmp_path / "uvltrack").exists()
+    """--multichip, refused while the port had no device mesh, now shards
+    each lockstep group over the visible devices (two CPU replicas here, the
+    device list of parallel/mesh.local_devices stood in): --multichip
+    --streams 2 writes the result files of --streams 2 without it, and the
+    unrounded boxes within 1e-3 px."""
+    from uvltrack_tpu_torch.parallel import mesh as tmesh
+    from uvltrack_tpu_torch.track import batch as tbatch
+
+    argv = ["uvltrack", "tiny_cli", "--device", "cpu", "--streams", "2",
+            "--test_checkpoint", str(root / "UVLTrack_ep0001.pth.tar")]
+    _main(ttest, argv, tmp_path / "one", monkeypatch)
+    plain = {k: v.copy() for k, v in env.items()}
+    made = []
+    orig = tbatch.MeshBatchTracker.__init__
+
+    def spy(self, *a, **kw):
+        orig(self, *a, **kw)
+        made.append(self)
+
+    monkeypatch.setattr(tbatch.MeshBatchTracker, "__init__", spy)
+    monkeypatch.setattr(tmesh, "local_devices", lambda device=None: [torch.device("cpu")] * 2)
+    out = _main(ttest, argv + ["--multichip"], tmp_path / "mesh", monkeypatch)
+    assert "AUC=" in out and "ERROR" not in out
+    assert sorted(bt.S_pad for bt in made) == [2, 2] and all(len(bt.replicas) == 2 for bt in made)
+    rel = os.path.join("uvltrack", "tiny_cli", "otb99_BBOX_0001")
+    assert _txt(tmp_path / "mesh" / rel) == _txt(tmp_path / "one" / rel) == [
+        f"{s}.txt" for s in SEQS]
+    for name in SEQS:
+        assert ((tmp_path / "mesh" / rel / f"{name}.txt").read_bytes()
+                == (tmp_path / "one" / rel / f"{name}.txt").read_bytes()), name
+        np.testing.assert_allclose(env[("port", name)], plain[("port", name)], atol=BOX_TOL,
+                                   rtol=0, err_msg=name)
 
 
 def test_no_card_without_device_cpu_is_an_error(root, env, tmp_path, monkeypatch):

@@ -12,8 +12,8 @@ the eager step, and on the graph driver with the CPU's stand-in capture
 (tests/test_torch_port_compiled.py), so the shared graphs are driven from
 the handler threads. build_tracker loads a reference-style .pth.tar
 ('net' key) the test writes from from_jax_variables. The JAX file's
-test_lockstep_mesh_matches_standalone has no counterpart: the port has no
-device mesh yet.
+test_lockstep_mesh_matches_standalone has its counterpart in
+tests/test_torch_port_parallel.py.
 """
 
 import base64

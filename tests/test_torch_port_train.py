@@ -715,12 +715,21 @@ def test_cli_train_synthetic_checkpoints_and_resumes(monkeypatch, tmp_path, caps
 
 
 def test_cli_train_refuses_what_the_port_lacks(monkeypatch):
-    """--multihost is refused; without a card, --device cuda stops before
-    the model is built (real data: tests/test_torch_port_train_data.py)."""
+    """--multihost needs all of torchrun's environment and names what is
+    missing (it trains: tests/test_torch_port_parallel.py); a mesh of
+    processes without --multihost is refused; without a card, --device
+    cuda stops before the model is built (real data:
+    tests/test_torch_port_train_data.py)."""
     from uvltrack_tpu_torch.cli import train as ctrain
+    from uvltrack_tpu_torch.parallel.mesh import DIST_ENV
 
-    with pytest.raises(SystemExit, match="queue 1 item 4"):
+    for k in DIST_ENV:
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    with pytest.raises(SystemExit, match="MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK not set"):
         ctrain.main(["--synthetic", "1", "--multihost", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="needs --multihost"):
+        ctrain.main(_tiny_cli(monkeypatch) + ["--set", "TPU.MESH_DATA=2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ctrain.main(_tiny_cli(monkeypatch) + ["--device", "cuda"])

@@ -44,8 +44,8 @@ Two execution modes:
   Streams must share a frame resolution within a round (a camera fleet),
   like the pool.
 
-Left out: the JAX service's --multichip (slots sharded over a device mesh)
-waits for the port's parallel/mesh.py.
+`--multichip` (with `--lockstep`): the pool's slots sharded over every
+visible card (parallel/mesh.py; StreamPool(mesh=)), one replica a card.
 
     python -m uvltrack_tpu_torch.cli.serve uvltrack baseline_base [--lockstep 4]
 """
@@ -364,12 +364,13 @@ class _StreamReaper:
 def make_server(proto_tracker, host: str = "127.0.0.1", port: int = 0,
                 verbose: bool = False, lockstep: int = 0,
                 batch_window: float = 0.05, max_streams: int = 0,
-                stream_ttl: float = 0.0) -> ThreadingHTTPServer:
+                stream_ttl: float = 0.0, mesh=None) -> ThreadingHTTPServer:
     """Wrap an existing Tracker as the prototype. Default mode: every stream
     is a fresh Tracker sharing the prototype's JitTracker (weights + step
     and re-mine graphs). lockstep>0: a StreamPool of that many slots on the
     same JitTracker + a coalescing dispatcher batches concurrent /track
-    requests into one batch-S step per round."""
+    requests into one batch-S step per round; mesh (lockstep only) shards
+    the pool's slots over its data axis."""
     from ..track.pool import StreamPool
     from ..track.tracker import Tracker
 
@@ -390,7 +391,7 @@ def make_server(proto_tracker, host: str = "127.0.0.1", port: int = 0,
     if lockstep > 0:
         server.pool = StreamPool(proto_tracker.cfg, jt.model, lockstep,
                                  tokenizer=proto_tracker.tokenizer, jit_tracker=jt,
-                                 graphs=proto_tracker.graphs)
+                                 graphs=proto_tracker.graphs, mesh=mesh)
         server.dispatcher = _LockstepDispatcher(server.pool, server.lock,
                                                 batch_window)
     if stream_ttl > 0:
@@ -425,10 +426,14 @@ def main(argv=None):
                    help="evict streams idle for this many seconds (0 = "
                         "never): frees pool slots / tracker state when a "
                         "client disappears without /close")
+    p.add_argument("--multichip", action="store_true",
+                   help="shard the --lockstep slots over all local cards")
     p.add_argument("--device", default="cuda",
                    help="torch device of the model (cpu runs the eager step)")
     p.add_argument("--verbose", action="store_true")
     args = p.parse_args(argv)
+    if args.multichip and not args.lockstep:
+        p.error("--multichip requires --lockstep")
 
     from ..config import load_cfg
     from ..eval.environment import env_settings, experiment_cfg_path
@@ -440,11 +445,16 @@ def main(argv=None):
     if args.quant:
         cfg.TPU.WEIGHT_QUANT = args.quant
     proto = build_tracker(cfg, args.test_checkpoint, device=args.device)
+    mesh = None
+    if args.multichip:
+        from ..parallel.mesh import local_devices, make_mesh
+
+        mesh = make_mesh(data=-1, model=1, devices=local_devices(proto.device))
     server = make_server(proto, args.host, args.port, verbose=args.verbose,
                          lockstep=args.lockstep,
                          batch_window=args.batch_window,
                          max_streams=args.max_streams,
-                         stream_ttl=args.stream_ttl)
+                         stream_ttl=args.stream_ttl, mesh=mesh)
     mode = (f"lockstep x{args.lockstep}" if args.lockstep else "per-stream")
     print(f"serving {args.tracker_param} ({cfg.TEST.MODE}, {mode}) on "
           f"http://{args.host}:{server.server_address[1]}  "

@@ -15,7 +15,10 @@ checkpoint: the port's ep%04d.pt or the JAX trainer's ep%04d.msgpack
 steps the JitTracker's CUDA graphs (Tracker.track, or Tracker.track_many
 with --chunk); --streams S runs S sequences in lockstep, one BatchTracker per
 group size, all on the prototype's JitTracker, so every group shares its
-graphs and their memory pool. --multichip waits for the port's device mesh.
+graphs and their memory pool. --multichip (with --streams) shards each
+group's streams over every visible card (parallel/mesh.py make_mesh; the
+CPU under --device cpu): one replica a card, each with its own JitTracker
+and a copy of the weights (track/batch.py BatchTracker(mesh=)).
 """
 
 from __future__ import annotations
@@ -96,8 +99,7 @@ def main(argv=None):
     p.add_argument("--sequence", default=None, help="run a single sequence")
     p.add_argument("--rerun", action="store_true")
     p.add_argument("--multichip", action="store_true",
-                   help="shard the lockstep streams over all local cards (not in "
-                        "the port yet: refused)")
+                   help="shard the lockstep streams (--streams) over all local cards")
     p.add_argument("--streams", type=int, default=0,
                    help="batched evaluation with N lockstep streams on the card "
                         "(replaces the reference's GPU process pool)")
@@ -123,9 +125,6 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device of the model (cpu runs the eager step)")
     args = p.parse_args(argv)
-    if args.multichip:
-        p.error("--multichip: the port has no device mesh yet (ROADMAP queue 1, "
-                "item 4); run without it on one card")
 
     from ..config import load_cfg
     from ..eval.datasets import get_dataset
@@ -174,6 +173,11 @@ def main(argv=None):
         from ..eval.running_batched import run_dataset_batched
         from ..track.batch import BatchTracker
 
+        mesh = None
+        if args.multichip:
+            from ..parallel.mesh import local_devices, make_mesh
+
+            mesh = make_mesh(data=-1, model=1, devices=local_devices(proto.device))
         trackers_by_s = {}
 
         def factory(S):
@@ -182,7 +186,7 @@ def main(argv=None):
             # JitTracker, so groups of one size share their graphs
             if S not in trackers_by_s:
                 trackers_by_s[S] = BatchTracker(cfg, None, S, tokenizer=proto.tokenizer,
-                                                jit_tracker=proto.jt)
+                                                jit_tracker=proto.jt, mesh=mesh)
             return trackers_by_s[S]
 
         if args.save_vis:

@@ -1,5 +1,5 @@
 """Training CLI of the port (port of uvltrack_tpu/cli/train.py; parity with
-tracking/train.py + lib/train/run_training.py), on one device.
+tracking/train.py + lib/train/run_training.py).
 
     python -m uvltrack_tpu_torch.cli.train --script uvltrack \\
         --config baseline_base [--synthetic N] [--device cpu] [--set KEY=VALUE ...]
@@ -21,7 +21,16 @@ checkpoint, then gives up and raises).
 drawn from numpy.random.default_rng(--seed), and validates on none.
 The model runs on the card unless --device cpu is given: without a card and
 without that flag the run stops with an error before any loader starts.
---multihost is parsed and refused: the port trains on one device. Logs go
+--multihost trains data parallel, one process a card, launched by torchrun
+(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK; parallel/mesh.py
+init_distributed): NCCL on cuda:LOCAL_RANK, gloo under --device cpu. The
+mesh is TPU.MESH_DATA x TPU.MESH_MODEL over the processes (MESH_MODEL > 1
+replicates the parameters and gives the ranks of one data index the same
+rows), the global batch is TRAIN.BATCH_SIZE x the data shards, every rank
+draws it from --seed and keeps its rows (parallel/mesh.shard_batch), and
+TPU.ZERO1 shards the Adam moments when there is more than one data shard.
+Only process 0 logs and writes checkpoints. Without --multihost the run is
+one process on one device. Logs go
 to <save_dir or output>/logs/<script>-<config>.log(.jsonl); checkpoints
 (ep%04d.pt, one an epoch) to <save_dir>/checkpoints/train/<script>/<config>,
 or the repo's checkpoints/ tree without --save_dir, and a rerun resumes
@@ -51,7 +60,8 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process training (not in the port yet: refused)")
+                   help="data-parallel training, one process a card, launched by torchrun "
+                        "(its MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK and LOCAL_RANK)")
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    metavar="KEY=VALUE",
                    help="config override, e.g. --set TPU.GRAD_ACCUM=2 (repeatable; "
@@ -59,20 +69,35 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions)")
     args = p.parse_args(argv)
-    if args.multihost:
-        raise SystemExit("--multihost: the port trains on one device; DDP, ZeRO-1 and "
-                         "multihost are ROADMAP.md queue 1 item 4 (parallel)")
 
+    from ..models.uvltrack import resolve_device
+
+    device = resolve_device(args.device)  # before any loader starts
+    if not args.multihost:
+        return _train(args, device, multihost=False)
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_distributed
+
+    device = init_distributed(device)
+    try:
+        return _train(args, device, multihost=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, device, multihost: bool):
+    """The run, in one process or as one rank of the process group."""
     from ..config import load_cfg
     from ..data.synthetic import synthetic_batch_from_cfg
     from ..eval.environment import env_settings, experiment_cfg_path, train_checkpoint_dir
     from ..models.convert import load_pretrained
-    from ..models.uvltrack import resolve_device
+    from ..parallel.dp import DataParallel
+    from ..parallel.mesh import make_mesh, shard_batch
     from ..utils.pinned import PinnedStage
-    from ..train.step import make_eval_step, setup_training
+    from ..train.step import make_eval_step, setup_sharded_training
     from ..train.trainer import Trainer
 
-    device = resolve_device(args.device)  # before any loader starts
     settings = env_settings()
     cfg = load_cfg(experiment_cfg_path(settings, args.script, args.config))
     if args.overrides:
@@ -81,7 +106,17 @@ def main(argv=None):
         cfg.TRAIN.EPOCH = args.epochs
     if args.batch_size:
         cfg.TRAIN.BATCH_SIZE = args.batch_size
-    batch_size = int(cfg.TRAIN.BATCH_SIZE)
+    mesh = None
+    if multihost:
+        mesh = make_mesh(data=int(cfg.TPU.MESH_DATA), model=int(cfg.TPU.MESH_MODEL),
+                         devices=[device])
+    elif int(cfg.TPU.MESH_DATA) > 1 or int(cfg.TPU.MESH_MODEL) > 1:
+        raise SystemExit(f"TPU.MESH_DATA={cfg.TPU.MESH_DATA}, TPU.MESH_MODEL="
+                         f"{cfg.TPU.MESH_MODEL}: a mesh of processes needs --multihost "
+                         "under torchrun (one process a card)")
+    n_data = mesh.data if mesh is not None else 1
+    accum = int(cfg.TPU.GRAD_ACCUM or 1)
+    batch_size = int(cfg.TRAIN.BATCH_SIZE) * n_data  # the global batch
     if args.synthetic:
         steps_per_epoch = args.synthetic
 
@@ -103,24 +138,29 @@ def main(argv=None):
     stage = PinnedStage()
 
     def to_device(batch):
+        if mesh is not None:  # this data index's rows, cut on the host
+            batch = shard_batch(mesh, batch, accum)
         out = {}
         for k, v in batch.items():
             out[k] = torch.empty(v.shape, dtype=torch.from_numpy(v[:0]).dtype, device=device)
             stage.upload(v, out[k])
         return out
 
-    model, state, train_step = setup_training(
-        cfg, steps_per_epoch, device=device, seed=args.seed,
-        prepare_model=lambda m: load_pretrained(cfg, m, settings))
+    model, state, train_step = setup_sharded_training(
+        cfg, mesh, steps_per_epoch, device=device, seed=args.seed,
+        prepare_model=lambda m: load_pretrained(cfg, m, settings),
+        zero1=bool(cfg.TPU.ZERO1) and n_data > 1)
     if args.save_dir is not None:
         ckpt_dir = os.path.join(args.save_dir, "checkpoints", "train", args.script, args.config)
     else:
         ckpt_dir = train_checkpoint_dir(settings, args.script, args.config)
     log_root = args.save_dir if args.save_dir is not None else "output"
     trainer = Trainer(cfg, train_step, state, train_loader, val_loaders,
-                      eval_step=make_eval_step(model, cfg), checkpoint_dir=ckpt_dir,
+                      eval_step=make_eval_step(model, cfg,
+                                               DataParallel.of(mesh) if mesh else None),
+                      checkpoint_dir=ckpt_dir,
                       log_path=os.path.join(log_root, "logs", f"{args.script}-{args.config}.log"),
-                      to_device=to_device)
+                      to_device=to_device, mesh=mesh)
     trainer.train(int(cfg.TRAIN.EPOCH), load_latest=True, fail_safe=True)
     return trainer
 

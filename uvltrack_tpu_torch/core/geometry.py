@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.dp import current as current_dp
 from .box_ops import (box_cxcywh_to_xyxy, box_xywh_to_cxcywh,
                       box_xywh_to_cxcywh_scale, box_xywh_to_xyxy)
 
@@ -41,7 +42,14 @@ def anno2mask(boxes_xywh: torch.Tensor, size: int) -> torch.Tensor:
 
 def rotate_half_batch(x: torch.Tensor) -> torch.Tensor:
     """Swap the two halves of the batch dim (context shuffling of the
-    prompt-mining forward); batch 1 is left as it is."""
+    prompt-mining forward); batch 1 is left as it is. Under data
+    parallelism the halves are the global batch's: with an even number of
+    search frames in the frame-major flatten each row pairs with a row of
+    its own sample, on this rank, and the local swap is the global one;
+    with an odd number the rows are exchanged (parallel/dp.py)."""
+    dp = current_dp()
+    if dp is not None and dp.frames % 2:
+        return dp.rotate_half_batch(x)
     h = x.shape[0] // 2
     return torch.cat([x[h:], x[:h]], dim=0)
 

@@ -27,6 +27,7 @@ from torch import nn
 
 from ..core.geometry import rotate_half_batch
 from ..ops.quant import is_quantized, weight_of
+from ..parallel.dp import current as current_dp
 from .bert import dense
 from .mufe import l2_normalize, select_by_flag
 
@@ -56,7 +57,8 @@ class ConvBnRelu(nn.Sequential):
     E[x^2] - E[x]^2 clamped at 0 (biased), and the running stats updated in
     place to 0.9 * running + 0.1 * batch, the variance biased too
     (nn.BatchNorm2d's own training mode keeps the unbiased one, so it is
-    not used)."""
+    not used). Under data parallelism (parallel/dp.py) the statistics are
+    the global batch's, equal on every rank, and so are the running stats."""
 
     MOMENTUM = 0.9
 
@@ -69,8 +71,16 @@ class ConvBnRelu(nn.Sequential):
         conv, bn = self[0], self[1]
         y = _conv(x, conv, self.dtype).float()
         if train:
-            mean = y.mean((0, 2, 3))
-            var = ((y * y).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            dp = current_dp()
+            if dp is None:
+                mean = y.mean((0, 2, 3))
+                var = ((y * y).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            else:  # the global batch's, from every rank's sums (parallel/dp.py)
+                c = y.shape[1]
+                stats = dp.sum(torch.cat([y.sum((0, 2, 3)), (y * y).sum((0, 2, 3)),
+                                          y.new_full((1,), y.numel() // c)]))
+                mean = stats[:c] / stats[2 * c]
+                var = (stats[c:2 * c] / stats[2 * c] - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)

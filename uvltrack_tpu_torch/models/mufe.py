@@ -36,6 +36,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.dp import current as current_dp
 from .bert import BertConfig, BertEmbeddings, BertLayer, bert_attention_bias, dense
 from .vit import PatchEmbed, VitBlock, sincos_2d
 
@@ -164,13 +165,21 @@ class MUFE(nn.Module):
 
     def _keep_masks(self, b: int, device, generator):
         """Per block: None (drop path 0 or inference), or the (2, B) keep
-        masks of its two branches, uniform < 1 - drop_path."""
+        masks of its two branches, uniform < 1 - drop_path. Under data
+        parallelism every rank draws the global rows' masks (its generator
+        seeded as every other rank's) and keeps its own rows
+        (parallel/dp.py)."""
+        dp = current_dp()
         masks = []
         for blk in self.vit.blocks:
             if blk.drop_path <= 0.0:
                 masks.append(None)
                 continue
-            u = torch.rand((2, b), generator=generator, device=device)
+            if dp is None:
+                u = torch.rand((2, b), generator=generator, device=device)
+            else:
+                u = dp.local_rows(torch.rand((2, b * dp.size), generator=generator,
+                                             device=device), dim=1)
             masks.append(u < 1.0 - blk.drop_path)
         return masks
 

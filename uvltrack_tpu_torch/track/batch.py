@@ -22,6 +22,17 @@ mines prompts against the half-batch-rotated search features
 (models/head.py), which at batch S would pair one stream's template with
 another's search. A box supplied for an NL stream is ignored.
 
+mesh= (a parallel/mesh.py Mesh; the JAX BatchTracker's mesh=) shards the
+streams over the mesh's data axis: S is padded to S_pad, a multiple of the
+data shards n, with pad streams that replay the last real stream, stay
+frozen and are sliced off (the JAX package's rule); each data index runs a
+replica, a BatchTracker of S_pad/n streams on its device with its own
+JitTracker (graphs captured on that device) and a copy of the weights per
+distinct device (parallel/mesh.replicated). A step uploads and launches
+every replica before it reads any back, then concatenates the rows:
+BatchTracker(..., mesh=mesh) returns a MeshBatchTracker, which has the
+BatchTracker's interface.
+
 frame_id and active stay on the host, as in the port's Tracker. On a CUDA
 device a step replays the JitTracker's CUDA graphs at batch S (the step,
 and the re-mine on a step where some active stream is due, its refresh =
@@ -36,6 +47,7 @@ Trackers that share a JitTracker (jit_tracker=) share its graphs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import List, Optional
@@ -43,7 +55,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .tracker import LockstepTracker, frame_cost
+from .tracker import BatchState, JitTracker, LockstepTracker, frame_cost
 
 
 def always_remine() -> bool:
@@ -56,7 +68,30 @@ class BatchTracker(LockstepTracker):
     first frames, then step(frames (S, H, W, 3)). The model's weights are
     prepared in place by prepare_inference_model, as by Tracker:
     BatchTracker(cfg, model, num_streams, tokenizer=None, jit_tracker=None,
-    graphs=True)."""
+    graphs=True, mesh=None); with a mesh, a MeshBatchTracker."""
+
+    def __new__(cls, *args, mesh=None, **kwargs):
+        if mesh is None:
+            return super().__new__(cls)
+        return MeshBatchTracker(*args, mesh=mesh, **kwargs)
+
+    def __init__(self, cfg, model, num_streams: int, tokenizer=None, jit_tracker=None,
+                 graphs: bool = True, mesh=None):
+        super().__init__(cfg, model, num_streams, tokenizer, jit_tracker=jit_tracker,
+                         graphs=graphs)
+
+    @property
+    def S_pad(self) -> int:
+        """The streams the step runs: S (a mesh pads them)."""
+        return self.S
+
+    @property
+    def replicas(self) -> list:
+        return [self]
+
+    def locate(self, i: int):
+        """(the BatchTracker that steps stream i, its row there)."""
+        return self, i
 
     def text_row(self, language: Optional[str], mode: str):
         """(ids (Nt,), mask (Nt,), flag) of one stream: flag 2 with a
@@ -155,3 +190,172 @@ class BatchTracker(LockstepTracker):
         return {"flops": cost["flops"] * self.S,
                 "bytes": cost["weight_bytes"] + self.S * int(np.prod(tuple(hw))) * 3,
                 "streams": self.S}
+
+
+def on_device(device):
+    """The device current while a replica launches (its kernels' stream)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+class MeshBatchTracker:
+    """S streams over a mesh's data axis: one BatchTracker replica of
+    S_pad/n streams per data index (the module docstring). The interface
+    of BatchTracker: initialize, set_active, step(_async), step_many(_async),
+    step_many_cost, remines, state; replicas and locate(i) name the replica
+    and row of stream i."""
+
+    def __init__(self, cfg, model, num_streams: int, tokenizer=None, jit_tracker=None,
+                 graphs: bool = True, mesh=None):
+        from ..models.uvltrack import prepare_inference_model
+        from ..parallel.mesh import replicated
+
+        if num_streams < 1:
+            raise ValueError(f"num_streams must be >= 1, got {num_streams}")
+        self.cfg, self.mesh, self.tokenizer = cfg, mesh, tokenizer
+        n = mesh.data
+        self.S = num_streams
+        self.S_pad = -(-num_streams // n) * n
+        self.per = self.S_pad // n
+        # the prepared weights (bf16, int8) are what each device holds a copy of
+        base = prepare_inference_model(cfg, jit_tracker.model if jit_tracker is not None
+                                       else model)
+        weights = replicated(mesh, base)
+        self.replicas = []
+        for dev in mesh.data_devices():
+            with on_device(dev):
+                self.replicas.append(BatchTracker(cfg, None, self.per, tokenizer=tokenizer,
+                                                  jit_tracker=JitTracker(cfg, weights[dev]),
+                                                  graphs=graphs))
+        self.device = self.replicas[0].device
+
+    def locate(self, i: int):
+        return self.replicas[i // self.per], i % self.per
+
+    def _pad(self, rows, axis: int = 0):
+        """S rows (a list, an array or a tensor; along `axis`) -> S_pad, the
+        last one replayed."""
+        pad = self.S_pad - self.S
+        if isinstance(rows, (list, tuple)):
+            return list(rows) + [rows[-1]] * pad
+        if not pad:
+            return rows
+        if isinstance(rows, torch.Tensor):
+            return torch.cat([rows] + [rows.narrow(axis, rows.shape[axis] - 1, 1)] * pad, axis)
+        return np.concatenate([rows] + [np.take(rows, [rows.shape[axis] - 1], axis)] * pad, axis)
+
+    def _split(self, rows) -> list:
+        """S_pad rows (a list, an array or a tensor) -> one share a replica."""
+        return [rows[i * self.per:(i + 1) * self.per] for i in range(len(self.replicas))]
+
+    # ------------------------------------------------------------------ init
+    def initialize(self, frames, boxes, languages: Optional[List[Optional[str]]] = None,
+                   modes: Optional[List[str]] = None) -> np.ndarray:
+        """BatchTracker.initialize over the replicas; pad streams replay the
+        last real stream."""
+        if len(frames) != self.S:
+            raise ValueError(f"{len(frames)} frames for {self.S} streams")
+        frames = self._pad(list(frames))
+        boxes = self._pad(np.array(boxes, np.float32))
+        languages = self._pad(list(languages) if languages else [None] * self.S)
+        modes = self._pad(list(modes) if modes else [self.cfg.TEST.MODE] * self.S)
+        out = []
+        for rep, f, b, lang, mode in zip(self.replicas, self._split(frames), self._split(boxes),
+                                         self._split(languages), self._split(modes)):
+            with on_device(rep.device):
+                out.append(rep.initialize(f, b, lang, mode))
+        return np.concatenate(out)[:self.S]
+
+    def set_active(self, active) -> None:
+        active = np.asarray(active, bool)
+        if active.shape != (self.S,):
+            raise ValueError(f"active must have shape ({self.S},), got {active.shape}")
+        padded = np.concatenate([active, np.zeros(self.S_pad - self.S, bool)])
+        for rep, a in zip(self.replicas, self._split(padded)):
+            rep.set_active(a)
+
+    @property
+    def remines(self) -> np.ndarray:
+        return np.concatenate([rep.remines for rep in self.replicas])[:self.S]
+
+    @property
+    def state(self) -> BatchState:
+        """The S real streams' state, the replicas' rows concatenated (on the
+        first replica's device)."""
+        parts = [rep.state for rep in self.replicas]
+        fields = {}
+        for f in dataclasses.fields(BatchState):
+            rows = [getattr(p, f.name) for p in parts]
+            if isinstance(rows[0], np.ndarray):
+                fields[f.name] = np.concatenate(rows)[:self.S]
+            else:
+                fields[f.name] = torch.cat([r.to(self.device) for r in rows])[:self.S]
+        return BatchState(**fields)
+
+    @state.setter
+    def state(self, st: BatchState) -> None:
+        """Set the S streams' state (the pad streams take the last one's,
+        frozen)."""
+        parts = [{} for _ in self.replicas]
+        for f in dataclasses.fields(BatchState):
+            v = getattr(st, f.name)
+            if f.name == "active":
+                v = np.concatenate([np.asarray(v, bool), np.zeros(self.S_pad - self.S, bool)])
+            else:
+                v = self._pad(v)
+            for part, rep, share in zip(parts, self.replicas, self._split(v)):
+                part[f.name] = (share.copy() if isinstance(share, np.ndarray)
+                                else share.to(rep.device).clone())
+        for rep, part in zip(self.replicas, parts):
+            rep.state = BatchState(**part)
+
+    # ------------------------------------------------------------------ step
+    def _launch(self, shares, fn):
+        """fn(replica, its share) on every replica, each under its device,
+        none read back."""
+        outs = []
+        for rep, share in zip(self.replicas, shares):
+            with on_device(rep.device):
+                outs.append(fn(rep, share))
+        return outs
+
+    def step_async(self, frames, debug: bool = False):
+        """BatchTracker.step_async: the (S, 5) rows (and with debug the maps)
+        on the first replica's device."""
+        outs = self._launch(self._split(self._pad(frames)),
+                            lambda rep, f: rep.step_async(f, debug=debug))
+        if debug:
+            return tuple(torch.cat([o[k].to(self.device) for o in outs])[:self.S]
+                         for k in range(2))
+        return torch.cat([o.to(self.device) for o in outs])[:self.S]
+
+    def step(self, frames) -> np.ndarray:
+        outs = self._launch(self._split(self._pad(frames)),
+                            lambda rep, f: rep.step_async(f))
+        return np.concatenate([o.double().cpu().numpy() for o in outs])[:self.S]
+
+    def _block_shares(self, frames_t) -> list:
+        """A (T, S, H, W, 3) block (or T lists of S frames) cut into one
+        (T, S_pad/n, ...) share a replica."""
+        if isinstance(frames_t, (list, tuple)):
+            rows = [self._split(self._pad(list(f))) for f in frames_t]
+            return [[r[i] for r in rows] for i in range(len(self.replicas))]
+        padded = self._pad(frames_t, axis=1)
+        return [padded[:, i * self.per:(i + 1) * self.per] for i in range(len(self.replicas))]
+
+    def step_many_async(self, frames_t) -> torch.Tensor:
+        outs = self._launch(self._block_shares(frames_t),
+                            lambda rep, f: rep.step_many_async(f))
+        return torch.cat([o.to(self.device) for o in outs], dim=1)[:, :self.S]
+
+    def step_many(self, frames_t) -> np.ndarray:
+        outs = self._launch(self._block_shares(frames_t),
+                            lambda rep, f: rep.step_many_async(f))
+        return np.concatenate([o.double().cpu().numpy() for o in outs], axis=1)[:, :self.S]
+
+    def step_many_cost(self, frames_t) -> dict:
+        """The replicas' step_many_cost summed: every device's streams, the
+        pad streams included ("streams" = S_pad, the JAX package's count),
+        and the weights once per replica."""
+        costs = [rep.step_many_cost(f) for rep, f in zip(self.replicas,
+                                                          self._block_shares(frames_t))]
+        return {k: sum(c[k] for c in costs) for k in ("flops", "bytes", "streams")}

@@ -18,6 +18,11 @@ slots of one BatchTracker and lets streams come and go:
 
 All frames of one submit share a resolution; a stream may change
 resolution between rounds.
+
+mesh= (a parallel/mesh.py Mesh) shards the slots over its data axis as
+BatchTracker(mesh=) does: the capacity is padded to a multiple of the data
+shards, and the pad slots stay free and frozen; open writes a stream's
+rows into the replica that holds its slot.
 """
 
 from __future__ import annotations
@@ -27,40 +32,42 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .batch import BatchTracker
+from .batch import BatchTracker, on_device
 
 
 class StreamPool:
     """Continuous-batching pool over one BatchTracker of `capacity` streams:
     StreamPool(cfg, model, capacity, tokenizer=None, jit_tracker=None,
-    graphs=True)."""
+    graphs=True, mesh=None)."""
 
     def __init__(self, cfg, model, capacity: int, tokenizer=None, jit_tracker=None,
-                 graphs: bool = True):
+                 graphs: bool = True, mesh=None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
-        self.bt = bt = BatchTracker(cfg, model, capacity, tokenizer=tokenizer,
-                                    jit_tracker=jit_tracker, graphs=graphs)
+        self.bt = BatchTracker(cfg, model, capacity, tokenizer=tokenizer,
+                               jit_tracker=jit_tracker, graphs=graphs, mesh=mesh)
         self.capacity = capacity
         self.slot_of: Dict[str, int] = {}
         self._free = list(range(capacity - 1, -1, -1))  # pop() -> slot 0 first
-        S, dev, ts = capacity, bt.device, bt.template_size
-        z = (ts // 16) ** 2
-        # the batched tensors BatchTracker.initialize would make, all zero and
-        # every slot free; the text rows typed by the encoder on zero ids, so
-        # a row write always matches
-        bt.text_ids = torch.zeros((S, bt.nt), dtype=torch.int32, device=dev)
-        bt.text_mask = torch.zeros((S, bt.nt), dtype=torch.int32, device=dev)
-        bt.flags = torch.zeros((S,), dtype=torch.int32, device=dev)
-        bt.template = torch.zeros((S, ts, ts, 3), dtype=torch.float32, device=dev)
-        bt.template_mask = torch.zeros((S, z), dtype=torch.bool, device=dev)
-        with torch.no_grad():
-            bt.txt = (bt.model.encode_text(bt.text_ids, bt.text_mask) if bt.cache_text
-                      else bt.text_ids)
-        prompt = torch.zeros((S, 3, bt.embed_dim), dtype=bt.model.box_head.dtype, device=dev)
-        bt.state = bt.fresh_state(torch.zeros((S, 4), dtype=torch.float32, device=dev),
-                                  prompt, np.zeros((S,), bool))
-        bt.consts_changed()
+        for bt in self.bt.replicas:
+            S, dev, ts = bt.S, bt.device, bt.template_size
+            z = (ts // 16) ** 2
+            # the batched tensors BatchTracker.initialize would make, all zero
+            # and every slot free; the text rows typed by the encoder on zero
+            # ids, so a row write always matches
+            bt.text_ids = torch.zeros((S, bt.nt), dtype=torch.int32, device=dev)
+            bt.text_mask = torch.zeros((S, bt.nt), dtype=torch.int32, device=dev)
+            bt.flags = torch.zeros((S,), dtype=torch.int32, device=dev)
+            bt.template = torch.zeros((S, ts, ts, 3), dtype=torch.float32, device=dev)
+            bt.template_mask = torch.zeros((S, z), dtype=torch.bool, device=dev)
+            with torch.no_grad(), on_device(dev):
+                bt.txt = (bt.model.encode_text(bt.text_ids, bt.text_mask) if bt.cache_text
+                          else bt.text_ids)
+            prompt = torch.zeros((S, 3, bt.embed_dim), dtype=bt.model.box_head.dtype,
+                                 device=dev)
+            bt.state = bt.fresh_state(torch.zeros((S, 4), dtype=torch.float32, device=dev),
+                                      prompt, np.zeros((S,), bool))
+            bt.consts_changed()
 
     # ------------------------------------------------------------ lifecycle
     @torch.no_grad()
@@ -68,13 +75,21 @@ class StreamPool:
         """Claim a slot and initialize it alone; returns the frame-0 box
         (grounded in NL mode, else info["init_bbox"]) like
         Tracker.initialize."""
-        bt = self.bt
         if stream in self.slot_of:
-            i = self.slot_of[stream]  # re-initialize in place
+            slot = self.slot_of[stream]  # re-initialize in place
         elif self._free:
-            i = self._free.pop()
+            slot = self._free.pop()
         else:
             raise RuntimeError(f"pool full ({self.capacity} slots); close a stream first")
+        bt, i = self.bt.locate(slot)  # the replica holding the slot, and its row there
+        with on_device(bt.device):
+            box = self._init_row(bt, i, frame, info)
+        self.slot_of[stream] = slot
+        return box
+
+    @staticmethod
+    def _init_row(bt, i: int, frame: np.ndarray, info: dict) -> list:
+        """Initialize row i of BatchTracker bt alone, in place."""
         mode = bt.cfg.TEST.MODE
         ids, mask, flag = bt.text_row(info.get("language"), mode)
         ids, mask = bt.to_device(ids[None]), bt.to_device(mask[None])
@@ -98,7 +113,6 @@ class StreamPool:
         st.frame_id[i] = 0
         # the rows were written in place: a graph copies the constants in again
         bt.consts_changed()
-        self.slot_of[stream] = i
         return box
 
     def close(self, stream: str) -> None:

@@ -17,6 +17,8 @@ import torch
 
 from ..core.box_ops import box_cxcywh_to_xyxy, box_iou, box_xywh_to_xyxy
 from ..core.geometry import anno2mask, cont_gt, rotate_half_batch
+from ..parallel.dp import current as current_dp
+from ..parallel.dp import scope
 from .losses import (aux_contrastive_loss, box_losses, gauss_weighted_focal_loss,
                      weighted_ce_ignore)
 
@@ -63,7 +65,16 @@ def forward_and_loss(model, batch: dict, cfg, train: bool = True,
     batch (frame-major tensors on the model's device): template_images
     (1,B,Ht,Wt,3), search_images (n,B,Hs,Ws,3), template_anno (1,B,4),
     search_anno (n,B,4), search_cls (n,B,hc,wc), text and text_mask (B,Nt)
-    or (n,B,Nt), flag (B,) or (B,1)."""
+    or (n,B,Nt), flag (B,) or (B,1).
+
+    Under data parallelism (parallel/dp.py, the rows this rank holds of the
+    global batch) the loss is n x this rank's share of the global batch's,
+    and the rows follow the frame-major flatten of n search frames."""
+    with scope(current_dp(), frames=batch["search_images"].shape[0]):
+        return _forward_and_loss(model, batch, cfg, train, generator)
+
+
+def _forward_and_loss(model, batch, cfg, train, generator):
     fb = flatten_batch(batch)
     wt = fb["template_images"].shape[2] // 16
     ws = fb["search_images"].shape[2] // 16

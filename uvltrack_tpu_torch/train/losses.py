@@ -4,6 +4,8 @@ ignore-CE on the prompt-vs-search scores, and the per-layer aux contrastive
 CE. Functional parity with the reference's GaussWeightedLoss
 (lib/utils/box_ops.py:266-292) and UVLTrackActor.compute_losses
 (lib/train/actors/uvltrack.py:111-177). Batched, fp32, static shapes.
+Under data parallelism (parallel/dp.py) each loss is n x this rank's share
+of the global batch's.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.box_ops import box_cxcywh_to_xyxy, box_xywh_to_xyxy, giou_loss
+from ..parallel.dp import current as current_dp
 
 
 def gauss_weighted_focal_loss(pred: torch.Tensor, gt: torch.Tensor,
@@ -24,7 +27,10 @@ def gauss_weighted_focal_loss(pred: torch.Tensor, gt: torch.Tensor,
     pos_loss = torch.log(pred.clamp_min(eps)) * (1.0 - pred) ** 2
     neg_loss = torch.log((1.0 - pred).clamp_min(eps)) * pred ** 2 * neg_w
     total = torch.where(pos, pos_loss, neg_loss).sum()
-    return -total / pred.numel() if reduction == "mean" else -total
+    if reduction == "mean":
+        return -total / pred.numel()
+    dp = current_dp()  # data parallel: n x this rank's share of the global sum
+    return -total if dp is None else -total * dp.size
 
 
 def weighted_ce_ignore(logits: torch.Tensor, targets: torch.Tensor,
@@ -35,7 +41,12 @@ def weighted_ce_ignore(logits: torch.Tensor, targets: torch.Tensor,
     t = targets.clamp_min(0).long()
     nll = -torch.gather(F.log_softmax(logits.float(), dim=-1), 1, t[:, None])[:, 0]
     w = class_weights[t] * valid
-    return (nll * w).sum() / w.sum().clamp_min(1e-12)
+    dp = current_dp()
+    if dp is None:
+        return (nll * w).sum() / w.sum().clamp_min(1e-12)
+    # data parallel: n x this rank's share of the global ratio, over the
+    # global denominator (no gradient flows through it)
+    return (nll * w).sum() * dp.size / dp.all_reduce_(w.sum().detach()).clamp_min(1e-12)
 
 
 def ce_mean(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,21 @@
-"""The training step on one device: loss -> gradients -> clip -> AdamW
-(port of uvltrack_tpu/train/step.py; the reference's DDP step,
-lib/train/trainers/ltr_trainer.py:75-100, on one card).
+"""The training step: loss -> gradients -> clip -> AdamW (port of
+uvltrack_tpu/train/step.py; the reference's DDP step,
+lib/train/trainers/ltr_trainer.py:75-100).
 
 TrainState holds the model (fp32 parameters and the BN running stats, its
 buffers), the TrainOptimizer (Adam moments) and the step count; the step
-updates all three in place. The mesh, buffer donation and ZeRO-1 of the
-JAX package's setup_sharded_training wait for the port's parallel slice.
+updates all three in place.
+
+Data parallel (setup_sharded_training over a parallel/mesh.py Mesh of n > 1
+data shards, one process a shard): each rank steps its rows of the global
+batch (parallel/mesh.shard_batch) under the parallel/dp.py context, so BN
+statistics, the half-batch rotation, the weighted CE's denominator and drop
+path span the global batch; after the backward (every microbatch's, under
+TPU.GRAD_ACCUM) one bucketed all_reduce averages the gradients, and the
+clip and AdamW then run on equal gradients on every rank (ZeRO-1 with
+TPU.ZERO1, train/optim.py). The logged metrics are the global batch's,
+averaged over the ranks. The result is the single-device step on the global
+batch, as the JAX package's mesh step, up to the order of fp32 sums.
 """
 
 from __future__ import annotations
@@ -15,6 +25,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..parallel.dp import DataParallel, reduce_gradients, scope
 from .actor import forward_and_loss
 from .optim import TrainOptimizer, build_optimizer
 
@@ -60,10 +71,19 @@ def _batch_norms(model: nn.Module):
     return [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
 
 
+def _mean_metrics(metrics: dict, dp: DataParallel) -> dict:
+    """The metrics averaged over the ranks (one all_reduce)."""
+    keys = sorted(metrics)
+    values = dp.mean(torch.stack([metrics[k].float() for k in keys]))
+    return dict(zip(keys, values.unbind(0)))
+
+
 def make_train_step(model: nn.Module, optimizer: TrainOptimizer, cfg,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None,
+                    dp: DataParallel | None = None):
     """train_step(state, batch) -> (state, metrics), metrics 0-d tensors on
-    the device (the caller reads them when it logs).
+    the device (the caller reads them when it logs). dp: the rank's
+    data-parallel context (batch: its rows, shard_batch's), or None.
 
     cfg.TPU.GRAD_ACCUM > 1 sums the gradients of that many microbatches
     (backward after each, so activation memory scales with B/accum), then
@@ -74,6 +94,16 @@ def make_train_step(model: nn.Module, optimizer: TrainOptimizer, cfg,
     mean = str(cfg.TRAIN.REDUCTION).lower() == "mean"
 
     def train_step(state: TrainState, batch: dict):
+        with scope(dp):
+            metrics = _gradients(state, batch)
+        if dp is not None:
+            reduce_gradients(state.model.parameters(), dp)
+            metrics = _mean_metrics(metrics, dp)
+        metrics["grad_norm"] = state.optimizer.step(state.step)
+        state.step += 1
+        return state, metrics
+
+    def _gradients(state: TrainState, batch: dict) -> dict:
         for p in state.model.parameters():
             p.grad = None
         if accum > 1:
@@ -101,37 +131,46 @@ def make_train_step(model: nn.Module, optimizer: TrainOptimizer, cfg,
             loss, metrics = forward_and_loss(state.model, batch, cfg, train=True,
                                              generator=generator)
             loss.backward()
-        metrics["grad_norm"] = state.optimizer.step(state.step)
-        state.step += 1
-        return state, metrics
+        return metrics
 
     return train_step
 
 
-def make_eval_step(model: nn.Module, cfg):
+def make_eval_step(model: nn.Module, cfg, dp: DataParallel | None = None):
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict):
-        _, metrics = forward_and_loss(state.model, batch, cfg, train=False)
-        return metrics
+        with scope(dp):
+            _, metrics = forward_and_loss(state.model, batch, cfg, train=False)
+        return metrics if dp is None else _mean_metrics(metrics, dp)
 
     return eval_step
 
 
-def setup_training(cfg, steps_per_epoch: int, device=None, seed: int = 0,
-                   prepare_model=None):
-    """cfg -> (model, state, train_step): build_model (fp32 parameters on
-    `device`, "cuda" by default, seeded init), prepare_model(model) (where
-    cli/train loads pretrained weights), the optimizer, the TrainState and
-    the step, whose stochastic depth draws from a torch.Generator on the
-    device seeded with `seed`."""
+def setup_sharded_training(cfg, mesh, steps_per_epoch: int, device=None, seed: int = 0,
+                           prepare_model=None, zero1: bool = False):
+    """cfg -> (model, state, train_step) of this rank of `mesh` (a
+    parallel/mesh.py Mesh; None: one device): build_model (fp32 parameters
+    on `device`, "cuda" by default, seeded init: the same on every rank),
+    prepare_model(model) (where cli/train loads pretrained weights), the
+    optimizer (ZeRO-1 with zero1 and more than one data shard), the
+    TrainState and the step, whose stochastic depth draws from a
+    torch.Generator on the device seeded with `seed`."""
     from ..models.uvltrack import build_model, resolve_device
 
+    dp = DataParallel.of(mesh) if mesh is not None else None
     device = resolve_device(device)
     model = build_model(cfg, device=device, seed=seed)
     if prepare_model is not None:
         model = prepare_model(model)
-    optimizer = build_optimizer(cfg, model, steps_per_epoch)
+    optimizer = build_optimizer(cfg, model, steps_per_epoch,
+                                zero1=dp if zero1 and dp is not None else None)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     state = create_train_state(model, optimizer)
-    return model, state, make_train_step(model, optimizer, cfg, generator)
+    return model, state, make_train_step(model, optimizer, cfg, generator, dp=dp)
+
+
+def setup_training(cfg, steps_per_epoch: int, device=None, seed: int = 0,
+                   prepare_model=None):
+    """setup_sharded_training on one device."""
+    return setup_sharded_training(cfg, None, steps_per_epoch, device, seed, prepare_model)

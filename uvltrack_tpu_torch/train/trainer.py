@@ -3,8 +3,16 @@
 lib/train/trainers/base_trainer.py:63-110, ltr_trainer.py:67-190): per-epoch
 train and interval validation, loss/IoU AverageMeters with FPS printed every
 PRINT_INTERVAL, a checkpoint per epoch with crash-resume (reload the latest
-and continue), an append-only log and its .jsonl twin. One process: the
-JAX package's multihost gather waits for the port's parallel slice.
+and continue), an append-only log and its .jsonl twin.
+
+Data parallel (mesh=, a parallel/mesh.py Mesh over a process group): every
+rank runs the loop on the same global batches (the step keeps its rows);
+only process 0 logs and writes checkpoints, but every rank enters the
+state snapshot (ZeRO-1 gathers the Adam moments there, a collective).
+Each batch fetch ends in an agreement (one all_reduce): when one rank's
+loader raises, every rank aborts the epoch, so no rank waits alone in a
+collective, and the fail-safe restarts all of them from the last
+checkpoint (written and visible before any rank reads it).
 """
 
 from __future__ import annotations
@@ -40,11 +48,17 @@ def _fmt_stats(d: dict) -> str:
                      for k, v in sorted(d.items()))
 
 
+def _rows(batch: dict) -> int:
+    """Search frames x samples of a (global) batch."""
+    return batch["search_images"].shape[0] * batch["search_images"].shape[1]
+
+
 class Trainer:
     def __init__(self, cfg, train_step: Callable, state, train_loader: Iterable,
                  val_loaders: Optional[dict] = None, eval_step: Optional[Callable] = None,
                  checkpoint_dir: str = "checkpoints/train/uvltrack/default",
-                 log_path: Optional[str] = None, to_device: Optional[Callable] = None):
+                 log_path: Optional[str] = None, to_device: Optional[Callable] = None,
+                 mesh=None):
         self.cfg = cfg
         self.train_step = train_step
         self.eval_step = eval_step
@@ -54,18 +68,23 @@ class Trainer:
         self.to_device = to_device or (lambda b: b)
         self.ckpt = CheckpointManager(checkpoint_dir)
         self.log_path = log_path
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        # one writer: ranks saving to one path would interleave their writes
+        self.is_main = self.mesh is None or self.mesh.is_main
         self.epoch = 0
-        if log_path:
+        if log_path and self.is_main:
             os.makedirs(os.path.dirname(log_path), exist_ok=True)
 
     def _log(self, msg: str):
+        if not self.is_main:
+            return
         print(msg, flush=True)
         if self.log_path:
             with open(self.log_path, "a") as f:
                 f.write(msg + "\n")
 
     def _log_metrics(self, record: dict):
-        if self.log_path:
+        if self.log_path and self.is_main:
             with open(self.log_path + ".jsonl", "a") as f:
                 f.write(json.dumps(record) + "\n")
 
@@ -84,10 +103,10 @@ class Trainer:
                     meters[k].update(float(v), bs)
             pending.clear()
 
-        for i, batch in enumerate(self.train_loader, start=1):
+        for i, batch in enumerate(self._batches(self.train_loader), start=1):
+            bs = _rows(batch)  # the global batch's, before a rank takes its share
             batch = self.to_device(batch)
             self.state, metrics = self.train_step(self.state, batch)
-            bs = batch["search_images"].shape[0] * batch["search_images"].shape[1]
             n_frames += bs
             pending.append((metrics, bs))
             if i % interval == 0:
@@ -103,15 +122,58 @@ class Trainer:
             return out
         for name, loader in self.val_loaders.items():
             meters = defaultdict(AverageMeter)
-            for batch in loader:
+            for batch in self._batches(loader):
+                bs = _rows(batch)
                 batch = self.to_device(batch)
                 metrics = self.eval_step(self.state, batch)
-                bs = batch["search_images"].shape[0] * batch["search_images"].shape[1]
                 for k, v in metrics.items():
                     meters[k].update(float(v), bs)
             out[name] = {k: m.avg for k, m in meters.items()}
             self._log(f"[val {name}: {self.epoch}] " + _fmt_stats(meters))
         return out
+
+    def _batches(self, loader):
+        """The loader's batches; under a process group each fetch ends in an
+        agreement, and a rank whose loader raised, or ran out, makes every
+        rank raise, or stop, there."""
+        if self.mesh is None:
+            yield from loader
+            return
+        from ..parallel.dp import agree
+
+        it = iter(loader)
+        while True:
+            error, done, batch = None, False, None
+            try:
+                batch = next(it)
+            except StopIteration:
+                done = True
+            except Exception as e:  # raised below, on every rank alike
+                error = e
+            failed, finished = agree([error is not None, done], self.mesh.devices[0])
+            if failed:
+                raise error or RuntimeError("another rank's loader failed")
+            if finished:
+                return
+            yield batch
+
+    def _sync(self) -> None:
+        """Every rank here, process 0's in-flight save written (a no-op in one
+        process)."""
+        if self.mesh is not None:
+            from ..parallel.dp import agree
+
+            agree([False], self.mesh.devices[0])
+
+    def _save(self, epoch: int, extra: dict) -> None:
+        """The epoch's checkpoint: every rank takes the snapshot, process 0
+        writes it (in the background; durable at ckpt.wait())."""
+        if self.mesh is None:
+            self.ckpt.save_async(epoch, self.state, extra)
+            return
+        snapshot = _Snapshot(self.state.state_dict())  # a collective under ZeRO-1
+        if self.is_main:
+            self.ckpt.save_async(epoch, snapshot, extra)  # copies to the host here
 
     def train(self, max_epochs: int, load_latest: bool = True, fail_safe: bool = True,
               max_retries: int = 10):
@@ -128,8 +190,7 @@ class Trainer:
                              and self.epoch % val_interval == 0 else {})
                 # the host snapshot happens inside save_async; the write
                 # overlaps the next epoch, and wait() below makes it durable
-                self.ckpt.save_async(self.epoch, self.state,
-                                     {"train": train_stats, "val": val_stats})
+                self._save(self.epoch, {"train": train_stats, "val": val_stats})
                 self._log_metrics({"epoch": self.epoch, "train": train_stats,
                                    "val": val_stats, "time": time.time()})
                 self._log(f"[epoch {self.epoch}/{max_epochs}] " + _fmt_stats(train_stats))
@@ -149,8 +210,20 @@ class Trainer:
                     self.ckpt.wait()
                 except Exception:
                     self._log("async checkpoint save had failed:\n" + traceback.format_exc())
+                self._sync()
                 if self.ckpt.has_checkpoint():
                     self.state, _, self.epoch = self.ckpt.restore(self.state)
                     self._log(f"restarted from epoch {self.epoch}")
         self.ckpt.wait()  # the last epoch's save is durable on return
+        self._sync()
         return self.state
+
+
+class _Snapshot:
+    """A state dict taken already, for CheckpointManager.save_async."""
+
+    def __init__(self, state: dict):
+        self._state = state
+
+    def state_dict(self) -> dict:
+        return self._state
