@@ -163,7 +163,7 @@ Phases, one JSON line each:
                  SAMPLE_PER_EPOCH keys cut (8 steps an epoch, 2 batches of
                  VALTRACK and VALVL, VAL's every sequence) and the script's
                  vocab: epochs 1-2, then a resume to 3 under thread and one
-                 to 4 under process workers, each of 48 steps so that the
+                 to 4 under process workers, each of 32 steps so that the
                  loader still draws batches through all but the epoch's
                  last prefetch + 2 steps (a real epoch's steady state),
                  synthetic B-TRAIN steps on the same trainer after each run
@@ -175,22 +175,29 @@ Phases, one JSON line each:
                  share, device ops), validation on all three families
                  every epoch. (d) Step 1 on one real batch from one init,
                  kernels against plain, B-TRAIN's gate.
-  10. cli     -- the tool CLIs. (a) ln_qkv[fp32x-fp32w] (kernel #1's prefix at
-                 TPU.COMPUTE_DTYPE=float32: fp32 weights, three bf16 hi/lo passes)
-                 and the fp32 attention after it against their plain versions at
-                 B in {1, 8}, N in {321, 361}, C in {768, 1024}, 3 masks, two calls
-                 bitwise equal; times beside F.layer_norm + F.linear in fp32 and the
-                 bound. (b) cli.profile.main on UVLTrack-B: forward on the kernels
+  10. cli     -- the tool CLIs. (a) the fp32-weight instantiations
+                 (TPU.COMPUTE_DTYPE=float32: fp32 weights as their hi/lo bf16
+                 planes, three bf16 passes a product): ln_qkv[fp32x-fp32w] and
+                 the fp32 attention after it, proj_residual[fp32x-fp32a-fp32w]
+                 alone and as kernel #4, ln_mlp[fp32x-fp32w] (the pair and each
+                 launch), split_hilo (bitwise its plain version), against their
+                 plain versions at B in {1, 8}, N in {321, 361}, C in {768,
+                 1024}, 3 masks, two calls bitwise equal; times beside their
+                 fp32 library calls and bounds (ln_qkv at both N, the rest at
+                 N=361). (b) cli.profile.main on UVLTrack-B: forward on the kernels
                  (a torch.profiler trace read back: the GEMM core's launches in it)
                  and with --xla (the counted FLOPs and bytes equal), forward with
                  --quant int8, the step on both backends, and UVLTrack-L's step; the
                  printed p50/FPS parsed, the launches per forward checked. (c)
-                 cli.export.main --check at fp32 compute: 12 ln_qkv + 12
-                 qkv_attention ops in the exported graph, the loaded program within
-                 1e-5 of the direct call, 12 + 12 fp32-weight launches a forward.
-                 (d) cli.parity.main on a .pth.tar of the seeded model, on the
-                 kernels and on the plain backend, fp32 and --quant int8: the dumps
-                 key by key within 2e-4 + 2e-4*|plain|. (e) cli.demo.main on a
+                 cli.export.main --check at fp32 compute, plain and under
+                 UVLTRACK_FUSED_PROJ=1 and UVLTRACK_FUSED_MLP=1: 12 ln_qkv + 12
+                 qkv_attention (+ 12 proj_residual or 12 ln_mlp) ops in the
+                 exported graph, the loaded program within 1e-5 of the direct
+                 call, those launches a forward and one split_hilo a weight a
+                 model. (d) cli.parity.main on a .pth.tar of the seeded model, on
+                 the kernels and on the plain backend, fp32 (plain and under each
+                 knob) and --quant int8: the dumps key by key within 2e-4 +
+                 2e-4*|plain|. (e) cli.demo.main on a
                  48-frame 1280x720 MJPG video: 48 frames out, every box bitwise a
                  direct Tracker's over the same decoded frames. (f) cli.test.main on
                  a trainer checkpoint (ep0001.pt, train/checkpoint.py) over one
@@ -230,7 +237,7 @@ kernel's times at B=1 and, under "B8", at the lockstep batch; "launches"
 counted by the wrappers on the eager paths, "graph_launches" the graphs'
 captured calls times their replays, "train_launches" the train group's
 B-TRAIN runs (b)-(e), the data group's (c)-(d) and the parallel group's
-(a)-(b), both dp=2 ranks included; the fp32-weight row's
+(a)-(b), both dp=2 ranks included; the fp32-weight rows'
 launches come from the cli group's export and parity runs), the
 nvidia-smi name/power-limit line and,
 last, {"ok": true, "device": {...}}. Any failure raises: no ok line, exit 1.
@@ -3389,7 +3396,8 @@ def train_phase(args, dev, tmp: Path) -> dict:
 DATA_STEPS = 8  # training steps an epoch of epochs 1-2
 # the resumed epochs: long enough that the loader still draws batches through
 # all but the last prefetch + 2 steps, as through a real epoch of 30,000 samples
-DATA_LONG_STEPS = 48
+# (48 until the fp32-compute cells of the cli group needed the time)
+DATA_LONG_STEPS = 32
 DATA_PROFILE_AT = (12, 2)  # the profiler window in a long epoch: steps 13-14
 DATA_VAL_STEPS = 2  # batches of the VALTRACK and VALVL families an epoch
 DATA_LOADER_STEPS = 8  # the loader alone: batches an epoch, 2 epochs a mode
@@ -3746,82 +3754,198 @@ def data_phase(args, dev, tmp: Path) -> dict:
 
 
 # ------------------------------------------------------------------ cli
-# kernel #1 at fp32 compute (TPU.COMPUTE_DTYPE=float32: fp32 weights, an
-# fp32 stream in every block): launches per backbone forward of UVLTrack-B
+# fp32 compute (TPU.COMPUTE_DTYPE=float32: fp32 weights, an fp32 stream in
+# every block): launches per backbone forward of UVLTrack-B, by knob, and
+# the fp32 weights whose hi/lo planes split_hilo writes once per model
 F32_PER_FWD = {"ln_qkv[fp32x-fp32w]": 12, "qkv_attention[fp32]": 12}
+F32_KNOBS = {  # label -> (environment, extra launches a forward, exported ops, weights split)
+    "": ({}, {}, {"ln_qkv": 12, "qkv_attention": 12}, 12),
+    "fused_proj": ({"UVLTRACK_FUSED_PROJ": "1"}, {"proj_residual[fp32x-fp32a-fp32w]": 12},
+                   {"ln_qkv": 12, "qkv_attention": 12, "proj_residual": 12}, 24),
+    "fused_mlp": ({"UVLTRACK_FUSED_MLP": "1"}, {"ln_mlp[fp32x-fp32w]": 12},
+                  {"ln_qkv": 12, "qkv_attention": 12, "ln_mlp": 12}, 36),
+}
+F32W_NAMES = ("ln_qkv[fp32x-fp32w]", "proj_residual[fp32x-fp32a-fp32w]", "ln_mlp[fp32x-fp32w]",
+              "split_hilo[fp32w]")
 F32W_GRID_DOC = ("B in {1, 8} x N in {321, 361} x C in {768, 1024} (H = C/64) x 3 masks, "
-                 "fp32 x and W; ln_qkv called twice (bitwise equal), then qkv_attention[fp32]")
+                 "fp32 x and W: ln_qkv, its attention and proj_residual (alone, and as "
+                 "kernel #4 on that attention) a mask, ln_mlp (the pair and each launch) and "
+                 "split_hilo a shape; each kernel called twice (bitwise equal)")
 CLI_PROFILE = ["--warmup", "5", "--iters", "30"]  # iterations of each cli.profile run
 CLI_DEMO_FRAMES = 48
 CLI_TIMER = ("cli.profile's own host clock per call (mean/p50/p90 over --iters, each call "
              "ending in torch.cuda.synchronize or the step's box read-back), as it prints it")
 
 
+def expect_f32_launches(extra: dict, forwards: int, splits: int, got: dict, what: str) -> None:
+    """fp32 compute: F32_PER_FWD and a knob's `extra` launches a forward, and
+    one split_hilo launch for each of the `splits` fp32 weights the path's
+    model instances read (each instance splits its own weights once)."""
+    want = {k: v * forwards for k, v in {**F32_PER_FWD, **extra}.items()}
+    want["split_hilo[fp32w]"] = splits
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+
+
 def f32w_kernel_phase(dev, seed: int):
-    """(a) ln_qkv[fp32x-fp32w] (kernel #1's prefix with fp32 weights: three
-    bf16 hi/lo passes on the GEMM core) and the fp32 attention after it
-    against their plain fp32 versions over F32W_GRID_DOC, under the fp32
-    rule; then times of the kernel, its plain version and its library call
-    (F.layer_norm + F.linear in fp32, TF32 off) at B in {1, 8}, N in {321,
-    361}, C in {768, 1024}. Returns (worst errors, times)."""
+    """The fp32-weight instantiations against their plain fp32 versions
+    over F32W_GRID_DOC, under the fp32 rule, two calls bitwise equal:
+    ln_qkv[fp32x-fp32w] (and the fp32 attention after it),
+    proj_residual[fp32x-fp32a-fp32w] (alone and as #4), ln_mlp[fp32x-fp32w]
+    (both launches, and each alone), split_hilo (bitwise its plain
+    version); then times of each kernel, its plain version and its library
+    call (fp32, TF32 off) beside its bound at B in {1, 8}, N in {321, 361},
+    C in {768, 1024}. Returns (worst errors, times)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
+    from uvltrack_tpu_torch.ops import hilo
+    from uvltrack_tpu_torch.ops import ln_mlp as lm
     from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+    from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
 
     rng = np.random.default_rng(seed + 14)
 
-    def case(b, n, c, kind):
-        def t(a):
-            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
-        return (t(rng.normal(size=(b, n, c))), t(1 + 0.1 * rng.normal(size=c)),
-                t(0.1 * rng.normal(size=c)), t(rng.normal(size=(3 * c, c)) / np.sqrt(c)),
-                t(0.02 * rng.normal(size=3 * c)),
-                t(np.where(key_masks(b, n, kind, rng), -1e10, 0.0)))
+    def case(b, n, c):
+        """x, LN scale/bias, and the block's four fp32 weights with biases
+        (Linear layout)."""
+        f = 4 * c
+        return dict(x=t(rng.normal(size=(b, n, c))), g=t(1 + 0.1 * rng.normal(size=c)),
+                    be=t(0.1 * rng.normal(size=c)), w=t(rng.normal(size=(3 * c, c)) / np.sqrt(c)),
+                    wb=t(0.02 * rng.normal(size=3 * c)), wp=t(rng.normal(size=(c, c)) / np.sqrt(c)),
+                    bp=t(0.02 * rng.normal(size=c)), w1=t(rng.normal(size=(f, c)) / np.sqrt(c)),
+                    b1=t(0.02 * rng.normal(size=f)), w2=t(rng.normal(size=(c, f)) / np.sqrt(f)),
+                    b2=t(0.02 * rng.normal(size=c)))
 
-    def err(a, b):
-        d = (a - b).abs()
-        return float(d.max()), bool((d <= F32_ATOL + F32_RTOL * b.abs()).all())
+    worst = {}
 
-    name = "ln_qkv[fp32x-fp32w]"
-    worst = {name: 0.0, "ln_qkv_attention[fp32x-fp32w]": 0.0}
+    def check(name, got, want, what):
+        if got.dtype != torch.float32 or got.shape != want.shape:
+            raise AssertionError(f"{name} {what}: {got.dtype}{tuple(got.shape)} vs plain "
+                                 f"{want.dtype}{tuple(want.shape)}")
+        d = (got - want).abs()
+        if not bool((d <= F32_ATOL + F32_RTOL * want.abs()).all()):
+            raise AssertionError(f"{name} {what}: max abs err {float(d.max())} over {F32_ATOL} "
+                                 f"+ {F32_RTOL}*|plain|")
+        worst[name] = max(worst.get(name, 0.0), float(d.max()))
+
+    def twice(name, fn, what):
+        """fn() twice: the same bits both times."""
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise AssertionError(f"{name} {what}: a second call differs")
+        return first
+
     shapes = [(b, n, c) for b in (1, LOCKSTEP_B) for n in (321, 361) for c in (768, L_WIDTH)]
+    cases = {}
     for b, n, c in shapes:
+        k = cases[(b, n, c)] = case(b, n, c)
+        x, g, be, w, wb, wp, bp = (k[i] for i in ("x", "g", "be", "w", "wb", "wp", "bp"))
+        w1, b1, w2, b2 = (k[i] for i in ("w1", "b1", "w2", "b2"))
+        what = f"B={b} N={n} C={c}"
         for kind in ("flag0", "flag2", "open"):
-            x, g, be, w, wb, kb = case(b, n, c, kind)
-            qkv = lqa.ln_qkv(x, g, be, w, wb)
-            again = lqa.ln_qkv(x, g, be, w, wb)
-            out = lqa.qkv_attention(qkv, kb, c // 64)
-            torch.cuda.synchronize()
-            if not torch.equal(qkv, again):
-                raise AssertionError(f"{name} B={b} N={n} C={c}: a second call differs")
-            if qkv.dtype != torch.float32 or out.dtype != torch.float32:
-                raise AssertionError(f"{name}: {qkv.dtype} qkv, {out.dtype} attention")
-            for key, (e, ok) in (
-                    (name, err(qkv, lqa.ln_qkv_plain(x, g, be, w, wb))),
-                    ("ln_qkv_attention[fp32x-fp32w]",
-                     err(out, lqa.ln_qkv_attention_plain(x, g, be, w, wb, kb, c // 64)))):
-                if not ok:
-                    raise AssertionError(f"{key} B={b} N={n} C={c} mask={kind}: max abs err "
-                                         f"{e} over {F32_ATOL} + {F32_RTOL}*|plain|")
-                worst[key] = max(worst[key], e)
+            kb = t(np.where(key_masks(b, n, kind, rng), -1e10, 0.0))
+            wm = f"{what} mask={kind}"
+            qkv = twice(F32W_NAMES[0], lambda: lqa.ln_qkv(x, g, be, w, wb), wm)
+            check(F32W_NAMES[0], qkv, lqa.ln_qkv_plain(x, g, be, w, wb), wm)
+            attn = lqa.qkv_attention(qkv, kb, c // 64)
+            check("ln_qkv_attention[fp32x-fp32w]", attn,
+                  lqa.ln_qkv_attention_plain(x, g, be, w, wb, kb, c // 64), wm)
+            out = twice(F32W_NAMES[1], lambda: lqp.proj_residual(x, attn, wp, bp), wm)
+            check(F32W_NAMES[1], out, lqp.proj_residual_plain(x, attn, wp, bp), wm)
+            fused = lqp.ln_qkv_attn_proj(x, g, be, w, wb, wp, bp, kb, c // 64)
+            check("ln_qkv_attn_proj[fp32x-fp32w]", fused,
+                  lqp.ln_qkv_attn_proj_plain(x, g, be, w, wb, wp, bp, kb, c // 64), wm)
+        f = w1.shape[0]
+        hidden = torch.empty((b * n, f), dtype=torch.float32, device=dev)
+        out = torch.empty_like(x)
+        mlp = twice(F32W_NAMES[2], lambda: lm.ln_mlp(x, g, be, w1, b1, w2, b2), what)
+        check(F32W_NAMES[2], mlp, lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2), what)
+        lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out, stages="ln_fc1_gelu")
+        check("ln_fc1_gelu[fp32]", hidden.view(b, n, f), lm.ln_fc1_gelu_plain(x, g, be, w1, b1),
+              what)
+        lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out, stages="fc2_bias")
+        check("fc2_bias[fp32]", out, lm.fc2_bias_plain(hidden.view(b, n, f), w2, b2), what)
+        if not torch.equal(out, mlp):
+            raise AssertionError(f"ln_mlp[fp32x-fp32w] {what}: the launches alone differ from "
+                                 "the pair")
+        for name in ("w", "wp", "w1", "w2"):
+            planes = twice(F32W_NAMES[3], lambda: hilo.split_hilo(k[name]), what)
+            if not torch.equal(planes, hilo.split_hilo_plain(k[name])):
+                raise AssertionError(f"split_hilo {what} {name}: not its plain version's bits")
+            if not torch.equal(hilo.planes(k[name]), planes):
+                raise AssertionError(f"split_hilo {what} {name}: the cached planes differ")
+        worst[F32W_NAMES[3]] = 0.0
     emit({"phase": "f32w_kernel_check", "grid": F32W_GRID_DOC, "max_abs_err": worst,
-          "tolerance": f"|kernel-plain| <= {F32_ATOL} + {F32_RTOL}*|plain|",
+          "tolerance": f"|kernel-plain| <= {F32_ATOL} + {F32_RTOL}*|plain|; split_hilo bitwise",
           "repeatable": "bitwise, two calls at every check"})
+
+    def row(kern, plain, lib, lib_what, work):
+        b_ms, b_by = bound(*work)
+        return {**timings(kern, plain, lib), "library": lib_what, "bound_ms": b_ms,
+                "bound_by": b_by}
+
     times = {}
     for b, n, c in shapes:
-        x, g, be, w, wb, _ = case(b, n, c, "open")
-        m, f = b * n, 3 * c
-        # three bf16 passes a product; x, W, LN, bias read once, fp32 qkv written once
-        b_ms, b_by = bound(3 * 2 * m * c * f, m * c * 4 + f * c * 4 + f * 4 + 2 * c * 4 + m * f * 4)
-        t = timings(lambda: lqa.ln_qkv(x, g, be, w, wb), lambda: lqa.ln_qkv_plain(x, g, be, w, wb),
-                    lambda: F.linear(F.layer_norm(x, (c,), g, be, 1e-6), w, wb))
+        k = cases[(b, n, c)]
+        x, g, be, w, wb, wp, bp = (k[i] for i in ("x", "g", "be", "w", "wb", "wp", "bp"))
+        w1, b1, w2, b2 = (k[i] for i in ("w1", "b1", "w2", "b2"))
+        m, f = b * n, 4 * c
+        # fp32 products as three bf16 passes at the least (bound()'s note);
+        # inputs read once, outputs written once, all fp32
         key = f"{'' if b == 1 else f'B{b}_'}N{n}_C{c}"
-        times[key] = {name: {**t, "bound_ms": b_ms, "bound_by": b_by}}
-    emit({"phase": "f32w_kernel_times", "timer": TIMER, "library": "F.layer_norm + F.linear, "
-          "fp32, TF32 off", "times": times})
+        times[key] = {F32W_NAMES[0]: row(
+            lambda: lqa.ln_qkv(x, g, be, w, wb), lambda: lqa.ln_qkv_plain(x, g, be, w, wb),
+            lambda: F.linear(F.layer_norm(x, (c,), g, be, 1e-6), w, wb),
+            "F.layer_norm + F.linear, fp32",
+            (3 * 2 * m * c * 3 * c, 4 * (m * c + 3 * c * c + 3 * c + 2 * c + m * 3 * c)))}
+        if n != 361:  # row 1b at both N; the rest at N=361
+            continue
+        attn = lqa.ln_qkv_attention(x, g, be, w, wb, torch.zeros((b, n), device=dev), c // 64)
+        hidden = torch.empty((m, f), dtype=torch.float32, device=dev)
+        out = torch.empty_like(x)
+        h3 = hidden.view(b, n, f)
+        lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out, stages="ln_fc1_gelu")
+        planes = torch.empty((2, 3 * c, c), dtype=torch.bfloat16, device=dev)
+
+        def launch(stages):
+            return lambda: lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, out, stages=stages)
+
+        def fc1_lib():
+            return F.gelu(F.linear(F.layer_norm(x, (c,), g, be, 1e-6), w1, b1))
+
+        times[key].update({
+            F32W_NAMES[1]: row(lambda: lqp.proj_residual(x, attn, wp, bp),
+                               lambda: lqp.proj_residual_plain(x, attn, wp, bp),
+                               lambda: x + F.linear(attn, wp, bp), "F.linear + add, fp32",
+                               (3 * 2 * m * c * c, 4 * (3 * m * c + c * c + c))),
+            F32W_NAMES[2]: row(launch("pair"), lambda: lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2),
+                               lambda: F.linear(fc1_lib(), w2, b2),
+                               "F.layer_norm + F.linear + F.gelu + F.linear, fp32",
+                               (3 * 4 * m * c * f, 4 * (2 * m * c + 2 * c * f + f + 3 * c
+                                                        + 2 * m * f))),
+            f"{F32W_NAMES[2]} ln_fc1_gelu": row(
+                launch("ln_fc1_gelu"), lambda: lm.ln_fc1_gelu_plain(x, g, be, w1, b1), fc1_lib,
+                "F.layer_norm + F.linear + F.gelu, fp32",
+                (3 * 2 * m * c * f, 4 * (m * c + c * f + f + 2 * c + m * f))),
+            f"{F32W_NAMES[2]} fc2_bias": row(
+                launch("fc2_bias"), lambda: lm.fc2_bias_plain(h3, w2, b2),
+                lambda: F.linear(h3, w2, b2), "F.linear, fp32",
+                (3 * 2 * m * f * c, 4 * (m * f + c * f + c + m * c))),
+            # the qkv weight's planes: 4 bytes read and 4 written a value
+            F32W_NAMES[3]: row(lambda: hilo.split_hilo(w, out=planes),
+                               lambda: hilo.split_hilo_plain(w), None, None,
+                               (0, 8 * 3 * c * c)),
+        })
+    emit({"phase": "f32w_kernel_times", "timer": TIMER, "times": times,
+          "hilo_cache_bytes": hilo.cache_bytes()})
+    del cases
+    hilo.clear_cache()
     return worst, times
 
 
@@ -3918,11 +4042,12 @@ def trace_kernels(path: Path) -> dict:
 
 
 def cli_phase(args, dev, vocab: Path, tmp: Path) -> dict:
-    """The `cli` group: (a) the fp32-weight instantiation; (b) cli.profile;
-    (c) cli.export --check at fp32 compute, the exported graph's kernel ops
-    counted by name; (d) cli.parity on a .pth.tar of the seeded model, on the
-    kernels and on the plain backend, in fp32 and with --quant int8, the
-    dumps held key by key to the fp32 rule; (e) cli.demo on a 48-frame 720p
+    """The `cli` group: (a) the fp32-weight instantiations; (b) cli.profile;
+    (c) cli.export --check at fp32 compute, plain and under each fused knob
+    (F32_KNOBS), the exported graph's kernel ops counted by name; (d)
+    cli.parity on a .pth.tar of the seeded model, on the kernels and on the
+    plain backend, in fp32 (plain and under each knob) and with --quant
+    int8, the dumps held key by key to the fp32 rule; (e) cli.demo on a 48-frame 720p
     video against a direct Tracker over the same decoded frames; (f)
     cli.test on a trainer checkpoint (ep0001.pt) against a direct replay.
     Returns {"f32w": (worst, times), "launches", "graph_launches"}."""
@@ -3937,7 +4062,7 @@ def cli_phase(args, dev, vocab: Path, tmp: Path) -> dict:
     from uvltrack_tpu_torch.config import load_cfg
     from uvltrack_tpu_torch.eval import environment, get_dataset
     from uvltrack_tpu_torch.models.uvltrack import build_model
-    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.ops import attention, hilo
     from uvltrack_tpu_torch.track.tracker import Tracker
     from uvltrack_tpu_torch.train.checkpoint import CheckpointManager
     from uvltrack_tpu_torch.train.optim import build_optimizer
@@ -3962,23 +4087,44 @@ def cli_phase(args, dev, vocab: Path, tmp: Path) -> dict:
     emit({"phase": "cli_profile", "config": "B: baseline_base.yaml, L: baseline_large.yaml, "
           "seed 0", "argv": CLI_PROFILE, "timer": CLI_TIMER, **recs})
 
-    # (c) export at fp32 compute, --check: the loaded program against the direct call
-    out_pt2 = tmp / "uvltrack_b.pt2"
-    _, out, got, secs = cli_capture(cli_export.main, ["--config", "baseline_base", "--out",
-                                                      str(out_pt2), "--check"])
-    manifest = json.loads(Path(str(out_pt2) + ".json").read_text())
-    if "check: loaded program matches the direct call" not in out:
-        raise AssertionError(f"export --check: {out[-800:]}")
-    if manifest["kernel_ops"] != {"ln_qkv": 12, "qkv_attention": 12}:
-        raise AssertionError(f"exported graph's kernel ops {manifest['kernel_ops']}, not 12 "
-                             "ln_qkv + 12 qkv_attention")
-    expect_launches(F32_PER_FWD, 2, got, "export --check (the loaded program and the direct call)")
-    add(got)
-    emit({"phase": "cli_export", "seconds": secs, "file_bytes": manifest["bytes"],
-          "kernel_ops": manifest["kernel_ops"], "n_args_flat": manifest["n_args_flat"],
-          "platforms": manifest["platforms"], "launches": got,
-          "check": "loaded program within 1e-5 of the direct call"})
-    out_pt2.unlink()
+    # (c) export at fp32 compute, --check: the loaded program against the
+    # direct call; plain, then under each fused knob (kernels #4 and #7 with
+    # fp32 weights)
+    planes, peak = hilo.planes, [0]
+
+    def planes_peak(w):  # the planes cache's largest size during the run
+        got = planes(w)
+        peak[0] = max(peak[0], hilo.cache_bytes())
+        return got
+
+    for label, (env, extra, ops, splits) in F32_KNOBS.items():
+        out_pt2 = tmp / "uvltrack_b.pt2"
+        os.environ.update(env)
+        hilo.planes, peak[0] = planes_peak, 0
+        try:
+            _, out, got, secs = cli_capture(cli_export.main, ["--config", "baseline_base",
+                                                              "--out", str(out_pt2), "--check"])
+        finally:
+            hilo.planes = planes
+            for k in env:
+                os.environ.pop(k)
+        manifest = json.loads(Path(str(out_pt2) + ".json").read_text())
+        if "check: loaded program matches the direct call" not in out:
+            raise AssertionError(f"export --check {label}: {out[-800:]}")
+        if manifest["kernel_ops"] != ops:
+            raise AssertionError(f"export {label}: the graph's kernel ops "
+                                 f"{manifest['kernel_ops']}, not {ops}")
+        # two model instances (the direct one, the loaded program), a forward each
+        expect_f32_launches(extra, 2, 2 * splits, got,
+                            f"export --check {label} (the loaded program and the direct call)")
+        add(got)
+        emit({"phase": f"cli_export{'_' + label if label else ''}", "env": env,
+              "seconds": secs, "file_bytes": manifest["bytes"],
+              "hilo_cache_peak_bytes": peak[0], "weights_split": 2 * splits,
+              "kernel_ops": manifest["kernel_ops"], "n_args_flat": manifest["n_args_flat"],
+              "platforms": manifest["platforms"], "launches": got,
+              "check": "loaded program within 1e-5 of the direct call"})
+        out_pt2.unlink()
 
     # (d) parity: a .pth.tar of the seeded model, kernels against plain
     ckpt = tmp / "UVLTrack_seeded.pth.tar"
@@ -3987,23 +4133,32 @@ def cli_phase(args, dev, vocab: Path, tmp: Path) -> dict:
     torch.save({"net": seeded.state_dict()}, ckpt)
     del seeded
     parity = {}
-    for quant in ([], ["--quant", "int8"]):
+    runs = [(label, [], env, extra, splits)
+            for label, (env, extra, _, splits) in F32_KNOBS.items()]
+    runs.append(("int8", ["--quant", "int8"], {}, None, 0))
+    for label, quant, env, extra, splits in runs:
         dumps = {}
         for backend in ("cuda", "plain"):
             attention.force_backend(backend)
+            os.environ.update(env)
             try:
-                path = tmp / f"parity_{backend}{'_q8' if quant else ''}.npz"
+                path = tmp / f"parity_{backend}_{label}.npz"
                 _, out, got, _ = cli_capture(cli_parity.main, [
                     "--checkpoint", str(ckpt), "--out", str(path), "--seed", str(args.seed),
                     *quant])
             finally:
                 attention.force_backend(None)
-            per_fwd = ({"ln_qkv[fp32x-int8w]": 12, "qkv_attention[fp32]": 12} if quant
-                       else F32_PER_FWD)
-            if backend == "cuda":
-                expect_launches(per_fwd, 2, got, f"parity {backend} {quant}")
-            elif got:
-                raise AssertionError(f"parity on the plain backend launched {got}")
+                for k in env:
+                    os.environ.pop(k)
+            what = f"parity {backend} {label or 'fp32'}"
+            if backend == "plain":
+                if got:
+                    raise AssertionError(f"parity on the plain backend launched {got}")
+            elif quant:
+                expect_launches({"ln_qkv[fp32x-int8w]": 12, "qkv_attention[fp32]": 12}, 2, got,
+                                what)
+            else:
+                expect_f32_launches(extra, 2, splits, got, what)
             add(got)
             dumps[backend] = dict(np.load(path))
         worst = 0.0
@@ -4013,10 +4168,11 @@ def cli_phase(args, dev, vocab: Path, tmp: Path) -> dict:
             a, ref = dumps["cuda"][k].astype(np.float64), ref.astype(np.float64)
             d = np.abs(a - ref)
             if not (d <= F32_ATOL + F32_RTOL * np.abs(ref)).all() or not np.isfinite(a).all():
-                raise AssertionError(f"parity {quant} {k}: kernels vs plain max abs err "
+                raise AssertionError(f"parity {label} {k}: kernels vs plain max abs err "
                                      f"{d.max()} over the fp32 rule")
             worst = max(worst, float(d.max()))
-        parity["int8" if quant else "fp32"] = {"keys": len(dumps["cuda"]), "max_abs_err": worst}
+        parity[label if quant else f"fp32{'_' + label if label else ''}"] = {
+            "keys": len(dumps["cuda"]), "max_abs_err": worst, "env": env}
     emit({"phase": "cli_parity", "dumps": parity, "tolerance":
           f"|kernels-plain| <= {F32_ATOL} + {F32_RTOL}*|plain| every key"})
     torch.cuda.empty_cache()
@@ -4885,11 +5041,14 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
         source = f"{src}/{name.split('[')[0]}.cu"
         rows.append((name, source, line, launches.get(name, 0), q8_worst[name],
                      at(q8_times, shape, name)))
-    # kernel #1's prefix at fp32 compute (the fp32 weights of export and parity)
+    # fp32 compute (the fp32 weights of export and parity): kernel #1's
+    # prefix, #4's epilogue, #7, and the planes' split (the pre-pass of the
+    # three, counted under #1, whose fp32 path needed it first)
     f32_worst, f32_times = f32w
-    f32_name = "ln_qkv[fp32x-fp32w]"
-    rows.append((f32_name, f"{src}/ln_qkv.cu", 167, launches.get(f32_name, 0),
-                 f32_worst[f32_name], at(f32_times, "N361_C768", f32_name)))
+    for f32_name, line in zip(F32W_NAMES, (167, 291, 551, 167)):
+        rows.append((f32_name, f"{src}/{f32_name.split('[')[0]}.cu", line,
+                     launches.get(f32_name, 0), f32_worst[f32_name],
+                     at(f32_times, "N361_C768", f32_name)))
     # kernel #3 at BERT's N=40, kernel #7 at the ViT's two shapes
     for name, line, shape, err in (("attention[bf16]", 78, "N40_bert", "attention"),
                                    ("ln_mlp[bf16x-bf16w]", 551, "N321_bf16x", "ln_mlp"),
@@ -4916,9 +5075,12 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
             k["C1024"] = {"shape": shape, "max_abs_err": large[errs][err_key or k["name"]],
                           **at(large[table], shape, err_key or k["name"])}
     for k in kernels:
-        if k["name"] == f32_name:
-            k["C1024"] = {"shape": "N361_C1024", "max_abs_err": f32_worst[f32_name],
-                          **at(f32_times, "N361_C1024", f32_name)}
+        if k["name"] in F32W_NAMES:
+            k["C1024"] = {"shape": "N361_C1024", "max_abs_err": f32_worst[k["name"]],
+                          **at(f32_times, "N361_C1024", k["name"])}
+        if k["name"] == F32W_NAMES[3]:
+            k["note"] = ("the pre-pass of the fp32-weight mode of #1, #4 and #7 (their "
+                         "weights' hi/lo planes, once per weight); no TPU kernel of its own")
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")
@@ -4941,6 +5103,12 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                         for launch in ("ln_fc1_gelu", "fc2_bias")):
         emit({"phase": "per_launch", "shape": shape, "name": name,
               "max_abs_err": fused_worst[name.split()[-1]], **fused_times[shape][name]})
+    # the fp32 MLP's two launches, each alone
+    for shape in (f"{p}N361_C{c}" for p in ("", lb) for c in (768, L_WIDTH)):
+        for launch in ("ln_fc1_gelu", "fc2_bias"):
+            name = f"{F32W_NAMES[2]} {launch}"
+            emit({"phase": "per_launch", "shape": shape, "name": name,
+                  "max_abs_err": f32_worst[f"{launch}[fp32]"], **f32_times[shape][name]})
     emit({"phase": "per_launch", "shape": "N128_bert", "name": "attention[bf16]",
           "max_abs_err": fused_worst["attention"], **fused_times["N128_bert"]["attention[bf16]"]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -223,6 +223,28 @@ def test_kernel_route_goes_through_the_custom_ops_under_export(env, tmp_path, mo
     assert calls == []
 
 
+@pytest.mark.parametrize("knob,op", [("UVLTRACK_FUSED_PROJ", "proj_residual"),
+                                     ("UVLTRACK_FUSED_MLP", "ln_mlp")])
+def test_fused_knobs_go_through_the_custom_ops_under_export(knob, op, env, tmp_path,
+                                                           monkeypatch):
+    """cli.export at its fp32 compute with a fused knob on the kernel route
+    (gates open on the CPU): the graph holds the fused op in both blocks,
+    its fake output fp32 as the real op's (x's dtype for proj_residual, w2's
+    for ln_mlp), and the loaded program matches the direct call (--check)."""
+    monkeypatch.setattr(tattn, "_on_card", lambda t: True)
+    monkeypatch.setenv("UVLTRACK_PALLAS_MIN_N", "8")
+    monkeypatch.setenv(knob, "1")
+    out = tmp_path / "k.pt2"
+    _, log = _run(texport, ["--config", "tiny", "--out", str(out), "--check", "--device", "cpu"])
+    assert "check: loaded program matches the direct call" in log
+    program = torch.export.load(str(out))
+    counts = library.op_counts(program)
+    assert counts == {"ln_qkv": 2, "qkv_attention": 2, "attention": 1, op: 2}
+    vals = [n.meta["val"] for n in program.graph_module.graph.nodes
+            if n.op == "call_function" and op in str(n.target)]
+    assert len(vals) == 2 and all(v.dtype == torch.float32 for v in vals)
+
+
 def _jax_parity(argv):
     from uvltrack_tpu.cli import parity as jparity
 

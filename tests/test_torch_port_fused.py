@@ -532,7 +532,10 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         fa.fused_attention(q, k.contiguous(), v, kb)  # strides differ
     x, g, be, w1, b1, w2, b2 = (_t(a).to(cuda) for a in _mlp_case(64, c=128, f=512))
-    with pytest.raises(ValueError):
-        lm.ln_mlp(x, g, be, w1.t().contiguous(), b1, w2.t().contiguous(), b2)  # fp32 W
+    w1l, w2l = w1.t().contiguous(), w2.t().contiguous()  # Linear layout
+    with pytest.raises(ValueError):  # fp32 W runs with an fp32 x only
+        lm.ln_mlp(x.bfloat16(), g, be, w1l, b1, w2l, b2)
+    with pytest.raises(ValueError):  # one fp32 W and one bf16 W
+        lm.ln_mlp(x, g, be, w1l, b1, w2l.bfloat16(), b2)
     with pytest.raises(ValueError):
         lm.ln_mlp(x, g, be, w1.bfloat16(), b1, w2.bfloat16(), b2)  # (C, F) layout

@@ -1,13 +1,15 @@
 """The port's tool modules against the JAX package, and the fp32-weight mode
 of the GEMM core.
 
-- The fault this slice closes: an fp32-compute model (TPU.COMPUTE_DTYPE=
-  float32, fp32 weights in every block) could not run kernel #1 on the card:
-  `ln_qkv` refused an fp32 w_qkv. On meta tensors (which take the wrappers'
-  card branch without a card) with the device check and the launch spied
-  on, the entry now reaches `ln_qkv[fp32x-fp32w]` and `qkv_attention[fp32]`,
-  directly and through the autograd Function; the fused projection and MLP
-  raise on an fp32 weight, naming their knobs.
+- fp32 compute on the kernels: an fp32-compute model (TPU.COMPUTE_DTYPE=
+  float32, fp32 weights in every block) reaches kernel #1 as
+  `ln_qkv[fp32x-fp32w]` and `qkv_attention[fp32]`, and under
+  UVLTRACK_FUSED_PROJ=1 / UVLTRACK_FUSED_MLP=1 the fused projection
+  (`proj_residual[fp32x-fp32a-fp32w]`) and MLP (`ln_mlp[fp32x-fp32w]`, an
+  fp32 result), each fp32 weight through its hi/lo planes (`split_hilo`,
+  once per weight): on meta tensors (which take the wrappers' card branch
+  without a card) with the device check and the launch spied on, directly
+  and through the autograd Functions, whose backward runs.
 - `utils/costs.py`: the tiny forward's FLOPs against the JAX
   `compiled_cost`, against `frame_cost`, and the same count with the kernel
   entries taken or not.
@@ -15,9 +17,10 @@ of the GEMM core.
 - `cli/test.py::build_tracker` on the JAX trainer's `ep0001.msgpack` and on
   the port's `ep0001.pt`, against the JAX `build_tracker`.
 - `ops/prroi_pool.py`, `core/hann.py`, `registry.py` against the JAX package.
-- Marker `gpu` (skipped without a card): the fp32-weight instantiation
-  against its plain version at B in {1, 8}, N in {321, 361}, C in {768,
-  1024}, three masks, two calls bitwise equal. Run on the card with
+- Marker `gpu` (skipped without a card): the fp32-weight instantiations
+  (`ln_qkv`, `proj_residual`, `ln_mlp`, and `split_hilo`) against their
+  plain versions at B in {1, 8}, N in {321, 361}, C in {768, 1024}, three
+  masks, two calls bitwise equal. Run on the card with
   `python -m pytest tests/test_torch_port_tools.py -m gpu --noconftest`
   (no JAX there: this module imports it inside the CPU tests).
 """
@@ -29,7 +32,7 @@ import torch
 from test_torch_port_cli_test import env, root  # noqa: F401  (fixtures: OTB layout, tiny CLI)
 from uvltrack_tpu_torch.ops import attention as tattn
 from uvltrack_tpu_torch.ops import autograd as ag
-from uvltrack_tpu_torch.ops import build
+from uvltrack_tpu_torch.ops import build, hilo
 from uvltrack_tpu_torch.ops import ln_mlp as lm
 from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
 from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
@@ -55,7 +58,7 @@ def spied_launches(monkeypatch):
               "UVLTRACK_PALLAS_MIN_N"):
         monkeypatch.delenv(k, raising=False)
     calls = []
-    for mod in (lqa, lqp, lm):
+    for mod in (lqa, lqp, lm, hilo):
         monkeypatch.setattr(mod, "check_cuda", lambda name, *t: None)
     monkeypatch.setattr(build, "launch", lambda kernel, inst, *a, **k: calls.append(
         (kernel, inst)))
@@ -65,34 +68,53 @@ def spied_launches(monkeypatch):
 @pytest.mark.parametrize("grad", [False, True])
 def test_fp32_weights_reach_the_ln_qkv_kernel(grad, spied_launches):
     """An fp32 w_qkv on the kernel route reaches `ln_qkv`'s launch as
-    fp32x-fp32w with an fp32 qkv, then the fp32 attention body; under
-    autograd through LnQkvAttention (no change of its own). The parent
-    refused it: "ln_qkv: w_qkv must be bf16"."""
+    fp32x-fp32w with an fp32 qkv (after the split of its planes), then the
+    fp32 attention body; under autograd through LnQkvAttention (no change of
+    its own). PR 14's parent refused it: "ln_qkv: w_qkv must be bf16"."""
     c = 768
     x = _meta((1, 361, c), grad=grad)
     args = (_meta((c,)), _meta((c,)), _meta((3 * c, c), grad=grad), _meta((3 * c,)))
     out = tattn.attention_ln_qkv_core(x, *args, 12, None, compute_dtype=torch.float32)
-    assert spied_launches == [("ln_qkv", "fp32x-fp32w"), ("qkv_attention", "fp32")]
+    assert spied_launches == [("split_hilo", "fp32w"), ("ln_qkv", "fp32x-fp32w"),
+                              ("qkv_attention", "fp32")]
     assert out.shape == (1, 361, c) and out.dtype == torch.float32
     assert out.requires_grad == grad
     assert lqa.ln_qkv(x.detach(), *[a.detach() for a in args]).dtype == torch.float32
 
 
-def test_fp32_weights_raise_in_the_fused_projection_and_mlp(spied_launches, monkeypatch):
-    """#4 and #7 have no fp32-weight instantiation: each raises, naming its
-    knob, after #1's launches."""
+@pytest.mark.parametrize("grad", [False, True])
+def test_fp32_weights_reach_the_fused_projection_and_mlp(grad, spied_launches, monkeypatch):
+    """#4 and #7 at fp32 compute: under UVLTRACK_FUSED_PROJ=1 the block's
+    attention half launches ln_qkv[fp32x-fp32w], qkv_attention[fp32] and
+    proj_residual[fp32x-fp32a-fp32w]; under UVLTRACK_FUSED_MLP=1 the MLP
+    launches ln_mlp[fp32x-fp32w] with an fp32 result; each fp32 weight's
+    planes split first. With grad, through LnQkvAttnProj and LnMlp (no
+    change of their own), whose plain-recompute backward gives every input
+    its gradient. The parent raised on both ("no fp32-weight
+    instantiation", "w1, w2 must be bf16")."""
     c = 768
-    x = _meta((1, 361, c))
-    vec = [_meta((c,)) for _ in range(2)]
+    x = _meta((1, 361, c), grad=grad)
+    vec = [_meta((c,), grad=grad) for _ in range(2)]
+    attn_w = [_meta((3 * c, c), grad=grad), _meta((3 * c,), grad=grad), _meta((c, c), grad=grad),
+              _meta((c,), grad=grad)]
     monkeypatch.setenv("UVLTRACK_FUSED_PROJ", "1")
-    with pytest.raises(ValueError, match="UVLTRACK_FUSED_PROJ"):
-        tattn.attention_block_core(x, *vec, _meta((3 * c, c)), _meta((3 * c,)), _meta((c, c)),
-                                   _meta((c,)), 12, None, compute_dtype=torch.float32)
-    assert spied_launches == [("ln_qkv", "fp32x-fp32w"), ("qkv_attention", "fp32")]
+    out = tattn.attention_block_core(x, *vec, *attn_w, 12, None, compute_dtype=torch.float32)
+    split = ("split_hilo", "fp32w")
+    assert spied_launches == [split, ("ln_qkv", "fp32x-fp32w"), ("qkv_attention", "fp32"),
+                              split, ("proj_residual", "fp32x-fp32a-fp32w")]
+    assert out.shape == x.shape and out.dtype == torch.float32 and out.requires_grad == grad
+    spied_launches.clear()
     monkeypatch.setenv("UVLTRACK_FUSED_MLP", "1")
-    with pytest.raises(ValueError, match="UVLTRACK_FUSED_MLP"):
-        tattn.ln_mlp_core(x, *vec, _meta((4 * c, c)), _meta((4 * c,)), _meta((c, 4 * c)),
-                          _meta((c,)), compute_dtype=torch.float32)
+    mlp_w = [_meta((4 * c, c), grad=grad), _meta((4 * c,), grad=grad),
+             _meta((c, 4 * c), grad=grad), _meta((c,), grad=grad)]
+    mlp = tattn.ln_mlp_core(x, *vec, *mlp_w, compute_dtype=torch.float32)
+    assert spied_launches == [split, split, ("ln_mlp", "fp32x-fp32w")]
+    assert mlp.shape == x.shape and mlp.dtype == torch.float32 and mlp.requires_grad == grad
+    if grad:
+        (out.sum() + mlp.sum()).backward()
+        for t in (x, *vec, *attn_w, *mlp_w):
+            assert t.grad is not None and t.grad.shape == t.shape
+            assert t.grad.dtype == torch.float32
 
 
 def test_fp32_weight_needs_an_fp32_stream(spied_launches):
@@ -579,19 +601,59 @@ def _f32_case(b, n, c, mask, dev, seed=0):
 @pytest.mark.parametrize("n", [321, 361])
 @pytest.mark.parametrize("b", [1, 8])
 def test_cuda_ln_qkv_fp32_weights_match_plain(cuda, b, n, c, mask):
-    """ln_qkv[fp32x-fp32w] (three bf16 hi/lo passes on the wgmma core) and
-    the attention after it (qkv_attention[fp32]) against their plain fp32
-    versions; a second call bitwise equal."""
+    """ln_qkv[fp32x-fp32w] (three bf16 hi/lo passes on the wgmma core, W's
+    planes split once by split_hilo) and the attention after it
+    (qkv_attention[fp32]) against their plain fp32 versions; a second call
+    bitwise equal, with no second split."""
     x, g, be, w, wb, kb = _f32_case(b, n, c, mask, cuda, seed=b + n + c)
     heads = c // 64
     build.reset_launch_counts()
     qkv = lqa.ln_qkv(x, g, be, w, wb)
     out = lqa.qkv_attention(qkv, kb, heads)
     torch.cuda.synchronize()
-    assert build.instantiation_counts() == {"ln_qkv[fp32x-fp32w]": 1, "qkv_attention[fp32]": 1}
+    assert build.instantiation_counts() == {"split_hilo[fp32w]": 1, "ln_qkv[fp32x-fp32w]": 1,
+                                            "qkv_attention[fp32]": 1}
     assert qkv.dtype == torch.float32 and qkv.shape == (b, n, 3 * c)
     torch.testing.assert_close(qkv, lqa.ln_qkv_plain(x, g, be, w, wb), atol=GPU_F32_TOL,
                                rtol=GPU_F32_TOL)
     torch.testing.assert_close(out, lqa.ln_qkv_attention_plain(x, g, be, w, wb, kb, heads),
                                atol=GPU_F32_TOL, rtol=GPU_F32_TOL)
     torch.testing.assert_close(lqa.ln_qkv(x, g, be, w, wb), qkv, rtol=0, atol=0)
+    assert build.instantiation_counts()["split_hilo[fp32w]"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask", ["flag0", "flag2", "open"])
+@pytest.mark.parametrize("c", [768, 1024])
+@pytest.mark.parametrize("n", [321, 361])
+@pytest.mark.parametrize("b", [1, 8])
+def test_cuda_fp32_fused_projection_and_mlp_match_plain(cuda, b, n, c, mask):
+    """proj_residual[fp32x-fp32a-fp32w] alone and in kernel #4's composition,
+    and ln_mlp[fp32x-fp32w] (an fp32 hidden tensor and output), against
+    their plain fp32 versions; two calls bitwise equal; split_hilo's planes
+    bitwise its plain version's."""
+    x, g, be, w, wb, kb = _f32_case(b, n, c, mask, cuda, seed=b * n + c)
+    rng = np.random.default_rng(b + n + c)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)  # noqa: E731
+    wp, bp = t(rng.normal(size=(c, c)) / np.sqrt(c)), t(0.02 * rng.normal(size=c))
+    w1, b1 = t(rng.normal(size=(4 * c, c)) / np.sqrt(c)), t(0.02 * rng.normal(size=4 * c))
+    w2, b2 = t(rng.normal(size=(c, 4 * c)) / np.sqrt(4 * c)), t(0.02 * rng.normal(size=c))
+    heads = c // 64
+    attn = lqa.ln_qkv_attention(x, g, be, w, wb, kb, heads)
+    build.reset_launch_counts()
+    proj = lqp.proj_residual(x, attn, wp, bp)
+    fused = lqp.ln_qkv_attn_proj(x, g, be, w, wb, wp, bp, kb, heads)
+    mlp = lm.ln_mlp(x, g, be, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert build.instantiation_counts() == {
+        "split_hilo[fp32w]": 3, "proj_residual[fp32x-fp32a-fp32w]": 2, "ln_mlp[fp32x-fp32w]": 1,
+        "ln_qkv[fp32x-fp32w]": 1, "qkv_attention[fp32]": 1}
+    assert proj.dtype == fused.dtype == mlp.dtype == torch.float32
+    for got, want in ((proj, lqp.proj_residual_plain(x, attn, wp, bp)),
+                      (fused, lqp.ln_qkv_attn_proj_plain(x, g, be, w, wb, wp, bp, kb, heads)),
+                      (mlp, lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2))):
+        torch.testing.assert_close(got, want, atol=GPU_F32_TOL, rtol=GPU_F32_TOL)
+    torch.testing.assert_close(lqp.proj_residual(x, attn, wp, bp), proj, rtol=0, atol=0)
+    torch.testing.assert_close(lm.ln_mlp(x, g, be, w1, b1, w2, b2), mlp, rtol=0, atol=0)
+    for weight in (w, wp, w1, w2):
+        assert torch.equal(hilo.planes(weight), hilo.split_hilo_plain(weight))

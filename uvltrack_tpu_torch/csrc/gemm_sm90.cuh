@@ -11,13 +11,15 @@
 //
 // W is a Linear-layout (N_out, K) weight, K-major: bf16, an int8 payload
 // with its fp32 per-row scale s, which multiplies the fp32 accumulator in the
-// epilogue (rounded before the bias add: the Pallas kernels' order), or fp32
-// (LN_BIAS with an fp32 x and output only: the qkv of an fp32-compute model).
+// epilogue (rounded before the bias add: the Pallas kernels' order), or an
+// fp32 weight given as its hi and lo bf16 planes (HiLo below; the weights of
+// an fp32-compute model: an fp32 A or x and an fp32 output).
 // Kinds:
 //   - LN_BIAS (ln_qkv) and LN_BIAS_GELU (ln_fc1_gelu): A = LN(x), K = C; EPI
 //     is the identity or the erf GELU; TO is bf16, or fp32 for the int8 or
-//     fp32 qkv of an fp32 x;
-//   - SPLITK_BIAS (fc2_bias): A is the bf16 hidden tensor (M, F), K = F;
+//     fp32 W of an fp32 x;
+//   - SPLITK_BIAS (fc2_bias): A is the hidden tensor (M, F), K = F: bf16,
+//     or fp32 with an fp32 W (and then an fp32 out);
 //   - SPLITK_RESIDUAL (proj_residual): A is the attention output (M, K), bf16
 //     or fp32, and out = x + TX(proj) in x's type TX.
 //
@@ -46,14 +48,17 @@
 //     common.cuh; |y - hi - lo| <= 2^-17 |y|, against a B operand that bf16
 //     holds exactly): fp32-accurate, no TF32. An fp32 A tile of the SPLITK
 //     kinds (TMA, 256 bytes a row) is split by both warpgroups, 32 rows each.
-//   - an fp32 W tile (TMA without swizzle, 256 bytes a row) is split into its
-//     hi and lo bf16 tiles in place, in its own ring stage, each warpgroup its
-//     rows (split_w_in_place: the fp32 rows into registers, a warpgroup
-//     barrier, the two tiles written over them); with an fp32 A as well the
-//     product runs three passes, hi.hi + lo.hi + hi.lo, as the attention
-//     body's fp32 products do (attention.cuh): the dropped lo.lo term is at
-//     most 2^-18 |a||w| a product. The split and the products of a tile do
-//     not overlap: the simple form, for the fp32-compute model's qkv.
+//
+// An fp32 W (HiLo): csrc/split_hilo.cu writes its hi and lo bf16 planes once
+// per weight (the wrapper caches them, ops/hilo.py), and the producer streams
+// both planes' k-tiles by TMA in the 128-byte swizzle wgmma reads, as it
+// streams a bf16 W: no consumer splits a W value, and no product waits on a
+// split. With the fp32 A side split as above the product runs three passes,
+// hi.hi + lo.hi + hi.lo, as the attention body's fp32 products do
+// (attention.cuh): the dropped lo.lo term is at most 2^-18 |a||w| a product.
+// The LN kinds with an fp32 W run their own persistent body (ln_hilo_kernel
+// below): x itself streams through the ring, and each k-tile is normalized
+// and split while the previous one's products run.
 //
 // A operand:
 //   - LN kinds: the consumers compute each row's statistics once (fp32,
@@ -112,6 +117,15 @@ constexpr int CONSUMERS = NC * 128;
 constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
 constexpr int A_TILE_BYTES = BM * BK * 2;  // 8 KB: a 64 x 64 bf16 tile
 constexpr int MAX_C = 1024;         // LN kinds: 64 rows of C bf16 in shared memory
+
+// The weight type of an fp32 W: each value as its hi and lo bf16 halves
+// (split_bf16), which the weight holds as two planes, hi (N_out, K) then lo
+// (N_out, K), written by csrc/split_hilo.cu. A k-tile of it in a ring stage
+// is the hi tile (BN rows of 128 bytes, swizzled) and the lo tile after it:
+// 4 bytes a value, as the fp32 value itself.
+struct HiLo {
+  bf16 hi, lo;
+};
 
 // exact GELU as jax.nn.gelu(approximate=False): 0.5 x erfc(-x / sqrt(2))
 __device__ __forceinline__ float gelu_erf(float v) {
@@ -380,29 +394,6 @@ __device__ __forceinline__ void split_a_tile(const float* src, uint8_t* hi, uint
   }
 }
 
-// The WN rows of an fp32 W k-tile a warpgroup owns (TMA without swizzle: 256
-// bytes a row, at buf) -> their hi bf16 tile at buf and their lo tile at buf
-// + WN * 128 bytes, in the swizzled K-major layout, over the fp32 rows: each
-// thread holds its WN/16 chunks of 8 values in registers across the
-// warpgroup's barrier `bar`, then writes their halves.
-template <int WN>
-__device__ __forceinline__ void split_w_in_place(uint8_t* buf, int t, int bar) {
-  constexpr int PER = WN * 8 / 128;  // 8-value chunks a thread
-  float v[PER][8];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int i = t + 128 * j;
-    load8(reinterpret_cast<const float*>(buf + (i >> 3) * 256 + (i & 7) * 32), v[j]);
-  }
-  named_barrier_sync(bar, 128);
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int i = t + 128 * j;
-    const int r = i >> 3;
-    store_split8(v[j], buf, buf + WN * 128, r * 128 + (((i & 7) ^ (r & 7)) << 4));
-  }
-}
-
 // ------------------------------------------------------ the LN prologue
 // Rows m0..m0+63 of x (M, C) -> LN(x) in shared memory as swizzled 64 x 64
 // bf16 k-tiles (a_smem, 1024-byte aligned): the byte of element (r, k) is
@@ -520,6 +511,120 @@ __device__ __forceinline__ void ln_rows_to_smem(const TX* __restrict__ x,
   }
 }
 
+// ------------------------------------------------------------ epilogue
+// A consumer thread's accumulators of a 64 x BN tile at (m0, n0) -> out:
+// (* s) + b (EPI), one rounding to TO, rows past M and columns past N_out
+// not stored. Register i of thread t of warpgroup wg holds row (t/32)*16 +
+// (t%32)/4 + 8*((i/2)%2), column wg*WN + (i/4)*8 + (t%4)*2 + i%2.
+template <int KIND, bool W8, int WN, typename TO>
+__device__ __forceinline__ void store_tile(const float (&acc)[WN / 2],
+                                           const float* __restrict__ wscale,
+                                           const float* __restrict__ bias, TO* __restrict__ out,
+                                           int m0, int n0, int M, int N_out, int wg, int t) {
+  const int frow = (t / 32) * 16 + (t % 32) / 4;
+  const int fcol = wg * WN + (t % 4) * 2;
+#pragma unroll
+  for (int j = 0; j < WN / 8; ++j) {
+    const int col = n0 + fcol + j * 8;
+    if (col >= N_out) continue;
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+    float2 sc = make_float2(1.f, 1.f);
+    if constexpr (W8) sc = *reinterpret_cast<const float2*>(wscale + col);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + frow + 8 * h;
+      if (row >= M) continue;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if constexpr (W8) {
+        v0 = __fmul_rn(v0, sc.x);
+        v1 = __fmul_rn(v1, sc.y);
+      }
+      v0 = __fadd_rn(v0, b.x);
+      v1 = __fadd_rn(v1, b.y);
+      if constexpr (KIND == LN_BIAS_GELU) {
+        v0 = gelu_erf(v0);
+        v1 = gelu_erf(v1);
+      }
+      store2(out + static_cast<size_t>(row) * N_out + col, v0, v1);
+    }
+  }
+}
+
+// ---------------------------------------- the LN kinds with a HiLo W
+// Rows m0..m0+63 of an fp32 x (M, C) -> their (mean, rstd) in stats[0..63],
+// exactly as ln_rows_to_smem's STATS pass computes them (the same loads, the
+// same order of the sums). Rows past M get zeros, which nothing reads.
+__device__ __forceinline__ void row_stats(const float* __restrict__ x, int m0, int M, int C,
+                                          float eps, float2* stats, int ctid) {
+  constexpr int RPI = 2;  // rows a warp reduces at a time
+  const int warp = ctid >> 5;
+  const int lane = ctid & 31;
+  const int nch = C / 8;
+  const float inv_c = 1.f / C;
+  for (int r0 = warp * RPI; r0 < BM; r0 += (CONSUMERS / 32) * RPI) {
+    float v[RPI][MAX_CH][8];
+    float s[RPI], ss[RPI];
+#pragma unroll
+    for (int i = 0; i < RPI; ++i) {
+      const int row = m0 + r0 + i;
+      s[i] = ss[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < MAX_CH; ++j) {
+        const int ch = lane + 32 * j;
+        if (ch < nch && row < M) {
+          load8(x + static_cast<size_t>(row) * C + ch * 8, v[i][j]);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            s[i] += v[i][j][e];
+            ss[i] += v[i][j][e] * v[i][j][e];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RPI; ++i) {
+      const float sum = warp_sum(s[i]);
+      const float sumsq = warp_sum(ss[i]);
+      const float mean = sum * inv_c;
+      const float var = fmaxf(sumsq * inv_c - mean * mean, 0.f);
+      if (lane == 0)
+        stats[r0 + i] = m0 + r0 + i < M ? make_float2(mean, rsqrtf(var + eps)) : make_float2(0.f, 0.f);
+    }
+  }
+}
+
+// Rows r0..r0+31 of an fp32 x k-tile (TMA without swizzle: 256 bytes a row)
+// -> LN(x) of those values, split into the hi and lo bf16 tiles in the
+// swizzled layout (ln_rows_to_smem's arithmetic and rounding); gamma and
+// beta point at the k-tile's 64 columns. The 128 threads of a warpgroup (t),
+// two 8-value chunks each; rows past M are zero.
+__device__ __forceinline__ void ln_split_x_tile(const float* src, uint8_t* hi, uint8_t* lo,
+                                                int r0, int t, const float2* stats,
+                                                const float* __restrict__ gamma,
+                                                const float* __restrict__ beta, int m0, int M) {
+  const int c = t & 7;  // the chunk of both of this thread's rows
+  float g[8], be[8];
+  load8(gamma + c * 8, g);
+  load8(beta + c * 8, be);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = r0 + ((t + 128 * j) >> 3);
+    float v[8], y[8];
+    load8(src + r * BK + c * 8, v);
+    const float2 st = stats[r];
+    const bool live = m0 + r < M;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      y[e] = 0.f;
+      if (live) {
+        y[e] = (v[e] - st.x) * st.y;
+        y[e] = y[e] * g[e] + be[e];
+      }
+    }
+    store_split8(y, hi, lo, r * 128 + ((c ^ (r & 7)) << 4));
+  }
+}
+
 // --------------------------------------------------- shared-memory plan
 // Byte offsets from the 1024-aligned base, the same on host and device.
 //   a:    LN kinds: the normalized block (KT tiles of 8 KB; with HILO, hi and
@@ -553,7 +658,8 @@ __host__ __device__ constexpr Plan plan(int K) {
 // clusters of SPLIT blocks along z. LN kinds read a bf16 x through map_a
 // (TMA, the whole 64-row block at once) and an fp32 x directly; the SPLITK
 // kinds read A (TA) through map_a, and SPLITK_RESIDUAL the residual x (TX).
-// W (TW) through map_b. out (M, N_out) TO.
+// W (TW) through map_b (a HiLo W: its two planes, 2 N_out rows). out
+// (M, N_out) TO. The LN kinds with a HiLo W run ln_hilo_kernel instead.
 template <int KIND, typename TX, typename TA, typename TW, typename TO, int BN, int STAGES,
           int SPLIT>
 __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtensorMap* map_b,
@@ -565,11 +671,11 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtens
                                           int M, int K, int N_out, float eps) {
   constexpr bool LN = KIND == LN_BIAS || KIND == LN_BIAS_GELU;
   constexpr bool W8 = std::is_same<TW, int8_t>::value;
-  constexpr bool W32 = std::is_same<TW, float>::value;  // split in place: a third pass
+  constexpr bool WP = std::is_same<TW, HiLo>::value;  // hi/lo W planes: a third pass
   constexpr bool A32 = !LN && std::is_same<TA, float>::value;
   constexpr bool HILO = A32 || (LN && std::is_same<TO, float>::value);  // two bf16 passes
-  static_assert(!W32 || (KIND == LN_BIAS && HILO && std::is_same<TX, float>::value),
-                "an fp32 W: LN_BIAS with an fp32 x and output");
+  static_assert(!WP || A32, "a HiLo W here: a SPLITK kind with an fp32 A (ln_hilo_kernel "
+                "takes the LN kinds)");
   constexpr bool CONVERT = W8 || A32;
   constexpr bool XS = LN && std::is_same<TX, bf16>::value;  // x block staged by TMA
   // the ring stage is free once converted, unless wgmma reads it directly
@@ -640,6 +746,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtens
         mbar_expect_tx(bar, TX_BYTES);
         const int k = (kt0 + kt) * BK;
         tma_load_2d(smem_u32(b_ring + s * B_STAGE), map_b, k, n0, bar);
+        if constexpr (WP)  // the lo plane's tile after the hi plane's
+          tma_load_2d(smem_u32(b_ring + s * B_STAGE + BN * 128), map_b, k, N_out + n0, bar);
         if constexpr (!LN) tma_load_2d(smem_u32(a_smem + s * A_STAGE), map_a, k, m0, bar);
       }
     }
@@ -681,16 +789,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtens
       if constexpr (W8)
         b0 = smem_u32(wcv + cb * BN * 128 + wg * WN * 128);
       else
-        b0 = smem_u32(b_ring + s * B_STAGE + wg * WN * BK * sizeof(TW));
-      const uint32_t b_lo = b0 + WN * 128;  // W32: the lo tile
-
-      if constexpr (W32) {
-        // this warpgroup's rows of tile kt, split in place; the previous
-        // tile's products are complete (waited below)
-        split_w_in_place<WN>(b_ring + s * B_STAGE + wg * WN * BK * 4, t, 2 + wg);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        named_barrier_sync(2 + wg, 128);
-      }
+        b0 = smem_u32(b_ring + s * B_STAGE + wg * WN * 128);
+      const uint32_t b_lo = b0 + BN * 128;  // WP: the lo plane's tile
 
       if constexpr (CONVERT) {
         // convert tile kt while the products of tile kt-1 run; its buffers
@@ -721,7 +821,7 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtens
       for (int kk = 0; kk < BK / 16; ++kk) {
         wgmma<WN>(acc, desc_sw128(a_hi + kk * 32), desc_sw128(b0 + kk * 32));
         if constexpr (HILO) wgmma<WN>(acc, desc_sw128(a_lo + kk * 32), desc_sw128(b0 + kk * 32));
-        if constexpr (W32) wgmma<WN>(acc, desc_sw128(a_hi + kk * 32), desc_sw128(b_lo + kk * 32));
+        if constexpr (WP) wgmma<WN>(acc, desc_sw128(a_hi + kk * 32), desc_sw128(b_lo + kk * 32));
       }
       wgmma_commit();
       if constexpr (!CONVERT) {
@@ -743,33 +843,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtens
 
   if constexpr (SPLIT == 1) {
     static_assert(KIND != SPLITK_RESIDUAL, "the residual epilogue is the split one");
-    if (tid < CONSUMERS) {
-#pragma unroll
-      for (int j = 0; j < WN / 8; ++j) {
-        const int col = n0 + fcol + j * 8;
-        if (col >= N_out) continue;
-        const float2 b = *reinterpret_cast<const float2*>(bias + col);
-        float2 sc = make_float2(1.f, 1.f);
-        if constexpr (W8) sc = *reinterpret_cast<const float2*>(wscale + col);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + frow + 8 * h;
-          if (row >= M) continue;
-          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-          if constexpr (W8) {
-            v0 = __fmul_rn(v0, sc.x);
-            v1 = __fmul_rn(v1, sc.y);
-          }
-          v0 = __fadd_rn(v0, b.x);
-          v1 = __fadd_rn(v1, b.y);
-          if constexpr (KIND == LN_BIAS_GELU) {
-            v0 = gelu_erf(v0);
-            v1 = gelu_erf(v1);
-          }
-          store2(out + static_cast<size_t>(row) * N_out + col, v0, v1);
-        }
-      }
-    }
+    if (tid < CONSUMERS)
+      store_tile<KIND, W8, WN>(acc, wscale, bias, out, m0, n0, M, N_out, wg, t);
   } else {
     // split-K: each block's fp32 partial tile (64 x BN, row stride BN+4)
     // over its own rings, once every consumer is done with them
@@ -851,6 +926,153 @@ splitk_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                                                      bias, out, M, K, N_out, 0.f);
 }
 
+// The LN kinds with an fp32 x, an fp32 out and a HiLo W (the qkv and fc1
+// of an fp32-compute model), persistent: a grid of min(tiles, SMs) blocks,
+// block i taking the output tiles i T/G .. (i+1) T/G - 1 of the T 64 x BN
+// tiles in row-block-major order, so a block's tiles mostly share a row
+// block, and the producer runs on into the next tile's k-tiles while the
+// consumers finish one. Each ring stage holds a 64 x 64 fp32 x tile (TMA,
+// unswizzled) and the W tile's hi and lo planes (TMA, swizzled). Per row
+// block the consumers compute the 64 rows' statistics once (row_stats, from
+// device memory); per k-tile they normalize and split the x tile into one of
+// two hi/lo buffers (ln_split_x_tile, 32 rows a warpgroup) while the
+// previous k-tile's products run, then issue hi.hi + lo.hi + hi.lo. No LN
+// block is held, so the ring has STAGES stages at any C and no k-tile waits
+// on a drain; the operands and rounding points are those of the LN-block
+// form this replaced (ln_rows_to_smem with HILO, W split in shared memory),
+// and so is the order of the products.
+//   x ring:  STAGES x 16 KB; W ring: STAGES x BN x 256 bytes; acv: two
+//   (hi, lo) A tiles (32 KB); stats: 64 (mean, rstd); full/empty barriers
+struct HiloPlan {
+  int x, w, acv, st, bar, total;
+};
+
+template <int BN, int STAGES>
+__host__ __device__ constexpr HiloPlan hilo_plan() {
+  HiloPlan p{};
+  p.x = 0;
+  p.w = STAGES * BM * BK * 4;
+  p.acv = p.w + STAGES * BN * BK * 4;
+  p.st = p.acv + 4 * A_TILE_BYTES;
+  p.bar = p.st + BM * 8;
+  p.total = 1024 + p.bar + 2 * STAGES * 8;
+  return p;
+}
+
+template <int KIND, int BN, int STAGES>
+__global__ void __launch_bounds__(THREADS, 1)
+ln_hilo_kernel(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_w, const float* __restrict__ x,
+               const float* __restrict__ gamma, const float* __restrict__ beta,
+               const float* __restrict__ bias, float* __restrict__ out, int M, int K, int N_out,
+               float eps) {
+  constexpr int WN = BN / NC;
+  constexpr int X_STAGE = BM * BK * 4;
+  constexpr int W_STAGE = BN * BK * 4;  // the hi tile, then the lo tile
+  static_assert(WN == 64 || WN == 96, "a warpgroup takes n64 or n96");
+  constexpr HiloPlan p = hilo_plan<BN, STAGES>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* x_ring = base + p.x;
+  uint8_t* w_ring = base + p.w;
+  uint8_t* acv = base + p.acv;
+  float2* stats = reinterpret_cast<float2*>(base + p.st);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + p.bar);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int tiles_n = (N_out + BN - 1) / BN;
+  const int tiles = tiles_n * ((M + BM - 1) / BM);
+  const int t_begin = static_cast<int>(static_cast<long long>(blockIdx.x) * tiles / gridDim.x);
+  const int t_end = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * tiles / gridDim.x);
+  const int kt_all = K / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---- producer warp: one lane streams every tile's k-tiles, STAGES ahead
+    if (tid == CONSUMERS) {
+      int g = 0;  // k-tiles streamed so far, over all of this block's tiles
+      for (int tile = t_begin; tile < t_end; ++tile) {
+        const int n0 = (tile % tiles_n) * BN;
+        const int m0 = (tile / tiles_n) * BM;
+        for (int kt = 0; kt < kt_all; ++kt, ++g) {
+          const int s = g % STAGES;
+          if (g >= STAGES) mbar_wait(smem_u32(empty + s), (g / STAGES - 1) & 1);
+          const uint32_t bar = smem_u32(full + s);
+          mbar_expect_tx(bar, X_STAGE + W_STAGE);
+          const int k = kt * BK;
+          tma_load_2d(smem_u32(x_ring + s * X_STAGE), &map_x, k, m0, bar);
+          tma_load_2d(smem_u32(w_ring + s * W_STAGE), &map_w, k, n0, bar);
+          tma_load_2d(smem_u32(w_ring + s * W_STAGE + BN * 128), &map_w, k, N_out + n0, bar);
+        }
+      }
+    }
+    __syncwarp();
+    return;
+  }
+
+  // ---- consumer warpgroups
+  const int wg = tid / 128;
+  const int t = tid % 128;
+  int g = 0;
+  int m_stats = -1;  // the row block whose statistics are in shared memory
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int n0 = (tile % tiles_n) * BN;
+    const int m0 = (tile / tiles_n) * BM;
+    if (m0 != m_stats) {
+      // every read of the previous statistics came before the last barrier 1
+      row_stats(x, m0, M, K, eps, stats, tid);
+      named_barrier_sync(1, CONSUMERS);
+      m_stats = m0;
+    }
+    float acc[WN / 2];
+#pragma unroll
+    for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < kt_all; ++kt, ++g) {
+      const int s = g % STAGES;
+      mbar_wait(smem_u32(full + s), (g / STAGES) & 1);
+      // normalize and split x tile kt into buffer g&1 while the products of
+      // the k-tile before it (the other buffer) run; this buffer's last
+      // reader, two k-tiles back, completed before the previous barrier
+      uint8_t* a_hi = acv + (g & 1) * 2 * A_TILE_BYTES;
+      ln_split_x_tile(reinterpret_cast<const float*>(x_ring + s * X_STAGE), a_hi,
+                      a_hi + A_TILE_BYTES, wg * 32, t, stats, gamma + kt * BK, beta + kt * BK,
+                      m0, M);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wgmma_wait_all();  // the previous k-tile's products: its ring stage is free
+      fence_operands(acc);
+      if (kt > 0) mbar_arrive(smem_u32(empty + (g - 1) % STAGES));
+      named_barrier_sync(1, CONSUMERS);  // both halves of the A tile are in
+      const uint32_t ah = smem_u32(a_hi);
+      const uint32_t al = ah + A_TILE_BYTES;
+      const uint32_t bh = smem_u32(w_ring + s * W_STAGE + wg * WN * 128);
+      const uint32_t bl = bh + BN * 128;
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma<WN>(acc, desc_sw128(ah + kk * 32), desc_sw128(bh + kk * 32));
+        wgmma<WN>(acc, desc_sw128(al + kk * 32), desc_sw128(bh + kk * 32));
+        wgmma<WN>(acc, desc_sw128(ah + kk * 32), desc_sw128(bl + kk * 32));
+      }
+      wgmma_commit();
+    }
+    wgmma_wait_all();
+    fence_operands(acc);
+    mbar_arrive(smem_u32(empty + (g - 1) % STAGES));
+    store_tile<KIND, false, WN>(acc, nullptr, bias, out, m0, n0, M, N_out, wg, t);
+  }
+}
+
 // --------------------------------------------------------------- host side
 template <typename T>
 struct TmaType;
@@ -915,6 +1137,32 @@ inline int tensor_map(const T* ptr, uint64_t rows, uint64_t cols, uint32_t box_r
   return cached_map<T, 2>(ptr, {cols, rows}, {cols * sizeof(T)}, {BK, box_rows}, map);
 }
 
+// A weight's descriptor, boxes of box_rows x 64 values; a HiLo W's covers
+// both of its planes, (2 N_out, K) bf16, the lo plane's rows after the hi's
+template <typename TW>
+inline int weight_map(const TW* w, uint64_t n_out, uint64_t k, uint32_t box_rows,
+                      CUtensorMap* map) {
+  if constexpr (std::is_same<TW, HiLo>::value)
+    return tensor_map(reinterpret_cast<const bf16*>(w), 2 * n_out, k, box_rows, map);
+  else
+    return tensor_map(w, n_out, k, box_rows, map);
+}
+
+// the output type of the SPLITK kinds: x's for the residual; fp32 with a
+// HiLo W (an fp32-compute model's fc2), else bf16
+template <int KIND, typename TX, typename TW>
+using splitk_out_t =
+    std::conditional_t<KIND == SPLITK_RESIDUAL, TX,
+                       std::conditional_t<std::is_same<TW, HiLo>::value, float, bf16>>;
+
+// SMs of the current device (the persistent grid's size)
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
 // cudaFuncSetAttribute for the dynamic shared memory a launch needs, made
 // again only when a larger size than `allowed` (the launcher's own record
 // for its kernel) is asked for
@@ -938,11 +1186,12 @@ constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
 namespace {
 
 // LN kinds: out (M, N_out) = TO(EPI(LN(x) . W^T (* s) + b)); W (N_out, C)
-// bf16, int8 with its per-row scale s, or fp32 (fp32 x and out)
+// bf16, or int8 with its per-row scale s (an fp32 W: launch_ln_hilo)
 template <int KIND, typename TX, typename TW, typename TO, int BN, int STAGES>
 inline int launch_ln_gemm(const TX* x, const float* gamma, const float* beta, const TW* w,
                           const float* wscale, const float* bias, TO* out, int M, int C,
                           int N_out, float eps, cudaStream_t stream) {
+  static_assert(!std::is_same<TW, HiLo>::value, "a HiLo W of the LN kinds: launch_ln_hilo");
   constexpr bool HILO = std::is_same<TO, float>::value;
   if (C % BK != 0 || C > MAX_C || N_out % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (std::is_same<TW, int8_t>::value && wscale == nullptr)
@@ -963,15 +1212,15 @@ inline int launch_ln_gemm(const TX* x, const float* gamma, const float* beta, co
 }
 
 // SPLITK kinds, K split over a cluster of SPLIT blocks: A (M, K) bf16 or
-// fp32, W (N_out, K) bf16 or int8 with its scale s;
-//   SPLITK_BIAS:     out = bf16(A . W^T + b)
+// fp32, W (N_out, K) bf16, int8 with its scale s, or HiLo (its planes; an
+// fp32 A);
+//   SPLITK_BIAS:     out = TO(A . W^T + b), TO = fp32 for a HiLo W, else bf16
 //   SPLITK_RESIDUAL: out = x + TX(A . W^T (* s) + b), in x's type TX
 template <int KIND, typename TX, typename TA, typename TW, int BN, int STAGES, int SPLIT>
 inline int launch_splitk_gemm(const TA* a, const TW* w, const float* wscale, const TX* x,
-                              const float* bias,
-                              std::conditional_t<KIND == SPLITK_RESIDUAL, TX, bf16>* out, int M,
-                              int K, int N_out, cudaStream_t stream) {
-  using TO = std::conditional_t<KIND == SPLITK_RESIDUAL, TX, bf16>;
+                              const float* bias, splitk_out_t<KIND, TX, TW>* out, int M, int K,
+                              int N_out, cudaStream_t stream) {
+  using TO = splitk_out_t<KIND, TX, TW>;
   constexpr bool HILO = std::is_same<TA, float>::value;
   if (K % BK != 0 || K / BK < SPLIT || N_out % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -979,17 +1228,45 @@ inline int launch_splitk_gemm(const TA* a, const TW* w, const float* wscale, con
     return static_cast<int>(cudaErrorInvalidValue);
   if (KIND == SPLITK_RESIDUAL && x == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = plan<false, HILO, sizeof(TA), sizeof(TW), BN, STAGES>(K).total;
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   static_assert(BM * (BN + 4) * 4 <= STAGES * (BM * BK * sizeof(TA) + BN * BK * sizeof(TW)),
                 "the fp32 partial tile fits over the rings");
   CUtensorMap map_a, map_b;
   int err = tensor_map(a, M, K, BM, &map_a);
-  if (!err) err = tensor_map(w, N_out, K, BN, &map_b);
+  if (!err) err = weight_map(w, N_out, K, BN, &map_b);
   if (err) return err;
   static int allowed = 0;
   auto* kernel = splitk_gemm_kernel<KIND, TX, TA, TW, TO, BN, STAGES, SPLIT>;
   if ((err = allow_smem(kernel, smem, allowed))) return err;
   const dim3 grid((N_out + BN - 1) / BN, (M + BM - 1) / BM, SPLIT);
   kernel<<<grid, THREADS, smem, stream>>>(map_a, map_b, x, wscale, bias, out, M, K, N_out);
+  return 0;
+}
+
+// LN kinds with an fp32 x and W: out (M, N_out) fp32 = EPI(LN(x) . W^T + b),
+// W given as its planes (HiLo, csrc/split_hilo.cu); the persistent grid of
+// ln_hilo_kernel
+template <int KIND, int BN, int STAGES>
+inline int launch_ln_hilo(const float* x, const float* gamma, const float* beta, const HiLo* w,
+                          const float* bias, float* out, int M, int C, int N_out, float eps,
+                          cudaStream_t stream) {
+  constexpr int smem = hilo_plan<BN, STAGES>().total;
+  static_assert(smem <= SMEM_LIMIT, "the rings fit a block's shared memory");
+  // C <= MAX_C: row_stats holds MAX_CH chunks of a row a lane
+  if (C % BK != 0 || C > MAX_C || N_out % 8 != 0 || M <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_w;
+  int err = tensor_map(x, M, C, BM, &map_x);
+  if (!err) err = weight_map(w, N_out, C, BN, &map_w);
+  if (err) return err;
+  static int allowed = 0;
+  auto* kernel = ln_hilo_kernel<KIND, BN, STAGES>;
+  if ((err = allow_smem(kernel, smem, allowed))) return err;
+  const int tiles = ((N_out + BN - 1) / BN) * ((M + BM - 1) / BM);
+  const int sms = sm_count();
+  const int grid = tiles < sms ? tiles : sms;
+  kernel<<<grid, THREADS, smem, stream>>>(map_x, map_w, x, gamma, beta, bias, out, M, C, N_out,
+                                          eps);
   return 0;
 }
 

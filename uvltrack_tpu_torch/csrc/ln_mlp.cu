@@ -12,6 +12,17 @@
 // in PyTorch's Linear layout; b1 (F,), b2 (C,), gamma, beta (C,) fp32;
 // hidden (M, F) bf16 scratch; out (M, C) bf16.
 //
+// At TPU.COMPUTE_DTYPE=float32 (fp32 x and weights; _xla_ln_mlp with fp32
+// weights, :601-613) nothing rounds to bf16: y, h and out are fp32, W1 and
+// W2 arrive as their hi and lo bf16 planes (csrc/split_hilo.cu, split once
+// per weight and cached by the wrapper) and every product runs three passes,
+// hi.hi + lo.hi + hi.lo. ln_fc1_gelu runs the core's persistent
+// ln_hilo_kernel (64 x 192 tiles, x normalized and split a k-tile at a time,
+// a 3-stage ring of 64 KB stages) and writes an fp32 hidden (M, F);
+// fc2_bias reads it as an fp32 A (split by the consumers) against W2's
+// planes, 64 x 128 tiles, K split over clusters of 3 (108 blocks at
+// M=321/361, C=768), fp32 out.
+//
 // Bound on the H100 (UVLTrack-B, C=768, F=3072), each input read once and
 // each output written once: M=361 with fp32 x, 3.41 GFLOP of bf16
 // tensor-core work (~3.4 us at 989 TFLOP/s) against 9.4 MB of bf16 weights
@@ -44,17 +55,33 @@
 
 using uvl::bf16;
 
-// x_is_f32: 1 when x is fp32 (the joint blocks' stream), 0 when bf16.
-// stages: a bitmask of the launches to make -- 1 ln_fc1_gelu (x -> hidden),
+// x_is_f32: 1 when x is fp32 (the joint blocks' stream), 0 when bf16;
+// w_is_f32: 1 for fp32 weights given as their hi/lo planes, W1 (2, F, C)
+// and W2 (2, C, F) bf16 (split_hilo; fp32 x only), with an fp32 hidden and
+// out. stages: a bitmask of the launches to make -- 1 ln_fc1_gelu (x -> hidden),
 // 2 fc2_bias (hidden -> out), 3 both (the kernel's function; the wrapper's
 // call). Requires C % 64 == 0, C <= 1024, F % 256 == 0 and 16-byte aligned
 // x, W1, W2 and hidden (checked by the Python wrapper).
 extern "C" int uvl_ln_mlp(const void* x, int x_is_f32, const float* gamma, const float* beta,
                           const void* w1, const float* b1, const void* w2, const float* b2,
-                          void* hidden, void* out, int M, int C, int F, float eps, int stages,
-                          void* stream) {
+                          int w_is_f32, void* hidden, void* out, int M, int C, int F, float eps,
+                          int stages, void* stream) {
   using namespace uvl::sm90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_is_f32) {
+    if (!x_is_f32) return static_cast<int>(cudaErrorInvalidValue);
+    float* h = static_cast<float*>(hidden);
+    int err = 0;
+    if (stages & 1)
+      err = launch_ln_hilo<LN_BIAS_GELU, 192, 3>(static_cast<const float*>(x), gamma, beta,
+                                                 static_cast<const HiLo*>(w1), b1, h, M, C, F,
+                                                 eps, s);
+    if (!err && (stages & 2))
+      err = launch_splitk_gemm<SPLITK_BIAS, float, float, HiLo, 128, 4, 3>(
+          h, static_cast<const HiLo*>(w2), nullptr, nullptr, b2, static_cast<float*>(out), M, F,
+          C, s);
+    return err ? err : static_cast<int>(cudaGetLastError());
+  }
   bf16* h = static_cast<bf16*>(hidden);
   int err = 0;
   if (stages & 1) {

@@ -16,16 +16,23 @@
 //     type. The fp32 A runs as two bf16 tensor-core passes, A = hi + lo
 //     (split_bf16 in common.cuh; the int8 payload is exact in bf16), which
 //     is fp32-accurate; no TF32.
+//   - #4 at TPU.COMPUTE_DTYPE=float32: (fp32, fp32, fp32), everything fp32
+//     (pallas_attention._xla_proj with fp32 weights, plus the residual). Wp
+//     arrives as its hi and lo bf16 planes (csrc/split_hilo.cu, split once
+//     per weight and cached by the wrapper) and the product runs three
+//     passes, hi.hi + lo.hi + hi.lo, as ln_qkv[fp32x-fp32w] does.
 //
 // Layouts: x, out (M, C) bf16 or fp32, rows = B*N tokens; A (M, K) bf16 or
-// fp32; Wp (C, K) bf16 or int8 in PyTorch's Linear layout, s (C,) fp32 per
-// row; b (C,) fp32.
+// fp32; Wp (C, K) bf16, int8 or fp32 (as its planes (2, C, K) bf16) in
+// PyTorch's Linear layout, s (C,) fp32 per row; b (C,) fp32.
 //
 // Bound on the H100 (UVLTrack-B, M=361, K=C=768), each input read once and
 // each output written once: the fp32 #6 instantiation moves 1.11 MB of x,
 // 1.11 MB of A, 0.59 MB of int8 Wp and 1.11 MB of out (~1.2 us at
 // 3.35 TB/s) against 2 x 0.43 GFLOP of bf16 tensor-core passes (~0.9 us):
-// the bytes bound it, and more so for the others (0.6-1.2 us). The TPU
+// the bytes bound it, and more so for the others (0.6-1.2 us). The fp32
+// instantiation: 3.33 MB of x, A and out + 2.36 MB of Wp (~1.7 us) against 3
+// x 0.43 GFLOP (~1.3 us). The TPU
 // kernels run this product inside the one program per batch element with Wp
 // resident in VMEM.
 //
@@ -39,7 +46,9 @@
 // state); the epilogue adds the bias, rounds, and adds the residual. An int8
 // Wp crosses device memory at one byte a value and is converted to bf16 in
 // shared memory by the consumers; an fp32 A is TMA-loaded as it is and split
-// into hi/lo bf16 tiles there. With 4 k-tiles a block the launch is bound by
+// into hi/lo bf16 tiles there, while the previous k-tile's products run; an
+// fp32 Wp's two planes arrive by TMA as a bf16 Wp does (48 KB stages: four
+// of them and the split A buffers take 224 KB, one block an SM). With 4 k-tiles a block the launch is bound by
 // its latency (the first TMA round trip, the cluster barriers), not by the
 // bytes.
 #include "gemm_sm90.cuh"
@@ -63,18 +72,23 @@ int launch(const void* x, const void* a, const void* w, const float* wscale, con
 
 }  // namespace
 
-// x_is_f32 / a_is_f32: 1 for fp32, 0 for bf16; w_is_i8: 1 for an int8
-// payload with its fp32 per-row scale w_scale, 0 for a bf16 weight. Only the
-// four instantiations above exist; any other combination is refused.
+// x_is_f32 / a_is_f32: 1 for fp32, 0 for bf16; w_kind: 0 for a bf16 weight,
+// 1 for an int8 payload with its fp32 per-row scale w_scale, 2 for an fp32
+// weight given as its hi/lo planes (2, C, K) bf16 (split_hilo). Only the
+// five instantiations above exist; any other combination is refused.
 // Requires K % 64 == 0, K >= 192, C % 8 == 0 and 16-byte aligned x, A and Wp
 // (checked by the Python wrapper).
 extern "C" int uvl_proj_residual(const void* x, int x_is_f32, const void* a, int a_is_f32,
-                                 const void* w, int w_is_i8, const float* w_scale,
+                                 const void* w, int w_kind, const float* w_scale,
                                  const float* bias, void* out, int M, int K, int C,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = static_cast<int>(cudaErrorInvalidValue);
-  if (!w_is_i8 && !a_is_f32 && x_is_f32)
+  const bool w_is_i8 = w_kind == 1;
+  if (w_kind == 2) {
+    if (x_is_f32 && a_is_f32)
+      err = launch<float, float, uvl::sm90::HiLo>(x, a, w, w_scale, bias, out, M, K, C, s);
+  } else if (!w_is_i8 && !a_is_f32 && x_is_f32)
     err = launch<float, bf16, bf16>(x, a, w, w_scale, bias, out, M, K, C, s);
   else if (!w_is_i8 && !a_is_f32)
     err = launch<bf16, bf16, bf16>(x, a, w, w_scale, bias, out, M, K, C, s);

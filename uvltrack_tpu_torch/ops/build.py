@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ln_qkv", "qkv_attention", "proj_residual", "attention", "ln_mlp")
+SOURCES = ("ln_qkv", "qkv_attention", "proj_residual", "attention", "ln_mlp", "split_hilo")
 # -lcuda: csrc/gemm_sm90.cuh encodes its TMA descriptors with the driver's
 # cuTensorMapEncodeTiled (nvcc links the toolkit's libcuda stub; the driver
 # provides the library at run time)

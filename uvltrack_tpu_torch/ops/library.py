@@ -19,7 +19,7 @@ never pass through the dispatcher.
 | uvltrack::qkv_attention | ln_qkv_attention.qkv_attention            | (B, N, C), qkv's    |
 | uvltrack::proj_residual | ln_qkv_attn_proj.proj_residual            | like x              |
 | uvltrack::attention     | fused_attention.fused_attention (B,N,H,D) | bf16                |
-| uvltrack::ln_mlp        | ln_mlp.ln_mlp                             | (B, N, C) bf16      |
+| uvltrack::ln_mlp        | ln_mlp.ln_mlp                             | (B, N, C), w2 dtype |
 
 Import this module before `torch.export.load` of a program that holds
 these ops (cli/export.py does; the wrappers' modules import it).

@@ -23,9 +23,12 @@ core of csrc/gemm_sm90.cuh (one `ln_mlp` call counted by ops/build.py):
 since a 64-row tile of it would overflow a block's shared memory, and
 `fc2_bias` reads it back with its K split over a cluster of four blocks,
 reduced in a fixed order, so its output repeats bit for bit (design in the
-sources' notes). Two instantiations: bf16 x (blocks 0-5) and fp32 x (the
-fp32 joint stream, blocks 6-11), both with bf16 weights; the output is
-bf16, w2's dtype.
+sources' notes). Three instantiations: bf16 x (blocks 0-5) and fp32 x (the
+fp32 joint stream, blocks 6-11), both with bf16 weights and a bf16 hidden
+tensor and output; and fp32 x with fp32 weights (TPU.COMPUTE_DTYPE=float32,
+as `_xla_ln_mlp` with fp32 weights, :601-613), whose hidden tensor and
+output are fp32 and whose weights go to the kernels as their hi/lo bf16
+planes (ops/hilo.py), three passes a product. The output is in w2's dtype.
 
 A CPU tensor takes the plain version, which is also the plain backend's
 MLP (ops/attention.py::ln_mlp_core) and takes int8 QuantizedTensor weights
@@ -38,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.costs import counted, nbytes
-from . import build, library
+from . import build, hilo, library
 from .build import FLOAT, INT, PTR, check_cuda, no_grad_through, require
 from .ln_qkv_attention import LN_MAX_C, layer_norm_fast_var
 from .quant import quant_dot
@@ -80,17 +83,19 @@ def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6):
 # ---------------------------------------------------------------- kernel
 def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float = 1e-6,
                   stages: str = "pair"):
-    """Launch csrc/ln_mlp.cu into the caller's hidden (M, F) bf16 and out
-    (B, N, C) bf16: stages "pair" (both launches, the kernel's function),
-    or "ln_fc1_gelu" / "fc2_bias" alone (chip_smoke.py times each launch).
-    Counts one `ln_mlp` launch per call."""
+    """Launch csrc/ln_mlp.cu into the caller's hidden (M, F) and out
+    (B, N, C), both in w2's dtype: stages "pair" (both launches, the
+    kernel's function), or "ln_fc1_gelu" / "fc2_bias" alone (chip_smoke.py
+    times each launch). Counts one `ln_mlp` launch per call."""
     b, n, c = x.shape
     f = w1.shape[0]
     require(x.dtype in (torch.bfloat16, torch.float32),
             f"ln_mlp: x must be bf16 or fp32, got {x.dtype}")
-    require(w1.dtype == torch.bfloat16 and w2.dtype == torch.bfloat16,
-            f"ln_mlp: w1, w2 must be bf16, got {w1.dtype}, {w2.dtype} (an fp32 model, "
-            "TPU.COMPUTE_DTYPE=float32, has no instantiation: unset UVLTRACK_FUSED_MLP)")
+    require(w1.dtype == w2.dtype and w1.dtype in (torch.bfloat16, torch.float32),
+            f"ln_mlp: w1, w2 must be both bf16 or both fp32, got {w1.dtype}, {w2.dtype}")
+    w32 = w1.dtype == torch.float32
+    require(not w32 or x.dtype == torch.float32,
+            f"ln_mlp: fp32 w1, w2 (fp32 compute) need an fp32 x, got {x.dtype}")
     require(all(t.dtype == torch.float32 for t in (ln_scale, ln_bias, b1, b2)),
             "ln_mlp: LN scale/bias and the biases must be fp32")
     require(tuple(w1.shape) == (f, c) and tuple(w2.shape) == (c, f)
@@ -100,17 +105,20 @@ def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float 
     require(c % 64 == 0 and c <= LN_MAX_C and f % 256 == 0,
             f"ln_mlp: C must be a multiple of 64 up to {LN_MAX_C} and F of 256 (fc2's K "
             f"split four ways in 64-deep tiles), got C={c}, F={f}")
-    require(hidden.dtype == torch.bfloat16 and tuple(hidden.shape) == (b * n, f)
-            and out.dtype == torch.bfloat16 and tuple(out.shape) == (b, n, c),
-            "ln_mlp: hidden must be (B*N, F) bf16 and out (B, N, C) bf16")
+    require(hidden.dtype == w2.dtype and tuple(hidden.shape) == (b * n, f)
+            and out.dtype == w2.dtype and tuple(out.shape) == (b, n, c),
+            f"ln_mlp: hidden must be (B*N, F) and out (B, N, C), both {w2.dtype}")
     no_grad_through("ln_mlp", (x, ln_scale, ln_bias, w1, b1, w2, b2),
                     "call it through ops/autograd.py (LnMlp)")
     check_cuda("ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out)
-    build.launch("ln_mlp", f"{build.dtype_tag(x)}x-bf16w",
-                 [PTR, INT, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, FLOAT, INT],
+    # fp32 weights go to the kernels as their cached hi/lo planes
+    p1, p2 = (hilo.planes(w1), hilo.planes(w2)) if w32 else (w1, w2)
+    build.launch("ln_mlp", f"{build.dtype_tag(x)}x-{build.dtype_tag(w1)}w",
+                 [PTR, INT, PTR, PTR, PTR, PTR, PTR, PTR, INT, PTR, PTR, INT, INT, INT, FLOAT,
+                  INT],
                  x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(),
-                 ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), hidden.data_ptr(), out.data_ptr(), b * n, c, f, eps,
+                 ln_bias.data_ptr(), p1.data_ptr(), b1.data_ptr(), p2.data_ptr(),
+                 b2.data_ptr(), int(w32), hidden.data_ptr(), out.data_ptr(), b * n, c, f, eps,
                  STAGES[stages], stream_of=x)
     return out
 
@@ -118,13 +126,14 @@ def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float 
 @counted(ln_mlp_work)
 def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6):
     """x (B, N, C) bf16|fp32; ln_scale, ln_bias (C,) fp32; w1 (F, C), w2 (C, F)
-    bf16 (Linear layout); b1 (F,), b2 (C,) fp32 -> (B, N, C) bf16, the MLP
-    output before the residual. Two kernel launches on a CUDA tensor."""
+    both bf16, or both fp32 with an fp32 x (Linear layout); b1 (F,), b2 (C,)
+    fp32 -> (B, N, C) in w2's dtype, the MLP output before the residual. Two
+    kernel launches on a CUDA tensor."""
     if torch.compiler.is_exporting():
         return library.ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
     if x.device.type == "cpu":
         return ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
     b, n, c = x.shape
-    hidden = torch.empty((b * n, w1.shape[0]), dtype=torch.bfloat16, device=x.device)
-    out = torch.empty((b, n, c), dtype=torch.bfloat16, device=x.device)
+    hidden = torch.empty((b * n, w1.shape[0]), dtype=w2.dtype, device=x.device)
+    out = torch.empty((b, n, c), dtype=w2.dtype, device=x.device)
     return launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps)

@@ -24,7 +24,8 @@ of the H100's 132 SMs, so the port splits each in two kernels
 Compute dtype, as in the Pallas kernels: kernel #1 computes in the weight's
 dtype: bf16 for a bf16 weight, whatever x is; fp32 for the fp32 weight of a
 model at TPU.COMPUTE_DTYPE=float32, whose stream is fp32 in every block (its
-product runs as three bf16 hi/lo passes, no TF32). The int8 kernel (#5)
+product runs as three bf16 hi/lo passes, no TF32, against the weight's hi and
+lo planes, split once and cached by ops/hilo.py). The int8 kernel (#5)
 computes in x's dtype: bf16 in the visual blocks, fp32 in the joint blocks,
 where nothing is rounded to bf16 (normalized rows, qkv, scores, e, P.V and
 the output all stay fp32). So `ln_qkv` has five instantiations (x bf16/fp32
@@ -44,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.costs import counted, nbytes
-from . import build, library
+from . import build, hilo, library
 from .build import FLOAT, INT, PTR, check_cuda, no_grad_through, require
 from .quant import QuantizedTensor, quant_dot
 
@@ -159,11 +160,13 @@ def _launch_ln_qkv(x, ln_scale, ln_bias, w, w_scale, b_qkv, eps, out_dtype):
     no_grad_through("ln_qkv", tensors, INT8_NO_GRAD if w_scale is not None else
                     "call it through ops/autograd.py (LnQkvAttention, LnQkvAttnProj)")
     check_cuda("ln_qkv", *tensors)
+    # an fp32 weight goes to the kernel as its cached hi/lo planes
+    w_arg = hilo.planes(w) if w.dtype == torch.float32 else w
     out = torch.empty((b, n, f), dtype=out_dtype, device=x.device)
     build.launch("ln_qkv", f"{build.dtype_tag(x)}x-{build.dtype_tag(w)}w",
                  [PTR, INT, PTR, PTR, PTR, INT, PTR, PTR, PTR, INT, INT, INT, FLOAT],
                  x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(),
-                 ln_bias.data_ptr(), w.data_ptr(), W_KIND[w.dtype],
+                 ln_bias.data_ptr(), w_arg.data_ptr(), W_KIND[w.dtype],
                  w_scale.data_ptr() if w_scale is not None else None, b_qkv.data_ptr(),
                  out.data_ptr(), b * n, c, f, eps, stream_of=x)
     return out

@@ -17,9 +17,11 @@ for #6. The product rounds once, straight to x's dtype, then the residual
 add runs in x's dtype: a bf16 x rounds twice, an fp32 x not at all. (The
 composed path, attn_proj_core, rounds the projection to the compute dtype
 first, so in the fp32 joint blocks the fused and the composed paths differ
-by that rounding, as they do in the JAX package.) Four instantiations:
-(x, A, Wp) in {bf16, bf16, bf16}, {fp32, bf16, bf16} (#4) and {bf16, bf16,
-int8}, {fp32, fp32, int8} (#6).
+by that rounding, as they do in the JAX package.) Five instantiations:
+(x, A, Wp) in {bf16, bf16, bf16}, {fp32, bf16, bf16} (#4), {bf16, bf16,
+int8}, {fp32, fp32, int8} (#6) and {fp32, fp32, fp32}: #4 in an
+fp32-compute model (TPU.COMPUTE_DTYPE=float32), everything fp32, Wp as its
+hi/lo bf16 planes cached by ops/hilo.py, three passes a product.
 
 `proj_residual` runs on the TMA + wgmma core of csrc/gemm_sm90.cuh, with K
 split over clusters of PROJ_SPLIT blocks (one 64-deep k-tile each at the
@@ -33,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.costs import counted, nbytes
-from . import build, library
+from . import build, hilo, library
 from . import ln_qkv_attention as lqa
 from .build import INT, PTR, check_cuda, no_grad_through, require
 from .quant import QuantizedTensor, quant_dot
@@ -44,6 +46,7 @@ _OK = {  # (x, A, Wp) dtypes the kernel is instantiated for
     (torch.float32, torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.bfloat16, torch.int8),
     (torch.float32, torch.float32, torch.int8),
+    (torch.float32, torch.float32, torch.float32),
 }
 
 
@@ -85,8 +88,8 @@ def ln_qkv_attn_proj_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, wp_q,
 @counted(proj_residual_work)
 def proj_residual(x, attn, w_proj, b_proj, wp_scale=None):
     """x (B, N, C) bf16|fp32 residual stream; attn (B, N, K) bf16|fp32;
-    w_proj (C, K) bf16, or int8 with wp_scale (C,) fp32; b_proj (C,) fp32
-    -> x + proj, (B, N, C) in x's dtype."""
+    w_proj (C, K) bf16, int8 with wp_scale (C,) fp32, or fp32 (with an fp32
+    x and attn); b_proj (C,) fp32 -> x + proj, (B, N, C) in x's dtype."""
     if torch.compiler.is_exporting():
         return library.proj_residual(x, attn, w_proj, b_proj, wp_scale)
     if x.device.type == "cpu":
@@ -94,14 +97,11 @@ def proj_residual(x, attn, w_proj, b_proj, wp_scale=None):
         return proj_residual_plain(x, attn, w, b_proj)
     b, n, c = x.shape
     k = attn.shape[-1]
-    require(w_proj.dtype != torch.float32,
-            "proj_residual: no fp32-weight instantiation (TPU.COMPUTE_DTYPE=float32); "
-            "unset UVLTRACK_FUSED_PROJ to run the projection plain")
     require((x.dtype, attn.dtype, w_proj.dtype) in _OK,
             f"proj_residual: no instantiation for x {x.dtype}, attn {attn.dtype}, "
             f"w_proj {w_proj.dtype}")
     require((wp_scale is not None) == (w_proj.dtype == torch.int8),
-            "proj_residual: an int8 w_proj needs its scale, a bf16 one none")
+            "proj_residual: an int8 w_proj needs its scale, a bf16 or fp32 one none")
     require(tuple(attn.shape) == (b, n, k) and tuple(w_proj.shape) == (c, k)
             and tuple(b_proj.shape) == (c,) and b_proj.dtype == torch.float32,
             "proj_residual: bad shapes or bias dtype")
@@ -115,22 +115,25 @@ def proj_residual(x, attn, w_proj, b_proj, wp_scale=None):
     no_grad_through("proj_residual", (x, attn, w_proj, b_proj, *scale),
                     lqa.INT8_NO_GRAD if scale else "call it through ops/autograd.py (LnQkvAttnProj)")
     check_cuda("proj_residual", x, attn, w_proj, b_proj, *scale)
+    # an fp32 weight goes to the kernel as its cached hi/lo planes
+    w_arg = hilo.planes(w_proj) if w_proj.dtype == torch.float32 else w_proj
     out = torch.empty_like(x)
     tag = build.dtype_tag
     build.launch("proj_residual", f"{tag(x)}x-{tag(attn)}a-{tag(w_proj)}w",
                  [PTR, INT, PTR, INT, PTR, INT, PTR, PTR, PTR, INT, INT, INT],
                  x.data_ptr(), int(x.dtype == torch.float32), attn.data_ptr(),
-                 int(attn.dtype == torch.float32), w_proj.data_ptr(),
-                 int(wp_scale is not None), wp_scale.data_ptr() if scale else None,
+                 int(attn.dtype == torch.float32), w_arg.data_ptr(), lqa.W_KIND[w_proj.dtype],
+                 wp_scale.data_ptr() if scale else None,
                  b_proj.data_ptr(), out.data_ptr(), b * n, k, c, stream_of=x)
     return out
 
 
 def ln_qkv_attn_proj(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, key_bias,
                      heads: int, eps: float = 1e-6):
-    """Kernel #4's function (bf16 weights): `ln_qkv`, `qkv_attention`, then
-    `proj_residual` on the bf16 attention output; three launches on a CUDA
-    tensor. Returns x + proj in x's dtype."""
+    """Kernel #4's function (bf16 weights, or fp32 ones with an fp32 x):
+    `ln_qkv`, `qkv_attention`, then `proj_residual` on the attention output
+    in w_proj's dtype; three launches on a CUDA tensor. Returns x + proj in
+    x's dtype."""
     attn = lqa.ln_qkv_attention(x, ln_scale, ln_bias, w_qkv, b_qkv, key_bias, heads, eps)
     return proj_residual(x, attn.to(w_proj.dtype), w_proj, b_proj)
 

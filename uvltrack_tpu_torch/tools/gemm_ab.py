@@ -11,6 +11,8 @@ and, as controls, of `ln_qkv` and `proj_residual` alone.
 
     python uvltrack_tpu_torch/tools/gemm_ab.py [--root DIR] [--label NAME]
         [--eager-only]
+    python uvltrack_tpu_torch/tools/gemm_ab.py --f32w [--root DIR] [--label NAME]
+        [--dump FILE.npz] [--cmp FILE.npz]
 
 --root: the checkout whose uvltrack_tpu_torch is timed (default: the one
 holding this script), built into DIR/build/kernels. The timers are
@@ -20,8 +22,12 @@ median, max]: "ms", chip_smoke.py's cuda_time_ms (200 back-to-back eager
 calls between two CUDA events: the host's time where it exceeds the
 device's), and "host_ms", the host's wall clock over 200 calls that nothing
 synchronizes (the launch queue holds them all, so the device's time does
-not show). --eager-only skips the device times. Prints one JSON line; times
-in ms.
+not show). --eager-only skips the device times. --f32w times only kernel
+#1's prefix at fp32 compute, `ln_qkv[fp32x-fp32w]`, beside F.layer_norm +
+F.linear in fp32 at B in {1, 8}, N in {321, 361}, C in {768, 1024} (the same
+seeded inputs in every checkout); --dump saves its outputs and --cmp
+reports, shape by shape, whether they are bitwise those of another
+checkout's dump. Prints one JSON line; times in ms.
 """
 
 from __future__ import annotations
@@ -67,8 +73,13 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eager-only", action="store_true")
+    ap.add_argument("--f32w", action="store_true")
+    ap.add_argument("--dump", default="")
+    ap.add_argument("--cmp", default="")
     args = ap.parse_args()
     sys.path[:0] = [args.root, str(REPO)]
+    if args.f32w:
+        return f32w_ab(args)
 
     import numpy as np
     import torch
@@ -161,6 +172,50 @@ def main() -> int:
     if not args.eager_only:
         out["times"]["attention"] = attention_times(args.seed)
     out["eager"]["attention"] = attention_eager(args.seed)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def f32w_ab(args) -> int:
+    """ln_qkv[fp32x-fp32w] and its fp32 library call, device ms (a CUDA graph
+    of 20 calls), at the eight shapes of PERF.md's row 1b."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("gemm_ab: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from chip_smoke import graph_time_ms, nvidia_smi
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+
+    dev = torch.device("cuda")
+    out = {"label": args.label, "root": args.root, "device": nvidia_smi(), "times": {}}
+    dumps = {}
+    for b in (1, 8):
+        for n in (321, 361):
+            for c in (768, 1024):
+                rng = np.random.default_rng(args.seed + b + n + c)
+
+                def arr(a):
+                    return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+                x, g, be = (arr(rng.normal(size=(b, n, c))), arr(1 + 0.1 * rng.normal(size=c)),
+                            arr(0.1 * rng.normal(size=c)))
+                w = arr(rng.normal(size=(3 * c, c)) / np.sqrt(c))
+                wb = arr(0.02 * rng.normal(size=3 * c))
+                key = f"B{b}_N{n}_C{c}"
+                dumps[key] = lqa.ln_qkv(x, g, be, w, wb).cpu().numpy()
+                out["times"][key] = {
+                    "ln_qkv[fp32x-fp32w]": graph_time_ms(lambda: lqa.ln_qkv(x, g, be, w, wb))[0],
+                    "library": graph_time_ms(
+                        lambda: F.linear(F.layer_norm(x, (c,), g, be, 1e-6), w, wb))[0]}
+    if args.dump:
+        np.savez(args.dump, **dumps)
+    if args.cmp:
+        other = np.load(args.cmp)
+        out["bitwise_vs_cmp"] = {k: bool(np.array_equal(other[k], v)) for k, v in dumps.items()}
     print(json.dumps(out), flush=True)
     return 0
 
