@@ -247,6 +247,7 @@ Without a CUDA card, or outside a checkout, it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -297,6 +298,7 @@ PER_FWD_Q8 = {"ln_qkv[bf16x-int8w]": 6, "ln_qkv[fp32x-int8w]": 6, "qkv_attention
 
 
 MLP_N = (48, 321, 361, 681)  # kernel #7's check shapes
+COMPILED_FRAMES = 32  # frames a compiled single-stream cell tracks (a re-mine at 20)
 # the instantiations the kernels line's two bf16 rows count
 NAMED_BY_BASE = {"ln_qkv": ("ln_qkv[bf16x-bf16w]", "ln_qkv[fp32x-bf16w]"),
                  "qkv_attention": ("qkv_attention[bf16]",)}
@@ -957,6 +959,155 @@ def fused_kernel_phase(dev, seed: int):
              f"{lb}N321_bf16x": mlp_times(321, torch.bfloat16, LOCKSTEP_B),
              f"{lb}N361_fp32x": mlp_times(361, torch.float32, LOCKSTEP_B)}
     emit({"phase": "fused_kernel_times", "timer": TIMER, "times": times})
+    return worst, times
+
+
+# tensor parallelism's kernel shapes: (label, C, H, tp); a
+# rank's blocks run #1/#2 at H/tp heads, #4's projection at K = C/tp and #7 at
+# F = 4C/tp, at B-TRAIN's 16 rows
+TP_SHAPES = (("B_tp2", 768, 12, 2), ("B_tp4", 768, 12, 4), ("L_tp2", 1024, 16, 2))
+# the TP shares' products (proj_partial, fc2 with an fp32 out) are fp32 sums of
+# exact products of bf16 values, in another order than the plain version's
+TP_PARTIAL_ATOL, TP_PARTIAL_RTOL = F32_ATOL, F32_RTOL
+TP_GRID_DOC = ("B=16 (B-TRAIN's rows) x (N=321 bf16 x open, N=361 fp32 x flag0) at each of "
+               "TP_SHAPES; times at N=361 fp32 x flag0 (ln_qkv, qkv_attention, the "
+               "projection's share, ln_mlp's share) and N=321 bf16 x (ln_mlp's share)")
+
+
+def tp_kernel_phase(dev, seed: int):
+    """Kernels #1/#2, #4's projection and #7 at tensor parallelism's shapes
+    (TP_SHAPES: a rank's H/tp heads, K = C/tp, F = 4C/tp) at B=16: ln_qkv,
+    qkv_attention, their pair, `proj_residual` on a zero fp32 stream (the
+    rank's fp32 share of the projection, ops/ln_qkv_attn_proj.py::
+    proj_partial) and `ln_mlp` with an fp32 out (ln_mlp_partial) against
+    their plain versions; then times, bound, plain and library call.
+    Returns ({name: worst error}, {label: {shape: {name: times}}})."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from uvltrack_tpu_torch.ops import ln_mlp as lm
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+    from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
+
+    rng = np.random.default_rng(seed + 5)
+    b = TRAIN_B
+    b16 = torch.bfloat16
+
+    def arr(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def case(c, tp, n, kind, x_dtype):
+        f, k, h = 3 * c // tp, c // tp, 4 * c // tp
+        x = arr(rng.normal(size=(b, n, c))).to(x_dtype)
+        g, be = arr(1 + 0.1 * rng.normal(size=c)), arr(0.1 * rng.normal(size=c))
+        return {"x": x, "g": g, "be": be,
+                "w": arr(rng.normal(size=(f, c)) / np.sqrt(c)).to(b16),
+                "wb": arr(0.02 * rng.normal(size=f)),
+                "kb": arr(np.where(key_masks(b, n, kind, rng), -1e10, 0.0)),
+                "attn": arr(0.3 * rng.normal(size=(b, n, k))).to(b16),
+                "wp": arr(rng.normal(size=(c, k)) / np.sqrt(k)).to(b16),
+                "w1": arr(rng.normal(size=(h, c)) / np.sqrt(c)).to(b16),
+                "b1": arr(0.02 * rng.normal(size=h)),
+                "w2": arr(rng.normal(size=(c, h)) / np.sqrt(4 * c)).to(b16)}
+
+    worst = {}
+
+    def check(name, got, want, atol, rtol, what):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{name} {what}: {got.dtype}{tuple(got.shape)} vs plain "
+                                 f"{want.dtype}{tuple(want.shape)}")
+        a, w = got.float(), want.float()
+        e = float((a - w).abs().max())
+        if not bool(((a - w).abs() <= atol + rtol * w.abs()).all()):
+            raise AssertionError(f"{name} {what}: max abs err {e} over tolerance")
+        worst[name] = max(worst.get(name, 0.0), e)
+
+    for label, c, heads, tp in TP_SHAPES:
+        hh = heads // tp
+        for n, kind, x_dtype in ((321, "open", b16), (361, "flag0", torch.float32)):
+            t = case(c, tp, n, kind, x_dtype)
+            what = f"{label} N={n} x={x_dtype}"
+            qkv = lqa.ln_qkv(t["x"], t["g"], t["be"], t["w"], t["wb"])
+            out = lqa.qkv_attention(qkv, t["kb"], hh)
+            check("ln_qkv", qkv, lqa.ln_qkv_plain(t["x"], t["g"], t["be"], t["w"], t["wb"]),
+                  KERNEL_ATOL["ln_qkv"], KERNEL_RTOL, what)
+            check("qkv_attention", out, lqa.qkv_attention_plain(qkv, t["kb"], hh),
+                  KERNEL_ATOL["qkv_attention"], KERNEL_RTOL, what)
+            check("ln_qkv_attention", out, lqa.ln_qkv_attention_plain(
+                t["x"], t["g"], t["be"], t["w"], t["wb"], t["kb"], hh),
+                KERNEL_ATOL["ln_qkv_attention"], KERNEL_RTOL, what)
+            check("proj_partial", lqp.proj_partial(t["attn"], t["wp"]),
+                  lqp.proj_partial_plain(t["attn"], t["wp"]), TP_PARTIAL_ATOL, TP_PARTIAL_RTOL,
+                  what)
+            args = (t["x"], t["g"], t["be"], t["w1"], t["b1"], t["w2"])
+            part = lm.ln_mlp_partial(*args)
+            again = lm.ln_mlp_partial(*args)
+            torch.cuda.synchronize()
+            check("ln_mlp_partial", part, lm.ln_mlp_partial_plain(*args), KERNEL_ATOL["ln_mlp"],
+                  KERNEL_RTOL, what)
+            if not torch.equal(part, again):
+                raise AssertionError(f"ln_mlp_partial {what}: a second call differs")
+    emit({"phase": "tp_kernel_check", "shapes": TP_SHAPES, "grid": TP_GRID_DOC,
+          "tolerance": {"ln_qkv, qkv_attention, ln_qkv_attention, ln_mlp_partial":
+                        "KERNEL_ATOL + KERNEL_RTOL*|plain| (kernel_check's)",
+                        "proj_partial": f"|kernel-plain| <= {TP_PARTIAL_ATOL} + "
+                                        f"{TP_PARTIAL_RTOL}*|plain|"},
+          "ln_mlp_partial_repeatable": "bitwise, two calls at every shape",
+          "max_abs_err": worst})
+
+    def row(kern, plain, lib, lib_what, work):
+        b_ms, b_by = bound(*work)
+        return {**timings(kern, plain, lib), "library": lib_what, "bound_ms": b_ms,
+                "bound_by": b_by}
+
+    def timed(c, heads, tp, n, kind, x_dtype, names):
+        t = case(c, tp, n, kind, x_dtype)
+        hh, m, xb = heads // tp, b * n, t["x"].element_size()
+        f, k, h = 3 * c // tp, c // tp, 4 * c // tp
+        x, g, be, w, wb, kb = t["x"], t["g"], t["be"], t["w"], t["wb"], t["kb"]
+        qkv = lqa.ln_qkv(x, g, be, w, wb)
+        mask = kb.to(b16)[:, None, None, :]
+
+        def ln():
+            return F.layer_norm(x.float(), (c,), g, be, 1e-6).to(b16)
+
+        def sdpa(q3):
+            q, kk, v = q3.view(b, n, 3, hh, 64).permute(2, 0, 3, 1, 4).unbind(0)
+            return F.scaled_dot_product_attention(q, kk, v, attn_mask=mask)
+
+        margs = (x, g, be, t["w1"], t["b1"], t["w2"])
+        rows = {
+            "ln_qkv": lambda: row(
+                lambda: lqa.ln_qkv(x, g, be, w, wb), lambda: lqa.ln_qkv_plain(x, g, be, w, wb),
+                lambda: F.linear(ln(), w, wb.to(b16)), "F.layer_norm + F.linear, 2 calls",
+                (2 * m * c * f, m * c * xb + f * c * 2 + f * 4 + 2 * c * 4 + m * f * 2)),
+            "qkv_attention": lambda: row(
+                lambda: lqa.qkv_attention(qkv, kb, hh), lambda: lqa.qkv_attention_plain(
+                    qkv, kb, hh), lambda: sdpa(qkv), "SDPA",
+                (4 * hh * b * n * n * 64, m * f * 2 + m * 4 + m * k * 2)),
+            "proj_partial": lambda: row(
+                lambda: lqp.proj_partial(t["attn"], t["wp"]),
+                lambda: lqp.proj_partial_plain(t["attn"], t["wp"]),
+                lambda: F.linear(t["attn"], t["wp"]), "F.linear (bf16 out)",
+                (2 * m * k * c, m * k * 2 + c * k * 2 + m * c * 4)),
+            "ln_mlp_partial": lambda: row(
+                lambda: lm.ln_mlp_partial(*margs), lambda: lm.ln_mlp_partial_plain(*margs),
+                lambda: F.linear(F.gelu(F.linear(ln(), t["w1"], t["b1"].to(b16))), t["w2"]),
+                "F.layer_norm + F.linear + F.gelu + F.linear, 4 calls",
+                (4 * m * c * h, m * c * xb + 2 * c * h * 2 + (h + 2 * c) * 4 + m * c * 4)),
+        }
+        return {name: rows[name]() for name in names}
+
+    times = {}
+    for label, c, heads, tp in TP_SHAPES:
+        times[label] = {
+            "N361_fp32x_flag0": timed(c, heads, tp, 361, "flag0", torch.float32,
+                                      ("ln_qkv", "qkv_attention", "proj_partial",
+                                       "ln_mlp_partial")),
+            "N321_bf16x_open": timed(c, heads, tp, 321, "open", b16, ("ln_mlp_partial",))}
+    emit({"phase": "tp_kernel_times", "shapes": TP_SHAPES, "rows": TRAIN_B, "timer": TIMER,
+          "times": times})
     return worst, times
 
 
@@ -4491,6 +4642,202 @@ def dp_phase(args, dev, tmp: Path) -> dict:
     return dict(total)
 
 
+# tp=2 on one card: two gloo processes on cuda:0
+# form the model group (dp=1), each holding its slices of full-width,
+# full-depth UVLTrack-B (shard_params_tp; seed-0 init) and stepping B-TRAIN's
+# 16 rows; each case is held to the tp=1 step on the same rows and knobs, in
+# turns (tp=1, tp=2, tp=1), by B-TRAIN's step-1 gate
+TP_CASES = (("default", {}, 3), ("fused_proj", {"UVLTRACK_FUSED_PROJ": "1"}, 1),
+            ("fused_mlp", {"UVLTRACK_FUSED_MLP": "1"}, 1))
+# launches a step makes on each tp=2 rank: #1/#2 at H/tp heads as at tp=1;
+# under the knobs the projection's share on proj_residual's fp32-x
+# instantiation in all 12 blocks (a zero fp32 stream), the MLP's share with
+# fc2_bias's fp32 out
+TP_PER_FWD = {"default": TRAIN_PER_FWD,
+              "fused_proj": dict(TRAIN_PER_FWD, **{"proj_residual[fp32x-bf16a-bf16w]": 12}),
+              "fused_mlp": dict(TRAIN_PER_FWD, **{"ln_mlp[bf16x-bf16w-fp32o]": 6,
+                                                  "ln_mlp[fp32x-bf16w-fp32o]": 6})}
+TP1_PER_FWD = {"default": TRAIN_PER_FWD, "fused_proj": TRAIN_KNOBS[0][2],
+               "fused_mlp": TRAIN_KNOBS[1][2]}
+TP_TIMER = ("host clock per train_step (forward, backward with the model group's "
+            "all_reduces, clip, AdamW), each ending in a read of its loss; tp=2: the two "
+            "processes share one card and reduce through gloo over the host, so this is "
+            "not a TP speed")
+
+
+@contextlib.contextmanager
+def knob_env(env: dict):
+    """The environment knobs `env` set for the body, restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+
+
+def tp_worker(args) -> int:
+    """One rank of the tp=2 run (a child of the parallel group): every case
+    of TP_CASES from the seed's init on B-TRAIN's rows; writes
+    tp_rank<R>.json (losses, grad_norms, step ms, launches, the split
+    blocks' shapes, parameter and Adam moment bytes)."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.data.synthetic import synthetic_batch_from_cfg
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from uvltrack_tpu_torch.train.step import setup_sharded_training
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = Path(args.tp_worker)
+    dev = init_distributed(torch.device("cuda"), backend=DP_BACKEND)
+    mesh = make_mesh(data=1, model=2, devices=[dev])
+    res = {"rank": mesh.rank, "model_index": mesh.model_index, "device": str(dev)}
+    for case, env, steps in TP_CASES:
+        cfg = train_config()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch_from_cfg(
+            np.random.default_rng(args.seed), cfg, int(cfg.TRAIN.BATCH_SIZE)).items()}
+        model, state, step = setup_sharded_training(cfg, mesh, 1, device=dev, seed=args.seed,
+                                                    tensor_parallel=True)
+        blk = model.backbone.vit.blocks[0]
+        with knob_env(env):
+            before = build.instantiation_counts()
+            state, runs = _train_run(state, step, batch, "cuda", steps, TP_PER_FWD[case])
+        res[case] = {"losses": [r["loss"] for r in runs],
+                     "grad_norms": [r["grad_norm"] for r in runs], "ms": [r["ms"] for r in runs],
+                     "launches": launches_since(before),
+                     "block_shapes": {"heads": blk.attn.num_heads,
+                                      "qkv": list(blk.attn.qkv.weight.shape),
+                                      "proj": list(blk.attn.proj.weight.shape),
+                                      "fc1": list(blk.mlp.fc1.weight.shape),
+                                      "fc2": list(blk.mlp.fc2.weight.shape)},
+                     "param_bytes": sum(p.numel() * p.element_size()
+                                        for p in model.parameters()),
+                     "moment_bytes": state.optimizer.moment_bytes()}
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+    (out_dir / f"tp_rank{mesh.rank}.json").write_text(json.dumps(res))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_phase(args, dev, tmp: Path) -> dict:
+    """tp=2 on one card (two gloo processes, tp_worker) against the tp=1 step
+    on the same rows and knobs, in turns (tp=1, tp=2, tp=1): step 1 of each
+    case under B-TRAIN's gate (loss within TRAIN_LOSS_REL; grad_norm within
+    max(TRAIN_NORM_REL, 2 x the plain backend's move under a 2^-12 input
+    change)); both ranks' losses equal; each rank's launches per step;
+    parameter and Adam moment bytes a rank against tp=1. Returns the
+    launches of the tp=1 steps and of both ranks' steps."""
+    import gc
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.data.synthetic import synthetic_batch_from_cfg
+    from uvltrack_tpu_torch.models.vit import VIT_VARIANTS
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.train.step import setup_training
+
+    total = Counter()
+    cfg = train_config()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch_from_cfg(
+        np.random.default_rng(args.seed), cfg, int(cfg.TRAIN.BATCH_SIZE)).items()}
+
+    def tp1(case, env, n, probe=False):
+        model, state, step = setup_training(cfg, 1, device=dev, seed=args.seed)
+        sens = None
+        if probe:  # the plain backend ignores the knobs: one yardstick for every case
+            p0 = _probe(state.model, batch, cfg, "plain")
+            p1 = _probe(state.model, batch, cfg, "plain", TRAIN_PROBE_EPS, args.seed)
+            sens = abs(p1["grad_norm"] - p0["grad_norm"]) / p0["grad_norm"]
+        with knob_env(env):
+            before = build.instantiation_counts()
+            state, runs = _train_run(state, step, batch, "cuda", n, TP1_PER_FWD[case])
+            total.update(launches_since(before))
+        sizes = (sum(p.numel() * p.element_size() for p in model.parameters()),
+                 state.optimizer.moment_bytes())
+        del model, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return runs, sens, sizes
+
+    t0 = time.perf_counter()
+    first = {case: tp1(case, env, n, probe=case == "default") for case, env, n in TP_CASES}
+    sens = first["default"][1]
+    port = free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
+                   RANK=str(rank), LOCAL_RANK="0")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--seed", str(args.seed),
+             "--tp-worker", str(tmp)], env=env, cwd=str(REPO), text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    t_tp2 = time.perf_counter()
+    try:
+        logs = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    t_tp2 = time.perf_counter() - t_tp2
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"tp=2 rank {rank} exited {p.returncode}:\n{log[-3000:]}")
+    ranks = [json.loads((tmp / f"tp_rank{r}.json").read_text()) for r in range(2)]
+    second = {case: tp1(case, env, n) for case, env, n in TP_CASES}
+    bound = max(TRAIN_NORM_REL, 2 * sens)
+    gates = {}
+    for case, _, n in TP_CASES:
+        for r in ranks:
+            for k, v in r[case]["launches"].items():
+                total[k] += v
+            if r[case]["losses"] != ranks[0][case]["losses"]:
+                raise AssertionError(f"tp=2 {case}: the ranks' losses differ: "
+                                     f"{[x[case]['losses'] for x in ranks]}")
+            if r[case]["block_shapes"]["heads"] != VIT_VARIANTS["base"]["num_heads"] // 2:
+                raise AssertionError(f"tp=2 {case}: {r[case]['block_shapes']}")
+        gates[case] = dict(zip(("loss_rel", "grad_norm_rel"), step1_gate(
+            {"loss": ranks[0][case]["losses"][0], "grad_norm": ranks[0][case]["grad_norms"][0]},
+            first[case][0][0], bound, f"tp=2 {case} vs tp=1")))
+        gates[case]["tp1_turns_loss"] = [first[case][0][0]["loss"], second[case][0][0]["loss"]]
+    tp1_ms = _p50([r["ms"] for r in first["default"][0][1:] + second["default"][0][1:]])
+    tp2_ms = _p50(sum((r["default"]["ms"][1:] for r in ranks), []))
+    p1, m1 = first["default"][2]
+    out = {"phase": "parallel_tp", "config": "experiments/uvltrack/baseline_base.yaml",
+           "backend": DP_BACKEND, "processes": 2, "mesh": {"data": 1, "model": 2},
+           "device": ranks[0]["device"], "timer": TP_TIMER, "global_rows": TRAIN_B,
+           "cases": {case: {"env": env, "steps": n} for case, env, n in TP_CASES},
+           "block_shapes_per_rank": ranks[0]["default"]["block_shapes"],
+           "gate": f"step 1, tp=2 vs tp=1 on the same rows and knobs (relative): loss within "
+                   f"{TRAIN_LOSS_REL}, grad_norm within max({TRAIN_NORM_REL}, 2 x the plain "
+                   "backend's move under a 2^-12 input change)",
+           "grad_norm_bound": bound, "plain_grad_norm_move_at_eps": sens, "step1": gates,
+           "losses": {"tp1": {c: [r["loss"] for r in first[c][0]] for c in first},
+                      "tp2": {c: ranks[0][c]["losses"] for c, _, _ in TP_CASES}},
+           "grad_norms": {"tp1": {c: [r["grad_norm"] for r in first[c][0]] for c in first},
+                          "tp2": {c: ranks[0][c]["grad_norms"] for c, _, _ in TP_CASES}},
+           "launches_per_rank": {c: ranks[0][c]["launches"] for c, _, _ in TP_CASES},
+           "step_ms_p50": {"tp1": tp1_ms, "tp2": tp2_ms},
+           "param_mb_per_rank": {"tp1": p1 / 2 ** 20,
+                                 "tp2": [r["default"]["param_bytes"] / 2 ** 20 for r in ranks]},
+           "adam_moment_mb_per_rank": {"tp1": m1 / 2 ** 20,
+                                       "tp2": [r["default"]["moment_bytes"] / 2 ** 20
+                                               for r in ranks]},
+           "bytes_ratio_tp2_over_tp1": ranks[0]["default"]["param_bytes"] / p1,
+           "tp2_wall_s": t_tp2, "seconds": time.perf_counter() - t0}
+    emit(out)
+    return dict(total)
+
+
 def multihost_cli(args, tmp: Path) -> dict:
     """cli.train.main --multihost at world size 1 on NCCL (this process as
     rank 0 of torchrun's environment): 2 synthetic steps and a checkpoint.
@@ -4754,10 +5101,11 @@ def _post_npy(url: str, route: str, payload: dict, img) -> dict:
 
 
 def parallel_phase(args, dev, model, cfg, vocab: Path, seqs) -> dict:
-    """The `parallel` group: dp_phase, multihost_cli, stream_mesh_phase and
-    mesh_cli_phase. Returns {"train_launches" (dp=1, both dp=2 ranks and the
-    CLI), "launches" (the eager tracking paths), "jts" (the replicas'
-    JitTrackers, whose graphs' launches the kernels line counts)}."""
+    """The `parallel` group: dp_phase, tp_phase, multihost_cli,
+    stream_mesh_phase and mesh_cli_phase. Returns {"train_launches" (dp=1,
+    both dp=2 ranks, tp=1, both tp=2 ranks and the CLI), "launches" (the
+    eager tracking paths), "jts" (the replicas' JitTrackers, whose graphs'
+    launches the kernels line counts)}."""
     import gc
     import tempfile
 
@@ -4766,6 +5114,13 @@ def parallel_phase(args, dev, model, cfg, vocab: Path, seqs) -> dict:
     t_group = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
         train = dp_phase(args, dev, Path(tmp))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_tp = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        for k, v in tp_phase(args, dev, Path(tmp)).items():
+            train[k] = train.get(k, 0) + v
+    t_tp = time.perf_counter() - t_tp
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as tmp:
@@ -4782,7 +5137,8 @@ def parallel_phase(args, dev, model, cfg, vocab: Path, seqs) -> dict:
         cli = mesh_cli_phase(args, model, cfg, vocab, Path(tmp), seqs)
     for k, v in cli["launches"].items():
         launches[k] = launches.get(k, 0) + v
-    emit({"phase": "parallel_group", "seconds": time.perf_counter() - t_group})
+    emit({"phase": "parallel_group", "seconds": time.perf_counter() - t_group,
+          "tp_leg_seconds": t_tp})
     return {"train_launches": train, "launches": launches, "jts": jts + cli["jts"]}
 
 
@@ -4795,6 +5151,7 @@ def main() -> int:
                     f"({', '.join(GROUPS)}; all by default); a partial run prints no "
                     "kernels line")
     ap.add_argument("--dp-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = set(filter(None, args.only.split(","))) or set(GROUPS)
     if only - set(GROUPS):
@@ -4811,6 +5168,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if args.dp_worker:  # one rank of the parallel group's dp=2 run
         return dp_worker(args)
+    if args.tp_worker:  # one rank of the parallel group's tp=2 run
+        return tp_worker(args)
     # fp32 comparisons must not run convolutions in TF32 (cuDNN's default)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4830,9 +5189,12 @@ def main() -> int:
                       for n, r in recs.items()}})
 
     if "kernels" in only:
+        t0 = time.perf_counter()
         worst, times = kernel_phase(dev, args.seed)
         q8_worst, q8_times = q8_kernel_phase(dev, args.seed)
         fused_worst, fused_times = fused_kernel_phase(dev, args.seed)
+        tp_kern = tp_kernel_phase(dev, args.seed)
+        emit({"phase": "kernels_group", "seconds": time.perf_counter() - t0})
 
     from uvltrack_tpu_torch.config import load_cfg
     from uvltrack_tpu_torch.core.tokenizer import BertTokenizer
@@ -4866,9 +5228,10 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + v
 
     per_fwd_fp = PER_FWD_FP
+    t_track = time.perf_counter()
     if "track" in only:
-        # NLBBOX and NL on the first 32 frames (a re-mine at 20): the compiled
-        # phase tracks all 64 in every mode, on both steps
+        # NLBBOX and NL on the first 32 frames (a re-mine at 20), as the
+        # compiled phase tracks every mode
         for mode, n in (("BBOX", len(frames)), ("NLBBOX", 33), ("NL", 33)):
             add(track_phase(mode, model, cfg, frames[:n], boxes, BertTokenizer(str(vocab)),
                             language, expect=per_fwd_fp))
@@ -4890,6 +5253,7 @@ def main() -> int:
     if "track" in only:
         track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, language,
                            per_fwd_fp, per_fwd_q8, add)
+        emit({"phase": "track_group", "seconds": time.perf_counter() - t_track})
     # the multistream cells' sequences (a seed and a start on the path each)
     seqs = [synthetic_sequence(32, args.seed + 1 + i, phase=11 * i) for i in range(8)]
     if "multistream" in only:
@@ -4900,7 +5264,8 @@ def main() -> int:
     jts = []
     if "compiled" in only or "serve" in only:
         jts = compiled_phase(model, cfg, model_q8, cfg_q8, BertTokenizer(str(vocab)),
-                             language, frames, boxes, seqs, per_fwd_fp, per_fwd_q8)
+                             language, frames[:COMPILED_FRAMES + 1], boxes, seqs, per_fwd_fp,
+                             per_fwd_q8)
     if "serve" in only:
         serve_phase(cfg, jts[0], BertTokenizer(str(vocab)), language, seqs)
     large, eval_counts = None, {"launches": {}, "graph_launches": {}}
@@ -4967,7 +5332,8 @@ def main() -> int:
     src = "uvltrack_tpu_torch/csrc"
     lb = f"B{LOCKSTEP_B}_"
     return finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst,
-                  q8_times, fused_worst, fused_times, large, train_counts, cli_counts["f32w"])
+                  q8_times, fused_worst, fused_times, large, train_counts, cli_counts["f32w"],
+                  tp_kern)
 
 
 def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, language,
@@ -5006,14 +5372,17 @@ def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, langu
 
 
 def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst, q8_times,
-           fused_worst, fused_times, large, train_counts, f32w) -> int:
+           fused_worst, fused_times, large, train_counts, f32w, tp_kern) -> int:
     """The kernels line, the compositions and per-launch lines, the total,
     the nvidia-smi line and the ok line. `large`: the kernel checks and
     times at UVLTrack-L's width, which the rows of the instantiations on
     L's path carry under "C1024"; `train_counts`: the launches of the train
-    group's B-TRAIN runs, each row's "train_launches"; `f32w`: the cli
-    group's checks and times of ln_qkv[fp32x-fp32w] (its row carries its
-    C=1024 times under "C1024")."""
+    group's B-TRAIN runs and of the parallel group's dp and tp legs, each
+    row's "train_launches"; `f32w`: the cli group's checks and times of
+    ln_qkv[fp32x-fp32w] (its row carries its C=1024 times under "C1024");
+    `tp_kern`: tp_kernel_phase's checks and times, which the rows of the
+    instantiations on the tp=2 step carry under "tp" (TP_SHAPES), and the
+    two fc2 fp32-out rows, whose only path is that step, at B_tp2."""
     def at(table, shape, name):
         """A kernel's times at one shape, at B=1 and (under its key) at the
         lockstep batch."""
@@ -5055,6 +5424,15 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                                    ("ln_mlp[fp32x-bf16w]", 551, "N361_fp32x", "ln_mlp")):
         rows.append((name, f"{src}/{name.split('[')[0]}.cu", line, launches.get(name, 0),
                      fused_worst[err], at(fused_times, shape, name)))
+    # fc2's fp32 out (a tensor-parallel rank's share of #7): the tp=2 train
+    # step is its main path, so its launches are that step's
+    tp_worst, tp_times = tp_kern
+    for name, shape in (("ln_mlp[bf16x-bf16w-fp32o]", "N321_bf16x_open"),
+                        ("ln_mlp[fp32x-bf16w-fp32o]", "N361_fp32x_flag0")):
+        rows.append((name, f"{src}/ln_mlp.cu", 551, train_counts.get(name, 0),
+                     tp_worst["ln_mlp_partial"],
+                     {k: v for k, v in tp_times["B_tp2"][shape]["ln_mlp_partial"].items()
+                      if k != "library"}))
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": f"{TPU_KERNEL}:{line}", "launches": n,
                 "graph_launches": sum(glaunch.get(i, 0) for i in NAMED_BY_BASE.get(name, (name,))),
@@ -5081,6 +5459,23 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
         if k["name"] == F32W_NAMES[3]:
             k["note"] = ("the pre-pass of the fp32-weight mode of #1, #4 and #7 (their "
                          "weights' hi/lo planes, once per weight); no TPU kernel of its own")
+    tp_rows = {"ln_qkv": ("N361_fp32x_flag0", "ln_qkv"),
+               "qkv_attention": ("N361_fp32x_flag0", "qkv_attention"),
+               "proj_residual[fp32x-bf16a-bf16w]": ("N361_fp32x_flag0", "proj_partial"),
+               "ln_mlp[bf16x-bf16w-fp32o]": ("N321_bf16x_open", "ln_mlp_partial"),
+               "ln_mlp[fp32x-bf16w-fp32o]": ("N361_fp32x_flag0", "ln_mlp_partial")}
+    for k in kernels:
+        if k["name"] in tp_rows:
+            shape, name = tp_rows[k["name"]]
+            k["tp"] = {label: {"shape": f"B{TRAIN_B}_{shape}", "C": c, "heads": h // tp,
+                               "max_abs_err": tp_worst[name],
+                               **{q: v for q, v in tp_times[label][shape][name].items()
+                                  if q != "library"}}
+                       for label, c, h, tp in TP_SHAPES}
+        if k["name"].endswith("-fp32o]"):
+            k["note"] = ("a tensor-parallel rank's share of #7 before the bias (fc2_bias with "
+                         "an fp32 out); launches: the parallel group's tp=2 train steps, its "
+                         "main path; times at B_tp2 (F=1536)")
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

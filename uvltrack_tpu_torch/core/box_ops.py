@@ -1,6 +1,6 @@
 """Box conversions, IoU/GIoU and clipping on torch tensors (port of
-uvltrack_tpu/core/box_ops.py: the pieces the tracking step and the training
-losses use; reference lib/utils/box_ops.py).
+uvltrack_tpu/core/box_ops.py, every conversion of it; reference
+lib/utils/box_ops.py).
 
 Conventions: boxes are (..., 4) tensors. `xywh` = top-left + size; `cxcywh` =
 center + size; `xyxy` = corners. All ops broadcast over leading dims.
@@ -14,6 +14,11 @@ import torch
 def box_xywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
     x, y, w, h = b.unbind(-1)
     return torch.stack([x, y, x + w, y + h], dim=-1)
+
+
+def box_xyxy_to_xywh(b: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1)
 
 
 def box_cxcywh_to_xywh(b: torch.Tensor) -> torch.Tensor:

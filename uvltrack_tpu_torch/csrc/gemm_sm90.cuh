@@ -1215,12 +1215,15 @@ inline int launch_ln_gemm(const TX* x, const float* gamma, const float* beta, co
 // fp32, W (N_out, K) bf16, int8 with its scale s, or HiLo (its planes; an
 // fp32 A);
 //   SPLITK_BIAS:     out = TO(A . W^T + b), TO = fp32 for a HiLo W, else bf16
+//                    unless given (fp32: a tensor-parallel rank's partial fc2)
 //   SPLITK_RESIDUAL: out = x + TX(A . W^T (* s) + b), in x's type TX
-template <int KIND, typename TX, typename TA, typename TW, int BN, int STAGES, int SPLIT>
+template <int KIND, typename TX, typename TA, typename TW, int BN, int STAGES, int SPLIT,
+          typename TO = splitk_out_t<KIND, TX, TW>>
 inline int launch_splitk_gemm(const TA* a, const TW* w, const float* wscale, const TX* x,
-                              const float* bias, splitk_out_t<KIND, TX, TW>* out, int M, int K,
-                              int N_out, cudaStream_t stream) {
-  using TO = splitk_out_t<KIND, TX, TW>;
+                              const float* bias, TO* out, int M, int K, int N_out,
+                              cudaStream_t stream) {
+  static_assert(KIND == SPLITK_BIAS || std::is_same<TO, TX>::value,
+                "the residual epilogue writes x's type");
   constexpr bool HILO = std::is_same<TA, float>::value;
   if (K % BK != 0 || K / BK < SPLIT || N_out % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -58,14 +58,16 @@ using uvl::bf16;
 // x_is_f32: 1 when x is fp32 (the joint blocks' stream), 0 when bf16;
 // w_is_f32: 1 for fp32 weights given as their hi/lo planes, W1 (2, F, C)
 // and W2 (2, C, F) bf16 (split_hilo; fp32 x only), with an fp32 hidden and
-// out. stages: a bitmask of the launches to make -- 1 ln_fc1_gelu (x -> hidden),
+// out; out_is_f32 with bf16 weights: fc2_bias writes an fp32 out (a
+// tensor-parallel rank's partial h_r . W2_r^T, the caller's b2 zero: the
+// model group sums the partials, then adds b2 and rounds once). stages: a bitmask of the launches to make -- 1 ln_fc1_gelu (x -> hidden),
 // 2 fc2_bias (hidden -> out), 3 both (the kernel's function; the wrapper's
 // call). Requires C % 64 == 0, C <= 1024, F % 256 == 0 and 16-byte aligned
 // x, W1, W2 and hidden (checked by the Python wrapper).
 extern "C" int uvl_ln_mlp(const void* x, int x_is_f32, const float* gamma, const float* beta,
                           const void* w1, const float* b1, const void* w2, const float* b2,
-                          int w_is_f32, void* hidden, void* out, int M, int C, int F, float eps,
-                          int stages, void* stream) {
+                          int w_is_f32, int out_is_f32, void* hidden, void* out, int M, int C,
+                          int F, float eps, int stages, void* stream) {
   using namespace uvl::sm90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_is_f32) {
@@ -94,8 +96,12 @@ extern "C" int uvl_ln_mlp(const void* x, int x_is_f32, const float* gamma, const
                        eps, s);
   }
   if (!err && (stages & 2))
-    err = launch_splitk_gemm<SPLITK_BIAS, bf16, bf16, bf16, 192, 4, 4>(
-        h, static_cast<const bf16*>(w2), nullptr, nullptr, b2, static_cast<bf16*>(out), M, F, C,
-        s);
+    err = out_is_f32
+              ? launch_splitk_gemm<SPLITK_BIAS, bf16, bf16, bf16, 192, 4, 4, float>(
+                    h, static_cast<const bf16*>(w2), nullptr, nullptr, b2,
+                    static_cast<float*>(out), M, F, C, s)
+              : launch_splitk_gemm<SPLITK_BIAS, bf16, bf16, bf16, 192, 4, 4>(
+                    h, static_cast<const bf16*>(w2), nullptr, nullptr, b2,
+                    static_cast<bf16*>(out), M, F, C, s);
   return err ? err : static_cast<int>(cudaGetLastError());
 }

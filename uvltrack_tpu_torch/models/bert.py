@@ -19,6 +19,8 @@ from torch import nn
 
 from ..ops.attention import attention_core
 from ..ops.ln_qkv_attention import layer_norm_fast_var
+from ..ops.quant import dot_f32
+from ..parallel.tp import current as current_tp
 
 
 @dataclass(frozen=True)
@@ -55,6 +57,17 @@ def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """flax nn.Dense(dtype=...): input, kernel and bias cast to the compute
     dtype; the product and the bias add each round to it."""
     return torch.matmul(x.to(dtype), lin.weight.to(dtype).t()) + lin.bias.to(dtype)
+
+
+def row_parallel_dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype, tp) -> torch.Tensor:
+    """dense() of a row-parallel Linear under tensor parallelism (parallel/
+    tp.py): this rank's product with its input rows in fp32, summed over the
+    model group, then the bias and one rounding to dtype; dense() itself
+    when tp is None."""
+    if tp is None:
+        return dense(x, lin, dtype)
+    part = dot_f32(x.to(dtype), lin.weight.to(dtype))
+    return (tp.reduce(part) + lin.bias.to(dtype).float()).to(dtype)
 
 
 class BertEmbeddings(nn.Module):
@@ -107,33 +120,44 @@ class BertIntermediate(nn.Module):
 
 
 class BertLayer(nn.Module):
-    """Post-LN BERT encoder layer taking an additive (B, 1, 1, N) bias."""
+    """Post-LN BERT encoder layer taking an additive (B, 1, 1, N) bias.
+
+    Under tensor parallelism (parallel/tp.py's context) the layer holds
+    `heads` = H/tp heads of query/key/value and F/tp intermediate columns
+    (shard_params_tp): each dense pair enters the model group at its input
+    and sums the row-parallel dense's fp32 partials (row_parallel_dense);
+    the residuals and LayerNorms run whole on every rank."""
 
     def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.heads = cfg.num_heads
         self.attention = BertAttention(cfg)
         self.intermediate = BertIntermediate(cfg)
         self.output = BertDenseNorm(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor | None) -> torch.Tensor:
-        c, dt = self.cfg, self.dtype
+        c, dt, tp = self.cfg, self.dtype, current_tp()
         b, n, _ = x.shape
-        h, d = c.num_heads, c.hidden_size // c.num_heads
+        h, d = self.heads, c.hidden_size // c.num_heads
         sa = self.attention.self
 
         def heads(t):
             return t.reshape(b, n, h, d).transpose(1, 2)
 
-        q, k, v = (heads(dense(x, lin, dt)) for lin in (sa.query, sa.key, sa.value))
+        def enter(t):
+            return t if tp is None else tp.enter(t)
+
+        xi = enter(x)
+        q, k, v = (heads(dense(xi, lin, dt)) for lin in (sa.query, sa.key, sa.value))
         ctx = attention_core(q, k, v, attn_bias)
-        ctx = ctx.transpose(1, 2).reshape(b, n, c.hidden_size)
+        ctx = ctx.transpose(1, 2).reshape(b, n, h * d)
         ao = self.attention.output
-        x = flax_layer_norm(dense(ctx, ao.dense, dt) + x, ao.LayerNorm)
-        y = torch.nn.functional.gelu(dense(x, self.intermediate.dense, dt))
+        x = flax_layer_norm(row_parallel_dense(ctx, ao.dense, dt, tp) + x, ao.LayerNorm)
+        y = torch.nn.functional.gelu(dense(enter(x), self.intermediate.dense, dt))
         out = self.output
-        return flax_layer_norm(dense(y, out.dense, dt) + x, out.LayerNorm)
+        return flax_layer_norm(row_parallel_dense(y, out.dense, dt, tp) + x, out.LayerNorm)
 
 
 def bert_attention_bias(attention_mask: torch.Tensor) -> torch.Tensor:

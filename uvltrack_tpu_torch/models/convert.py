@@ -15,6 +15,10 @@ helpers, :57-139 and :324-363).
   that carries it (from_jax_variables'); a reference checkpoint never does,
   and is refused, as the JAX package's convert_uvltrack refuses it.
 - `load_torch_file(path)`: a checkpoint file's state dict ('net' entry).
+- `save_torch_checkpoint(path, model_or_state, epoch)`: the reference's
+  file, {'net': state, 'epoch': N}, as the JAX package's
+  save_torch_checkpoint writes it (convert.py:421-431): the rule table's
+  keys, fp32 (a bf16 model upcast) and each BN's num_batches_tracked.
 - `load_pretrained(cfg, model)`: the training start (convert.py:247-288 of
   the JAX package): an MAE-pretrained ViT (`convert_mae_vit`) and a BERT
   archive (`load_bert_archive`, `convert_bert`) from local paths, each
@@ -149,6 +153,18 @@ def uvltrack_rules(depth: int, n_bert: int):
     return rules, bn_rules
 
 
+def text_proj_rules():
+    """The rules of `text_proj` (BERT width != ViT width; the port's own key)."""
+    return [("text_proj.weight", ["backbone", "text_proj", "kernel"], _t_linear),
+            ("text_proj.bias", ["backbone", "text_proj", "bias"], None)]
+
+
+def layer_scale_rules(i: int):
+    """The rules of block i's LayerScale gammas (ls1, ls2), where it has them."""
+    return [(f"vit.blocks.{i}.ls{j}.gamma", ["backbone", f"block_{i}", f"ls{j}_gamma"], None)
+            for j in (1, 2)]
+
+
 def state_key(src: str) -> str:
     """The reference prefixes backbone parameters with 'backbone.'."""
     return ("backbone." + src if src.startswith(("vit.", "bert.", "logit_scale", "text_proj."))
@@ -171,11 +187,10 @@ def from_jax_variables(params: dict, batch_stats: dict) -> Dict[str, torch.Tenso
     n_bert = sum(1 for k in bk if k.startswith("bert_layer_"))
     rules, bn_rules = uvltrack_rules(depth, n_bert)
     if "text_proj" in bk:  # BERT width != ViT width: the port's own key
-        rules += [("text_proj.weight", ["backbone", "text_proj", "kernel"], _t_linear),
-                  ("text_proj.bias", ["backbone", "text_proj", "bias"], None)]
+        rules += text_proj_rules()
     for i in range(depth):  # LayerScale, where the blocks carry it
-        rules += [(f"vit.blocks.{i}.ls{j}.gamma", ["backbone", f"block_{i}", f"ls{j}_gamma"], None)
-                  for j in (1, 2) if f"ls{j}_gamma" in bk[f"block_{i}"]]
+        rules += [r for j, r in zip((1, 2), layer_scale_rules(i))
+                  if f"ls{j}_gamma" in bk[f"block_{i}"]]
     state = {}
     for src, dst, tf in rules:
         v = _get(params, dst)
@@ -198,6 +213,47 @@ def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
                 obj = obj[key]
                 break
     return {k: v for k, v in obj.items() if torch.is_tensor(v) or isinstance(v, np.ndarray)}
+
+
+def save_torch_checkpoint(path: str, model_or_state, epoch: int = 0) -> None:
+    """Write a reference-loadable .pth.tar, {'net': state, 'epoch': epoch}
+    (lib/test/tracker/uvltrack.py:24 reads ['net']), from a model or its
+    reference-keyed state dict: every key of the rule table (LayerScale's
+    gammas where the blocks carry them), in the JAX writer's order, each
+    tensor on the CPU, bf16 upcast to fp32, and after each BN's running
+    stats its num_batches_tracked (the model's; 0 where the state has none,
+    as the JAX writer writes without passthrough). A model split by
+    tensor parallelism is refused (pass parallel/tp.py::gather_params_tp's
+    state), and so is a text_proj (BERT width != ViT width), which the
+    reference has no layer for."""
+    if isinstance(model_or_state, torch.nn.Module):
+        if getattr(model_or_state, "tp_size", 1) != 1:
+            raise ValueError("a tensor-parallel model's slices: write "
+                             "parallel/tp.py::gather_params_tp's state instead")
+        state = model_or_state.state_dict()
+    else:
+        state = dict(model_or_state)
+    if any(k.startswith("backbone.text_proj.") for k in state):
+        raise ValueError("model has backbone.text_proj (BERT hidden_size != embed_dim); the "
+                         "reference has no such layer, so the checkpoint could not be loaded "
+                         "by it -- match the BERT variant to the ViT width instead")
+    depth = len({k.split(".")[3] for k in state if k.startswith("backbone.vit.blocks.")})
+    n_bert = len({k.split(".")[4] for k in state
+                  if k.startswith("backbone.bert.encoder.layer.")})
+    rules, bn_rules = uvltrack_rules(depth, n_bert)
+    rules += [r for i in range(depth) for r in layer_scale_rules(i)
+              if state_key(r[0]) in state]
+
+    def up(t):
+        t = torch.as_tensor(t).detach().to("cpu")
+        return (t.float() if t.is_floating_point() and t.element_size() < 4 else t).clone()
+
+    net = {state_key(src): up(state[state_key(src)]) for src, _, _ in rules}
+    for src, _ in bn_rules:
+        net[src] = up(state[src])
+        nb = src.rsplit(".", 1)[0] + ".num_batches_tracked"
+        net.setdefault(nb, up(state.get(nb, torch.tensor(0, dtype=torch.int64))))
+    torch.save({"net": net, "epoch": epoch}, path)
 
 
 def _bert_norm_name(key: str) -> str:

@@ -28,7 +28,8 @@ from torch import nn
 from ..core.geometry import rotate_half_batch
 from ..ops.quant import is_quantized, weight_of
 from ..parallel.dp import current as current_dp
-from .bert import dense
+from ..parallel.tp import current as current_tp
+from .bert import dense, row_parallel_dense
 from .mufe import l2_normalize, select_by_flag
 
 NEG_INF = -1e20
@@ -116,7 +117,11 @@ class PrompterMlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x):
-        return dense(F.gelu(dense(x, self.fc1, self.dtype)), self.fc2, self.dtype)
+        """fc2(gelu(fc1 x)); under tensor parallelism (parallel/tp.py) fc1's
+        columns and fc2's rows are this rank's slices, as a ViT block's MLP."""
+        tp = current_tp()
+        h = F.gelu(dense(x if tp is None else tp.enter(x), self.fc1, self.dtype))
+        return row_parallel_dense(h, self.fc2, self.dtype, tp)
 
 
 class DistributionPrompter(nn.Module):

@@ -37,8 +37,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.dp import current as current_dp
+from ..parallel.tp import current as current_tp
+from ..parallel.tp import scope as tp_scope
 from .bert import BertConfig, BertEmbeddings, BertLayer, bert_attention_bias, dense
 from .vit import PatchEmbed, VitBlock, sincos_2d
+
+
+def _in_tp_scope(tp, layer, *args):
+    with tp_scope(tp):
+        return layer(*args)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -158,9 +165,11 @@ class MUFE(nn.Module):
 
     def _run(self, layer, *args):
         """A ViT block or BERT layer, under activation checkpointing with
-        `remat` while autograd records."""
+        `remat` while autograd records. The recompute runs in the backward,
+        on the autograd engine's thread, so it re-enters the tensor-parallel
+        context the forward saw."""
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(layer, *args, use_reentrant=False)
+            return checkpoint(_in_tp_scope, current_tp(), layer, *args, use_reentrant=False)
         return layer(*args)
 
     def _keep_masks(self, b: int, device, generator):

@@ -16,8 +16,10 @@ import torch
 from torch import nn
 
 from ..ops.attention import (attention_block_core, attention_ln_qkv_core, attn_proj_core,
-                             key_padding_bias, ln_mlp_core)
+                             attn_proj_partial_core, key_padding_bias, ln_mlp_core,
+                             ln_mlp_partial_core)
 from ..ops.quant import weight_of
+from ..parallel.tp import current as current_tp
 
 
 def sincos_1d(embed_dim: int, pos: np.ndarray) -> np.ndarray:
@@ -75,7 +77,14 @@ class VitBlock(nn.Module):
     divides it by 1 - drop_path. init_values enables LayerScale (ls1, ls2).
     Either one needs the branch before the residual add, so the attention
     half then runs composed (attention_ln_qkv_core, attn_proj_core), as the
-    JAX VitBlock does."""
+    JAX VitBlock does.
+
+    Under tensor parallelism (parallel/tp.py's context) the block holds its
+    H/tp heads and its slices of the four weights (shard_params_tp): each
+    half enters the model group at its LayerNorm (x and the LN's scale and
+    bias: their gradients summed over the group), runs its rank's heads or
+    hidden columns and sums the fp32 partial products over the group; the
+    bias, the branch's rounding and the residual follow once, after the sum."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32, drop_path: float = 0.0,
@@ -99,6 +108,9 @@ class VitBlock(nn.Module):
     def forward(self, x: torch.Tensor, key_masked: torch.Tensor | None = None,
                 keep: torch.Tensor | None = None):
         bias = key_padding_bias(key_masked) if key_masked is not None else None
+        tp = current_tp()
+        if tp is not None:
+            return self._forward_tp(x, bias, keep, tp)
         a, ln = self.attn, self.norm1
         if self.ls1 is None and keep is None:
             # proj + residual fusable into the kernel (attention_block_core)
@@ -116,6 +128,21 @@ class VitBlock(nn.Module):
         mlp_out = ln_mlp_core(x, self.norm2.weight, self.norm2.bias,
                               weight_of(m.fc1), m.fc1.bias, weight_of(m.fc2),
                               m.fc2.bias, compute_dtype=self.dtype)
+        return x + self._branch(mlp_out, self.ls2, None if keep is None else keep[1])
+
+    def _forward_tp(self, x, bias, keep, tp):
+        a, ln, m, dt = self.attn, self.norm1, self.mlp, self.dtype
+        attn = attention_ln_qkv_core(tp.enter(x), tp.enter(ln.weight), tp.enter(ln.bias),
+                                     weight_of(a.qkv), a.qkv.bias, a.num_heads, bias,
+                                     compute_dtype=dt)
+        part, rounding = attn_proj_partial_core(x, attn, weight_of(a.proj), bias, dt,
+                                                fused=self.ls1 is None and keep is None)
+        delta = (tp.reduce(part) + a.proj.bias.float()).to(rounding).to(x.dtype)
+        x = x + self._branch(delta, self.ls1, None if keep is None else keep[0])
+        ln = self.norm2
+        part = ln_mlp_partial_core(tp.enter(x), tp.enter(ln.weight), tp.enter(ln.bias),
+                                   weight_of(m.fc1), m.fc1.bias, weight_of(m.fc2), dt)
+        mlp_out = (tp.reduce(part) + m.fc2.bias.float()).to(dt)
         return x + self._branch(mlp_out, self.ls2, None if keep is None else keep[1])
 
 

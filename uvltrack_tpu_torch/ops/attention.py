@@ -53,6 +53,15 @@ ported: under UVLTRACK_FUSED_MLP=1 the port's #7 runs in every ViT block at
 N=321/361, where the JAX package, over its cap, runs the kernel's XLA twin
 (the same function with the same rounding points).
 
+Tensor parallelism (parallel/tp.py; training): a rank holds H/tp heads of
+qkv and K/tp input columns of the projection and fc2. attention_ln_qkv_core
+runs its heads as above; attn_proj_partial_core and ln_mlp_partial_core
+give the rank's fp32 share of the projection and of the MLP before the
+bias, which the ViT block sums over the model group: on the kernels
+`proj_residual` on a zero fp32 stream under UVLTRACK_FUSED_PROJ=1 (where
+attention_block_core would take #4) and #7 with an fp32 out under
+UVLTRACK_FUSED_MLP=1, else their plain versions.
+
 Precision of the int8 path: the q8 kernels compute in x's dtype, so on the
 card the fp32 joint blocks run their attention prefix in fp32; the plain
 math (the JAX package's XLA fallback) computes in the compute dtype, bf16.
@@ -227,6 +236,13 @@ def attn_proj_core(attn, w_proj, b_proj, compute_dtype=None):
     return (quant_dot(attn.to(w.dtype), w) + b_proj.float()).to(w.dtype)
 
 
+def _fused_proj(x, key_bias) -> bool:
+    """The fused attention branch's gate (#4/#6): UVLTRACK_FUSED_PROJ=1 on
+    the kernels, a key-padding bias and the prefix fused."""
+    return (key_bias is not None and _on_kernels(x, x.shape[1]) and fused_prefix()
+            and os.environ.get("UVLTRACK_FUSED_PROJ", "0") == "1")
+
+
 def attention_block_core(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                          heads: int, bias=None, compute_dtype=None,
                          eps: float = 1e-6):
@@ -237,8 +253,7 @@ def attention_block_core(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
     compute_dtype = compute_dtype or x.dtype
     b, n, _ = x.shape
     key_bias = _key_padding(bias, b, n, x.device)
-    if (key_bias is not None and _on_kernels(x, n) and fused_prefix()
-            and os.environ.get("UVLTRACK_FUSED_PROJ", "0") == "1"):
+    if _fused_proj(x, key_bias):
         quant_qkv, quant_proj = is_quantized(w_qkv), is_quantized(w_proj)
         if quant_qkv and quant_proj:
             return lqp.ln_qkv_attn_proj_q8(
@@ -254,6 +269,39 @@ def attention_block_core(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                                  bias, compute_dtype=compute_dtype, eps=eps)
     return x + attn_proj_core(attn, w_proj, b_proj,
                               compute_dtype=compute_dtype).to(x.dtype)
+
+
+def attn_proj_partial_core(x, attn, w_proj, bias=None, compute_dtype=None,
+                           fused: bool = True):
+    """Tensor parallelism: this rank's share of the projection of its heads'
+    attention output `attn` (B, N, C/tp), before the bias: (partial (B, N,
+    C) fp32, the dtype the caller rounds the summed projection + bias to
+    before the residual add). Where attention_block_core would take #4
+    (`fused` and its gate), `proj_residual` on a zero fp32 stream, and x's
+    dtype (#4's one rounding); else the plain product and the compute dtype
+    (attn_proj_core's rounding)."""
+    compute_dtype = compute_dtype or x.dtype
+    wp = w_proj.to(compute_dtype)
+    a = attn.to(wp.dtype)
+    if fused and _fused_proj(x, _key_padding(bias, x.shape[0], x.shape[1], x.device)):
+        part = ag.ProjPartial.apply(a, wp) if grad_needed(a, wp) else lqp.proj_partial(a, wp)
+        return part, x.dtype
+    return lqp.proj_partial_plain(a, wp), compute_dtype
+
+
+def ln_mlp_partial_core(x, ln_scale, ln_bias, w1, b1, w2, compute_dtype=None,
+                        eps: float = 1e-6):
+    """Tensor parallelism: this rank's share of ln_mlp_core before the bias
+    (its F/tp hidden columns), (B, N, C) fp32; kernel #7 with an fp32 out
+    under UVLTRACK_FUSED_MLP=1 past the gate, else its plain version."""
+    compute_dtype = compute_dtype or x.dtype
+    w1, w2 = w1.to(compute_dtype), w2.to(compute_dtype)
+    if _on_kernels(x, x.shape[1]) and os.environ.get("UVLTRACK_FUSED_MLP", "0") == "1":
+        args = (x.contiguous(), ln_scale, ln_bias, w1, b1, w2, eps)
+        if grad_needed(x, ln_scale, ln_bias, w1, b1, w2):
+            return ag.LnMlpPartial.apply(*args)
+        return lm.ln_mlp_partial(*args)
+    return lm.ln_mlp_partial_plain(x, ln_scale, ln_bias, w1, b1, w2, eps)
 
 
 def ln_mlp_core(x, ln_scale, ln_bias, w1, b1, w2, b2, compute_dtype=None,

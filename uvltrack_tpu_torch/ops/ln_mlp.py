@@ -33,6 +33,14 @@ planes (ops/hilo.py), three passes a product. The output is in w2's dtype.
 A CPU tensor takes the plain version, which is also the plain backend's
 MLP (ops/attention.py::ln_mlp_core) and takes int8 QuantizedTensor weights
 through quant_dot.
+
+Under tensor parallelism (parallel/tp.py) a rank holds F/tp of fc1's output
+columns and of fc2's input rows, and `ln_mlp_partial` computes its share of
+fc2 before the bias: h_r . W2_r^T in fp32 (bf16 weights: `fc2_bias` with an
+fp32 out and a zero b2, the instantiations tagged `-fp32o`). The caller sums
+the shares over the model group, adds b2 and rounds once to w2's dtype, so
+the bias is added once and the product rounds where the single-device
+kernel rounds it.
 """
 
 from __future__ import annotations
@@ -80,11 +88,18 @@ def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6):
     return fc2_bias_plain(ln_fc1_gelu_plain(x, ln_scale, ln_bias, w1, b1, eps), w2, b2)
 
 
+def ln_mlp_partial_plain(x, ln_scale, ln_bias, w1, b1, w2, eps: float = 1e-6):
+    """A tensor-parallel rank's share of kernel #7's function before the
+    bias: ln_fc1_gelu in w2's dtype, times its W2 columns, in fp32."""
+    return quant_dot(ln_fc1_gelu_plain(x, ln_scale, ln_bias, w1, b1, eps).to(w2.dtype), w2)
+
+
 # ---------------------------------------------------------------- kernel
 def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float = 1e-6,
                   stages: str = "pair"):
     """Launch csrc/ln_mlp.cu into the caller's hidden (M, F) and out
-    (B, N, C), both in w2's dtype: stages "pair" (both launches, the
+    (B, N, C), both in w2's dtype (out fp32 with bf16 weights: fc2_bias's
+    fp32 output, tagged `-fp32o`): stages "pair" (both launches, the
     kernel's function), or "ln_fc1_gelu" / "fc2_bias" alone (chip_smoke.py
     times each launch). Counts one `ln_mlp` launch per call."""
     b, n, c = x.shape
@@ -105,21 +120,23 @@ def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float 
     require(c % 64 == 0 and c <= LN_MAX_C and f % 256 == 0,
             f"ln_mlp: C must be a multiple of 64 up to {LN_MAX_C} and F of 256 (fc2's K "
             f"split four ways in 64-deep tiles), got C={c}, F={f}")
+    out32 = out.dtype == torch.float32 and not w32  # a tensor-parallel partial
     require(hidden.dtype == w2.dtype and tuple(hidden.shape) == (b * n, f)
-            and out.dtype == w2.dtype and tuple(out.shape) == (b, n, c),
-            f"ln_mlp: hidden must be (B*N, F) and out (B, N, C), both {w2.dtype}")
+            and out.dtype in (w2.dtype, torch.float32) and tuple(out.shape) == (b, n, c),
+            f"ln_mlp: hidden must be (B*N, F) in {w2.dtype} and out (B, N, C) in it or fp32")
     no_grad_through("ln_mlp", (x, ln_scale, ln_bias, w1, b1, w2, b2),
                     "call it through ops/autograd.py (LnMlp)")
     check_cuda("ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out)
     # fp32 weights go to the kernels as their cached hi/lo planes
     p1, p2 = (hilo.planes(w1), hilo.planes(w2)) if w32 else (w1, w2)
-    build.launch("ln_mlp", f"{build.dtype_tag(x)}x-{build.dtype_tag(w1)}w",
-                 [PTR, INT, PTR, PTR, PTR, PTR, PTR, PTR, INT, PTR, PTR, INT, INT, INT, FLOAT,
-                  INT],
+    build.launch("ln_mlp", f"{build.dtype_tag(x)}x-{build.dtype_tag(w1)}w"
+                 + ("-fp32o" if out32 else ""),
+                 [PTR, INT, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, PTR, PTR, INT, INT, INT,
+                  FLOAT, INT],
                  x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(),
                  ln_bias.data_ptr(), p1.data_ptr(), b1.data_ptr(), p2.data_ptr(),
-                 b2.data_ptr(), int(w32), hidden.data_ptr(), out.data_ptr(), b * n, c, f, eps,
-                 STAGES[stages], stream_of=x)
+                 b2.data_ptr(), int(w32), int(out32), hidden.data_ptr(), out.data_ptr(), b * n,
+                 c, f, eps, STAGES[stages], stream_of=x)
     return out
 
 
@@ -137,3 +154,17 @@ def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6):
     hidden = torch.empty((b * n, w1.shape[0]), dtype=w2.dtype, device=x.device)
     out = torch.empty((b, n, c), dtype=w2.dtype, device=x.device)
     return launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps)
+
+
+@counted(ln_mlp_work)
+def ln_mlp_partial(x, ln_scale, ln_bias, w1, b1, w2, eps: float = 1e-6):
+    """A tensor-parallel rank's share of kernel #7's function before the
+    bias: x (B, N, C); w1 (F/tp, C), w2 (C, F/tp) -> (B, N, C) fp32. Both
+    launches on a CUDA tensor, fc2_bias with a zero b2 and an fp32 out."""
+    if x.device.type == "cpu":
+        return ln_mlp_partial_plain(x, ln_scale, ln_bias, w1, b1, w2, eps)
+    b, n, c = x.shape
+    hidden = torch.empty((b * n, w1.shape[0]), dtype=w2.dtype, device=x.device)
+    out = torch.empty((b, n, c), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((c,), dtype=torch.float32, device=x.device)
+    return launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, zero, hidden, out, eps)

@@ -146,15 +146,17 @@ def ln_qkv_attention_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, key_bia
 
 # ---------------------------------------------------------------- kernels
 def _launch_ln_qkv(x, ln_scale, ln_bias, w, w_scale, b_qkv, eps, out_dtype):
+    """W (F, C): F = 3C, or a tensor-parallel rank's 3C/tp rows (its heads'
+    q, k and v; parallel/tp.py)."""
     b, n, c = x.shape
-    f = 3 * c
+    f = w.shape[0]
     require(x.dtype in (torch.bfloat16, torch.float32),
             f"ln_qkv: x must be bf16 or fp32, got {x.dtype}")
     require(all(t.dtype == torch.float32 for t in (ln_scale, ln_bias, b_qkv)),
             "ln_qkv: LN scale/bias and qkv bias must be fp32")
-    require(tuple(w.shape) == (f, c) and tuple(b_qkv.shape) == (f,)
+    require(tuple(w.shape) == (f, c) and f % 8 == 0 and tuple(b_qkv.shape) == (f,)
             and tuple(ln_scale.shape) == (c,) and tuple(ln_bias.shape) == (c,),
-            f"ln_qkv: bad shapes for C={c}")
+            f"ln_qkv: bad shapes for C={c}, F={f} (F a multiple of 8)")
     require(c % 64 == 0, f"ln_qkv: C must be a multiple of 64, got {c}")
     tensors = (x, ln_scale, ln_bias, w, b_qkv) + ((w_scale,) if w_scale is not None else ())
     no_grad_through("ln_qkv", tensors, INT8_NO_GRAD if w_scale is not None else
@@ -174,9 +176,10 @@ def _launch_ln_qkv(x, ln_scale, ln_bias, w, w_scale, b_qkv, eps, out_dtype):
 
 @counted(ln_qkv_work)
 def ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, eps: float = 1e-6):
-    """x (B, N, C) bf16|fp32; ln_scale, ln_bias (C,) fp32; w_qkv (3C, C) bf16,
-    or fp32 with an fp32 x (Linear layout); b_qkv (3C,) fp32 -> (B, N, 3C) in
-    w_qkv's dtype (kernel #1's prefix)."""
+    """x (B, N, C) bf16|fp32; ln_scale, ln_bias (C,) fp32; w_qkv (F, C) bf16,
+    or fp32 with an fp32 x (Linear layout; F = 3C, 3C/tp under tensor
+    parallelism); b_qkv (F,) fp32 -> (B, N, F) in w_qkv's dtype (kernel
+    #1's prefix)."""
     if torch.compiler.is_exporting():
         return library.ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
     if x.device.type == "cpu":

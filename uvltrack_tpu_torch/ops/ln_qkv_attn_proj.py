@@ -66,6 +66,12 @@ def proj_residual_plain(x, attn, w_proj, b_proj):
     return x + (quant_dot(attn, w_proj) + b_proj.float()).to(x.dtype)
 
 
+def proj_partial_plain(attn, w_proj):
+    """A tensor-parallel rank's share of the projection: attn . w_proj^T
+    (its K/tp input columns) in fp32, no bias, no residual."""
+    return quant_dot(attn, w_proj)
+
+
 def ln_qkv_attn_proj_plain(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
                            key_bias, heads: int, eps: float = 1e-6):
     """Plain version of kernel #4: the attention output in w_proj's dtype,
@@ -145,3 +151,19 @@ def ln_qkv_attn_proj_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, wp_q, wp_scal
     attn = lqa.ln_qkv_attention_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, key_bias,
                                    heads, eps)
     return proj_residual(x, attn, wp_q, b_proj, wp_scale)
+
+
+def proj_partial(attn, w_proj):
+    """A tensor-parallel rank's share of kernel #4's projection (parallel/
+    tp.py): attn (B, N, K/tp) in w_proj's dtype, w_proj (C, K/tp) ->
+    (B, N, C) fp32, no bias, no residual. On a CUDA tensor one
+    `proj_residual` launch on a zero fp32 residual with a zero bias (its
+    fp32-x instantiation: the product is not rounded); the caller sums the
+    shares over the model group and adds the bias and the residual once."""
+    if attn.device.type == "cpu":
+        return proj_partial_plain(attn, w_proj)
+    b, n, _ = attn.shape
+    c = w_proj.shape[0]
+    zero = torch.zeros((b, n, c), dtype=torch.float32, device=attn.device)
+    return proj_residual(zero, attn, w_proj, torch.zeros((c,), dtype=torch.float32,
+                                                        device=attn.device))

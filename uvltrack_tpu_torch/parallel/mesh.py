@@ -11,11 +11,14 @@ XLA. The port has two views of the same grid:
   streams and a copy of the weights (replicated);
 - one process per device under torch.distributed (cli/train --multihost,
   init_distributed): each process is one point of the grid; its data index
-  is rank // model, and the ranks of one model index form its
-  data-parallel group (parallel/dp.py holds the collectives).
+  is rank // model and its model index rank % model; the ranks of one model
+  index form its data-parallel group (parallel/dp.py holds the
+  collectives), the ranks of one data index its model group (parallel/
+  tp.py's).
 
-MESH_MODEL > 1 replicates the parameters and gives the ranks of one data
-index the same rows, as the JAX CLI's mesh does without parallel/tp.py.
+The ranks of one data index get the same rows. MESH_MODEL > 1 in
+cli/train replicates the parameters, as the JAX CLI's mesh does without
+parallel/tp.py; the train step splits them with tp= (train/step.py).
 """
 
 from __future__ import annotations
@@ -37,13 +40,16 @@ class Mesh:
     row-major (data index i owns devices[i*model:(i+1)*model]); in a process
     group, this process's device. `rank`/`world`: the process's place in
     the group (0 and 1 in one process); `group`: its data-parallel process
-    group (None: the default group)."""
+    group (None: the default group); `model_group`: its model group (the
+    ranks d*model .. d*model + model-1 of its data index d; None: the
+    default group)."""
     data: int
     model: int
     devices: Tuple[torch.device, ...]
     rank: int = 0
     world: int = 1
     group: Any = None
+    model_group: Any = None
 
     @property
     def shape(self) -> dict:
@@ -52,6 +58,10 @@ class Mesh:
     @property
     def data_index(self) -> int:
         return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
 
     @property
     def is_main(self) -> bool:
@@ -83,21 +93,27 @@ def make_mesh(data: int = -1, model: int = 1, devices: Optional[Sequence] = None
     `model`. Under an initialized process group the grid is the world's
     ranks (data * model must equal the world size) and `devices`, if given,
     is this process's one device; the ranks of each model index get their
-    own data-parallel group (every rank takes part in making each). Else
+    own data-parallel group and, with model > 1, the ranks of each data
+    index their model group (every rank takes part in making each). Else
     the grid is `devices` (the visible cards by default) in this process."""
     if dist.is_available() and dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
         data = world // model if data == -1 else data
         if data * model != world:
             raise ValueError(f"mesh {data} x {model} over {world} processes")
-        group = None
+        group = model_group = None
         if model > 1:
             for m in range(model):  # new_group is collective: every rank makes each
                 g = dist.new_group([d * model + m for d in range(data)])
                 if rank % model == m:
                     group = g
+            for d in range(data):
+                g = dist.new_group([d * model + m for m in range(model)])
+                if rank // model == d:
+                    model_group = g
         own = tuple(torch.device(d) for d in devices) if devices else (torch.device("cpu"),)
-        return Mesh(data, model, own[:1], rank=rank, world=world, group=group)
+        return Mesh(data, model, own[:1], rank=rank, world=world, group=group,
+                    model_group=model_group)
     devs = [torch.device(d) for d in (devices if devices is not None else local_devices())]
     data = len(devs) // model if data == -1 else data
     if not 0 < data * model <= len(devs):

@@ -68,9 +68,15 @@ def lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
     raise ValueError(f"unknown scheduler {kind!r}")
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor (optax.global_norm)."""
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+def global_norm(tensors, split=(), tp=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor (optax.global_norm).
+    Under tensor parallelism `split` are this rank's slices of the split
+    leaves, whose squares are summed over the model group (tp, a parallel/
+    tp.py TensorParallel); `tensors`, replicated, count once."""
+    sq = sum((t.float() ** 2).sum() for t in tensors)
+    if split:
+        sq = sq + tp.all_reduce_(sum((t.float() ** 2).sum() for t in split))
+    return torch.sqrt(sq)
 
 
 class TrainOptimizer:
@@ -87,14 +93,26 @@ class TrainOptimizer:
     every rank) gradients, runs AdamW on this rank's slices and all-gathers
     the slices back into the parameters. state_dict() gathers the moments
     (a collective every rank enters) and returns the replicated optimizer's
-    state dict, so a checkpoint resumes at any data-parallel width."""
+    state dict, so a checkpoint resumes at any data-parallel width.
 
-    def __init__(self, cfg, model: nn.Module, steps_per_epoch: int = 1, zero1=None):
+    tp (a parallel/tp.py TensorParallel; the model split by
+    shard_params_tp): the global norm sums the split leaves' squares over
+    the model group and counts the replicated ones once; ZeRO-1 partitions
+    each rank's slices over the data axis; state_dict() also gathers the
+    split parameters' moments into whole tensors in JAX's layout (and
+    load_state_dict takes whole ones), so a checkpoint resumes at tp=1."""
+
+    def __init__(self, cfg, model: nn.Module, steps_per_epoch: int = 1, zero1=None, tp=None):
+        from ..parallel.tp import split_params
+
         # the model's own MODEL.LEARNABLE_POSITION (build_model reads it)
         labels = param_labels(model, model.backbone.learnable_pos)
         named = dict(model.named_parameters())
         self.params = list(named.values())
-        self.zero1 = zero1
+        self.zero1, self.tp = zero1, tp
+        # tensor parallelism: {id of a split parameter: (its name, split dim)}
+        self.split = ({id(named[n]): (n, d) for n, d in split_params(model).items()}
+                      if tp is not None else {})
         self.slices = []  # ZeRO-1: (parameter, its slice, axis), in the groups' order
         mult = float(cfg.TRAIN.BACKBONE_MULTIPLIER)
         groups = [{"params": [self._owned(named[n]) for n, lab in labels.items() if lab == group],
@@ -125,8 +143,10 @@ class TrainOptimizer:
     def step(self, step: int) -> torch.Tensor:
         """Clip the gradients in place and update; returns the global norm
         of the gradients before the clip (the step's grad_norm)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        norm = global_norm(grads)
+        rest = [p.grad for p in self.params if p.grad is not None and id(p) not in self.split]
+        split = [p.grad for p in self.params if p.grad is not None and id(p) in self.split]
+        norm = global_norm(rest, split, self.tp)
+        grads = rest + split
         if self.clip > 0:
             # optax: g / norm * clip where norm >= clip (no device->host read)
             scale = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
@@ -175,22 +195,46 @@ class TrainOptimizer:
         axis_of = {id(piece): axis for _, piece, axis in self.slices}
         return {i: axis_of[id(p)] for i, p in enumerate(owned) if id(p) in axis_of}
 
+    def _split_indices(self) -> dict:
+        """{index in the state dict: (name, dim)} of the tensor-parallel
+        split parameters."""
+        of_piece = {id(piece): id(p) for p, piece, _ in self.slices}
+        owned = [p for g in self.adamw.param_groups for p in g["params"]]
+        return {i: self.split[of_piece.get(id(p), id(p))] for i, p in enumerate(owned)
+                if of_piece.get(id(p), id(p)) in self.split}
+
     def state_dict(self) -> dict:
         state = self.adamw.state_dict()
         sliced = self._sliced_indices()
-        if not sliced:
+        split = self._split_indices()
+        if not (sliced or split):
             return state
+        out = {"state": {i: dict(st) for i, st in state["state"].items()},
+               "param_groups": state["param_groups"]}
         keys = [(i, k) for i in sliced if i in state["state"]
                 for k in ("exp_avg", "exp_avg_sq")]
         full = self._gather([state["state"][i][k] for i, k in keys],
                             [sliced[i] for i, _ in keys]) if keys else []
-        out = {"state": {i: dict(st) for i, st in state["state"].items()},
-               "param_groups": state["param_groups"]}
         for (i, k), value in zip(keys, full):
             out["state"][i][k] = value
+        for i in sorted(split):  # the same order on every rank of the model group
+            if i in out["state"]:
+                name, dim = split[i]
+                for k in ("exp_avg", "exp_avg_sq"):
+                    out["state"][i][k] = self.tp.gather(name, out["state"][i][k], dim)
         return out
 
     def load_state_dict(self, state: dict) -> None:
+        from ..parallel.tp import shard_tensor
+
+        split = self._split_indices()
+        if split:  # whole moments -> this rank's slices
+            state = {"state": {i: {k: (shard_tensor(split[i][0], v, split[i][1], self.tp.size,
+                                                    self.tp.index).clone()
+                                       if i in split and k in ("exp_avg", "exp_avg_sq") else v)
+                                   for k, v in st.items()}
+                               for i, st in state["state"].items()},
+                     "param_groups": state["param_groups"]}
         sliced = self._sliced_indices()
         if sliced:
             state = {"state": {i: {k: (self._slice(v, sliced[i]).clone()
@@ -202,5 +246,5 @@ class TrainOptimizer:
 
 
 def build_optimizer(cfg, model: nn.Module, steps_per_epoch: int = 1,
-                    zero1=None) -> TrainOptimizer:
-    return TrainOptimizer(cfg, model, steps_per_epoch, zero1=zero1)
+                    zero1=None, tp=None) -> TrainOptimizer:
+    return TrainOptimizer(cfg, model, steps_per_epoch, zero1=zero1, tp=tp)

@@ -16,15 +16,27 @@ clip and AdamW then run on equal gradients on every rank (ZeRO-1 with
 TPU.ZERO1, train/optim.py). The logged metrics are the global batch's,
 averaged over the ranks. The result is the single-device step on the global
 batch, as the JAX package's mesh step, up to the order of fp32 sums.
+
+Tensor parallel (tp=, a parallel/tp.py TensorParallel over the mesh's model
+axis; setup_sharded_training(tensor_parallel=True)): the ranks of one data
+index hold their slices of the split parameters (shard_params_tp) and step
+the same rows under the tp context, which the ViT blocks, the BERT layers
+and the prompter MLP read; the gradient all_reduce runs over the data group
+only, the global norm sums the split leaves over the model group, and
+TrainState.state_dict() gathers the slices, so a checkpoint holds whole
+tensors in JAX's layout. This mirrors the JAX package's shard_params_tp +
+jit_sharded_train_step(replicate_out=False) on a data x model mesh.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
 
+from ..parallel import tp as tpar
 from ..parallel.dp import DataParallel, reduce_gradients, scope
 from .actor import forward_and_loss
 from .optim import TrainOptimizer, build_optimizer
@@ -32,22 +44,27 @@ from .optim import TrainOptimizer, build_optimizer
 
 @dataclass
 class TrainState:
+    """tp: the model's tensor-parallel context when shard_params_tp split it;
+    state_dict() then gathers (a collective) and load_state_dict() takes
+    whole tensors."""
     model: nn.Module
     optimizer: TrainOptimizer
     step: int = 0
+    tp: Optional[tpar.TensorParallel] = None
 
     def state_dict(self) -> dict:
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "step": self.step}
+        return {"model": tpar.full_state_dict(self.model, self.tp),
+                "optimizer": self.optimizer.state_dict(), "step": self.step}
 
     def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
+        tpar.load_full_state(self.model, state["model"], self.tp)
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
 
 
-def create_train_state(model: nn.Module, optimizer: TrainOptimizer) -> TrainState:
-    return TrainState(model, optimizer, 0)
+def create_train_state(model: nn.Module, optimizer: TrainOptimizer,
+                       tp: Optional[tpar.TensorParallel] = None) -> TrainState:
+    return TrainState(model, optimizer, 0, tp)
 
 
 def _split_microbatches(batch: dict, k: int) -> dict:
@@ -80,10 +97,13 @@ def _mean_metrics(metrics: dict, dp: DataParallel) -> dict:
 
 def make_train_step(model: nn.Module, optimizer: TrainOptimizer, cfg,
                     generator: torch.Generator | None = None,
-                    dp: DataParallel | None = None):
+                    dp: DataParallel | None = None,
+                    tp: tpar.TensorParallel | None = None):
     """train_step(state, batch) -> (state, metrics), metrics 0-d tensors on
     the device (the caller reads them when it logs). dp: the rank's
-    data-parallel context (batch: its rows, shard_batch's), or None.
+    data-parallel context (batch: its rows, shard_batch's), or None. tp:
+    its tensor-parallel context (the model split by shard_params_tp, the
+    optimizer built with it), or None.
 
     cfg.TPU.GRAD_ACCUM > 1 sums the gradients of that many microbatches
     (backward after each, so activation memory scales with B/accum), then
@@ -94,7 +114,7 @@ def make_train_step(model: nn.Module, optimizer: TrainOptimizer, cfg,
     mean = str(cfg.TRAIN.REDUCTION).lower() == "mean"
 
     def train_step(state: TrainState, batch: dict):
-        with scope(dp):
+        with scope(dp), tpar.scope(tp):
             metrics = _gradients(state, batch)
         if dp is not None:
             reduce_gradients(state.model.parameters(), dp)
@@ -136,10 +156,11 @@ def make_train_step(model: nn.Module, optimizer: TrainOptimizer, cfg,
     return train_step
 
 
-def make_eval_step(model: nn.Module, cfg, dp: DataParallel | None = None):
+def make_eval_step(model: nn.Module, cfg, dp: DataParallel | None = None,
+                   tp: tpar.TensorParallel | None = None):
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict):
-        with scope(dp):
+        with scope(dp), tpar.scope(tp):
             _, metrics = forward_and_loss(state.model, batch, cfg, train=False)
         return metrics if dp is None else _mean_metrics(metrics, dp)
 
@@ -147,27 +168,33 @@ def make_eval_step(model: nn.Module, cfg, dp: DataParallel | None = None):
 
 
 def setup_sharded_training(cfg, mesh, steps_per_epoch: int, device=None, seed: int = 0,
-                           prepare_model=None, zero1: bool = False):
+                           prepare_model=None, zero1: bool = False,
+                           tensor_parallel: bool = False):
     """cfg -> (model, state, train_step) of this rank of `mesh` (a
     parallel/mesh.py Mesh; None: one device): build_model (fp32 parameters
     on `device`, "cuda" by default, seeded init: the same on every rank),
-    prepare_model(model) (where cli/train loads pretrained weights), the
-    optimizer (ZeRO-1 with zero1 and more than one data shard), the
-    TrainState and the step, whose stochastic depth draws from a
-    torch.Generator on the device seeded with `seed`."""
+    prepare_model(model) (where cli/train loads pretrained weights), with
+    tensor_parallel and a mesh of more than one model shard this rank's
+    slices (shard_params_tp; else the model axis replicates), the optimizer
+    (ZeRO-1 with zero1 and more than one data shard), the TrainState and
+    the step, whose stochastic depth draws from a torch.Generator on the
+    device seeded with `seed`."""
     from ..models.uvltrack import build_model, resolve_device
 
     dp = DataParallel.of(mesh) if mesh is not None else None
+    tp = tpar.TensorParallel.of(mesh) if mesh is not None and tensor_parallel else None
     device = resolve_device(device)
     model = build_model(cfg, device=device, seed=seed)
     if prepare_model is not None:
         model = prepare_model(model)
+    if tp is not None:
+        tpar.shard_params_tp(tp, model)
     optimizer = build_optimizer(cfg, model, steps_per_epoch,
-                                zero1=dp if zero1 and dp is not None else None)
+                                zero1=dp if zero1 and dp is not None else None, tp=tp)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
-    state = create_train_state(model, optimizer)
-    return model, state, make_train_step(model, optimizer, cfg, generator, dp=dp)
+    state = create_train_state(model, optimizer, tp)
+    return model, state, make_train_step(model, optimizer, cfg, generator, dp=dp, tp=tp)
 
 
 def setup_training(cfg, steps_per_epoch: int, device=None, seed: int = 0,
