@@ -964,24 +964,30 @@ def fused_kernel_phase(dev, seed: int):
 
 # tensor parallelism's kernel shapes: (label, C, H, tp); a
 # rank's blocks run #1/#2 at H/tp heads, #4's projection at K = C/tp and #7 at
-# F = 4C/tp, at B-TRAIN's 16 rows
+# F = 4C/tp, at B-TRAIN's 16 rows; the checks also at L's tp=8 (K = 128, two
+# heads a rank)
 TP_SHAPES = (("B_tp2", 768, 12, 2), ("B_tp4", 768, 12, 4), ("L_tp2", 1024, 16, 2))
+TP_CHECK_SHAPES = TP_SHAPES + (("L_tp8", 1024, 16, 8),)
 # the TP shares' products (proj_partial, fc2 with an fp32 out) are fp32 sums of
 # exact products of bf16 values, in another order than the plain version's
 TP_PARTIAL_ATOL, TP_PARTIAL_RTOL = F32_ATOL, F32_RTOL
 TP_GRID_DOC = ("B=16 (B-TRAIN's rows) x (N=321 bf16 x open, N=361 fp32 x flag0) at each of "
-               "TP_SHAPES; times at N=361 fp32 x flag0 (ln_qkv, qkv_attention, the "
-               "projection's share, ln_mlp's share) and N=321 bf16 x (ln_mlp's share)")
+               "TP_CHECK_SHAPES; times at TP_SHAPES, N=361 fp32 x flag0 (ln_qkv, "
+               "qkv_attention, the projection's share, ln_mlp's share) and N=321 bf16 x "
+               "(ln_mlp's share)")
 
 
 def tp_kernel_phase(dev, seed: int):
     """Kernels #1/#2, #4's projection and #7 at tensor parallelism's shapes
-    (TP_SHAPES: a rank's H/tp heads, K = C/tp, F = 4C/tp) at B=16: ln_qkv,
-    qkv_attention, their pair, `proj_residual` on a zero fp32 stream (the
-    rank's fp32 share of the projection, ops/ln_qkv_attn_proj.py::
-    proj_partial) and `ln_mlp` with an fp32 out (ln_mlp_partial) against
-    their plain versions; then times, bound, plain and library call.
-    Returns ({name: worst error}, {label: {shape: {name: times}}})."""
+    (TP_CHECK_SHAPES: a rank's H/tp heads, K = C/tp, F = 4C/tp) at B=16:
+    ln_qkv, qkv_attention, their pair, the rank's fp32 share of the
+    projection (ops/ln_qkv_attn_proj.py::proj_partial, proj_residual.cu's
+    large-M entry) and of the MLP (ln_mlp_partial, ln_mlp's `-fp32o` pair)
+    against their plain versions, both shares bitwise on a second call;
+    then times at TP_SHAPES, bound, plain and library calls (the shares:
+    torch.mm with an fp32 out_dtype, the same function, where this torch
+    has it, beside F.linear's bf16 out). Returns ({name: worst error},
+    {label: {shape: {name: times}}})."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1023,7 +1029,7 @@ def tp_kernel_phase(dev, seed: int):
             raise AssertionError(f"{name} {what}: max abs err {e} over tolerance")
         worst[name] = max(worst.get(name, 0.0), e)
 
-    for label, c, heads, tp in TP_SHAPES:
+    for label, c, heads, tp in TP_CHECK_SHAPES:
         hh = heads // tp
         for n, kind, x_dtype in ((321, "open", b16), (361, "flag0", torch.float32)):
             t = case(c, tp, n, kind, x_dtype)
@@ -1037,29 +1043,53 @@ def tp_kernel_phase(dev, seed: int):
             check("ln_qkv_attention", out, lqa.ln_qkv_attention_plain(
                 t["x"], t["g"], t["be"], t["w"], t["wb"], t["kb"], hh),
                 KERNEL_ATOL["ln_qkv_attention"], KERNEL_RTOL, what)
-            check("proj_partial", lqp.proj_partial(t["attn"], t["wp"]),
-                  lqp.proj_partial_plain(t["attn"], t["wp"]), TP_PARTIAL_ATOL, TP_PARTIAL_RTOL,
-                  what)
+            proj = lqp.proj_partial(t["attn"], t["wp"])
+            proj2 = lqp.proj_partial(t["attn"], t["wp"])
             args = (t["x"], t["g"], t["be"], t["w1"], t["b1"], t["w2"])
             part = lm.ln_mlp_partial(*args)
             again = lm.ln_mlp_partial(*args)
             torch.cuda.synchronize()
+            check("proj_partial", proj, lqp.proj_partial_plain(t["attn"], t["wp"]),
+                  TP_PARTIAL_ATOL, TP_PARTIAL_RTOL, what)
             check("ln_mlp_partial", part, lm.ln_mlp_partial_plain(*args), KERNEL_ATOL["ln_mlp"],
                   KERNEL_RTOL, what)
-            if not torch.equal(part, again):
-                raise AssertionError(f"ln_mlp_partial {what}: a second call differs")
-    emit({"phase": "tp_kernel_check", "shapes": TP_SHAPES, "grid": TP_GRID_DOC,
+            for name, a, a2 in (("proj_partial", proj, proj2), ("ln_mlp_partial", part, again)):
+                if not torch.equal(a, a2):
+                    raise AssertionError(f"{name} {what}: a second call differs")
+    emit({"phase": "tp_kernel_check", "shapes": TP_CHECK_SHAPES, "grid": TP_GRID_DOC,
           "tolerance": {"ln_qkv, qkv_attention, ln_qkv_attention, ln_mlp_partial":
                         "KERNEL_ATOL + KERNEL_RTOL*|plain| (kernel_check's)",
                         "proj_partial": f"|kernel-plain| <= {TP_PARTIAL_ATOL} + "
                                         f"{TP_PARTIAL_RTOL}*|plain|"},
-          "ln_mlp_partial_repeatable": "bitwise, two calls at every shape",
+          "shares_repeatable": "proj_partial and ln_mlp_partial bitwise, two calls at every "
+                               "shape",
           "max_abs_err": worst})
 
-    def row(kern, plain, lib, lib_what, work):
+    # the shares' same-function library call: bf16 operands, an fp32 out
+    # (torch.mm's out_dtype), where this torch runs it; else F.linear's bf16 out
+    try:
+        probe = torch.ones((64, 64), dtype=b16, device=dev)
+        torch.mm(probe, probe.t(), out_dtype=torch.float32)
+        mm_f32 = True
+    except (TypeError, RuntimeError) as e:
+        mm_f32 = False
+        emit({"phase": "tp_kernel_library", "mm_out_dtype": f"refused: {str(e)[:200]}",
+              "library": "F.linear (bf16 out)"})
+
+    def lin32(a, w):
+        if not mm_f32:
+            return F.linear(a, w)
+        return torch.mm(a.reshape(-1, a.shape[-1]), w.t(), out_dtype=torch.float32)
+
+    lin32_what = "torch.mm(out_dtype=fp32)" if mm_f32 else "F.linear (bf16 out)"
+
+    def row(kern, plain, lib, lib_what, work, also=None):
         b_ms, b_by = bound(*work)
-        return {**timings(kern, plain, lib), "library": lib_what, "bound_ms": b_ms,
-                "bound_by": b_by}
+        out = {**timings(kern, plain, lib), "library": lib_what, "bound_ms": b_ms,
+               "bound_by": b_by}
+        if also:  # other yardsticks: {what: device ms}
+            out["also_device_ms"] = {k: graph_time_ms(fn)[0] for k, fn in also.items()}
+        return out
 
     def timed(c, heads, tp, n, kind, x_dtype, names):
         t = case(c, tp, n, kind, x_dtype)
@@ -1089,13 +1119,16 @@ def tp_kernel_phase(dev, seed: int):
             "proj_partial": lambda: row(
                 lambda: lqp.proj_partial(t["attn"], t["wp"]),
                 lambda: lqp.proj_partial_plain(t["attn"], t["wp"]),
-                lambda: F.linear(t["attn"], t["wp"]), "F.linear (bf16 out)",
-                (2 * m * k * c, m * k * 2 + c * k * 2 + m * c * 4)),
+                lambda: lin32(t["attn"], t["wp"]), lin32_what,
+                (2 * m * k * c, m * k * 2 + c * k * 2 + m * c * 4),
+                {"F.linear (bf16 out)": lambda: F.linear(t["attn"], t["wp"])}),
             "ln_mlp_partial": lambda: row(
                 lambda: lm.ln_mlp_partial(*margs), lambda: lm.ln_mlp_partial_plain(*margs),
-                lambda: F.linear(F.gelu(F.linear(ln(), t["w1"], t["b1"].to(b16))), t["w2"]),
-                "F.layer_norm + F.linear + F.gelu + F.linear, 4 calls",
-                (4 * m * c * h, m * c * xb + 2 * c * h * 2 + (h + 2 * c) * 4 + m * c * 4)),
+                lambda: lin32(F.gelu(F.linear(ln(), t["w1"], t["b1"].to(b16))), t["w2"]),
+                f"F.layer_norm + F.linear + F.gelu + {lin32_what}, 4 calls",
+                (4 * m * c * h, m * c * xb + 2 * c * h * 2 + (h + 2 * c) * 4 + m * c * 4),
+                {"F.layer_norm + F.linear + F.gelu + F.linear (bf16 out), 4 calls":
+                 lambda: F.linear(F.gelu(F.linear(ln(), t["w1"], t["b1"].to(b16))), t["w2"])}),
         }
         return {name: rows[name]() for name in names}
 
@@ -4650,11 +4683,10 @@ def dp_phase(args, dev, tmp: Path) -> dict:
 TP_CASES = (("default", {}, 3), ("fused_proj", {"UVLTRACK_FUSED_PROJ": "1"}, 1),
             ("fused_mlp", {"UVLTRACK_FUSED_MLP": "1"}, 1))
 # launches a step makes on each tp=2 rank: #1/#2 at H/tp heads as at tp=1;
-# under the knobs the projection's share on proj_residual's fp32-x
-# instantiation in all 12 blocks (a zero fp32 stream), the MLP's share with
-# fc2_bias's fp32 out
+# under the knobs the projection's share on proj_residual.cu's large-M entry
+# in all 12 blocks, the MLP's share on ln_mlp's large-M pair (fp32 out)
 TP_PER_FWD = {"default": TRAIN_PER_FWD,
-              "fused_proj": dict(TRAIN_PER_FWD, **{"proj_residual[fp32x-bf16a-bf16w]": 12}),
+              "fused_proj": dict(TRAIN_PER_FWD, **{"proj_residual[bf16a-bf16w-fp32o]": 12}),
               "fused_mlp": dict(TRAIN_PER_FWD, **{"ln_mlp[bf16x-bf16w-fp32o]": 6,
                                                   "ln_mlp[fp32x-bf16w-fp32o]": 6})}
 TP1_PER_FWD = {"default": TRAIN_PER_FWD, "fused_proj": TRAIN_KNOBS[0][2],
@@ -5424,14 +5456,17 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                                    ("ln_mlp[fp32x-bf16w]", 551, "N361_fp32x", "ln_mlp")):
         rows.append((name, f"{src}/{name.split('[')[0]}.cu", line, launches.get(name, 0),
                      fused_worst[err], at(fused_times, shape, name)))
-    # fc2's fp32 out (a tensor-parallel rank's share of #7): the tp=2 train
-    # step is its main path, so its launches are that step's
+    # a tensor-parallel rank's shares of #4's projection and of #7 (the
+    # large-M body): the tp=2 train step is their main path, so their
+    # launches are that step's
     tp_worst, tp_times = tp_kern
-    for name, shape in (("ln_mlp[bf16x-bf16w-fp32o]", "N321_bf16x_open"),
-                        ("ln_mlp[fp32x-bf16w-fp32o]", "N361_fp32x_flag0")):
-        rows.append((name, f"{src}/ln_mlp.cu", 551, train_counts.get(name, 0),
-                     tp_worst["ln_mlp_partial"],
-                     {k: v for k, v in tp_times["B_tp2"][shape]["ln_mlp_partial"].items()
+    for name, line, shape, share in (
+            ("proj_residual[bf16a-bf16w-fp32o]", 291, "N361_fp32x_flag0", "proj_partial"),
+            ("ln_mlp[bf16x-bf16w-fp32o]", 551, "N321_bf16x_open", "ln_mlp_partial"),
+            ("ln_mlp[fp32x-bf16w-fp32o]", 551, "N361_fp32x_flag0", "ln_mlp_partial")):
+        rows.append((name, f"{src}/{name.split('[')[0]}.cu", line, train_counts.get(name, 0),
+                     tp_worst[share],
+                     {k: v for k, v in tp_times["B_tp2"][shape][share].items()
                       if k != "library"}))
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": f"{TPU_KERNEL}:{line}", "launches": n,
@@ -5461,7 +5496,7 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                          "weights' hi/lo planes, once per weight); no TPU kernel of its own")
     tp_rows = {"ln_qkv": ("N361_fp32x_flag0", "ln_qkv"),
                "qkv_attention": ("N361_fp32x_flag0", "qkv_attention"),
-               "proj_residual[fp32x-bf16a-bf16w]": ("N361_fp32x_flag0", "proj_partial"),
+               "proj_residual[bf16a-bf16w-fp32o]": ("N361_fp32x_flag0", "proj_partial"),
                "ln_mlp[bf16x-bf16w-fp32o]": ("N321_bf16x_open", "ln_mlp_partial"),
                "ln_mlp[fp32x-bf16w-fp32o]": ("N361_fp32x_flag0", "ln_mlp_partial")}
     for k in kernels:
@@ -5473,9 +5508,9 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                                   if q != "library"}}
                        for label, c, h, tp in TP_SHAPES}
         if k["name"].endswith("-fp32o]"):
-            k["note"] = ("a tensor-parallel rank's share of #7 before the bias (fc2_bias with "
-                         "an fp32 out); launches: the parallel group's tp=2 train steps, its "
-                         "main path; times at B_tp2 (F=1536)")
+            k["note"] = ("a tensor-parallel rank's fp32 share before the bias, on the core's "
+                         "large-M body; launches: the parallel group's tp=2 train steps, its "
+                         "main path; times at B_tp2 (K=384, F=1536)")
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

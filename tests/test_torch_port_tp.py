@@ -534,6 +534,23 @@ def _meta(shape, dtype=torch.float32, grad=False):
     return torch.empty(shape, dtype=dtype, device="meta").requires_grad_(grad)
 
 
+class _Launches(list):
+    """(kernel, instantiation) of each launch; `.args` keeps (kernel,
+    instantiation, positional arguments, keywords) beside them."""
+
+    def __init__(self):
+        super().__init__()
+        self.args = []
+
+    def record(self, kernel, inst, *args, **kw):
+        self.append((kernel, inst))
+        self.args.append((kernel, inst, args, kw))
+
+    def clear(self):
+        super().clear()
+        self.args.clear()
+
+
 @pytest.fixture
 def spied_launches(monkeypatch):
     """The kernel gates open for meta tensors (which take the wrappers' card
@@ -549,23 +566,27 @@ def spied_launches(monkeypatch):
     for k in ("UVLTRACK_FUSED_PROJ", "UVLTRACK_FUSED_MLP", "UVLTRACK_FUSED_PREFIX",
               "UVLTRACK_PALLAS_MIN_N"):
         monkeypatch.delenv(k, raising=False)
-    calls = []
+    calls = _Launches()
     for mod in (lqa, lqp, lm):
         monkeypatch.setattr(mod, "check_cuda", lambda name, *t: None)
-    monkeypatch.setattr(build, "launch", lambda kernel, inst, *a, **k: calls.append(
-        (kernel, inst)))
+    monkeypatch.setattr(build, "launch", calls.record)
     return calls
 
 
-@pytest.mark.parametrize("c,heads,tp", [(768, 12, 2), (768, 12, 4), (1024, 16, 2)])
+# (C, H, tp): B and L at tp=2, B at tp=4, and L at tp=8 (K = C/tp = 128, two
+# heads a rank: under the split-K projection it was refused)
+TP_KERNEL_SHAPES = [(768, 12, 2), (768, 12, 4), (1024, 16, 2), (1024, 16, 8)]
+
+
+@pytest.mark.parametrize("c,heads,tp", TP_KERNEL_SHAPES)
 def test_a_ranks_block_reaches_the_kernels_at_its_shapes(c, heads, tp, spied_launches,
                                                         monkeypatch):
     """A tensor-parallel rank's ViT block on the kernel route at B-TRAIN's
     shapes (under autograd): ln_qkv with its 3C/tp rows and qkv_attention at
     H/tp heads; under UVLTRACK_FUSED_PROJ=1 the projection's share on
-    proj_residual's fp32-x instantiation (a zero fp32 stream, K = C/tp);
-    under UVLTRACK_FUSED_MLP=1 ln_mlp with fc2's fp32 out (F = 4C/tp); every
-    input gets its gradient. The parent's ln_qkv refused any W but (3C, C)."""
+    proj_residual.cu's large-M entry (K = C/tp, fp32 out); under
+    UVLTRACK_FUSED_MLP=1 ln_mlp's -fp32o pair (F = 4C/tp); every input gets
+    its gradient. The parent's ln_qkv refused any W but (3C, C)."""
     from uvltrack_tpu_torch.ops import attention as tattn
 
     b16, f32 = torch.bfloat16, torch.float32
@@ -578,7 +599,7 @@ def test_a_ranks_block_reaches_the_kernels_at_its_shapes(c, heads, tp, spied_lau
     attn = tattn.attention_ln_qkv_core(x, *ln, wq, bq, heads // tp, bias, compute_dtype=b16)
     part, rounding = tattn.attn_proj_partial_core(x, attn, wp, bias, b16)
     assert spied_launches == [("ln_qkv", "bf16x-bf16w"), ("qkv_attention", "bf16"),
-                              ("proj_residual", "fp32x-bf16a-bf16w")]
+                              ("proj_residual", "bf16a-bf16w-fp32o")]
     assert attn.shape == (16, 321, c // tp) and part.shape == x.shape
     assert part.dtype == f32 and rounding == b16
     spied_launches.clear()
@@ -591,6 +612,124 @@ def test_a_ranks_block_reaches_the_kernels_at_its_shapes(c, heads, tp, spied_lau
     (part.sum() + mlp.sum()).backward()
     for t in (x, *ln, wq, bq, wp, w1, b1, w2):
         assert t.grad is not None and t.grad.shape == t.shape
+
+
+@pytest.fixture
+def spied_allocations(monkeypatch):
+    """(shape, dtype) of every tensor torch.empty / torch.zeros (and their
+    _like forms) make while the test runs."""
+    made = []
+    for name in ("empty", "zeros", "empty_like", "zeros_like"):
+        real = getattr(torch, name)
+
+        def spy(*a, _real=real, **k):
+            t = _real(*a, **k)
+            made.append((tuple(t.shape), t.dtype))
+            return t
+
+        monkeypatch.setattr(torch, name, spy)
+    return made
+
+
+@pytest.mark.parametrize("c,heads,tp", TP_KERNEL_SHAPES)
+def test_proj_partial_launches_the_large_m_entry(c, heads, tp, spied_launches,
+                                                 spied_allocations):
+    """proj_partial on bf16 operands: one launch of uvl_proj_partial with M =
+    B*N, K = C/tp and N_out = C, into the one (B, N, C) fp32 tensor it
+    allocates (no zero stream, no zero bias)."""
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
+
+    b, n, k = 16, 361, c // tp
+    attn, wp = _meta((b, n, k), torch.bfloat16), _meta((c, k), torch.bfloat16)
+    spied_allocations.clear()
+    out = lqp.proj_partial(attn, wp)
+    assert spied_launches == [("proj_residual", "bf16a-bf16w-fp32o")]
+    kernel, inst, args, kw = spied_launches.args[0]
+    assert kw["entry"] == "uvl_proj_partial" and kw["stream_of"] is attn
+    types, ptrs, shape = args[0], args[1:4], args[4:]
+    assert types == [build.PTR] * 3 + [build.INT] * 3 and len(ptrs) == 3
+    assert shape == (b * n, k, c)
+    assert out.shape == (b, n, c) and out.dtype == torch.float32
+    assert spied_allocations == [((b, n, c), torch.float32)]
+
+
+def test_proj_partial_refuses_before_a_launch(spied_launches):
+    """The large-M entry's shape rule on the card branch (meta tensors): K a
+    multiple of 64 (128 = L at tp=8 passes), bf16 or fp32 operands of one
+    dtype, W (C, K) for attn's K; nothing launches on a refusal."""
+    from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
+
+    b16 = torch.bfloat16
+    for k in (96, 160):
+        with pytest.raises(ValueError, match="multiple of 64"):
+            lqp.proj_partial(_meta((2, 65, k), b16), _meta((768, k), b16))
+    with pytest.raises(ValueError, match="both bf16"):
+        lqp.proj_partial(_meta((2, 65, 384), b16), _meta((768, 384), torch.int8))
+    with pytest.raises(ValueError, match=r"\(C, K\)"):
+        lqp.proj_partial(_meta((2, 65, 384), b16), _meta((768, 448), b16))
+    assert spied_launches == []
+    lqp.proj_partial(_meta((2, 65, 128), b16), _meta((1024, 128), b16))
+    assert spied_launches == [("proj_residual", "bf16a-bf16w-fp32o")]
+
+
+@pytest.mark.parametrize("c,heads,tp", TP_KERNEL_SHAPES)
+def test_ln_mlp_partial_launches_the_fp32o_pair(c, heads, tp, spied_launches,
+                                                spied_allocations):
+    """ln_mlp_partial with bf16 weights, a bf16 and an fp32 x: one `-fp32o`
+    launch of uvl_ln_mlp_partial, both stages (mask 3) at M = B*N, C, F =
+    4C/tp, with no b2 (a null pointer), into the (B*N, F) bf16 hidden tensor,
+    the (B, N, C) fp32 out and the (B*N, C) bf16 normalized rows it
+    allocates, and nothing else."""
+    from uvltrack_tpu_torch.ops import ln_mlp as lm
+
+    b, n, f = 16, 321, 4 * c // tp
+    b16 = torch.bfloat16
+    ln = [_meta((c,)) for _ in range(2)]
+    w1, b1, w2 = _meta((f, c), b16), _meta((f,)), _meta((c, f), b16)
+    for x_dtype, tag in ((b16, "bf16x-bf16w-fp32o"), (torch.float32, "fp32x-bf16w-fp32o")):
+        x = _meta((b, n, c), x_dtype)
+        spied_launches.clear()
+        spied_allocations.clear()
+        out = lm.ln_mlp_partial(x, *ln, w1, b1, w2)
+        assert spied_launches == [("ln_mlp", tag)]
+        _, _, args, kw = spied_launches.args[0]
+        assert kw["entry"] == "uvl_ln_mlp_partial" and len(args) == 17
+        assert args[2] == int(x_dtype == torch.float32) and args[8] is None  # b2
+        assert args[12:] == (b * n, c, f, 1e-6, 3)
+        assert out.shape == (b, n, c) and out.dtype == torch.float32
+        assert spied_allocations == [((b * n, f), b16), ((b, n, c), torch.float32),
+                                     ((b * n, c), b16)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_tp1_fused_projection_and_mlp_keep_their_instantiations(x_dtype, spied_launches,
+                                                               monkeypatch):
+    """At tp=1 (the whole weights) the fused knobs keep their launches and
+    tags: #1's pair then proj_residual on x's stream with the bias (its
+    split-K instantiation), and ln_mlp with b2 and an output in w2's
+    dtype; the large-M entries are the shares' alone."""
+    from uvltrack_tpu_torch.ops import attention as tattn
+
+    b16, c, f = torch.bfloat16, 768, 3072
+    x = _meta((1, 361, c), x_dtype)
+    ln = [_meta((c,)) for _ in range(2)]
+    wq, bq = _meta((3 * c, c), b16), _meta((3 * c,))
+    wp, bp = _meta((c, c), b16), _meta((c,))
+    bias = torch.zeros((1, 1, 1, 361), device="meta")
+    monkeypatch.setenv("UVLTRACK_FUSED_PROJ", "1")
+    out = tattn.attention_block_core(x, *ln, wq, bq, wp, bp, 12, bias, compute_dtype=b16)
+    xt = "bf16x" if x_dtype == b16 else "fp32x"
+    assert spied_launches == [("ln_qkv", f"{xt}-bf16w"), ("qkv_attention", "bf16"),
+                              ("proj_residual", f"{xt}-bf16a-bf16w")]
+    assert out.dtype == x_dtype
+    spied_launches.clear()
+    monkeypatch.setenv("UVLTRACK_FUSED_MLP", "1")
+    w1, b1, w2, b2 = _meta((f, c), b16), _meta((f,)), _meta((c, f), b16), _meta((c,))
+    mlp = tattn.ln_mlp_core(x, *ln, w1, b1, w2, b2, compute_dtype=b16)
+    assert spied_launches == [("ln_mlp", f"{xt}-bf16w")]
+    _, _, args, kw = spied_launches.args[0]
+    assert "entry" not in kw and args[8] is not None and mlp.dtype == b16  # b2
 
 
 # ------------------------------------------- the reference-format writer

@@ -5,7 +5,8 @@
 //   - proj_residual (csrc/proj_residual.cu), the output projection + residual
 //     epilogue of #4 (_ln_qkv_attn_proj_kernel :291) and #6
 //     (_ln_qkv_attn_proj_kernel_q8 :489);
-//   - both launches of ln_mlp (csrc/ln_mlp.cu), kernel #7 (_ln_mlp_kernel :551).
+//   - both launches of ln_mlp (csrc/ln_mlp.cu), kernel #7 (_ln_mlp_kernel :551),
+//     and the products of its tensor-parallel share.
 //
 //   out[m, n] = TO( EPI( sum_k A[m, k] * W[n, k] (* s[n]) + b[n] ) )   fp32 acc
 //
@@ -21,7 +22,11 @@
 //   - SPLITK_BIAS (fc2_bias): A is the hidden tensor (M, F), K = F: bf16,
 //     or fp32 with an fp32 W (and then an fp32 out);
 //   - SPLITK_RESIDUAL (proj_residual): A is the attention output (M, K), bf16
-//     or fp32, and out = x + TX(proj) in x's type TX.
+//     or fp32, and out = x + TX(proj) in x's type TX;
+//   - GEMM_F32OUT: out = A . W^T (+ b) in fp32, bf16 A; with LN_BIAS_GELU on
+//     rows normalized beforehand, the kinds of the large-M body (its own
+//     section below): a tensor-parallel rank's shares of #4's projection and
+//     of #7 at a training step's B.N rows.
 //
 // Bound on the H100: at the tracking step's shapes (M = 321/361 tokens, C =
 // 768) every one of these products moves 0.6-10 MB and needs 0.4-3.4 GFLOP of
@@ -105,10 +110,11 @@
 
 #include "common.cuh"
 
+
 namespace uvl {
 namespace sm90 {
 
-enum Kind { LN_BIAS = 0, LN_BIAS_GELU = 1, SPLITK_BIAS = 2, SPLITK_RESIDUAL = 3 };
+enum Kind { LN_BIAS = 0, LN_BIAS_GELU = 1, SPLITK_BIAS = 2, SPLITK_RESIDUAL = 3, GEMM_F32OUT = 4 };
 
 constexpr int BM = 64;              // output rows per block (one wgmma M)
 constexpr int BK = 64;              // k-tile depth: 64 bf16 = one 128-byte swizzle row
@@ -174,6 +180,29 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// 2-D TMA store of one box of shared memory at src to (c0 = column, c1 =
+// row), in this thread's bulk group; elements past the tensor's edges are
+// not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int c1,
+                                             uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's committed stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... and written device memory
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
@@ -260,12 +289,94 @@ __device__ __forceinline__ void wgmma_n96(float (&d)[48], uint64_t desc_a, uint6
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// D (64 x 128, fp32, 64 registers a thread) += A (64 x 16) . B (128 x 16)^T, both
+// bf16, K-major, 128-byte swizzled in shared memory
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 192, fp32, 96 registers a thread) += A (64 x 16) . B (192 x 16)^T, both
+// bf16, K-major, 128-byte swizzled in shared memory
+__device__ __forceinline__ void wgmma_n192(float (&d)[96], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 256, fp32, 128 registers a thread) += A (64 x 16) . B (256 x 16)^T, both
+// bf16, K-major, 128-byte swizzled in shared memory
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b) {
   if constexpr (N == 64)
     wgmma_n64(d, a, b);
-  else
+  else if constexpr (N == 96)
     wgmma_n96(d, a, b);
+  else if constexpr (N == 128)
+    wgmma_n128(d, a, b);
+  else if constexpr (N == 192)
+    wgmma_n192(d, a, b);
+  else
+    wgmma_n256(d, a, b);
+}
+
+// wait until at most N of this warpgroup's committed product groups are in
+// flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------------- type helpers
@@ -1073,6 +1184,183 @@ ln_hilo_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
+// ----------------------------------------------- the large-M body (B.N rows)
+// The plain products of many rows (M = B.N tokens of a batch: the 5,776 rows
+// of a training step's tensor-parallel shares):
+//   - GEMM_F32OUT: out (M, N_out) fp32 = A . W^T (+ b);
+//   - LN_BIAS_GELU: out (M, N_out) bf16 = gelu(A . W^T + b), A the rows
+//     normalized once by ln_rows_kernel (fc1 of a rank's MLP share);
+// A (M, K) and W (N_out, K) bf16. At that M the output tiles alone fill the
+// card, so K is not split: each tile sums its k-tiles in order, and two
+// calls give the same bits. Tiles of 128 x BN, one per block at a time, on a
+// persistent grid of min(tiles, SMs) blocks, block i taking tiles i T/G ..
+// (i+1) T/G - 1 in row-block-major order:
+//   - a producer warpgroup, one lane of which streams the A k-tile (128
+//     rows) and the W k-tile (BN rows) of every tile through a STAGES-deep
+//     TMA ring, on into the next tile's while the consumers finish one; its
+//     registers go to the consumers (setmaxnreg);
+//   - two consumer warpgroups each own 64 rows of the tile and all BN
+//     columns (wgmma m64n{BN}k16, BN/2 fp32 accumulators a thread), so they
+//     synchronize only on the ring's barriers, and keep one k-tile's
+//     products in flight behind the next;
+//   - at the tile's end each writes its rows (+ b) in fp32 into its staging
+//     in shared memory, 128 columns at a time, and stores them by TMA
+//     (cp.async.bulk.tensor, boxes of 64 rows x 128 bytes in the 128-byte
+//     swizzle, conflict-free for the accumulator fragments), which runs
+//     while the next tile's products do. LN_BIAS_GELU first turns the
+//     staged rows into their exact GELU in bf16 (gelu_staged), with many
+//     GELUs in flight a thread once the accumulators are dead: applied to
+//     the fragments, the GELUs took longer than fc1's products.
+// BN is 128, 192 or 256 (LN_BIAS_GELU: 128 or 192) as pick_bn says, the
+// fewest rounds of tiles over the SMs. 128 x 128 tiles of two consumers
+// read more shared memory a k-tile (the W tile twice, the TMA writes) than
+// the tensor cores need in that time; the wider tiles stay under it, where
+// the rounds allow. Two other schedules were slower on one H100: the GELUs
+// on three extra epilogue warps beside the next tile's products (a thread
+// of 512 gets 128 registers, and the consumers' accumulators spilled), and
+// in eight slices between the next tile's first k-tiles (the slices
+// outlasted the products).
+constexpr int LBM = 2 * BM;  // rows of a large-M tile: 64 a consumer warpgroup
+constexpr int LM_THREADS = CONSUMERS + 128;  // + a producer warpgroup (one lane streams)
+
+// Byte offsets from the 1024-aligned base: the ring (a: STAGES A k-tiles of
+// 128 rows; w: STAGES W k-tiles of BN rows), the staged output of each
+// warpgroup (out: 64 rows x OUT_CH columns in fp32, the product and bias;
+// out16: LN_BIAS_GELU's GELU of it in bf16), the full/empty barriers.
+template <int KIND, int BN, int STAGES>
+struct LargeMPlan {
+  static constexpr bool GELU = KIND == LN_BIAS_GELU;
+  static constexpr int A_STAGE = LBM * BK * 2;
+  static constexpr int W_STAGE = BN * BK * 2;
+  static constexpr int OUT_CH = BN < 128 ? BN : 128;  // columns staged at a time
+  static constexpr int F32_WG = BM * OUT_CH * 4;
+  static constexpr int B16_WG = GELU ? BM * OUT_CH * 2 : 0;
+  static constexpr int a = 0;
+  static constexpr int w = STAGES * A_STAGE;
+  static constexpr int out = w + STAGES * W_STAGE;
+  static constexpr int out16 = out + 2 * F32_WG;
+  static constexpr int bar = out16 + 2 * B16_WG;
+  static constexpr int total = 1024 + bar + (2 * STAGES + 4) * 8;  // + the alignment slack
+};
+
+// erf(x) in fp32 as a rational function of x on [-4, 4] (x p(x^2) / q(x^2),
+// XLA's f32 erf; |erf| rounds to 1 beyond), within a few ulps of 1 in
+// absolute terms: one fast division and 11 FMAs. The large-M GELU pass took
+// three times as long with erfcf (gelu_erf), whose tail accuracy a bf16
+// output does not keep.
+__device__ __forceinline__ float erf_rational(float x) {
+  x = fminf(fmaxf(x, -4.f), 4.f);
+  const float x2 = x * x;
+  float p = -2.72614225801306e-10f;
+  p = fmaf(p, x2, 2.77068142495902e-08f);
+  p = fmaf(p, x2, -2.10102402082508e-06f);
+  p = fmaf(p, x2, -5.69250639462346e-05f);
+  p = fmaf(p, x2, -7.34990630326855e-04f);
+  p = fmaf(p, x2, -2.95459980854025e-03f);
+  p = fmaf(p, x2, -1.60960333262415e-02f);
+  float q = -1.45660718464996e-05f;
+  q = fmaf(q, x2, -2.13374055278905e-04f);
+  q = fmaf(q, x2, -1.68282697438203e-03f);
+  q = fmaf(q, x2, -7.37332916720468e-03f);
+  q = fmaf(q, x2, -1.42647390514189e-02f);
+  return __fdividef(x * p, q);
+}
+
+// exact GELU, 0.5 v (1 + erf(v / sqrt(2))), with erf_rational
+__device__ __forceinline__ float gelu_rational(float v) {
+  return 0.5f * v * (1.f + erf_rational(v * 0.70710678118654752f));
+}
+
+// Rows 0..63 x columns 0..WIDTH-1 of a consumer warpgroup's staged fp32
+// values (boxes of 32 columns) -> their exact GELU in bf16 (boxes of 64
+// columns), both in the 128-byte swizzle; the 128 threads (t) take 8
+// consecutive values of a row at a time, rows t % 64, so each 8-lane phase
+// of a 16-byte access touches 8 rows' distinct chunks. Apart from the
+// accumulators, which are dead by then: the registers they held carry many
+// GELUs at once, where applying it to the fragments one by one left the
+// epilogue slower than the tile's products.
+template <int WIDTH>
+__device__ __forceinline__ void gelu_staged(const uint8_t* __restrict__ f32,
+                                            uint8_t* __restrict__ b16, int t) {
+  constexpr int Q = WIDTH / 16;  // 8-value groups a thread
+  const int r = t & 63;
+  float4 v[Q][2];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {  // every load first, so the GELUs overlap
+    const int cg = (t >> 6) + 2 * q;  // the 8-column group
+    const uint8_t* src = f32 + (cg >> 2) * (BM * 128) + r * 128;
+    v[q][0] = *reinterpret_cast<const float4*>(src + ((((cg & 3) * 2) ^ (r & 7)) << 4));
+    v[q][1] = *reinterpret_cast<const float4*>(src + ((((cg & 3) * 2 + 1) ^ (r & 7)) << 4));
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int cg = (t >> 6) + 2 * q;
+    const float4 lo = v[q][0], hi = v[q][1];
+    uint8_t* dst = b16 + (cg >> 3) * (BM * 128) + r * 128 + (((cg & 7) ^ (r & 7)) << 4);
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(pack_bf16(gelu_rational(lo.x), gelu_rational(lo.y)),
+                   pack_bf16(gelu_rational(lo.z), gelu_rational(lo.w)),
+                   pack_bf16(gelu_rational(hi.x), gelu_rational(hi.y)),
+                   pack_bf16(gelu_rational(hi.z), gelu_rational(hi.w)));
+  }
+}
+
+// The LN of the rows of x (M, C) into y (M, C) bf16, one warp a row, with
+// ln_rows_to_smem's arithmetic (fp32 sums in its order, fast variance
+// clamped at 0, rsqrtf, one rounding): the A operand of LN_BIAS_GELU, so that
+// no tile normalizes its rows again. Each lane owns the 16-byte chunks ch =
+// lane + 32j of its row, and loads its gamma and beta with its x, so the row
+// waits on one round trip; rows read once, with 16-byte loads.
+template <typename TX>
+__global__ void __launch_bounds__(256)
+ln_rows_kernel(const TX* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, bf16* __restrict__ y, int M, int C, float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const int nch = C / 8;
+  const float inv_c = 1.f / C;
+  float v[MAX_CH][8], g[MAX_CH][8], be[MAX_CH][8];
+#pragma unroll
+  for (int j = 0; j < MAX_CH; ++j) {
+    const int ch = lane + 32 * j;
+    if (ch < nch) {
+      load8(x + static_cast<size_t>(row) * C + ch * 8, v[j]);
+      load8(gamma + ch * 8, g[j]);
+      load8(beta + ch * 8, be[j]);
+    }
+  }
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAX_CH; ++j) {
+    if (lane + 32 * j < nch) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += v[j][e];
+        ss += v[j][e] * v[j][e];
+      }
+    }
+  }
+  const float mean = warp_sum(s) * inv_c;
+  const float var = fmaxf(warp_sum(ss) * inv_c - mean * mean, 0.f);
+  const float rstd = rsqrtf(var + eps);
+#pragma unroll
+  for (int j = 0; j < MAX_CH; ++j) {
+    const int ch = lane + 32 * j;
+    if (ch < nch) {
+      float o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        o[e] = (v[j][e] - mean) * rstd;
+        o[e] = o[e] * g[j][e] + be[j][e];
+      }
+      *reinterpret_cast<uint4*>(y + static_cast<size_t>(row) * C + ch * 8) =
+          make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]), pack_bf16(o[4], o[5]),
+                     pack_bf16(o[6], o[7]));
+    }
+  }
+}
+
 // --------------------------------------------------------------- host side
 template <typename T>
 struct TmaType;
@@ -1092,15 +1380,18 @@ struct TmaType<float> {
 // The TMA descriptor of a rank-R tensor of T at ptr (dims and box in
 // elements, innermost first; strides in bytes of dims 1..R-1): bf16 with the
 // 128-byte swizzle wgmma reads, int8 and fp32 unswizzled (the consumers
-// convert them). Encoded once per (pointer, type, dims, strides, box) and
+// convert them), unless the caller names a swizzle (store_map's output
+// boxes). Encoded once per (pointer, type, dims, strides, box, swizzle) and
 // cached: weights never move, and an activation's key repeats whenever the
 // allocator hands its buffer out again. The cache holds only what the
 // arguments determine, so libraries that share it (see below) agree on it;
 // it is cleared at 4096 entries, which bounds a long-lived process's.
 template <typename T, int R>
 inline int cached_map(const T* ptr, const cuuint64_t (&dims)[R], const cuuint64_t (&strides)[R - 1],
-                      const cuuint32_t (&box)[R], CUtensorMap* map) {
-  using Key = std::array<uint64_t, 3 * R + 1>;  // ptr, type, dims, strides, box
+                      const cuuint32_t (&box)[R], CUtensorMap* map,
+                      CUtensorMapSwizzle swizzle = sizeof(T) == 2 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                                                  : CU_TENSOR_MAP_SWIZZLE_NONE) {
+  using Key = std::array<uint64_t, 3 * R + 2>;  // ptr, type, dims, strides, box, swizzle
   static std::mutex mu;
   static std::map<Key, CUtensorMap> cache;
   Key key{};
@@ -1111,6 +1402,7 @@ inline int cached_map(const T* ptr, const cuuint64_t (&dims)[R], const cuuint64_
     key[2 + R + i] = box[i];
     if (i + 1 < R) key[2 + 2 * R + i] = strides[i];
   }
+  key[3 * R + 1] = static_cast<uint64_t>(swizzle);
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it == cache.end()) {
@@ -1120,9 +1412,8 @@ inline int cached_map(const T* ptr, const cuuint64_t (&dims)[R], const cuuint64_
     for (int i = 0; i < R; ++i) elem[i] = 1;
     const CUresult r = cuTensorMapEncodeTiled(
         &m, TmaType<T>::value, R, const_cast<T*>(ptr), dims, strides, box, elem,
-        CU_TENSOR_MAP_INTERLEAVE_NONE,
-        sizeof(T) == 2 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
     it = cache.emplace(key, m).first;
   }
@@ -1135,6 +1426,14 @@ template <typename T>
 inline int tensor_map(const T* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows,
                       CUtensorMap* map) {
   return cached_map<T, 2>(ptr, {cols, rows}, {cols * sizeof(T)}, {BK, box_rows}, map);
+}
+
+// The large-M body's output (rows, cols) of T, stored in boxes of 64 rows x
+// 128 bytes in the 128-byte swizzle (its staging layout in shared memory)
+template <typename T>
+inline int store_map(const T* ptr, uint64_t rows, uint64_t cols, CUtensorMap* map) {
+  return cached_map<T, 2>(ptr, {cols, rows}, {cols * sizeof(T)}, {128 / sizeof(T), BM}, map,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A weight's descriptor, boxes of box_rows x 64 values; a HiLo W's covers
@@ -1185,6 +1484,155 @@ constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
 // (GNU unique symbols), while each library's kernel needs its own opt-in.
 namespace {
 
+// The large-M body (see its section above): a persistent grid over the
+// 128 x BN tiles. Internal linkage, as the launchers: proj_residual.cu and
+// ln_mlp.cu both instantiate GEMM_F32OUT, and each library registers and
+// launches its own copy.
+template <int KIND, typename TO, int BN, int STAGES>
+__global__ void __launch_bounds__(LM_THREADS, 1)
+large_m_kernel(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_w,
+               const __grid_constant__ CUtensorMap map_out, const float* __restrict__ bias,
+               int M, int K, int N_out) {
+  using P = LargeMPlan<KIND, BN, STAGES>;
+  constexpr bool GELU = P::GELU;
+  constexpr int OUT_BOX = 128 / sizeof(TO);  // columns of one 128-byte output box
+  static_assert(BN % 64 == 0 && P::OUT_CH % 64 == 0 && BN <= 256,
+                "BN: wgmma's n, whole output boxes of either type");
+  static_assert(GELU ? std::is_same<TO, bf16>::value
+                     : (KIND == GEMM_F32OUT && std::is_same<TO, float>::value),
+                "GEMM_F32OUT: an fp32 out; LN_BIAS_GELU: a bf16 out");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* a_ring = base + P::a;
+  uint8_t* w_ring = base + P::w;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + P::bar);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int tiles_n = (N_out + BN - 1) / BN;
+  const int tiles = tiles_n * ((M + LBM - 1) / LBM);
+  const int t_begin = static_cast<int>(static_cast<long long>(blockIdx.x) * tiles / gridDim.x);
+  const int t_end = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * tiles / gridDim.x);
+  const int kt_all = K / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---- producer warpgroup: its registers go to the consumers, and one
+    // lane streams every tile's k-tiles, STAGES ahead
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == CONSUMERS) {
+      int g = 0;  // k-tiles streamed so far, over all of this block's tiles
+      for (int tile = t_begin; tile < t_end; ++tile) {
+        const int n0 = (tile % tiles_n) * BN;
+        const int m0 = (tile / tiles_n) * LBM;
+        for (int kt = 0; kt < kt_all; ++kt, ++g) {
+          const int s = g % STAGES;
+          if (g >= STAGES) mbar_wait(smem_u32(empty + s), (g / STAGES - 1) & 1);
+          const uint32_t bar = smem_u32(full + s);
+          mbar_expect_tx(bar, P::A_STAGE + P::W_STAGE);
+          tma_load_2d(smem_u32(a_ring + s * P::A_STAGE), &map_a, kt * BK, m0, bar);
+          tma_load_2d(smem_u32(w_ring + s * P::W_STAGE), &map_w, kt * BK, n0, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: warpgroup wg owns rows wg*64 .. wg*64+63 of a
+  // tile; its barrier is 2 + wg, and its thread t == 0 issues its TMA stores
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid / 128;
+  const int t = tid % 128;
+  const int wg_bar = 2 + wg;
+  uint8_t* staged = base + P::out + wg * P::F32_WG;
+  uint8_t* staged16 = base + P::out16 + wg * P::B16_WG;
+  const int frow = (t / 32) * 16 + (t % 32) / 4;  // a fragment's first row
+  int g = 0;
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int n0 = (tile % tiles_n) * BN;
+    const int r0 = (tile / tiles_n) * LBM + wg * BM;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < kt_all; ++kt, ++g) {
+      const int s = g % STAGES;
+      mbar_wait(smem_u32(full + s), (g / STAGES) & 1);
+      const uint32_t a_tile = smem_u32(a_ring + s * P::A_STAGE + wg * A_TILE_BYTES);
+      const uint32_t w_tile = smem_u32(w_ring + s * P::W_STAGE);
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma<BN>(acc, desc_sw128(a_tile + kk * 32), desc_sw128(w_tile + kk * 32));
+      wgmma_commit();
+      // one k-tile's products stay in flight: the one before is done, and
+      // its ring stage is free
+      wgmma_wait<1>();
+      fence_operands(acc);
+      if (kt > 0) mbar_arrive(smem_u32(empty + (g - 1) % STAGES));
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    mbar_arrive(smem_u32(empty + (g - 1) % STAGES));
+
+    // ---- epilogue, OUT_CH columns at a time: the fp32 product (+ b) into
+    // the staged rows once the warpgroup's previous stores have read them,
+    // (LN_BIAS_GELU: its GELU in bf16, gelu_staged) then TMA stores
+#pragma unroll
+    for (int c0 = 0; c0 < BN; c0 += P::OUT_CH) {
+      const int cw = c0 + P::OUT_CH < BN ? P::OUT_CH : BN - c0;
+      if (t == 0) bulk_wait_read();
+      named_barrier_sync(wg_bar, 128);
+#pragma unroll
+      for (int j = c0 / 8; j < (c0 + cw) / 8; ++j) {
+        const int col = j * 8 + (t % 4) * 2;
+        float2 b = make_float2(0.f, 0.f);
+        if (bias != nullptr && n0 + col < N_out)
+          b = *reinterpret_cast<const float2*>(bias + n0 + col);
+        const int byte = (col - c0) * 4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = frow + 8 * h;
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (bias != nullptr) {
+            v0 = __fadd_rn(v0, b.x);
+            v1 = __fadd_rn(v1, b.y);
+          }
+          store2(reinterpret_cast<float*>(staged + (byte >> 7) * (BM * 128) + r * 128 +
+                                          ((((byte & 127) >> 4) ^ (r & 7)) << 4) + (byte & 15)),
+                 v0, v1);
+        }
+      }
+      if constexpr (GELU) {
+        named_barrier_sync(wg_bar, 128);
+        if (cw == P::OUT_CH)
+          gelu_staged<P::OUT_CH>(staged, staged16, t);
+        else if constexpr (BN % P::OUT_CH != 0)  // BN = 192's last 64 columns
+          gelu_staged<BN % P::OUT_CH>(staged, staged16, t);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_barrier_sync(wg_bar, 128);
+      if (t == 0 && r0 < M) {
+        const uint8_t* src = GELU ? staged16 : staged;
+        for (int bx = 0; bx < cw / OUT_BOX && n0 + c0 + bx * OUT_BOX < N_out; ++bx)
+          tma_store_2d(&map_out, n0 + c0 + bx * OUT_BOX, r0, smem_u32(src + bx * BM * 128));
+        bulk_commit();
+      }
+    }
+  }
+  if (t == 0) bulk_wait();
+}
+
 // LN kinds: out (M, N_out) = TO(EPI(LN(x) . W^T (* s) + b)); W (N_out, C)
 // bf16, or int8 with its per-row scale s (an fp32 W: launch_ln_hilo)
 template <int KIND, typename TX, typename TW, typename TO, int BN, int STAGES>
@@ -1215,15 +1663,12 @@ inline int launch_ln_gemm(const TX* x, const float* gamma, const float* beta, co
 // fp32, W (N_out, K) bf16, int8 with its scale s, or HiLo (its planes; an
 // fp32 A);
 //   SPLITK_BIAS:     out = TO(A . W^T + b), TO = fp32 for a HiLo W, else bf16
-//                    unless given (fp32: a tensor-parallel rank's partial fc2)
 //   SPLITK_RESIDUAL: out = x + TX(A . W^T (* s) + b), in x's type TX
-template <int KIND, typename TX, typename TA, typename TW, int BN, int STAGES, int SPLIT,
-          typename TO = splitk_out_t<KIND, TX, TW>>
+template <int KIND, typename TX, typename TA, typename TW, int BN, int STAGES, int SPLIT>
 inline int launch_splitk_gemm(const TA* a, const TW* w, const float* wscale, const TX* x,
-                              const float* bias, TO* out, int M, int K, int N_out,
-                              cudaStream_t stream) {
-  static_assert(KIND == SPLITK_BIAS || std::is_same<TO, TX>::value,
-                "the residual epilogue writes x's type");
+                              const float* bias, splitk_out_t<KIND, TX, TW>* out, int M, int K,
+                              int N_out, cudaStream_t stream) {
+  using TO = splitk_out_t<KIND, TX, TW>;
   constexpr bool HILO = std::is_same<TA, float>::value;
   if (K % BK != 0 || K / BK < SPLIT || N_out % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1270,6 +1715,76 @@ inline int launch_ln_hilo(const float* x, const float* gamma, const float* beta,
   const int grid = tiles < sms ? tiles : sms;
   kernel<<<grid, THREADS, smem, stream>>>(map_x, map_w, x, gamma, beta, bias, out, M, C, N_out,
                                           eps);
+  return 0;
+}
+
+
+// The large-M body's tile width for (M, N_out), up to `widest`: the fewest
+// rounds of tiles over the SMs times the width (a round's time grows with
+// the width), the widest on a tie (fewer passes over A)
+inline int pick_bn(int M, int N_out, int widest) {
+  const int sms = sm_count();
+  const long long rows = (M + LBM - 1) / LBM;
+  auto cost = [&](int bn) { return (rows * ((N_out + bn - 1) / bn) + sms - 1) / sms * bn; };
+  int best = widest;
+  for (int bn : {192, 128})
+    if (bn < widest && cost(bn) < cost(best)) best = bn;
+  return best;
+}
+
+template <int KIND, typename TO, int BN, int STAGES>
+inline int launch_large_m_bn(const bf16* a, const bf16* w, const float* bias, TO* out, int M,
+                             int K, int N_out, cudaStream_t stream) {
+  using P = LargeMPlan<KIND, BN, STAGES>;
+  static_assert(P::total <= SMEM_LIMIT, "the ring and the staging fit a block's shared memory");
+  CUtensorMap map_a, map_w, map_out;
+  int err = tensor_map(a, M, K, LBM, &map_a);
+  if (!err) err = tensor_map(w, N_out, K, BN, &map_w);
+  if (!err) err = store_map(out, M, N_out, &map_out);
+  if (err) return err;
+  static int allowed = 0;
+  auto* kernel = large_m_kernel<KIND, TO, BN, STAGES>;
+  if ((err = allow_smem(kernel, P::total, allowed))) return err;
+  const int tiles = ((N_out + BN - 1) / BN) * ((M + LBM - 1) / LBM);
+  const int sms = sm_count();
+  const int grid = tiles < sms ? tiles : sms;
+  kernel<<<grid, LM_THREADS, P::total, stream>>>(map_a, map_w, map_out, bias, M, K, N_out);
+  return 0;
+}
+
+// The large-M body: GEMM_F32OUT, out (M, N_out) fp32 = A . W^T (+ b; bias
+// may be null); LN_BIAS_GELU, out (M, N_out) bf16 = gelu(A . W^T + b), A the
+// rows ln_rows_kernel normalized. A (M, K), W (N_out, K) bf16.
+template <int KIND, typename TO>
+inline int launch_large_m(const bf16* a, const bf16* w, const float* bias, TO* out, int M, int K,
+                          int N_out, cudaStream_t stream) {
+  if (K % BK != 0 || K <= 0 || N_out % 8 != 0 || M <= 0 || (KIND == LN_BIAS_GELU && !bias))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // four stages of 32 or 40 KB at BN = 128 or 192, three of 48 KB at 256,
+  // beside 64 KB of staging; LN_BIAS_GELU's 96 KB of staging leave room for
+  // four at 128, three at 192
+  if constexpr (KIND == LN_BIAS_GELU) {
+    return pick_bn(M, N_out, 192) == 128
+               ? launch_large_m_bn<KIND, TO, 128, 4>(a, w, bias, out, M, K, N_out, stream)
+               : launch_large_m_bn<KIND, TO, 192, 3>(a, w, bias, out, M, K, N_out, stream);
+  } else {
+    switch (pick_bn(M, N_out, 256)) {
+      case 128:
+        return launch_large_m_bn<KIND, TO, 128, 4>(a, w, bias, out, M, K, N_out, stream);
+      case 192:
+        return launch_large_m_bn<KIND, TO, 192, 4>(a, w, bias, out, M, K, N_out, stream);
+      default:
+        return launch_large_m_bn<KIND, TO, 256, 3>(a, w, bias, out, M, K, N_out, stream);
+    }
+  }
+}
+
+// y (M, C) bf16 = LN(x) of x (M, C) bf16 or fp32 (ln_rows_kernel)
+template <typename TX>
+inline int launch_ln_rows(const TX* x, const float* gamma, const float* beta, bf16* y, int M,
+                          int C, float eps, cudaStream_t stream) {
+  if (C % 8 != 0 || C > MAX_C || M <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  ln_rows_kernel<TX><<<(M + 7) / 8, 256, 0, stream>>>(x, gamma, beta, y, M, C, eps);
   return 0;
 }
 

@@ -48,6 +48,26 @@
 //     BN=128 gave 144 blocks, two an SM on 12 SMs, which then read twice
 //     the bytes of the others: 11.3 us against 9.2-9.8 us at BN=192 (an
 //     A/B on one H100, uvltrack_tpu_torch/tools/gemm_ab.py).
+// A tensor-parallel rank's share (F/tp of fc1's columns and fc2's rows, an
+// fp32 out before b2; uvl_ln_mlp_partial) runs at a training step's M = B.N
+// = 5,776 rows, where the launches above lost to their library calls (207
+// us at F = 1,536 against 84): the 64-row LN kind normalizes its x rows again
+// for every column tile, with no product overlapping that prologue, on a
+// non-persistent grid of 728 blocks, and fc2 splits K over clusters of 4 at
+// an M whose tiles alone fill the card. The share runs three launches
+// instead, the last two on the core's large-M body (persistent, 128-row
+// tiles, K unsplit, TMA-stored epilogues; gemm_sm90.cuh):
+//   - ln_rows_kernel: y = bf16(LN(x)), each row normalized once (8.9 MB of y
+//     at B's C = 768, which stays in L2 for the next launch);
+//   - LN_BIAS_GELU: the hidden tensor gelu(y . W1^T + b1) in bf16, 128 x 128
+//     tiles, the GELUs taken from the fp32 tile staged in shared memory;
+//   - GEMM_F32OUT: the hidden tensor . W2^T, 128 x 128-256 tiles, fp32 out.
+// Bound at F = 1,536: 2 x 13.6 GFLOP (27.6 us at 989 TFLOP/s). Two designs
+// lost to this one on one H100 (uvltrack_tpu_torch/tools/gemm_ab.py --tp):
+// x normalized a k-tile ahead of the products inside each 128 x 128 tile
+// (fc1 135 us: every column tile read its fp32 rows again, and each row
+// block's statistics pass waited on device memory with no product running),
+// and the GELU applied to the accumulator fragments (fc1 88 us).
 // The old kernels (PR 4) ran one 32-deep shared-memory stage with WMMA and
 // paid one device-memory latency a k-step (24 steps for fc1, 96 for fc2 on
 // 144 blocks of 4 warps); the TMA ring keeps the loads in flight instead.
@@ -58,16 +78,14 @@ using uvl::bf16;
 // x_is_f32: 1 when x is fp32 (the joint blocks' stream), 0 when bf16;
 // w_is_f32: 1 for fp32 weights given as their hi/lo planes, W1 (2, F, C)
 // and W2 (2, C, F) bf16 (split_hilo; fp32 x only), with an fp32 hidden and
-// out; out_is_f32 with bf16 weights: fc2_bias writes an fp32 out (a
-// tensor-parallel rank's partial h_r . W2_r^T, the caller's b2 zero: the
-// model group sums the partials, then adds b2 and rounds once). stages: a bitmask of the launches to make -- 1 ln_fc1_gelu (x -> hidden),
-// 2 fc2_bias (hidden -> out), 3 both (the kernel's function; the wrapper's
-// call). Requires C % 64 == 0, C <= 1024, F % 256 == 0 and 16-byte aligned
-// x, W1, W2 and hidden (checked by the Python wrapper).
+// out. stages: a bitmask of the launches to make -- 1 ln_fc1_gelu (x ->
+// hidden), 2 fc2_bias (hidden -> out), 3 both (the kernel's function; the
+// wrapper's call). Requires C % 64 == 0, C <= 1024, F % 256 == 0 and
+// 16-byte aligned x, W1, W2 and hidden (checked by the Python wrapper).
 extern "C" int uvl_ln_mlp(const void* x, int x_is_f32, const float* gamma, const float* beta,
                           const void* w1, const float* b1, const void* w2, const float* b2,
-                          int w_is_f32, int out_is_f32, void* hidden, void* out, int M, int C,
-                          int F, float eps, int stages, void* stream) {
+                          int w_is_f32, void* hidden, void* out, int M, int C, int F,
+                          float eps, int stages, void* stream) {
   using namespace uvl::sm90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_is_f32) {
@@ -96,12 +114,38 @@ extern "C" int uvl_ln_mlp(const void* x, int x_is_f32, const float* gamma, const
                        eps, s);
   }
   if (!err && (stages & 2))
-    err = out_is_f32
-              ? launch_splitk_gemm<SPLITK_BIAS, bf16, bf16, bf16, 192, 4, 4, float>(
-                    h, static_cast<const bf16*>(w2), nullptr, nullptr, b2,
-                    static_cast<float*>(out), M, F, C, s)
-              : launch_splitk_gemm<SPLITK_BIAS, bf16, bf16, bf16, 192, 4, 4>(
-                    h, static_cast<const bf16*>(w2), nullptr, nullptr, b2,
-                    static_cast<bf16*>(out), M, F, C, s);
+    err = launch_splitk_gemm<SPLITK_BIAS, bf16, bf16, bf16, 192, 4, 4>(
+        h, static_cast<const bf16*>(w2), nullptr, nullptr, b2, static_cast<bf16*>(out), M, F, C,
+        s);
+  return err ? err : static_cast<int>(cudaGetLastError());
+}
+
+// A tensor-parallel rank's share, out (M, C) fp32 = gelu(LN(x) . W1^T + b1)
+// (rounded to bf16) . W2^T (+ b2, null for the share itself): x (M, C) bf16
+// or fp32 (x_is_f32), W1 (F, C) and W2 (C, F) bf16 (F = the rank's hidden
+// columns), b1 (F,) and b2 (C,) fp32; normed (M, C) and hidden (M, F) bf16
+// scratch. stages: 1 LN and fc1 (x -> hidden), 2 fc2 (hidden -> out), 3
+// both. Requires C % 64 == 0, C <= 1024, F % 64 == 0 and 16-byte aligned
+// tensors (checked by the Python wrapper).
+extern "C" int uvl_ln_mlp_partial(const void* x, int x_is_f32, const float* gamma,
+                                  const float* beta, const void* w1, const float* b1,
+                                  const void* w2, const float* b2, void* normed, void* hidden,
+                                  float* out, int M, int C, int F, float eps, int stages,
+                                  void* stream) {
+  using namespace uvl::sm90;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bf16* y = static_cast<bf16*>(normed);
+  bf16* h = static_cast<bf16*>(hidden);
+  int err = 0;
+  if (stages & 1) {
+    err = x_is_f32 ? launch_ln_rows(static_cast<const float*>(x), gamma, beta, y, M, C, eps, s)
+                   : launch_ln_rows(static_cast<const bf16*>(x), gamma, beta, y, M, C, eps, s);
+    if (!err)
+      err = launch_large_m<LN_BIAS_GELU, bf16>(y, static_cast<const bf16*>(w1), b1, h, M, C, F,
+                                               s);
+  }
+  if (!err && (stages & 2))
+    err = launch_large_m<GEMM_F32OUT, float>(h, static_cast<const bf16*>(w2), b2, out, M, F, C,
+                                             s);
   return err ? err : static_cast<int>(cudaGetLastError());
 }

@@ -51,6 +51,18 @@
 // of them and the split A buffers take 224 KB, one block an SM). With 4 k-tiles a block the launch is bound by
 // its latency (the first TMA round trip, the cluster barriers), not by the
 // bytes.
+//
+// A tensor-parallel rank's share of #4's projection, attn_r . Wp_r^T in fp32
+// (no bias, no residual; the model group sums the shares, then adds both
+// once), runs uvl_proj_partial below on the core's large-M body (kind
+// GEMM_F32OUT, gemm_sm90.cuh): at a training step's M = B.N = 5,776 rows
+// and C = 768 its 128 x 192 tiles are 46 x 4 = 184, two rounds on 132 SMs,
+// with K unsplit (K = C/tp = 128-512: 2-8 k-tiles a tile), on a persistent
+// grid whose TMA stores of one tile's fp32 output run while the next tile's
+// products do. Bound (B's K = 384): 4.4 MB of A, 0.6 MB of Wp and 17.7 MB of
+// fp32 out, 6.8 us at 3.35 TB/s, against 3.4 GFLOP (3.4 us): the bytes,
+// mostly the output. (Before, the share ran the fp32-x instantiation above
+// on a zero fp32 stream, read back and split over clusters of 3: 50 us.)
 #include "gemm_sm90.cuh"
 
 using uvl::bf16;
@@ -96,5 +108,17 @@ extern "C" int uvl_proj_residual(const void* x, int x_is_f32, const void* a, int
     err = launch<float, float, int8_t>(x, a, w, w_scale, bias, out, M, K, C, s);
   else if (w_is_i8 && !x_is_f32 && !a_is_f32)
     err = launch<bf16, bf16, int8_t>(x, a, w, w_scale, bias, out, M, K, C, s);
+  return err ? err : static_cast<int>(cudaGetLastError());
+}
+
+// A tensor-parallel rank's share of the projection: out (M, C) fp32 =
+// A (M, K) . W (C, K)^T, bf16 A and W. Requires K % 64 == 0, C % 8 == 0 and
+// 16-byte aligned A, W and out (checked by the Python wrapper).
+extern "C" int uvl_proj_partial(const void* a, const void* w, float* out, int M, int K, int C,
+                                void* stream) {
+  using namespace uvl::sm90;
+  const int err = launch_large_m<GEMM_F32OUT, float>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(w), nullptr, out, M, K, C,
+      static_cast<cudaStream_t>(stream));
   return err ? err : static_cast<int>(cudaGetLastError());
 }

@@ -135,7 +135,7 @@ LAUNCHES: Counter = Counter()
 # calls no wrapper, so the graph's owner counts its replays
 # (track/tracker.py::JitTracker)
 CAPTURED: Counter = Counter()
-_FNS: Dict[str, object] = {}  # kernel -> its bound entry point
+_FNS: Dict[str, object] = {}  # entry point name -> the bound entry point
 
 
 def launch_counts() -> dict:
@@ -197,18 +197,20 @@ def no_grad_through(name: str, tensors, remedy: str) -> None:
                            f"its own; {remedy}")
 
 
-def launch(kernel: str, inst: str, argtypes, *args, stream_of: torch.Tensor) -> None:
-    """Call `uvl_<kernel>` of lib<kernel> with args and, as its last
-    argument, PyTorch's current stream on the device of `stream_of`; raise
-    on the CUDA error code it returns, and count one launch of
-    kernel[inst] (in CAPTURED instead when the stream is capturing a CUDA
-    graph: nothing runs then)."""
-    fn = _FNS.get(kernel)
+def launch(kernel: str, inst: str, argtypes, *args, stream_of: torch.Tensor,
+           entry: str = "") -> None:
+    """Call `uvl_<kernel>` (or the library's other entry point `entry`) of
+    lib<kernel> with args and, as its last argument, PyTorch's current
+    stream on the device of `stream_of`; raise on the CUDA error code it
+    returns, and count one launch of kernel[inst] (in CAPTURED instead when
+    the stream is capturing a CUDA graph: nothing runs then)."""
+    entry = entry or f"uvl_{kernel}"
+    fn = _FNS.get(entry)
     if fn is None:
-        fn = getattr(library(kernel), f"uvl_{kernel}")
+        fn = getattr(library(kernel), entry)
         fn.argtypes = [*argtypes, PTR]
         fn.restype = ctypes.c_int
-        _FNS[kernel] = fn
+        _FNS[entry] = fn
     rc = fn(*args, torch.cuda.current_stream(stream_of.device).cuda_stream)
     if rc != 0:
         msg = _LIBS[kernel].uvl_error_string(rc).decode()

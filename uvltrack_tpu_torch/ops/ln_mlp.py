@@ -36,11 +36,13 @@ through quant_dot.
 
 Under tensor parallelism (parallel/tp.py) a rank holds F/tp of fc1's output
 columns and of fc2's input rows, and `ln_mlp_partial` computes its share of
-fc2 before the bias: h_r . W2_r^T in fp32 (bf16 weights: `fc2_bias` with an
-fp32 out and a zero b2, the instantiations tagged `-fp32o`). The caller sums
-the shares over the model group, adds b2 and rounds once to w2's dtype, so
-the bias is added once and the product rounds where the single-device
-kernel rounds it.
+fc2 before the bias: h_r . W2_r^T in fp32. With bf16 weights (the
+instantiations tagged `-fp32o`, csrc/ln_mlp.cu's `uvl_ln_mlp_partial`) x's
+rows are normalized once into a bf16 scratch, then fc1 + GELU and fc2 run
+on the core's large-M body at the training step's B.N rows (128-row tiles,
+K unsplit; fc2 with an fp32 out and no bias). The caller sums the shares
+over the model group, adds b2 and rounds once to w2's dtype, so the bias is
+added once and the product rounds where the single-device kernel rounds it.
 """
 
 from __future__ import annotations
@@ -98,12 +100,16 @@ def ln_mlp_partial_plain(x, ln_scale, ln_bias, w1, b1, w2, eps: float = 1e-6):
 def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float = 1e-6,
                   stages: str = "pair"):
     """Launch csrc/ln_mlp.cu into the caller's hidden (M, F) and out
-    (B, N, C), both in w2's dtype (out fp32 with bf16 weights: fc2_bias's
-    fp32 output, tagged `-fp32o`): stages "pair" (both launches, the
-    kernel's function), or "ln_fc1_gelu" / "fc2_bias" alone (chip_smoke.py
-    times each launch). Counts one `ln_mlp` launch per call."""
+    (B, N, C), both in w2's dtype; or out fp32 with bf16 weights, a
+    tensor-parallel share (uvl_ln_mlp_partial, tagged `-fp32o`: LN into a
+    bf16 scratch, then the large-M pair; b2 None adds no bias). stages
+    "pair" (both launches, the kernel's function), or "ln_fc1_gelu" /
+    "fc2_bias" alone (chip_smoke.py times each launch). Counts one `ln_mlp`
+    launch per call."""
     b, n, c = x.shape
     f = w1.shape[0]
+    out32 = out.dtype == torch.float32 and w1.dtype == torch.bfloat16  # a share
+    require(b2 is not None or out32, "ln_mlp: b2 may be None only for a share")
     require(x.dtype in (torch.bfloat16, torch.float32),
             f"ln_mlp: x must be bf16 or fp32, got {x.dtype}")
     require(w1.dtype == w2.dtype and w1.dtype in (torch.bfloat16, torch.float32),
@@ -111,32 +117,46 @@ def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float 
     w32 = w1.dtype == torch.float32
     require(not w32 or x.dtype == torch.float32,
             f"ln_mlp: fp32 w1, w2 (fp32 compute) need an fp32 x, got {x.dtype}")
-    require(all(t.dtype == torch.float32 for t in (ln_scale, ln_bias, b1, b2)),
+    vecs = (ln_scale, ln_bias, b1) + (() if b2 is None else (b2,))
+    require(all(t.dtype == torch.float32 for t in vecs),
             "ln_mlp: LN scale/bias and the biases must be fp32")
     require(tuple(w1.shape) == (f, c) and tuple(w2.shape) == (c, f)
-            and tuple(b1.shape) == (f,) and tuple(b2.shape) == (c,)
+            and tuple(b1.shape) == (f,) and (b2 is None or tuple(b2.shape) == (c,))
             and tuple(ln_scale.shape) == (c,) and tuple(ln_bias.shape) == (c,),
             f"ln_mlp: bad shapes for C={c}, F={f}")
-    require(c % 64 == 0 and c <= LN_MAX_C and f % 256 == 0,
-            f"ln_mlp: C must be a multiple of 64 up to {LN_MAX_C} and F of 256 (fc2's K "
-            f"split four ways in 64-deep tiles), got C={c}, F={f}")
-    out32 = out.dtype == torch.float32 and not w32  # a tensor-parallel partial
+    # fc2's K = F: split four ways in 64-deep tiles, or unsplit in a share
+    f_rule = 64 if out32 else 256
+    require(c % 64 == 0 and c <= LN_MAX_C and f % f_rule == 0,
+            f"ln_mlp: C must be a multiple of 64 up to {LN_MAX_C} and F of {f_rule}, got "
+            f"C={c}, F={f}")
     require(hidden.dtype == w2.dtype and tuple(hidden.shape) == (b * n, f)
             and out.dtype in (w2.dtype, torch.float32) and tuple(out.shape) == (b, n, c),
             f"ln_mlp: hidden must be (B*N, F) in {w2.dtype} and out (B, N, C) in it or fp32")
-    no_grad_through("ln_mlp", (x, ln_scale, ln_bias, w1, b1, w2, b2),
-                    "call it through ops/autograd.py (LnMlp)")
-    check_cuda("ln_mlp", x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out)
+    no_grad_through("ln_mlp", (x, *vecs, w1, w2), "call it through ops/autograd.py (LnMlp)")
+    check_cuda("ln_mlp", x, *vecs, w1, w2, hidden, out)
+    tag = f"{build.dtype_tag(x)}x-{build.dtype_tag(w1)}w"
+    if out32:
+        # the share's entry: LN once into `normed`, then the large-M pair
+        normed = (torch.empty((b * n, c), dtype=torch.bfloat16, device=x.device)
+                  if STAGES[stages] & 1 else hidden)
+        build.launch("ln_mlp", tag + "-fp32o",
+                     [PTR, INT, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
+                      FLOAT, INT],
+                     x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(),
+                     ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                     None if b2 is None else b2.data_ptr(), normed.data_ptr(),
+                     hidden.data_ptr(), out.data_ptr(), b * n, c, f, eps, STAGES[stages],
+                     stream_of=x, entry="uvl_ln_mlp_partial")
+        return out
     # fp32 weights go to the kernels as their cached hi/lo planes
     p1, p2 = (hilo.planes(w1), hilo.planes(w2)) if w32 else (w1, w2)
-    build.launch("ln_mlp", f"{build.dtype_tag(x)}x-{build.dtype_tag(w1)}w"
-                 + ("-fp32o" if out32 else ""),
-                 [PTR, INT, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, PTR, PTR, INT, INT, INT,
-                  FLOAT, INT],
+    build.launch("ln_mlp", tag,
+                 [PTR, INT, PTR, PTR, PTR, PTR, PTR, PTR, INT, PTR, PTR, INT, INT, INT, FLOAT,
+                  INT],
                  x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(),
                  ln_bias.data_ptr(), p1.data_ptr(), b1.data_ptr(), p2.data_ptr(),
-                 b2.data_ptr(), int(w32), int(out32), hidden.data_ptr(), out.data_ptr(), b * n,
-                 c, f, eps, STAGES[stages], stream_of=x)
+                 b2.data_ptr(), int(w32), hidden.data_ptr(), out.data_ptr(), b * n, c, f, eps,
+                 STAGES[stages], stream_of=x)
     return out
 
 
@@ -160,11 +180,13 @@ def ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6):
 def ln_mlp_partial(x, ln_scale, ln_bias, w1, b1, w2, eps: float = 1e-6):
     """A tensor-parallel rank's share of kernel #7's function before the
     bias: x (B, N, C); w1 (F/tp, C), w2 (C, F/tp) -> (B, N, C) fp32. Both
-    launches on a CUDA tensor, fc2_bias with a zero b2 and an fp32 out."""
+    launches on a CUDA tensor: with bf16 weights the large-M pair (fc2 with
+    no bias and an fp32 out); with fp32 weights the fp32 pair with a zero
+    b2."""
     if x.device.type == "cpu":
         return ln_mlp_partial_plain(x, ln_scale, ln_bias, w1, b1, w2, eps)
     b, n, c = x.shape
     hidden = torch.empty((b * n, w1.shape[0]), dtype=w2.dtype, device=x.device)
     out = torch.empty((b, n, c), dtype=torch.float32, device=x.device)
-    zero = torch.zeros((c,), dtype=torch.float32, device=x.device)
-    return launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, zero, hidden, out, eps)
+    b2 = None if w2.dtype == torch.bfloat16 else torch.zeros((c,), device=x.device)
+    return launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps)

@@ -28,6 +28,13 @@ split over clusters of PROJ_SPLIT blocks (one 64-deep k-tile each at the
 least) and summed in rank order, so two calls give the same bits. The
 wrapper checks, launches and counts through ops/build.py, as the prefix
 wrappers do; a CPU tensor takes the plain version.
+
+Under tensor parallelism (parallel/tp.py) a rank's share of the projection,
+`proj_partial`, is attn_r . Wp_r^T in fp32 before the bias and the
+residual, at a training step's B.N rows: bf16 operands run the same source's
+`uvl_proj_partial` on the core's large-M body (128-row tiles on a
+persistent grid, K unsplit, the fp32 output stored by TMA), tagged
+proj_residual[bf16a-bf16w-fp32o].
 """
 
 from __future__ import annotations
@@ -156,14 +163,32 @@ def ln_qkv_attn_proj_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, wp_q, wp_scal
 def proj_partial(attn, w_proj):
     """A tensor-parallel rank's share of kernel #4's projection (parallel/
     tp.py): attn (B, N, K/tp) in w_proj's dtype, w_proj (C, K/tp) ->
-    (B, N, C) fp32, no bias, no residual. On a CUDA tensor one
-    `proj_residual` launch on a zero fp32 residual with a zero bias (its
-    fp32-x instantiation: the product is not rounded); the caller sums the
-    shares over the model group and adds the bias and the residual once."""
+    (B, N, C) fp32, no bias, no residual; the caller sums the shares over
+    the model group and adds the bias and the residual once. On a CUDA
+    tensor, bf16 attn and w_proj: one launch of csrc/proj_residual.cu's
+    `uvl_proj_partial` (the core's large-M body, counted as
+    proj_residual[bf16a-bf16w-fp32o]), K a multiple of 64; fp32 ones (fp32
+    compute): `proj_residual`'s fp32 instantiation on a zero fp32 stream
+    with a zero bias."""
     if attn.device.type == "cpu":
         return proj_partial_plain(attn, w_proj)
-    b, n, _ = attn.shape
+    b, n, k = attn.shape
     c = w_proj.shape[0]
-    zero = torch.zeros((b, n, c), dtype=torch.float32, device=attn.device)
-    return proj_residual(zero, attn, w_proj, torch.zeros((c,), dtype=torch.float32,
-                                                        device=attn.device))
+    if attn.dtype == w_proj.dtype == torch.float32:
+        zero = torch.zeros((b, n, c), dtype=torch.float32, device=attn.device)
+        return proj_residual(zero, attn, w_proj, torch.zeros((c,), dtype=torch.float32,
+                                                            device=attn.device))
+    require(attn.dtype == w_proj.dtype == torch.bfloat16,
+            f"proj_partial: attn and w_proj must be both bf16 or both fp32, got {attn.dtype}, "
+            f"{w_proj.dtype}")
+    require(tuple(w_proj.shape) == (c, k), "proj_partial: w_proj must be (C, K) for attn's K")
+    require(k % 64 == 0 and c % 8 == 0,
+            f"proj_partial: K must be a multiple of 64 and C of 8 (K={k}, C={c})")
+    no_grad_through("proj_partial", (attn, w_proj),
+                    "call it through ops/autograd.py (ProjPartial)")
+    check_cuda("proj_partial", attn, w_proj)
+    out = torch.empty((b, n, c), dtype=torch.float32, device=attn.device)
+    build.launch("proj_residual", "bf16a-bf16w-fp32o", [PTR, PTR, PTR, INT, INT, INT],
+                 attn.data_ptr(), w_proj.data_ptr(), out.data_ptr(), b * n, k, c,
+                 stream_of=attn, entry="uvl_proj_partial")
+    return out

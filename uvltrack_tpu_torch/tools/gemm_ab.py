@@ -10,8 +10,10 @@ bodies, of the compositions #1, #4, #5 and #6 (two or three launches each)
 and, as controls, of `ln_qkv` and `proj_residual` alone.
 
     python uvltrack_tpu_torch/tools/gemm_ab.py [--root DIR] [--label NAME]
-        [--eager-only]
+        [--eager-only] [--dump FILE.npz] [--cmp FILE.npz]
     python uvltrack_tpu_torch/tools/gemm_ab.py --f32w [--root DIR] [--label NAME]
+        [--dump FILE.npz] [--cmp FILE.npz]
+    python uvltrack_tpu_torch/tools/gemm_ab.py --tp [--root DIR] [--label NAME]
         [--dump FILE.npz] [--cmp FILE.npz]
 
 --root: the checkout whose uvltrack_tpu_torch is timed (default: the one
@@ -25,9 +27,16 @@ synchronizes (the launch queue holds them all, so the device's time does
 not show). --eager-only skips the device times. --f32w times only kernel
 #1's prefix at fp32 compute, `ln_qkv[fp32x-fp32w]`, beside F.layer_norm +
 F.linear in fp32 at B in {1, 8}, N in {321, 361}, C in {768, 1024} (the same
-seeded inputs in every checkout); --dump saves its outputs and --cmp
-reports, shape by shape, whether they are bitwise those of another
-checkout's dump. Prints one JSON line; times in ms.
+seeded inputs in every checkout). --tp times a tensor-parallel rank's
+launches at B=16 (chip_smoke.py's TP_SHAPES: B at tp 2 and 4, L at tp 2):
+the shares of #4's projection (`proj_partial`) and of #7 (`ln_mlp_partial`,
+and each of its launches alone with an fp32 out) beside their library calls
+(F.linear's bf16 out and, where this torch has it, torch.mm with an fp32
+out_dtype), and `ln_qkv` / `qkv_attention` at the rank's widths, all through
+the wrappers' Python API, so a parent checkout runs the same calls. In
+every mode --dump saves the kernels' outputs (the same seeded inputs in
+every checkout) and --cmp reports, output by output, whether they are
+bitwise those of another checkout's dump. Prints one JSON line; times in ms.
 """
 
 from __future__ import annotations
@@ -74,12 +83,15 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eager-only", action="store_true")
     ap.add_argument("--f32w", action="store_true")
+    ap.add_argument("--tp", action="store_true")
     ap.add_argument("--dump", default="")
     ap.add_argument("--cmp", default="")
     args = ap.parse_args()
     sys.path[:0] = [args.root, str(REPO)]
     if args.f32w:
         return f32w_ab(args)
+    if args.tp:
+        return tp_ab(args)
 
     import numpy as np
     import torch
@@ -102,6 +114,7 @@ def main() -> int:
 
     out = {"label": args.label, "root": args.root, "device": nvidia_smi(), "times": {},
            "eager": {}}
+    dumps = {}
     heads = c // 64
     for n, xdt in ((321, torch.bfloat16), (361, torch.float32)):
         x = arr(rng.normal(size=(1, n, c)), xdt)
@@ -146,6 +159,11 @@ def main() -> int:
             f"proj_residual[{xt}x-{xt}a-int8w] library":
                 lambda: torch.add(x, F.linear(attn, wpd, bp.to(xdt))),
         }
+        for k, fn in fns.items():  # the kernels' outputs (ln_mlp's stages: their buffers)
+            if not k.endswith("library"):
+                res = fn()
+                res = {"ln_fc1_gelu": hidden, "fc2_bias": o, "ln_mlp pair": o}.get(k, res)
+                dumps[f"N{n} {k}"] = res.float().cpu().numpy()
         if not args.eager_only:
             out["times"][f"N{n}"] = {k: graph_time_ms(fn)[0] for k, fn in fns.items()}
         # the main path's masks: nothing at N=321, the 40 text keys at N=361
@@ -168,10 +186,126 @@ def main() -> int:
         if xdt == torch.float32:
             qkv32 = qkv.float()
             eager["qkv_attention[fp32]"] = lambda: lqa.qkv_attention(qkv32, kb, heads)
+        for k in ("qkv_attention[bf16]", "qkv_attention[fp32]"):
+            if k in eager:
+                dumps[f"N{n} {k}"] = eager[k]().float().cpu().numpy()
         out["eager"][f"N{n}"] = {k: eager_ms(fn) for k, fn in eager.items()}
     if not args.eager_only:
         out["times"]["attention"] = attention_times(args.seed)
     out["eager"]["attention"] = attention_eager(args.seed)
+    dump_and_compare(args, dumps, out)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def dump_and_compare(args, dumps: dict, out: dict) -> None:
+    """--dump: save {name: output}; --cmp: out["bitwise_vs_cmp"][name], the
+    output bitwise that of the other checkout's dump (None where it has no
+    such output)."""
+    import numpy as np
+
+    if args.dump:
+        np.savez(args.dump, **dumps)
+    if args.cmp:
+        other = np.load(args.cmp)
+        out["bitwise_vs_cmp"] = {k: (bool(np.array_equal(other[k], v)) if k in other.files
+                                     else None) for k, v in dumps.items()}
+
+
+def tp_ab(args) -> int:
+    """A tensor-parallel rank's launches at B=16 and TP_SHAPES (PERF.md rows
+    1t, 2t, 4t, 7t): device ms (a CUDA graph of 20 calls), library calls
+    beside them, the outputs dumped or compared."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("gemm_ab: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from chip_smoke import TP_SHAPES, TRAIN_B, graph_time_ms, nvidia_smi
+    from uvltrack_tpu_torch.ops import ln_mlp as lm
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+    from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
+
+    dev, b16, b = torch.device("cuda"), torch.bfloat16, TRAIN_B
+    out = {"label": args.label, "root": args.root, "device": nvidia_smi(), "rows": b,
+           "times": {}}
+    try:
+        probe = torch.ones((64, 64), dtype=b16, device=dev)
+        torch.mm(probe, probe.t(), out_dtype=torch.float32)
+        mm_f32 = True
+    except (TypeError, RuntimeError) as e:
+        mm_f32 = False
+        out["mm_out_dtype"] = f"refused: {str(e)[:200]}"
+
+    def lin32(a, w):
+        return torch.mm(a.reshape(-1, a.shape[-1]), w.t(), out_dtype=torch.float32)
+
+    dumps = {}
+    for label, c, heads, tp in TP_SHAPES:
+        hh, k, f, q = heads // tp, c // tp, 4 * c // tp, 3 * c // tp
+        for n, xdt in ((361, torch.float32), (321, b16)):
+            rng = np.random.default_rng(args.seed + c + tp + n)
+
+            def arr(a, dt=torch.float32):
+                return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+            x = arr(rng.normal(size=(b, n, c)), xdt)
+            g, be = arr(1 + 0.1 * rng.normal(size=c)), arr(0.1 * rng.normal(size=c))
+            wq, bq = arr(rng.normal(size=(q, c)) / np.sqrt(c), b16), arr(0.02 * rng.normal(size=q))
+            attn = arr(0.3 * rng.normal(size=(b, n, k)), b16)
+            wp = arr(rng.normal(size=(c, k)) / np.sqrt(k), b16)
+            w1 = arr(rng.normal(size=(f, c)) / np.sqrt(c), b16)
+            b1 = arr(0.02 * rng.normal(size=f))
+            w2 = arr(rng.normal(size=(c, f)) / np.sqrt(4 * c), b16)
+            zero = torch.zeros((c,), device=dev)
+            hidden = torch.empty((b * n, f), dtype=b16, device=dev)
+            o = torch.empty((b, n, c), dtype=torch.float32, device=dev)
+            kb = torch.zeros((b, n), device=dev)
+            if n == 361:
+                kb[:, 321:] = -1e10
+            qkv = lqa.ln_qkv(x, g, be, wq, bq)
+
+            def ln():
+                return F.layer_norm(x.float(), (c,), g, be, 1e-6).to(b16)
+
+            def stage(name):
+                return lambda: lm.launch_ln_mlp(x, g, be, w1, b1, w2, zero, hidden, o,
+                                                stages=name)
+
+            fns = {
+                "proj_partial": lambda: lqp.proj_partial(attn, wp),
+                "ln_mlp_partial": lambda: lm.ln_mlp_partial(x, g, be, w1, b1, w2),
+                "ln_mlp_partial ln_fc1_gelu": stage("ln_fc1_gelu"),
+                "ln_mlp_partial fc2": stage("fc2_bias"),
+                "ln_qkv": lambda: lqa.ln_qkv(x, g, be, wq, bq),
+                "qkv_attention": lambda: lqa.qkv_attention(qkv, kb, hh),
+            }
+            key = f"{label}_N{n}"
+            for name, fn in fns.items():
+                res = {"ln_mlp_partial ln_fc1_gelu": hidden,
+                       "ln_mlp_partial fc2": o}.get(name, None)
+                r = fn()
+                dumps[f"{key} {name}"] = (r if res is None else res).float().cpu().numpy()
+            lib = {
+                "proj_partial library F.linear": lambda: F.linear(attn, wp),
+                "ln_mlp_partial library 4 calls F.linear":
+                    lambda: F.linear(F.gelu(F.linear(ln(), w1, b1.to(b16))), w2),
+                "ln_fc1_gelu library 3 calls": lambda: F.gelu(F.linear(ln(), w1, b1.to(b16))),
+                "fc2 library F.linear": lambda: F.linear(hidden, w2),
+                "ln_qkv library 2 calls": lambda: F.linear(ln(), wq, bq.to(b16)),
+            }
+            if mm_f32:
+                lib.update({
+                    "proj_partial library mm fp32": lambda: lin32(attn, wp),
+                    "ln_mlp_partial library 4 calls mm fp32":
+                        lambda: lin32(F.gelu(F.linear(ln(), w1, b1.to(b16))), w2),
+                    "fc2 library mm fp32": lambda: lin32(hidden, w2)})
+            out["times"][key] = {name: graph_time_ms(fn)[0]
+                                 for name, fn in {**fns, **lib}.items()}
+    dump_and_compare(args, dumps, out)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -211,11 +345,7 @@ def f32w_ab(args) -> int:
                     "ln_qkv[fp32x-fp32w]": graph_time_ms(lambda: lqa.ln_qkv(x, g, be, w, wb))[0],
                     "library": graph_time_ms(
                         lambda: F.linear(F.layer_norm(x, (c,), g, be, 1e-6), w, wb))[0]}
-    if args.dump:
-        np.savez(args.dump, **dumps)
-    if args.cmp:
-        other = np.load(args.cmp)
-        out["bitwise_vs_cmp"] = {k: bool(np.array_equal(other[k], v)) for k, v in dumps.items()}
+    dump_and_compare(args, dumps, out)
     print(json.dumps(out), flush=True)
     return 0
 
