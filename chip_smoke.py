@@ -1144,6 +1144,137 @@ def tp_kernel_phase(dev, seed: int):
     return worst, times
 
 
+
+# ln_qkv's large-M body (csrc/ln_qkv.cu's uvl_ln_qkv_large_m, at M >=
+# LARGE_M_ROWS): every shape of the paths that take it, (label, B, C, F) --
+# the lockstep steps of B (S4, S8) and L (S8), B-TRAIN's 16 rows, and a
+# tensor-parallel rank's 3C/tp rows at B-TRAIN's (B tp2, B tp4, L tp2) --
+# each at N=321 with a bf16 x and N=361 with an fp32 x, both weight types
+LM_SHAPES = (("B_S4", 4, 768, 2304), ("B_S8", 8, 768, 2304), ("L_S8", 8, 1024, 3072),
+             ("B_TRAIN", 16, 768, 2304), ("B_tp2", 16, 768, 1152), ("B_tp4", 16, 768, 576),
+             ("L_tp2", 16, 1024, 1536))
+# the shapes each weight type is timed at (bf16: B-S8, L-S8, B-TRAIN; the tp
+# ranks' are tp_kernel_phase's; int8: the lockstep cell B-S4-Q8 and L's
+# width); the kernels line's rows carry these
+LM_TIMED = {"bf16w": ("B_S8", "L_S8", "B_TRAIN"), "int8w": ("B_S4", "L_S8")}
+# the main-path shape of each new instantiation's row: (label, N)
+LM_ROW_SHAPE = {"bf16x-bf16w": ("B_S8", 321), "fp32x-bf16w": ("B_S8", 361),
+                "bf16x-int8w": ("B_S4", 321), "fp32x-int8w": ("B_S4", 361)}
+
+
+def large_m_qkv_phase(dev, seed: int):
+    """ln_qkv's large-M instantiations (`ln_qkv[*-lm]`: bf16 W, and int8 W
+    through ln_qkv_q8) at every shape of LM_SHAPES: each call routed to the
+    large-M body (build.body_counts(); no fallback), against its plain
+    version (the KERNEL_* rule; fp32 x with an int8 W: the fp32 rule), a
+    second call bitwise, and beside the 64-row body forced on the same
+    inputs (bitwise expected: K unsplit and in order, the same rounding
+    points; counted). Then times at LM_TIMED, in turns: the kernel, its
+    plain version, the library call (F.layer_norm + F.linear; int8: the
+    dequantized W in x's dtype), and the 64-row body (the previous route at
+    these rows), eager and under a CUDA graph. Returns ({instantiation:
+    worst error}, {label: {N: {instantiation: times}}})."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+    from uvltrack_tpu_torch.ops import quant
+
+    b16 = torch.bfloat16
+    rng = np.random.default_rng(seed + 6)
+
+    def arr(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+    def case(b, n, c, f, x_dtype):
+        x = arr(rng.normal(size=(b, n, c)), x_dtype)
+        g, be = arr(1 + 0.1 * rng.normal(size=c)), arr(0.1 * rng.normal(size=c))
+        w = arr(rng.normal(size=(f, c)) / np.sqrt(c), b16)
+        return x, g, be, w, arr(0.02 * rng.normal(size=f)), quant.quantize_weight(w)
+
+    def on_64row(fn):
+        """fn on the 64-row body at any rows (the route B.N rows took before)"""
+        def call():
+            rows, lqa.LARGE_M_ROWS = lqa.LARGE_M_ROWS, 1 << 62
+            try:
+                return fn()
+            finally:
+                lqa.LARGE_M_ROWS = rows
+        return call
+
+    def fns(x, g, be, w, wb, wq):
+        """{weight type: (kernel, plain, library, f32 rule?)}"""
+        xdt = x.dtype
+        ln = lambda dt: F.layer_norm(x.float(), (x.shape[-1],), g, be, 1e-6).to(dt)  # noqa: E731
+        wqd = wq.materialize(xdt)
+        return {
+            "bf16w": (lambda: lqa.ln_qkv(x, g, be, w, wb),
+                      lambda: lqa.ln_qkv_plain(x, g, be, w, wb),
+                      lambda: F.linear(ln(b16), w, wb.to(b16)), False),
+            "int8w": (lambda: lqa.ln_qkv_q8(x, g, be, wq.q, wq.scale, wb),
+                      lambda: lqa.ln_qkv_q8_plain(x, g, be, wq.q, wq.scale, wb),
+                      lambda: F.linear(ln(xdt), wqd, wb.to(xdt)), xdt == torch.float32)}
+
+    worst, bitwise_64, checks = {}, {}, 0
+    times = {}
+    for label, b, c, f in LM_SHAPES:
+        for n, x_dtype in ((321, b16), (361, torch.float32)):
+            x, g, be, w, wb, wq = args = case(b, n, c, f, x_dtype)
+            xt = "fp32" if x_dtype == torch.float32 else "bf16"
+            what = f"{label} B={b} N={n} C={c} F={f}"
+            for wt, (kern, plain, lib, f32) in fns(*args).items():
+                inst = f"ln_qkv[{xt}x-{wt}-lm]"
+                if not lqa.takes_large_m(b * n, torch.int8 if wt == "int8w" else b16):
+                    raise AssertionError(f"{inst} {what}: the rows take the 64-row body")
+                before = build.body_counts().get(inst, 0)
+                got, again = kern(), kern()
+                small = on_64row(kern)()
+                torch.cuda.synchronize()
+                if build.body_counts().get(inst, 0) != before + 2:
+                    raise AssertionError(f"{inst} {what}: not launched on the large-M body")
+                want = plain()
+                if got.dtype != want.dtype or got.shape != want.shape:
+                    raise AssertionError(f"{inst} {what}: {got.dtype}{tuple(got.shape)} vs "
+                                         f"plain {want.dtype}{tuple(want.shape)}")
+                atol, rtol = (F32_ATOL, F32_RTOL) if f32 else (KERNEL_ATOL["ln_qkv"],
+                                                               KERNEL_RTOL)
+                d = (got.float() - want.float()).abs()
+                e = float(d.max())
+                if not bool((d <= atol + rtol * want.float().abs()).all()):
+                    raise AssertionError(f"{inst} {what}: max abs err {e} over tolerance")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{inst} {what}: a second call differs")
+                worst[inst] = max(worst.get(inst, 0.0), e)
+                same = bool(torch.equal(got, small))
+                bitwise_64[inst] = bitwise_64.get(inst, 0) + same
+                checks += 1
+                if label not in LM_TIMED[wt]:
+                    continue
+                m, xb = b * n, x.element_size()
+                wbytes = f * c * (1 if wt == "int8w" else 2) + f * 4 * (2 if wt == "int8w" else 1)
+                passes = 2 if f32 else 1  # an fp32 x against an int8 W: hi and lo
+                b_ms, b_by = bound(passes * 2 * m * c * f,
+                                   m * c * xb + wbytes + 2 * c * 4 + m * f * got.element_size())
+                t = {**timings(kern, plain, lib), "bound_ms": b_ms, "bound_by": b_by,
+                     "library": ("F.layer_norm + F.linear, 2 calls" if wt == "bf16w" else
+                                 "F.layer_norm + F.linear, dequantized W in x's dtype"),
+                     "body_64row_ms": cuda_time_ms(on_64row(kern)),
+                     "body_64row_device_ms": graph_time_ms(on_64row(kern))[0]}
+                times.setdefault(label, {}).setdefault(f"N{n}", {})[inst] = t
+    emit({"phase": "large_m_qkv_check", "shapes": LM_SHAPES, "checks": checks,
+          "tolerance": {"bf16 out": "KERNEL_ATOL['ln_qkv'] + KERNEL_RTOL*|plain|",
+                        "fp32 out (fp32x-int8w)": f"{F32_ATOL} + {F32_RTOL}*|plain|"},
+          "repeatable": "bitwise, two calls at every shape",
+          "bitwise_vs_64row_body": {k: f"{v} of {checks // 4}" for k, v in bitwise_64.items()},
+          "max_abs_err": worst})
+    emit({"phase": "large_m_qkv_times", "timer": TIMER, "timed": LM_TIMED,
+          "body_64row": "the same call on the 64-row body (LARGE_M_ROWS above the rows): "
+                        "the route these rows took before",
+          "times": times})
+    return worst, times
+
 # ------------------------------------------------------------------ phase 3
 def frame_work(model, nt: int) -> dict:
     """Operations and weight bytes of one tracked frame, counted from the
@@ -5226,7 +5357,12 @@ def main() -> int:
         q8_worst, q8_times = q8_kernel_phase(dev, args.seed)
         fused_worst, fused_times = fused_kernel_phase(dev, args.seed)
         tp_kern = tp_kernel_phase(dev, args.seed)
+        lm_kern = large_m_qkv_phase(dev, args.seed)
         emit({"phase": "kernels_group", "seconds": time.perf_counter() - t0})
+    # ln_qkv's launches by body on the paths below (the kernels line's rows
+    # of its bf16 and int8 weights); the kernel checks of later groups are
+    # set aside
+    build.reset_body_counts()
 
     from uvltrack_tpu_torch.config import load_cfg
     from uvltrack_tpu_torch.core.tokenizer import BertTokenizer
@@ -5305,10 +5441,12 @@ def main() -> int:
         import tempfile
 
         # kernels #1, #2 and #5 at UVLTrack-L's width, then the eval runs
+        bodies = build.body_counts()
         l_worst, l_times = kernel_phase(dev, args.seed, L_WIDTH, L_HEADS, l_grid(), "_L")
         l_q8_worst, l_q8_times = q8_kernel_phase(
             dev, args.seed, L_WIDTH, L_HEADS, l_grid(), "_L",
             names=("ln_qkv[", "#5", "qkv_attention[fp32]"))
+        build.reset_body_counts(bodies)
         large = {"worst": l_worst, "times": l_times, "q8_worst": l_q8_worst,
                  "q8_times": l_q8_times}
         write_vocab(vocab, list(EVAL_WORDS) + language.split(), args.seed)
@@ -5320,7 +5458,9 @@ def main() -> int:
         import tempfile
 
         # the Functions alone, then B-TRAIN (counts from 0 just before it)
+        bodies = build.body_counts()
         function_phase(dev, args.seed)
+        build.reset_body_counts(bodies)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
             train_counts = train_phase(args, dev, Path(tmp))
     if "data" in only:
@@ -5365,7 +5505,7 @@ def main() -> int:
     lb = f"B{LOCKSTEP_B}_"
     return finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst,
                   q8_times, fused_worst, fused_times, large, train_counts, cli_counts["f32w"],
-                  tp_kern)
+                  tp_kern, lm_kern, build.body_counts())
 
 
 def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, language,
@@ -5404,7 +5544,8 @@ def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, langu
 
 
 def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst, q8_times,
-           fused_worst, fused_times, large, train_counts, f32w, tp_kern) -> int:
+           fused_worst, fused_times, large, train_counts, f32w, tp_kern, lm_kern,
+           bodies) -> int:
     """The kernels line, the compositions and per-launch lines, the total,
     the nvidia-smi line and the ok line. `large`: the kernel checks and
     times at UVLTrack-L's width, which the rows of the instantiations on
@@ -5414,7 +5555,11 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
     ln_qkv[fp32x-fp32w] (its row carries its C=1024 times under "C1024");
     `tp_kern`: tp_kernel_phase's checks and times, which the rows of the
     instantiations on the tp=2 step carry under "tp" (TP_SHAPES), and the
-    two fc2 fp32-out rows, whose only path is that step, at B_tp2."""
+    two fc2 fp32-out rows, whose only path is that step, at B_tp2; `lm_kern`:
+    large_m_qkv_phase's checks and times, the rows of ln_qkv's large-M
+    instantiations (`-lm`); `bodies`: build.body_counts() over every path
+    run (the kernel checks set aside), the launches of ln_qkv's bf16- and
+    int8-weight rows by body (`-64`, `-lm`)."""
     def at(table, shape, name):
         """A kernel's times at one shape, at B=1 and (under its key) at the
         lockstep batch."""
@@ -5424,9 +5569,13 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
 
     # (name, source, TPU kernel line, launches, worst error, times at the
     # instantiation's main-path shape)
+    def on_64row(inst):
+        """an instantiation's launches on the 64-row body"""
+        return bodies.get(inst[:-1] + "-64]", 0)
+
     rows = [
         ("ln_qkv", f"{src}/ln_qkv.cu", 167,
-         launches.get("ln_qkv[bf16x-bf16w]", 0) + launches.get("ln_qkv[fp32x-bf16w]", 0),
+         on_64row("ln_qkv[bf16x-bf16w]") + on_64row("ln_qkv[fp32x-bf16w]"),
          worst["ln_qkv"], at(times, "N361_fp32x_flag0", "ln_qkv")),
         ("qkv_attention", f"{src}/qkv_attention.cu", 119,
          launches.get("qkv_attention[bf16]", 0), worst["qkv_attention"],
@@ -5440,8 +5589,8 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                               ("proj_residual[bf16x-bf16a-int8w]", 489, "N321_bf16x_open"),
                               ("proj_residual[fp32x-fp32a-int8w]", 489, "N361_fp32x_flag0")):
         source = f"{src}/{name.split('[')[0]}.cu"
-        rows.append((name, source, line, launches.get(name, 0), q8_worst[name],
-                     at(q8_times, shape, name)))
+        n = on_64row(name) if name.startswith("ln_qkv[") else launches.get(name, 0)
+        rows.append((name, source, line, n, q8_worst[name], at(q8_times, shape, name)))
     # fp32 compute (the fp32 weights of export and parity): kernel #1's
     # prefix, #4's epilogue, #7, and the planes' split (the pre-pass of the
     # three, counted under #1, whose fp32 path needed it first)
@@ -5468,11 +5617,23 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                      tp_worst[share],
                      {k: v for k, v in tp_times["B_tp2"][shape][share].items()
                       if k != "library"}))
+    # ln_qkv at B.N rows on the large-M body: each instantiation at its
+    # main-path shape (LM_ROW_SHAPE), its other timed shapes under "shapes"
+    lm_worst, lm_times = lm_kern
+    lm_rows = []
+    for tag, (label, n) in LM_ROW_SHAPE.items():
+        name = f"ln_qkv[{tag}-lm]"
+        lm_rows.append((name, f"{src}/ln_qkv.cu", 433 if "int8w" in tag else 167,
+                        bodies.get(name, 0), lm_worst[name],
+                        {k: v for k, v in lm_times[label][f"N{n}"][name].items()
+                         if k != "library"}))
+    rows += lm_rows
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": f"{TPU_KERNEL}:{line}", "launches": n,
-                "graph_launches": sum(glaunch.get(i, 0) for i in NAMED_BY_BASE.get(name, (name,))),
-                "train_launches": sum(train_counts.get(i, 0)
-                                      for i in NAMED_BY_BASE.get(name, (name,))),
+                "graph_launches": sum(glaunch.get(i, 0) for i in NAMED_BY_BASE.get(
+                    name, (name.replace("-lm]", "]"),))),
+                "train_launches": sum(train_counts.get(i, 0) for i in NAMED_BY_BASE.get(
+                    name, (name.replace("-lm]", "]"),))),
                 "max_abs_err": err, **t}
                for name, source, line, n, err, t in rows]
     # UVLTrack-L's width (C=1024, H=16): the instantiations its BBOX/NLBBOX
@@ -5511,6 +5672,21 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
             k["note"] = ("a tensor-parallel rank's fp32 share before the bias, on the core's "
                          "large-M body; launches: the parallel group's tp=2 train steps, its "
                          "main path; times at B_tp2 (K=384, F=1536)")
+    for k in kernels:
+        if k["name"].endswith("-lm]"):
+            k["shapes"] = {f"{label}_{n}": {q: v for q, v in t[k["name"]].items()
+                                            if q != "library"}
+                           for label, by_n in lm_times.items() for n, t in by_n.items()
+                           if k["name"] in t}
+            k["note"] = ("the large-M body at B.N rows (M >= LARGE_M_ROWS); launches: every "
+                         "path's eager calls on it (build.body_counts); graph_launches and "
+                         "train_launches: the instantiation's tag, both bodies")
+        elif k["name"].startswith("ln_qkv[") and "fp32w" not in k["name"] or \
+                k["name"] == "ln_qkv":
+            k["note"] = (f"the 64-row body (M < LARGE_M_ROWS); launches: every path's eager "
+                         f"calls on it (build.body_counts); graph_launches and train_launches: "
+                         f"the tag's, both bodies; the {lb.rstrip('_')} times: the large-M "
+                         f"body, which those rows take")
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

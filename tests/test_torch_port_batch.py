@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from test_torch_port_model import make_pair
+from test_torch_port_nl import ground_from_jax, share_jax_state
 from test_torch_port_tracker import BOXES
 from test_tracker import tiny_cfg
 from uvltrack_tpu.core.tokenizer import BertTokenizer as JTok
@@ -96,16 +97,30 @@ def _freeze_1(t):
     return np.array([True, t not in (2, 3), True])
 
 
-def test_batch_tracker_matches_jax_frame_by_frame(built):
+def _init_from_jax(monkeypatch, jbt, bt):
+    """Both trackers initialized on frames of seed 100: the NL stream's
+    grounding boxes within 1e-3 px, then the port's init again from the JAX
+    boxes (the shared state; the init's forced mask cell is a near-tie on
+    the box's last bits: test_torch_port_nl.py). Returns both inits."""
+    args = (_frames(100, 3), INIT)
+    kw = dict(languages=[SENTENCE] * 3, modes=MODES)
+    j_init, t_init = jbt.initialize(*args, **kw), bt.initialize(*args, **kw)
+    np.testing.assert_allclose(t_init, j_init, **BOX_TOL)
+    ground_from_jax(monkeypatch, bt, [j_init[i] for i, m in enumerate(MODES) if m == "NL"])
+    np.testing.assert_array_equal(bt.initialize(*args, **kw), j_init)
+    np.testing.assert_array_equal(bt.template_mask.numpy(), np.asarray(jbt.template_mask))
+    return j_init, t_init
+
+
+def test_batch_tracker_matches_jax_frame_by_frame(built, monkeypatch):
     """BBOX, NLBBOX and NL streams side by side, re-mines every 2 frames,
-    stream 1 frozen for two steps (its box and frame_id unchanged)."""
+    stream 1 frozen for two steps (its box and frame_id unchanged); each
+    step from the JAX state."""
     jbt = built[4]
     bt = _port(built)
-    j_init = jbt.initialize(_frames(100, 3), INIT, languages=[SENTENCE] * 3, modes=MODES)
-    t_init = bt.initialize(_frames(100, 3), INIT, languages=[SENTENCE] * 3, modes=MODES)
+    j_init, t_init = _init_from_jax(monkeypatch, jbt, bt)
     # flags by the BatchTracker's rule: 0 for BBOX, 2 for a text mode
     assert bt.flags.tolist() == np.asarray(jbt.flags).tolist() == [0, 2, 2]
-    np.testing.assert_allclose(t_init, j_init, **BOX_TOL)
     np.testing.assert_array_equal(t_init[:2], INIT[:2])
     assert not np.allclose(t_init[2], INIT[2])  # NL: grounded, the given box ignored
     np.testing.assert_allclose(bt.state.prompt.numpy(), np.asarray(jbt.state.prompt),
@@ -115,6 +130,7 @@ def test_batch_tracker_matches_jax_frame_by_frame(built):
         jbt.set_active(active)
         bt.set_active(active)
         frames = np.stack(_frames(101 + t, 3))
+        share_jax_state(bt, jbt)
         before = bt.state.box.clone()
         ref, out = jbt.step(frames), bt.step(frames)
         np.testing.assert_allclose(out[:, :4], ref[:, :4], **BOX_TOL)
@@ -130,22 +146,24 @@ def test_batch_tracker_matches_jax_frame_by_frame(built):
     assert bt.remines.tolist() == [3, 2, 3]  # frames 2, 4, 6; stream 1: 2, 4
 
 
-def test_uncached_text_matches_jax(built):
+def test_uncached_text_matches_jax(built, monkeypatch):
     """TPU.CACHE_TEXT=False at batch S: both step forward_test on the raw
     text ids (BERT each frame) and agree frame by frame, re-mines
-    included."""
+    included, each step from the JAX state."""
     jm, v, _, vocab, _ = built
     jbt = JBatchTracker(_cfg(CACHE_TEXT=False), jm, v, 3, tokenizer=JTok(vocab))
     bt = _port(built, CACHE_TEXT=False)
     assert not bt.cache_text
-    ref, out = _lockstep(jbt, 3), _lockstep(bt, 3)
+    _init_from_jax(monkeypatch, jbt, bt)
     assert bt.txt.dtype == torch.int32
-    for r, o in zip(ref, out):
+    for t in range(3):
+        frames = np.stack(_frames(101 + t, 3))
+        share_jax_state(bt, jbt)
+        r, o = jbt.step(frames), bt.step(frames)
         np.testing.assert_allclose(o[:, :4], r[:, :4], **BOX_TOL)
-        if o.shape[1] == 5:
-            np.testing.assert_allclose(o[:, 4], r[:, 4], **SCORE_TOL)
-    np.testing.assert_allclose(bt.state.prompt.numpy(), np.asarray(jbt.state.prompt),
-                               **SCORE_TOL)
+        np.testing.assert_allclose(o[:, 4], r[:, 4], **SCORE_TOL)
+        np.testing.assert_allclose(bt.state.prompt.numpy(), np.asarray(jbt.state.prompt),
+                                   **SCORE_TOL)
 
 
 # ------------------------------------------------ against single Trackers

@@ -4,7 +4,16 @@ without a prompt) and the tracker's grounding init, at the tiny geometry of
 tests/test_torch_port_model.py (C=32, 4 blocks, 32/64 px crops as in
 experiments/uvltrack/_smoke_cpu.yaml, 8 text tokens). fp32; model outputs
 within 1e-4, grounding boxes within 1e-3 px, letterboxes within 1e-4.
+
+An NL init is compared in two parts: the grounding box of each tracker
+(1e-3 px), then the prompt init of both from the JAX box, a shared state
+(test_nl_init_centre_cell_is_a_near_tie records why). The NL trackers of
+test_torch_port_tracker.py and test_torch_port_batch.py do the same through
+ground_from_jax and share_jax_state, and step from the JAX state each frame,
+as chip_smoke.py's paired_ab does on the card.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +33,8 @@ from uvltrack_tpu_torch.track import pipeline
 from uvltrack_tpu_torch.track.tracker import Tracker
 
 ATOL = RTOL = 1e-4
+STATE_KEYS = ("box", "prompt", "max_score", "best_box_net", "best_search", "best_template",
+              "best_vis_token", "best_txt_token")
 WORDS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "a", "red", "box", "the", "moving"]
 
 
@@ -149,15 +160,98 @@ def test_grounding_box_matches_jax(trackers, hw):
     assert all(isinstance(x, float) for x in out)
 
 
-def test_nl_initialize_sets_the_grounding_box_and_flag_2(trackers):
+def ground_from_jax(monkeypatch, port, boxes):
+    """The port tracker's NL streams take their grounding boxes from
+    `boxes` (the JAX tracker's, in stream order) on its next initialize:
+    its prompt init then starts from the JAX box."""
+    rows = iter(np.asarray(boxes, np.float32).reshape(-1, 4))
+    if hasattr(port, "_grounding"):  # Tracker
+        monkeypatch.setattr(port, "_grounding", lambda image: [float(v) for v in next(rows)])
+    else:  # BatchTracker
+        monkeypatch.setattr(port, "ground", lambda *a: next(rows))
+
+
+def share_jax_state(port, jax_tracker):
+    """Load the JAX tracker's state into the port's (Tracker: JAX shapes
+    without the stream axis; BatchTracker: (S, ...)), so the next step of
+    both starts from one state, as paired_ab does; the port keeps its own
+    active flags."""
+    st, js = port.state, jax_tracker.state
+    new = {k: torch.from_numpy(np.array(getattr(js, k), np.float32)).reshape(
+        getattr(st, k).shape) for k in STATE_KEYS}
+    new["frame_id"] = np.asarray(js.frame_id, np.int64).reshape(st.frame_id.shape).copy()
+    port.state = dataclasses.replace(st, **new)
+
+
+NL_FRAME = np.random.default_rng(3).integers(0, 255, size=(80, 100, 3)).astype(np.uint8)
+NL_INFO = {"language": "a red box moving"}
+
+
+def test_nl_initialize_sets_the_grounding_box_and_flag_2(trackers, monkeypatch):
+    """The grounding box within 1e-3 px; then the port's init from the JAX
+    box: its prompt within 1e-4 and its template mask equal to JAX's."""
     jt, tt = trackers
-    frame = np.random.default_rng(3).integers(0, 255, size=(80, 100, 3)).astype(np.uint8)
-    info = {"language": "a red box moving"}
-    ref, out = jt.initialize(frame, info), tt.initialize(frame, info)
+    ref, out = jt.initialize(NL_FRAME, NL_INFO), tt.initialize(NL_FRAME, NL_INFO)
     np.testing.assert_allclose(out["target_bbox"], ref["target_bbox"], atol=1e-3, rtol=0)
     # the Tracker's state is the lockstep state at S=1: box (1, 4)
     np.testing.assert_allclose(tt.state.box[0].numpy(), out["target_bbox"], rtol=1e-6)
     assert int(tt.flag[0]) == int(jt.flag[0]) == 2
     np.testing.assert_array_equal(tt.text_mask.numpy(), np.asarray(jt.text_mask))
+    ground_from_jax(monkeypatch, tt, ref["target_bbox"])
+    assert tt.initialize(NL_FRAME, NL_INFO)["target_bbox"] == list(ref["target_bbox"])
+    assert int(tt.flag[0]) == 2
+    np.testing.assert_array_equal(tt.template_mask.numpy(), np.asarray(jt.template_mask))
     np.testing.assert_allclose(tt.state.prompt.numpy(), np.asarray(jt.state.prompt),
                                atol=1e-4, rtol=1e-4)
+
+
+def _centre_cells(box, factor: float, size: int):
+    """anno2mask's forced cell of the crop-normalized box on a size x size
+    grid: (cx, cy), and the centre's distance to its nearest cell edge in
+    crop pixels."""
+    b = torch.from_numpy(np.asarray([box], np.float32))
+    bx = geometry.box_xywh_to_xyxy(geometry.crop_box_normalized(b, factor))[0] * size
+    ctr = torch.stack([bx[0] + bx[2], bx[1] + bx[3]]) / 2
+    cell_px = float(torch.ceil(torch.sqrt(b[0, 2] * b[0, 3]) * factor)) / size
+    return (tuple(torch.floor(ctr).int().tolist()),
+            ((ctr - torch.round(ctr)).abs() * cell_px).tolist())
+
+
+def test_nl_init_centre_cell_is_a_near_tie(trackers):
+    """Why an NL init is compared from a shared box. anno2mask forces on the
+    cell that holds the box centre, and the crop-normalized box is centred
+    by construction: on the even grids (2x2 template, 4x4 search) its
+    centre is the cell edge size/2 up to fp32 rounding, which the box's last
+    bits decide. So the JAX and port grounding boxes, within 1e-3 px (fp32
+    noise of the two grounding forwards, ~1e-5 px), may set different cells,
+    and the prompt mined from them differs by whole units. Held here: both
+    boxes put the centre within 4 ulps of the edge; a change of at most 8
+    ulps of the box's w or h (< 1e-4 px) reaches both sides of it on each
+    grid; and the JAX and port masks are equal for either box, so the flip
+    is the box's, not the port's arithmetic."""
+    jt, tt = trackers
+    ref, out = jt.initialize(NL_FRAME, NL_INFO), tt.initialize(NL_FRAME, NL_INFO)
+    jbox = np.float32(ref["target_bbox"])
+    pbox = np.float32(out["target_bbox"])
+    np.testing.assert_allclose(pbox, jbox, atol=1e-3, rtol=0)
+    for factor, crop in ((tt.template_factor, tt.template_size),
+                         (tt.search_factor, tt.search_size)):
+        size = crop // 16
+        assert size % 2 == 0
+        for box in (jbox, pbox):
+            _, margin = _centre_cells(box, factor, size)
+            cell_px = np.ceil(np.sqrt(box[2] * box[3]) * factor) / size
+            assert max(margin) <= 4 * np.spacing(np.float32(size / 2)) * cell_px < 1e-4
+            nb = geometry.crop_box_normalized(torch.from_numpy(box[None]), factor)
+            np.testing.assert_array_equal(
+                geometry.anno2mask(nb, size).numpy(),
+                np.asarray(jgeo.anno2mask(jnp.asarray(nb.numpy()), size)))
+        cells = set()
+        for j in (2, 3):
+            for toward in (-np.inf, np.inf):
+                nudged = jbox.copy()
+                for _ in range(8):
+                    nudged[j] = np.nextafter(nudged[j], np.float32(toward))
+                    cells.add(_centre_cells(nudged, factor, size)[0])
+        assert abs(nudged[3] - jbox[3]) < 1e-4
+        assert len(cells) >= 2, (factor, cells)

@@ -23,10 +23,11 @@
 //     or fp32 with an fp32 W (and then an fp32 out);
 //   - SPLITK_RESIDUAL (proj_residual): A is the attention output (M, K), bf16
 //     or fp32, and out = x + TX(proj) in x's type TX;
-//   - GEMM_F32OUT: out = A . W^T (+ b) in fp32, bf16 A; with LN_BIAS_GELU on
-//     rows normalized beforehand, the kinds of the large-M body (its own
-//     section below): a tensor-parallel rank's shares of #4's projection and
-//     of #7 at a training step's B.N rows.
+//   - GEMM_F32OUT: out = A . W^T (+ b) in fp32, bf16 A; with LN_BIAS and
+//     LN_BIAS_GELU on rows normalized beforehand, the kinds of the large-M
+//     body (its own section below): ln_qkv at B.N rows (a lockstep step's,
+//     a training step's), and a tensor-parallel rank's shares of #4's
+//     projection and of #7.
 //
 // Bound on the H100: at the tracking step's shapes (M = 321/361 tokens, C =
 // 768) every one of these products moves 0.6-10 MB and needs 0.4-3.4 GFLOP of
@@ -1185,14 +1186,29 @@ ln_hilo_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 // ----------------------------------------------- the large-M body (B.N rows)
-// The plain products of many rows (M = B.N tokens of a batch: the 5,776 rows
-// of a training step's tensor-parallel shares):
+// The plain products of many rows (M = B.N tokens of a batch: a lockstep
+// step's S.N rows, a training step's 16.N):
 //   - GEMM_F32OUT: out (M, N_out) fp32 = A . W^T (+ b);
+//   - LN_BIAS: out (M, N_out) = TO(A . W^T (* s) + b), A the rows normalized
+//     once by ln_rows_kernel (ln_qkv at M >= LARGE_M_ROWS of
+//     ops/ln_qkv_attention.py): a bf16 out for a bf16 W (#1) and for the
+//     int8 W of a bf16 x (#5, the payload converted to bf16 once a call by
+//     i8_to_bf16_kernel, exact; s the per-row scale, in the epilogue); an
+//     fp32 out for the int8 W of an fp32 x, whose normalized rows stay fp32
+//     as hi and lo bf16 halves (ALO: A is (M, 2K), hi | lo, and each k-tile
+//     runs hi.W then lo.W, 16 deep at a time, the 64-row body's order);
 //   - LN_BIAS_GELU: out (M, N_out) bf16 = gelu(A . W^T + b), A the rows
 //     normalized once by ln_rows_kernel (fc1 of a rank's MLP share);
 // A (M, K) and W (N_out, K) bf16. At that M the output tiles alone fill the
 // card, so K is not split: each tile sums its k-tiles in order, and two
-// calls give the same bits. Tiles of 128 x BN, one per block at a time, on a
+// calls give the same bits. At B.N rows the 64-row LN body above lost
+// 2.5-3.3x to this one (device time, ln_qkv at B = 4-16): its every column
+// tile normalizes its 64 rows again (F/128 = 18 times at F = 2,304), and its
+// 828 tiles at B=8 run in waves with no product under the next tile's
+// prologue. The tracking step's B=1 rows (321/361) stay on the 64-row body,
+// one launch where this entry makes two (three with int8), though this body
+// is the faster there too in device time (9.2 against 12.8 us). Tiles of
+// 128 x BN, one per block at a time, on a
 // persistent grid of min(tiles, SMs) blocks, block i taking tiles i T/G ..
 // (i+1) T/G - 1 in row-block-major order:
 //   - a producer warpgroup, one lane of which streams the A k-tile (128
@@ -1207,7 +1223,10 @@ ln_hilo_kernel(const __grid_constant__ CUtensorMap map_x,
 //     in shared memory, 128 columns at a time, and stores them by TMA
 //     (cp.async.bulk.tensor, boxes of 64 rows x 128 bytes in the 128-byte
 //     swizzle, conflict-free for the accumulator fragments), which runs
-//     while the next tile's products do. LN_BIAS_GELU first turns the
+//     while the next tile's products do. A bf16 LN_BIAS out is rounded from
+//     the fragments straight into bf16 boxes of 64 columns, all BN columns
+//     at once (the same 32 KB a warpgroup as 128 fp32 columns), and stored
+//     the same way. LN_BIAS_GELU first turns the
 //     staged rows into their exact GELU in bf16 (gelu_staged), with many
 //     GELUs in flight a thread once the accumulators are dead: applied to
 //     the fragments, the GELUs took longer than fc1's products.
@@ -1224,16 +1243,20 @@ constexpr int LBM = 2 * BM;  // rows of a large-M tile: 64 a consumer warpgroup
 constexpr int LM_THREADS = CONSUMERS + 128;  // + a producer warpgroup (one lane streams)
 
 // Byte offsets from the 1024-aligned base: the ring (a: STAGES A k-tiles of
-// 128 rows; w: STAGES W k-tiles of BN rows), the staged output of each
-// warpgroup (out: 64 rows x OUT_CH columns in fp32, the product and bias;
-// out16: LN_BIAS_GELU's GELU of it in bf16), the full/empty barriers.
-template <int KIND, int BN, int STAGES>
+// 128 rows, with ALO the hi tile then the lo tile; w: STAGES W k-tiles of BN
+// rows), the staged output of each warpgroup (out: 64 rows x OUT_CH columns
+// in fp32, the product and bias, or, for a bf16 LN_BIAS out, all BN columns
+// in bf16; out16: LN_BIAS_GELU's GELU of it in bf16), the full/empty
+// barriers.
+template <int KIND, typename TO, int BN, int STAGES, bool ALO>
 struct LargeMPlan {
   static constexpr bool GELU = KIND == LN_BIAS_GELU;
-  static constexpr int A_STAGE = LBM * BK * 2;
+  static constexpr bool B16OUT = KIND == LN_BIAS && std::is_same<TO, bf16>::value;
+  static constexpr int A_TILE = LBM * BK * 2;  // one 128-row A k-tile
+  static constexpr int A_STAGE = (ALO ? 2 : 1) * A_TILE;
   static constexpr int W_STAGE = BN * BK * 2;
-  static constexpr int OUT_CH = BN < 128 ? BN : 128;  // columns staged at a time
-  static constexpr int F32_WG = BM * OUT_CH * 4;
+  static constexpr int OUT_CH = B16OUT ? BN : BN < 128 ? BN : 128;  // columns staged at a time
+  static constexpr int F32_WG = BM * OUT_CH * (B16OUT ? 2 : 4);
   static constexpr int B16_WG = GELU ? BM * OUT_CH * 2 : 0;
   static constexpr int a = 0;
   static constexpr int w = STAGES * A_STAGE;
@@ -1307,11 +1330,14 @@ __device__ __forceinline__ void gelu_staged(const uint8_t* __restrict__ f32,
 
 // The LN of the rows of x (M, C) into y (M, C) bf16, one warp a row, with
 // ln_rows_to_smem's arithmetic (fp32 sums in its order, fast variance
-// clamped at 0, rsqrtf, one rounding): the A operand of LN_BIAS_GELU, so that
-// no tile normalizes its rows again. Each lane owns the 16-byte chunks ch =
-// lane + 32j of its row, and loads its gamma and beta with its x, so the row
-// waits on one round trip; rows read once, with 16-byte loads.
-template <typename TX>
+// clamped at 0, rsqrtf, one rounding): the A operand of the large-M LN
+// kinds, so that no tile normalizes its rows again. HILO: the normalized
+// row stays fp32 as its hi and lo bf16 halves (split_bf16, as
+// ln_rows_to_smem's HILO writes them), y (M, 2C), the hi half of a row in
+// columns 0..C-1 and its lo half after it. Each lane owns the 16-byte
+// chunks ch = lane + 32j of its row, and loads its gamma and beta with its
+// x, so the row waits on one round trip; rows read once, with 16-byte loads.
+template <typename TX, bool HILO = false>
 __global__ void __launch_bounds__(256)
 ln_rows_kernel(const TX* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, bf16* __restrict__ y, int M, int C, float eps) {
@@ -1354,11 +1380,32 @@ ln_rows_kernel(const TX* __restrict__ x, const float* __restrict__ gamma,
         o[e] = (v[j][e] - mean) * rstd;
         o[e] = o[e] * g[j][e] + be[j][e];
       }
-      *reinterpret_cast<uint4*>(y + static_cast<size_t>(row) * C + ch * 8) =
-          make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]), pack_bf16(o[4], o[5]),
-                     pack_bf16(o[6], o[7]));
+      if constexpr (HILO) {
+        uint8_t* hi = reinterpret_cast<uint8_t*>(y + static_cast<size_t>(row) * 2 * C);
+        store_split8(o, hi, hi + C * 2, ch * 16);
+      } else {
+        *reinterpret_cast<uint4*>(y + static_cast<size_t>(row) * C + ch * 8) =
+            make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]), pack_bf16(o[4], o[5]),
+                       pack_bf16(o[6], o[7]));
+      }
     }
   }
+}
+
+// An int8 W payload (n values, n % 16 == 0) -> bf16, exact (|q| <= 127):
+// the large-M body's W operand for the int8 kinds, converted once a call
+// (the 64-row body converts every W tile in each of its row blocks). 16
+// values a thread, one 16-byte load and two 16-byte stores.
+__global__ void __launch_bounds__(256)
+i8_to_bf16_kernel(const int8_t* __restrict__ w, bf16* __restrict__ out, size_t n) {
+  const size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 16;
+  if (i >= n) return;
+  const uint4 v = *reinterpret_cast<const uint4*>(w + i);
+  const uint2 a = i8x4_to_bf16x4(v.x), b = i8x4_to_bf16x4(v.y);
+  const uint2 c = i8x4_to_bf16x4(v.z), d = i8x4_to_bf16x4(v.w);
+  uint4* o = reinterpret_cast<uint4*>(out + i);
+  o[0] = make_uint4(a.x, a.y, b.x, b.y);
+  o[1] = make_uint4(c.x, c.y, d.x, d.y);
 }
 
 // --------------------------------------------------------------- host side
@@ -1487,21 +1534,25 @@ namespace {
 // The large-M body (see its section above): a persistent grid over the
 // 128 x BN tiles. Internal linkage, as the launchers: proj_residual.cu and
 // ln_mlp.cu both instantiate GEMM_F32OUT, and each library registers and
-// launches its own copy.
-template <int KIND, typename TO, int BN, int STAGES>
+// launches its own copy. SCALE: an int8 W's per-row scale multiplies the
+// accumulator (wscale); ALO: A is (M, 2K), hi | lo halves of fp32 rows.
+template <int KIND, typename TO, int BN, int STAGES, bool SCALE, bool ALO>
 __global__ void __launch_bounds__(LM_THREADS, 1)
 large_m_kernel(const __grid_constant__ CUtensorMap map_a,
                const __grid_constant__ CUtensorMap map_w,
-               const __grid_constant__ CUtensorMap map_out, const float* __restrict__ bias,
-               int M, int K, int N_out) {
-  using P = LargeMPlan<KIND, BN, STAGES>;
+               const __grid_constant__ CUtensorMap map_out, const float* __restrict__ wscale,
+               const float* __restrict__ bias, int M, int K, int N_out) {
+  using P = LargeMPlan<KIND, TO, BN, STAGES, ALO>;
   constexpr bool GELU = P::GELU;
+  constexpr bool B16OUT = P::B16OUT;
   constexpr int OUT_BOX = 128 / sizeof(TO);  // columns of one 128-byte output box
   static_assert(BN % 64 == 0 && P::OUT_CH % 64 == 0 && BN <= 256,
                 "BN: wgmma's n, whole output boxes of either type");
   static_assert(GELU ? std::is_same<TO, bf16>::value
-                     : (KIND == GEMM_F32OUT && std::is_same<TO, float>::value),
-                "GEMM_F32OUT: an fp32 out; LN_BIAS_GELU: a bf16 out");
+                     : KIND == LN_BIAS || (KIND == GEMM_F32OUT && std::is_same<TO, float>::value),
+                "GEMM_F32OUT: an fp32 out; LN_BIAS_GELU: a bf16 out; LN_BIAS: either");
+  static_assert(!(SCALE || ALO) || KIND == LN_BIAS, "an int8 W's scale, hi/lo A: LN_BIAS");
+  static_assert(!ALO || std::is_same<TO, float>::value, "hi/lo rows: an fp32 out");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -1541,6 +1592,9 @@ large_m_kernel(const __grid_constant__ CUtensorMap map_a,
           const uint32_t bar = smem_u32(full + s);
           mbar_expect_tx(bar, P::A_STAGE + P::W_STAGE);
           tma_load_2d(smem_u32(a_ring + s * P::A_STAGE), &map_a, kt * BK, m0, bar);
+          if constexpr (ALO)  // the lo half's tile after the hi half's
+            tma_load_2d(smem_u32(a_ring + s * P::A_STAGE + P::A_TILE), &map_a, K + kt * BK, m0,
+                        bar);
           tma_load_2d(smem_u32(w_ring + s * P::W_STAGE), &map_w, kt * BK, n0, bar);
         }
       }
@@ -1572,8 +1626,11 @@ large_m_kernel(const __grid_constant__ CUtensorMap map_a,
       fence_operands(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk) {
         wgmma<BN>(acc, desc_sw128(a_tile + kk * 32), desc_sw128(w_tile + kk * 32));
+        if constexpr (ALO)
+          wgmma<BN>(acc, desc_sw128(a_tile + P::A_TILE + kk * 32), desc_sw128(w_tile + kk * 32));
+      }
       wgmma_commit();
       // one k-tile's products stay in flight: the one before is done, and
       // its ring stage is free
@@ -1585,9 +1642,48 @@ large_m_kernel(const __grid_constant__ CUtensorMap map_a,
     fence_operands(acc);
     mbar_arrive(smem_u32(empty + (g - 1) % STAGES));
 
-    // ---- epilogue, OUT_CH columns at a time: the fp32 product (+ b) into
-    // the staged rows once the warpgroup's previous stores have read them,
-    // (LN_BIAS_GELU: its GELU in bf16, gelu_staged) then TMA stores
+    if constexpr (B16OUT) {
+      // ---- bf16 epilogue: bf16(acc (* s) + b) of all BN columns into the
+      // staged boxes once the warpgroup's previous stores have read them
+      // (each 8-lane phase writes 8 rows' distinct chunks), then TMA stores
+      if (t == 0) bulk_wait_read();
+      named_barrier_sync(wg_bar, 128);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = j * 8 + (t % 4) * 2;
+        float2 b = make_float2(0.f, 0.f), sc = make_float2(1.f, 1.f);
+        if (n0 + col < N_out) {
+          b = *reinterpret_cast<const float2*>(bias + n0 + col);
+          if constexpr (SCALE) sc = *reinterpret_cast<const float2*>(wscale + n0 + col);
+        }
+        const int byte = col * 2;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = frow + 8 * h;
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if constexpr (SCALE) {
+            v0 = __fmul_rn(v0, sc.x);
+            v1 = __fmul_rn(v1, sc.y);
+          }
+          v0 = __fadd_rn(v0, b.x);
+          v1 = __fadd_rn(v1, b.y);
+          *reinterpret_cast<uint32_t*>(staged + (byte >> 7) * (BM * 128) + r * 128 +
+                                       ((((byte & 127) >> 4) ^ (r & 7)) << 4) + (byte & 15)) =
+              pack_bf16(v0, v1);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_barrier_sync(wg_bar, 128);
+      if (t == 0 && r0 < M) {
+        for (int bx = 0; bx < BN / OUT_BOX && n0 + bx * OUT_BOX < N_out; ++bx)
+          tma_store_2d(&map_out, n0 + bx * OUT_BOX, r0, smem_u32(staged + bx * BM * 128));
+        bulk_commit();
+      }
+      continue;
+    }
+    // ---- epilogue, OUT_CH columns at a time: the fp32 product ((* s) + b)
+    // into the staged rows once the warpgroup's previous stores have read
+    // them, (LN_BIAS_GELU: its GELU in bf16, gelu_staged) then TMA stores
 #pragma unroll
     for (int c0 = 0; c0 < BN; c0 += P::OUT_CH) {
       const int cw = c0 + P::OUT_CH < BN ? P::OUT_CH : BN - c0;
@@ -1596,14 +1692,20 @@ large_m_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
       for (int j = c0 / 8; j < (c0 + cw) / 8; ++j) {
         const int col = j * 8 + (t % 4) * 2;
-        float2 b = make_float2(0.f, 0.f);
+        float2 b = make_float2(0.f, 0.f), sc = make_float2(1.f, 1.f);
         if (bias != nullptr && n0 + col < N_out)
           b = *reinterpret_cast<const float2*>(bias + n0 + col);
+        if constexpr (SCALE)
+          if (n0 + col < N_out) sc = *reinterpret_cast<const float2*>(wscale + n0 + col);
         const int byte = (col - c0) * 4;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = frow + 8 * h;
           float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if constexpr (SCALE) {
+            v0 = __fmul_rn(v0, sc.x);
+            v1 = __fmul_rn(v1, sc.y);
+          }
           if (bias != nullptr) {
             v0 = __fadd_rn(v0, b.x);
             v1 = __fadd_rn(v1, b.y);
@@ -1732,59 +1834,92 @@ inline int pick_bn(int M, int N_out, int widest) {
   return best;
 }
 
-template <int KIND, typename TO, int BN, int STAGES>
-inline int launch_large_m_bn(const bf16* a, const bf16* w, const float* bias, TO* out, int M,
-                             int K, int N_out, cudaStream_t stream) {
-  using P = LargeMPlan<KIND, BN, STAGES>;
+template <int KIND, typename TO, int BN, int STAGES, bool SCALE = false, bool ALO = false>
+inline int launch_large_m_bn(const bf16* a, const bf16* w, const float* wscale,
+                             const float* bias, TO* out, int M, int K, int N_out,
+                             cudaStream_t stream) {
+  using P = LargeMPlan<KIND, TO, BN, STAGES, ALO>;
   static_assert(P::total <= SMEM_LIMIT, "the ring and the staging fit a block's shared memory");
   CUtensorMap map_a, map_w, map_out;
-  int err = tensor_map(a, M, K, LBM, &map_a);
+  int err = tensor_map(a, M, ALO ? 2 * K : K, LBM, &map_a);
   if (!err) err = tensor_map(w, N_out, K, BN, &map_w);
   if (!err) err = store_map(out, M, N_out, &map_out);
   if (err) return err;
   static int allowed = 0;
-  auto* kernel = large_m_kernel<KIND, TO, BN, STAGES>;
+  auto* kernel = large_m_kernel<KIND, TO, BN, STAGES, SCALE, ALO>;
   if ((err = allow_smem(kernel, P::total, allowed))) return err;
   const int tiles = ((N_out + BN - 1) / BN) * ((M + LBM - 1) / LBM);
   const int sms = sm_count();
   const int grid = tiles < sms ? tiles : sms;
-  kernel<<<grid, LM_THREADS, P::total, stream>>>(map_a, map_w, map_out, bias, M, K, N_out);
+  kernel<<<grid, LM_THREADS, P::total, stream>>>(map_a, map_w, map_out, wscale, bias, M, K,
+                                                 N_out);
   return 0;
 }
 
 // The large-M body: GEMM_F32OUT, out (M, N_out) fp32 = A . W^T (+ b; bias
 // may be null); LN_BIAS_GELU, out (M, N_out) bf16 = gelu(A . W^T + b), A the
-// rows ln_rows_kernel normalized. A (M, K), W (N_out, K) bf16.
-template <int KIND, typename TO>
-inline int launch_large_m(const bf16* a, const bf16* w, const float* bias, TO* out, int M, int K,
-                          int N_out, cudaStream_t stream) {
-  if (K % BK != 0 || K <= 0 || N_out % 8 != 0 || M <= 0 || (KIND == LN_BIAS_GELU && !bias))
+// rows ln_rows_kernel normalized; LN_BIAS, out (M, N_out) = TO(A . W^T (* s)
+// + b), s (SCALE) an int8 W's per-row scale, A (ALO) the hi | lo halves of
+// fp32 normalized rows, (M, 2K), with an fp32 out. A (M, K), W (N_out, K)
+// bf16.
+template <int KIND, typename TO, bool SCALE = false, bool ALO = false>
+inline int launch_large_m(const bf16* a, const bf16* w, const float* wscale, const float* bias,
+                          TO* out, int M, int K, int N_out, cudaStream_t stream) {
+  if (K % BK != 0 || K <= 0 || N_out % 8 != 0 || M <= 0 || (KIND != GEMM_F32OUT && !bias) ||
+      (SCALE && !wscale))
     return static_cast<int>(cudaErrorInvalidValue);
   // four stages of 32 or 40 KB at BN = 128 or 192, three of 48 KB at 256,
-  // beside 64 KB of staging; LN_BIAS_GELU's 96 KB of staging leave room for
-  // four at 128, three at 192
+  // beside 64 KB of staging (a bf16 LN_BIAS out stages 2 x 64 x BN bf16, at
+  // most the same 64 KB); LN_BIAS_GELU's 96 KB of staging leave room for
+  // four at 128, three at 192; ALO's stages hold two A tiles (32 KB), so
+  // three at 128, two at 192 and 256
   if constexpr (KIND == LN_BIAS_GELU) {
     return pick_bn(M, N_out, 192) == 128
-               ? launch_large_m_bn<KIND, TO, 128, 4>(a, w, bias, out, M, K, N_out, stream)
-               : launch_large_m_bn<KIND, TO, 192, 3>(a, w, bias, out, M, K, N_out, stream);
+               ? launch_large_m_bn<KIND, TO, 128, 4>(a, w, wscale, bias, out, M, K, N_out, stream)
+               : launch_large_m_bn<KIND, TO, 192, 3>(a, w, wscale, bias, out, M, K, N_out,
+                                                     stream);
+  } else if constexpr (ALO) {
+    switch (pick_bn(M, N_out, 256)) {
+      case 128:
+        return launch_large_m_bn<KIND, TO, 128, 3, SCALE, ALO>(a, w, wscale, bias, out, M, K,
+                                                               N_out, stream);
+      case 192:
+        return launch_large_m_bn<KIND, TO, 192, 2, SCALE, ALO>(a, w, wscale, bias, out, M, K,
+                                                               N_out, stream);
+      default:
+        return launch_large_m_bn<KIND, TO, 256, 2, SCALE, ALO>(a, w, wscale, bias, out, M, K,
+                                                               N_out, stream);
+    }
   } else {
     switch (pick_bn(M, N_out, 256)) {
       case 128:
-        return launch_large_m_bn<KIND, TO, 128, 4>(a, w, bias, out, M, K, N_out, stream);
+        return launch_large_m_bn<KIND, TO, 128, 4, SCALE>(a, w, wscale, bias, out, M, K, N_out,
+                                                          stream);
       case 192:
-        return launch_large_m_bn<KIND, TO, 192, 4>(a, w, bias, out, M, K, N_out, stream);
+        return launch_large_m_bn<KIND, TO, 192, 4, SCALE>(a, w, wscale, bias, out, M, K, N_out,
+                                                          stream);
       default:
-        return launch_large_m_bn<KIND, TO, 256, 3>(a, w, bias, out, M, K, N_out, stream);
+        return launch_large_m_bn<KIND, TO, 256, 3, SCALE>(a, w, wscale, bias, out, M, K, N_out,
+                                                          stream);
     }
   }
 }
 
-// y (M, C) bf16 = LN(x) of x (M, C) bf16 or fp32 (ln_rows_kernel)
-template <typename TX>
+// y (M, C) bf16 = LN(x) of x (M, C) bf16 or fp32 (ln_rows_kernel); HILO:
+// y (M, 2C), the hi | lo halves of each fp32 normalized row
+template <typename TX, bool HILO = false>
 inline int launch_ln_rows(const TX* x, const float* gamma, const float* beta, bf16* y, int M,
                           int C, float eps, cudaStream_t stream) {
   if (C % 8 != 0 || C > MAX_C || M <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  ln_rows_kernel<TX><<<(M + 7) / 8, 256, 0, stream>>>(x, gamma, beta, y, M, C, eps);
+  ln_rows_kernel<TX, HILO><<<(M + 7) / 8, 256, 0, stream>>>(x, gamma, beta, y, M, C, eps);
+  return 0;
+}
+
+// out (n,) bf16 = the int8 payload w (n,), exact (i8_to_bf16_kernel)
+inline int launch_i8_to_bf16(const int8_t* w, bf16* out, size_t n, cudaStream_t stream) {
+  if (n % 16 != 0 || n == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t threads = n / 16;
+  i8_to_bf16_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(w, out, n);
   return 0;
 }
 

@@ -141,11 +141,11 @@ extern "C" int uvl_ln_mlp_partial(const void* x, int x_is_f32, const float* gamm
     err = x_is_f32 ? launch_ln_rows(static_cast<const float*>(x), gamma, beta, y, M, C, eps, s)
                    : launch_ln_rows(static_cast<const bf16*>(x), gamma, beta, y, M, C, eps, s);
     if (!err)
-      err = launch_large_m<LN_BIAS_GELU, bf16>(y, static_cast<const bf16*>(w1), b1, h, M, C, F,
-                                               s);
+      err = launch_large_m<LN_BIAS_GELU, bf16>(y, static_cast<const bf16*>(w1), nullptr, b1, h,
+                                               M, C, F, s);
   }
   if (!err && (stages & 2))
-    err = launch_large_m<GEMM_F32OUT, float>(h, static_cast<const bf16*>(w2), b2, out, M, F, C,
-                                             s);
+    err = launch_large_m<GEMM_F32OUT, float>(h, static_cast<const bf16*>(w2), nullptr, b2, out,
+                                             M, F, C, s);
   return err ? err : static_cast<int>(cudaGetLastError());
 }

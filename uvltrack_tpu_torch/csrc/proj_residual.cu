@@ -118,7 +118,7 @@ extern "C" int uvl_proj_partial(const void* a, const void* w, float* out, int M,
                                 void* stream) {
   using namespace uvl::sm90;
   const int err = launch_large_m<GEMM_F32OUT, float>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(w), nullptr, out, M, K, C,
+      static_cast<const bf16*>(a), static_cast<const bf16*>(w), nullptr, nullptr, out, M, K, C,
       static_cast<cudaStream_t>(stream));
   return err ? err : static_cast<int>(cudaGetLastError());
 }

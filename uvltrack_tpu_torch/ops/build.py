@@ -135,6 +135,12 @@ LAUNCHES: Counter = Counter()
 # calls no wrapper, so the graph's owner counts its replays
 # (track/tracker.py::JitTracker)
 CAPTURED: Counter = Counter()
+# "kernel[instantiation-body]" -> eager launches of an instantiation that
+# has more than one body (ln_qkv's bf16 and int8 weights: the 64-row body
+# "-64" and the large-M body "-lm"), which LAUNCHES counts under the
+# instantiation itself; reset only by reset_body_counts, so a caller can
+# count the bodies over runs that reset LAUNCHES
+BODIES: Counter = Counter()
 _FNS: Dict[str, object] = {}  # entry point name -> the bound entry point
 
 
@@ -154,6 +160,19 @@ def instantiation_counts() -> dict:
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+def body_counts() -> dict:
+    """{"kernel[instantiation-body]": eager launches} since the last
+    reset_body_counts."""
+    return {k: n for k, n in sorted(BODIES.items()) if n}
+
+
+def reset_body_counts(to: Optional[dict] = None) -> None:
+    """Zero the body counts, or set them back to `to` (a body_counts()
+    taken before launches that should not count)."""
+    BODIES.clear()
+    BODIES.update(to or {})
 
 
 def captured_counts() -> dict:
@@ -198,12 +217,13 @@ def no_grad_through(name: str, tensors, remedy: str) -> None:
 
 
 def launch(kernel: str, inst: str, argtypes, *args, stream_of: torch.Tensor,
-           entry: str = "") -> None:
+           entry: str = "", body: str = "") -> None:
     """Call `uvl_<kernel>` (or the library's other entry point `entry`) of
     lib<kernel> with args and, as its last argument, PyTorch's current
     stream on the device of `stream_of`; raise on the CUDA error code it
     returns, and count one launch of kernel[inst] (in CAPTURED instead when
-    the stream is capturing a CUDA graph: nothing runs then)."""
+    the stream is capturing a CUDA graph: nothing runs then); an eager
+    launch of a named `body` also counts in BODIES as kernel[inst-body]."""
     entry = entry or f"uvl_{kernel}"
     fn = _FNS.get(entry)
     if fn is None:
@@ -215,4 +235,7 @@ def launch(kernel: str, inst: str, argtypes, *args, stream_of: torch.Tensor,
     if rc != 0:
         msg = _LIBS[kernel].uvl_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")
-    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)[(kernel, inst)] += 1
+    capturing = torch.cuda.is_current_stream_capturing()
+    (CAPTURED if capturing else LAUNCHES)[(kernel, inst)] += 1
+    if body and not capturing:
+        BODIES[f"{kernel}[{inst}-{body}]"] += 1

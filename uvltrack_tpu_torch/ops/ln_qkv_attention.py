@@ -12,9 +12,14 @@ of the H100's 132 SMs, so the port splits each in two kernels
 - `ln_qkv` / `ln_qkv_q8`: LN (fp32, fast variance clamped at 0), tensor-core
   product against W, fp32 epilogue (`acc + b`, or `acc * scale + b` for the
   int8 payload), out (B, N, 3C). Both weight types run on the TMA + wgmma
-  core of csrc/gemm_sm90.cuh (the 64 normalized rows of a block in shared
-  memory once, so C <= 1024; an int8 W streams as bytes and is converted to
-  bf16 in shared memory).
+  core of csrc/gemm_sm90.cuh, on one of two bodies by the rows M = B*N
+  (LARGE_M_ROWS): below it the 64-row LN body (the 64 normalized rows of a
+  block in shared memory once, so C <= 1024; an int8 W streams as bytes and
+  is converted to bf16 in shared memory); at or above it, the B.N rows of a
+  lockstep or training step, the rows normalized once into a scratch, an
+  int8 W converted to bf16 once a call, and the persistent large-M body
+  (instantiations counted under the same tags; build.body_counts() counts
+  the launches of each body apart, as `-64` and `-lm`).
 - `qkv_attention`: the TMA + wgmma attention body of csrc/attention.cuh,
   one block per (64-row query tile, head, batch element), the keys split
   over a cluster of up to 3 blocks: exp(clip(q.k*D^-1/2 + key_bias, +-80)),
@@ -47,7 +52,7 @@ import torch
 from ..utils.costs import counted, nbytes
 from . import build, hilo, library
 from .build import FLOAT, INT, PTR, check_cuda, no_grad_through, require
-from .quant import QuantizedTensor, quant_dot
+from .quant import QuantizedTensor, dot_f32, quant_dot
 
 CLAMP = 80.0  # exp-safe score range of the kernels (pallas_attention._CLAMP)
 # widest C the LN products take (both weight types): 64 normalized rows of C
@@ -57,6 +62,17 @@ CLAMP = 80.0  # exp-safe score range of the kernels (pallas_attention._CLAMP)
 LN_MAX_C = 1024
 # csrc/ln_qkv.cu's w_kind by the weight's dtype
 W_KIND = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
+# rows M = B*N from which `ln_qkv` / `ln_qkv_q8` with a bf16 or int8 weight
+# run on the large-M body (uvl_ln_qkv_large_m); fewer rows (the tracking
+# step's B=1: 321/361) keep the 64-row LN body (uvl_ln_qkv) and its single
+# launch. An fp32 weight runs ln_hilo_kernel at every M. Measured with
+# tools/gemm_ab.py --qkv at M in {321, 361, 642, 722, ..., 5,776} (PERF.md,
+# section 6, rows 1m and 5m): the large-M body's device time is the lower at
+# every M, 2.2-2.9x at B=2 and 2.5-3.3x from B=4, and 1.4x at B=1 (9.2 against
+# 12.8 us); B >= 2 takes the large-M body, and B=1 keeps the 64-row body and
+# its bits for now: the large-M body is two launches there (three with int8)
+# in place of one, which the eager step pays in host time (PERF.md, section 7)
+LARGE_M_ROWS = 512
 # the int8 launches' answer under autograd: kernels #5/#6 have no VJP
 INT8_NO_GRAD = ("weight-only int8 (TPU.WEIGHT_QUANT) is inference-only, as in the JAX "
                 "package: train with TPU.WEIGHT_QUANT unset")
@@ -113,6 +129,33 @@ def ln_qkv_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps: float = 1e-6
                         b_qkv, eps)
 
 
+def ln_rows_plain(x, ln_scale, ln_bias, eps: float = 1e-6, split: bool = False):
+    """Plain version of ln_rows_kernel, the large-M entry's first launch:
+    x's rows normalized once, (M, C) bf16 (#1's rounding point, and #5's at
+    a bf16 x); split (an fp32 x with an int8 W, whose product stays fp32):
+    the fp32 rows as their hi and lo bf16 halves side by side, (M, 2C), hi =
+    bf16(y), lo = bf16(y - hi)."""
+    y = layer_norm_fast_var(x, ln_scale, ln_bias, eps).reshape(-1, x.shape[-1])
+    hi = y.to(torch.bfloat16)
+    if not split:
+        return hi
+    return torch.cat([hi, (y - hi.float()).to(torch.bfloat16)], dim=-1)
+
+
+def ln_qkv_large_m_plain(normed, w, w_scale, b_qkv, out_dtype):
+    """Plain version of the large-M body's product (kind LN_BIAS) on
+    ln_rows_plain's rows: out (M, F) = out_dtype(A . W^T (* s) + b), fp32
+    accumulation; W (F, C) bf16, or an int8 payload (its bf16 conversion,
+    i8_to_bf16_kernel, is exact) with its per-row scale s; split rows (2C
+    wide) contract hi + lo, as the body's hi.W + lo.W passes do."""
+    c = w.shape[1]
+    a = normed if normed.shape[1] == c else normed[:, :c].float() + normed[:, c:].float()
+    acc = dot_f32(a, w)
+    if w_scale is not None:
+        acc = acc * w_scale.float()
+    return (acc + b_qkv.float()).to(out_dtype)
+
+
 @counted(qkv_attention_work)
 def qkv_attention_plain(qkv, key_bias, heads: int):
     """Plain version of `qkv_attention`: the kernel's clamped, late-divided
@@ -145,9 +188,17 @@ def ln_qkv_attention_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, key_bia
 
 
 # ---------------------------------------------------------------- kernels
+def takes_large_m(rows: int, w_dtype: torch.dtype) -> bool:
+    """Whether `ln_qkv` / `ln_qkv_q8` at `rows` rows with a weight of
+    w_dtype runs on the large-M body: from LARGE_M_ROWS rows (read at each
+    call: chip_smoke.py and tools/gemm_ab.py set it to time both bodies at
+    one shape), never for an fp32 weight."""
+    return w_dtype != torch.float32 and rows >= LARGE_M_ROWS
+
+
 def _launch_ln_qkv(x, ln_scale, ln_bias, w, w_scale, b_qkv, eps, out_dtype):
     """W (F, C): F = 3C, or a tensor-parallel rank's 3C/tp rows (its heads'
-    q, k and v; parallel/tp.py)."""
+    q, k and v; parallel/tp.py). The body by takes_large_m."""
     b, n, c = x.shape
     f = w.shape[0]
     require(x.dtype in (torch.bfloat16, torch.float32),
@@ -162,15 +213,36 @@ def _launch_ln_qkv(x, ln_scale, ln_bias, w, w_scale, b_qkv, eps, out_dtype):
     no_grad_through("ln_qkv", tensors, INT8_NO_GRAD if w_scale is not None else
                     "call it through ops/autograd.py (LnQkvAttention, LnQkvAttnProj)")
     check_cuda("ln_qkv", *tensors)
-    # an fp32 weight goes to the kernel as its cached hi/lo planes
-    w_arg = hilo.planes(w) if w.dtype == torch.float32 else w
+    tag = f"{build.dtype_tag(x)}x-{build.dtype_tag(w)}w"
+    x32 = int(x.dtype == torch.float32)
+    scale = w_scale.data_ptr() if w_scale is not None else None
     out = torch.empty((b, n, f), dtype=out_dtype, device=x.device)
-    build.launch("ln_qkv", f"{build.dtype_tag(x)}x-{build.dtype_tag(w)}w",
+    if takes_large_m(b * n, w.dtype):
+        # the rows normalized once (an fp32 x with an int8 W: hi | lo bf16
+        # halves, (M, 2C)) and an int8 W converted to bf16 once: scratch of
+        # this call, from the CUDA graph's pool under capture, so a graph's
+        # replays reuse its addresses
+        split = w_scale is not None and x32
+        normed = torch.empty((b * n, 2 * c if split else c), dtype=torch.bfloat16,
+                             device=x.device)
+        w16 = (torch.empty((f, c), dtype=torch.bfloat16, device=x.device)
+               if w_scale is not None else None)
+        build.launch("ln_qkv", tag,
+                     [PTR, INT, PTR, PTR, PTR, INT, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
+                      FLOAT],
+                     x.data_ptr(), x32, ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(),
+                     W_KIND[w.dtype], scale, b_qkv.data_ptr(), normed.data_ptr(),
+                     None if w16 is None else w16.data_ptr(), out.data_ptr(), b * n, c, f, eps,
+                     stream_of=x, entry="uvl_ln_qkv_large_m", body="lm")
+        return out
+    # an fp32 weight goes to the kernel as its cached hi/lo planes
+    w32 = w.dtype == torch.float32
+    build.launch("ln_qkv", tag,
                  [PTR, INT, PTR, PTR, PTR, INT, PTR, PTR, PTR, INT, INT, INT, FLOAT],
-                 x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(),
-                 ln_bias.data_ptr(), w_arg.data_ptr(), W_KIND[w.dtype],
-                 w_scale.data_ptr() if w_scale is not None else None, b_qkv.data_ptr(),
-                 out.data_ptr(), b * n, c, f, eps, stream_of=x)
+                 x.data_ptr(), x32, ln_scale.data_ptr(), ln_bias.data_ptr(),
+                 (hilo.planes(w) if w32 else w).data_ptr(), W_KIND[w.dtype], scale,
+                 b_qkv.data_ptr(), out.data_ptr(), b * n, c, f, eps, stream_of=x,
+                 body="" if w32 else "64")
     return out
 
 
@@ -179,7 +251,7 @@ def ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, eps: float = 1e-6):
     """x (B, N, C) bf16|fp32; ln_scale, ln_bias (C,) fp32; w_qkv (F, C) bf16,
     or fp32 with an fp32 x (Linear layout; F = 3C, 3C/tp under tensor
     parallelism); b_qkv (F,) fp32 -> (B, N, F) in w_qkv's dtype (kernel
-    #1's prefix)."""
+    #1's prefix). The body by the rows (takes_large_m)."""
     if torch.compiler.is_exporting():
         return library.ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, eps)
     if x.device.type == "cpu":
@@ -196,7 +268,8 @@ def ln_qkv(x, ln_scale, ln_bias, w_qkv, b_qkv, eps: float = 1e-6):
 @counted(ln_qkv_q8_work)
 def ln_qkv_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps: float = 1e-6):
     """x (B, N, C) bf16|fp32; w_q (3C, C) int8 payload; w_scale (3C,) fp32
-    per-row scale -> (B, N, 3C) in x's dtype (kernel #5's prefix)."""
+    per-row scale -> (B, N, 3C) in x's dtype (kernel #5's prefix); the body
+    as ln_qkv's."""
     if torch.compiler.is_exporting():
         return library.ln_qkv_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps)
     if x.device.type == "cpu":

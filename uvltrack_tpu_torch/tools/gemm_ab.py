@@ -15,6 +15,8 @@ and, as controls, of `ln_qkv` and `proj_residual` alone.
         [--dump FILE.npz] [--cmp FILE.npz]
     python uvltrack_tpu_torch/tools/gemm_ab.py --tp [--root DIR] [--label NAME]
         [--dump FILE.npz] [--cmp FILE.npz]
+    python uvltrack_tpu_torch/tools/gemm_ab.py --qkv [--root DIR] [--label NAME]
+        [--check-only] [--dump FILE.npz] [--cmp FILE.npz]
 
 --root: the checkout whose uvltrack_tpu_torch is timed (default: the one
 holding this script), built into DIR/build/kernels. The timers are
@@ -33,7 +35,15 @@ the shares of #4's projection (`proj_partial`) and of #7 (`ln_mlp_partial`,
 and each of its launches alone with an fp32 out) beside their library calls
 (F.linear's bf16 out and, where this torch has it, torch.mm with an fp32
 out_dtype), and `ln_qkv` / `qkv_attention` at the rank's widths, all through
-the wrappers' Python API, so a parent checkout runs the same calls. In
+the wrappers' Python API, so a parent checkout runs the same calls. --qkv
+times `ln_qkv` (bf16 W) and `ln_qkv_q8` (int8 W) at M = B.N rows for B in
+QKV_B, N=321 bf16 x and N=361 fp32 x, C=768 (the crossover of the 64-row and
+large-M bodies, LARGE_M_ROWS): the wrapper's own choice ("auto"; a parent
+checkout's only body), each body forced where the checkout has both ("lm",
+"ln64"), and F.layer_norm + F.linear (int8: the dequantized W in x's
+dtype); it also holds "lm" against the plain version (chip_smoke.py's
+rules), bitwise on a second call and against "ln64" (--check-only: the
+checks alone, no times). In
 every mode --dump saves the kernels' outputs (the same seeded inputs in
 every checkout) and --cmp reports, output by output, whether they are
 bitwise those of another checkout's dump. Prints one JSON line; times in ms.
@@ -84,6 +94,8 @@ def main() -> int:
     ap.add_argument("--eager-only", action="store_true")
     ap.add_argument("--f32w", action="store_true")
     ap.add_argument("--tp", action="store_true")
+    ap.add_argument("--qkv", action="store_true")
+    ap.add_argument("--check-only", action="store_true")
     ap.add_argument("--dump", default="")
     ap.add_argument("--cmp", default="")
     args = ap.parse_args()
@@ -92,6 +104,8 @@ def main() -> int:
         return f32w_ab(args)
     if args.tp:
         return tp_ab(args)
+    if args.qkv:
+        return qkv_ab(args)
 
     import numpy as np
     import torch
@@ -305,6 +319,100 @@ def tp_ab(args) -> int:
                     "fc2 library mm fp32": lambda: lin32(hidden, w2)})
             out["times"][key] = {name: graph_time_ms(fn)[0]
                                  for name, fn in {**fns, **lib}.items()}
+    dump_and_compare(args, dumps, out)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+QKV_B = (1, 2, 4, 8, 16)  # M = 321 .. 5,136 (bf16 x), 361 .. 5,776 (fp32 x)
+
+
+def qkv_ab(args) -> int:
+    """ln_qkv's bodies at M = B.N (PERF.md rows 1m and 5m): device ms (a
+    CUDA graph of 20 calls) of the wrapper's choice, of each body forced
+    where this checkout has both, and of the library calls; the large-M
+    outputs against the plain versions, a second call and the 64-row
+    body's."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("gemm_ab: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from chip_smoke import (F32_ATOL, F32_RTOL, KERNEL_ATOL, KERNEL_RTOL, graph_time_ms,
+                            nvidia_smi)
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+    from uvltrack_tpu_torch.ops import quant
+
+    two_bodies = hasattr(lqa, "LARGE_M_ROWS")
+
+    def body(fn, rows_from):
+        """fn with ln_qkv's large-M threshold at rows_from (0: the large-M
+        body at any rows; 1 << 62: the 64-row body)"""
+        def call():
+            rows, lqa.LARGE_M_ROWS = lqa.LARGE_M_ROWS, rows_from
+            try:
+                return fn()
+            finally:
+                lqa.LARGE_M_ROWS = rows
+        return call
+
+    dev, c, b16 = torch.device("cuda"), 768, torch.bfloat16
+    out = {"label": args.label, "root": args.root, "device": nvidia_smi(), "times": {},
+           "checks": {}, "two_bodies": two_bodies}
+    dumps = {}
+    for b in QKV_B:
+        for n, xdt in ((321, b16), (361, torch.float32)):
+            rng = np.random.default_rng(args.seed + b + n)
+
+            def arr(a, dt=torch.float32):
+                return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+            x = arr(rng.normal(size=(b, n, c)), xdt)
+            g, be = arr(1 + 0.1 * rng.normal(size=c)), arr(0.1 * rng.normal(size=c))
+            w = arr(rng.normal(size=(3 * c, c)) / np.sqrt(c), b16)
+            wb = arr(0.02 * rng.normal(size=3 * c))
+            wq = quant.quantize_weight(w)
+            wqd = wq.materialize(xdt)
+            xt = "bf16" if xdt == b16 else "fp32"
+            key = f"M{b * n}_{xt}x"
+
+            def ln(dt):
+                return F.layer_norm(x.float(), (c,), g, be, 1e-6).to(dt)
+
+            kinds = {
+                "bf16w": (lambda: lqa.ln_qkv(x, g, be, w, wb),
+                          lambda: lqa.ln_qkv_plain(x, g, be, w, wb),
+                          lambda: F.linear(ln(b16), w, wb.to(b16)), "ln_qkv"),
+                "int8w": (lambda: lqa.ln_qkv_q8(x, g, be, wq.q, wq.scale, wb),
+                          lambda: lqa.ln_qkv_q8_plain(x, g, be, wq.q, wq.scale, wb),
+                          lambda: F.linear(ln(xdt), wqd, wb.to(xdt)),
+                          None if xdt == torch.float32 else "ln_qkv"),
+            }
+            times = {}
+            for wt, (kern, plain, lib, tol_key) in kinds.items():
+                name = f"ln_qkv[{xt}x-{wt}]"
+                dumps[f"{key} {name}"] = kern().float().cpu().numpy()
+                fns = {"auto": kern, "library": lib}
+                if two_bodies:
+                    fns.update({"lm": body(kern, 0), "ln64": body(kern, 1 << 62)})
+                    got, again, small = fns["lm"](), fns["lm"](), fns["ln64"]()
+                    want = plain().float()
+                    torch.cuda.synchronize()
+                    diff = (got.float() - want).abs()
+                    atol = F32_ATOL if tol_key is None else KERNEL_ATOL[tol_key]
+                    rtol = F32_RTOL if tol_key is None else KERNEL_RTOL
+                    out["checks"][f"{key} {name}"] = {
+                        "max_abs_err": float(diff.max()),
+                        "ok": bool((diff <= atol + rtol * want.abs()).all()),
+                        "bitwise_second_call": bool(torch.equal(got, again)),
+                        "bitwise_vs_ln64": bool(torch.equal(got, small)),
+                        "max_abs_vs_ln64": float((got.float() - small.float()).abs().max())}
+                if not args.check_only:
+                    times.update({f"{name} {k}": graph_time_ms(fn)[0] for k, fn in fns.items()})
+            out["times"][key] = times
     dump_and_compare(args, dumps, out)
     print(json.dumps(out), flush=True)
     return 0
