@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (uvltrack_tpu_torch) end to end on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--frames 64] [--only GROUP,...]
+    python3 chip_smoke.py [--seed 0] [--frames 33] [--only GROUP,...]
 
 Phases, one JSON line each:
   1. env      -- card, count, power limit; the nvcc build of every kernel
@@ -33,10 +33,16 @@ Phases, one JSON line each:
                  attention twice (bitwise equal); times at N=40/128 and
                  at the MLP's main-path shapes. ln_qkv's library yardstick is
                  F.layer_norm + F.linear (dequantized W for int8).
+     large_m_* -- the large-M instantiations at B.N rows (LM_SHAPES: ln_qkv;
+                 MP_SHAPES: ln_mlp with bf16 W, proj_residual with bf16 and
+                 int8 W), each routed there, against its plain version,
+                 bitwise on a second call, beside the 64-row body; device
+                 times beside the plain version, the library call and the
+                 64-row body at every shape.
   3. track    -- UVLTrack-B (experiments/uvltrack/baseline_base.yaml, full
                  width, seeded random weights) tracks a synthetic 720p
-                 sequence in BBOX (64 frames), NLBBOX, then NL mode (32
-                 frames each; initialized from
+                 sequence in BBOX, NLBBOX, then NL mode (32 frames each,
+                 --frames 33; initialized from
                  the sentence by the grounding forward, compared kernel vs
                  plain: the same argmax cell or a near-tie, the box within
                  1% of the letterbox side): FPS at batch 1, p50/p90 frame
@@ -86,7 +92,7 @@ Phases, one JSON line each:
   forward, per-layer CUDA events); the compiled step follows:
   5. compiled -- CUDA graphs of the step and the re-mine through a shared
                  JitTracker against the eager step, in turns (eager, graph,
-                 graph, eager) in B-BBOX, B-NLBBOX, B-NL (64 frames),
+                 graph, eager) in B-BBOX, B-NLBBOX, B-NL (32 frames),
                  B-BBOX-Q8, lockstep S4 and S8 (the multistream sequences)
                  and the S=4 pool: FPS / stream-frames/s, step p50/p90, a
                  profiler window each (device ms, ops, busy share), peak
@@ -100,7 +106,19 @@ Phases, one JSON line each:
                  12, 6+6 per dtype with int8; none in the re-mine); a second
                  Tracker on the JitTracker captures nothing and tracks as a
                  fresh one; UVLTRACK_FUSED_PREFIX=0 set after the capture gets
-                 its own graph (12 qkv_attention, no ln_qkv).
+                 its own graph (12 qkv_attention, no ln_qkv). B-S8-FUSED: S8's
+                 streams under UVLTRACK_FUSED_MLP=1 and UVLTRACK_FUSED_PROJ=1
+                 (kernels #4 and #7 at B.N rows), and B-S4-Q8-FUSED: S4's
+                 streams, int8 weights, UVLTRACK_FUSED_PROJ=1 (#6 at B=4), 16
+                 steps: their eager launches per forward by instantiation
+                 and by body (every weight kernel on the large-M body:
+                 FUSED_BODIES), every row of every step against the plain
+                 backend from the shared state, the graph step under the
+                 knobs (its own capture) against the eager step as above;
+                 then, in turns A B C C B A, the default S8 graph step,
+                 B-S8-FUSED's and B-S8-FUSED's on the 64-row bodies (a
+                 JitTracker captured with LARGE_M_ROWS above M): step
+                 p50/p90 and device ms a step each.
   6. serve    -- cli/serve.py's make_server in this process on 127.0.0.1
                  over the compiled step: per-stream (a BBOX and an NLBBOX
                  stream, 32 720p npy frames each, two client threads) and
@@ -174,7 +192,11 @@ Phases, one JSON line each:
                  steps in each long epoch and of 2 synthetic steps (busy
                  share, device ops), validation on all three families
                  every epoch. (d) Step 1 on one real batch from one init,
-                 kernels against plain, B-TRAIN's gate.
+                 kernels against plain, B-TRAIN's gate: the loader's first
+                 batch drawn in order by one thread worker (first_batch:
+                 the same arrays in every call from one --seed, its digest
+                 on the phase's line), the line printed before the gate
+                 can raise.
   10. cli     -- the tool CLIs. (a) the fp32-weight instantiations
                  (TPU.COMPUTE_DTYPE=float32: fp32 weights as their hi/lo bf16
                  planes, three bf16 passes a product): ln_qkv[fp32x-fp32w] and
@@ -189,14 +211,14 @@ Phases, one JSON line each:
                  and with --xla (the counted FLOPs and bytes equal), forward with
                  --quant int8, the step on both backends, and UVLTrack-L's step; the
                  printed p50/FPS parsed, the launches per forward checked. (c)
-                 cli.export.main --check at fp32 compute, plain and under
-                 UVLTRACK_FUSED_PROJ=1 and UVLTRACK_FUSED_MLP=1: 12 ln_qkv + 12
-                 qkv_attention (+ 12 proj_residual or 12 ln_mlp) ops in the
-                 exported graph, the loaded program within 1e-5 of the direct
-                 call, those launches a forward and one split_hilo a weight a
-                 model. (d) cli.parity.main on a .pth.tar of the seeded model, on
-                 the kernels and on the plain backend, fp32 (plain and under each
-                 knob) and --quant int8: the dumps key by key within 2e-4 +
+                 cli.export.main --check at fp32 compute under
+                 UVLTRACK_FUSED_PROJ=1 and UVLTRACK_FUSED_MLP=1 together: 12
+                 ln_qkv + 12 qkv_attention + 12 proj_residual + 12 ln_mlp ops
+                 in the exported graph, the loaded program within 1e-5 of the
+                 direct call, those launches a forward and one split_hilo a
+                 weight a model. (d) cli.parity.main on a .pth.tar of the seeded model, on
+                 the kernels and on the plain backend, fp32 (plain and under both
+                 knobs) and --quant int8: the dumps key by key within 2e-4 +
                  2e-4*|plain|. (e) cli.demo.main on a
                  48-frame 1280x720 MJPG video: 48 frames out, every box bitwise a
                  direct Tracker's over the same decoded frames. (f) cli.test.main on
@@ -302,6 +324,7 @@ COMPILED_FRAMES = 32  # frames a compiled single-stream cell tracks (a re-mine a
 # the instantiations the kernels line's two bf16 rows count
 NAMED_BY_BASE = {"ln_qkv": ("ln_qkv[bf16x-bf16w]", "ln_qkv[fp32x-bf16w]"),
                  "qkv_attention": ("qkv_attention[bf16]",)}
+T_IMPORT = time.perf_counter()
 GROUPS = ("kernels", "track", "multistream", "compiled", "serve", "eval", "train", "data", "cli",
           "parallel")
 ATTN_N = (40, 48, 128, 321, 361, 681)  # kernel #3's: BERT's N, 128 and the ViT's
@@ -312,6 +335,10 @@ TIMER = ("CUDA events, L2-warm: *ms = mean of 200 back-to-back eager calls after
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets `at_s`, the seconds since
+    the script started (the difference of two lines is a phase's time)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_IMPORT}
     print(json.dumps(obj), flush=True)
 
 
@@ -1145,6 +1172,23 @@ def tp_kernel_phase(dev, seed: int):
 
 
 
+@contextlib.contextmanager
+def large_m_from(rows_from: int):
+    """Every kernel's large-M threshold at rows_from while the block runs
+    (0: the large-M bodies at any rows; 1 << 62: the 64-row bodies):
+    ln_qkv's and ln_mlp's (ln_qkv_attention.LARGE_M_ROWS) and
+    proj_residual's (ln_qkv_attn_proj.LARGE_M_ROWS)."""
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+    from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
+
+    rows = lqa.LARGE_M_ROWS, lqp.LARGE_M_ROWS
+    lqa.LARGE_M_ROWS = lqp.LARGE_M_ROWS = rows_from
+    try:
+        yield
+    finally:
+        lqa.LARGE_M_ROWS, lqp.LARGE_M_ROWS = rows
+
+
 # ln_qkv's large-M body (csrc/ln_qkv.cu's uvl_ln_qkv_large_m, at M >=
 # LARGE_M_ROWS): every shape of the paths that take it, (label, B, C, F) --
 # the lockstep steps of B (S4, S8) and L (S8), B-TRAIN's 16 rows, and a
@@ -1274,6 +1318,235 @@ def large_m_qkv_phase(dev, seed: int):
                         "the route these rows took before",
           "times": times})
     return worst, times
+
+# kernel #7 (bf16 W) and proj_residual (bf16 and int8 W) at B.N rows, on
+# the large-M body: (label, B, C) -- B and L at the lockstep batch S8, B at
+# S4 (B-S4-Q8-FUSED's), B-TRAIN's 16 rows -- each at N=321 with a bf16 x and
+# N=361 with an fp32 x
+MP_SHAPES = (("B_S4", 4, 768), ("B_S8", 8, 768), ("L_S8", 8, 1024), ("B16", 16, 768))
+# the main-path shape of each new instantiation's kernels-line row: (label, N)
+MP_ROW_SHAPE = {"ln_mlp[bf16x-bf16w-lm]": ("B_S8", 321),
+                "ln_mlp[fp32x-bf16w-lm]": ("B_S8", 361),
+                "proj_residual[bf16x-bf16a-bf16w-lm]": ("B_S8", 321),
+                "proj_residual[fp32x-bf16a-bf16w-lm]": ("B_S8", 361),
+                "proj_residual[bf16x-bf16a-int8w-lm]": ("B_S4", 321),
+                "proj_residual[fp32x-fp32a-int8w-lm]": ("B_S4", 361)}
+
+
+def large_m_mlp_proj_phase(dev, seed: int):
+    """Kernel #7's large-M instantiations (`ln_mlp[*x-bf16w-lm]`: fc1 + GELU
+    and fc2 + b2) and proj_residual's (`proj_residual[*-lm]`, bf16 and int8
+    W) at every shape of MP_SHAPES: each call routed to the large-M body
+    (build.body_counts(); no fallback), against its plain version (the
+    KERNEL_* rule: the hidden tensor under ln_fc1_gelu's, fc2 against
+    fc2_bias_plain on it, the pair under ln_mlp's; the projection with the
+    residual and alone on a zero stream under Q8_KERNEL_ATOL's; the fp32 out
+    of #6 at an fp32 x under the fp32 rule), a second call bitwise; the
+    hidden tensor, #7's output and the projection counted bitwise against
+    the 64-row body's (its GELU, and K in its split-K parts added in its
+    order: equal bits expected). Then device times at every shape (the
+    kernel, its plain version, the library call, the 64-row body forced on
+    the same inputs: the route these rows took before) and the kernel's
+    eager time; at each row's MP_ROW_SHAPE the full timings(), and #7's two
+    launches apart. Returns ({instantiation: worst error}, {label: {N:
+    {name: times}}})."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.ops import ln_mlp as lm
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+    from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
+    from uvltrack_tpu_torch.ops import quant
+
+    b16 = torch.bfloat16
+    rng = np.random.default_rng(seed + 7)
+
+    def arr(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+    def on_64row(fn):
+        """fn on the 64-row bodies at any rows (the route B.N rows took before)"""
+        def call():
+            with large_m_from(1 << 62):
+                return fn()
+        return call
+
+    def light(kern, plain, lib):
+        """device ms of the kernel, its plain version, the library call and
+        the 64-row body; eager ms of the kernel and the 64-row body"""
+        return {"ms": cuda_time_ms(kern, 50, 5), "device_ms": graph_time_ms(kern)[0],
+                "plain_device_ms": graph_time_ms(plain)[0],
+                "library_device_ms": graph_time_ms(lib)[0],
+                "body_64row_ms": cuda_time_ms(on_64row(kern), 50, 5),
+                "body_64row_device_ms": graph_time_ms(on_64row(kern))[0]}
+
+    def full(kern, plain, lib):
+        return {**timings(kern, plain, lib), "body_64row_ms": cuda_time_ms(on_64row(kern)),
+                "body_64row_device_ms": graph_time_ms(on_64row(kern))[0]}
+
+    def within(a, b, atol, rtol):
+        d = (a.float() - b.float()).abs()
+        return float(d.max()), bool((d <= atol + rtol * b.float().abs()).all())
+
+    worst, checks, bitwise_64, times = {}, 0, {}, {}
+
+    def record(inst, what, got, want, atol, rtol):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{inst} {what}: {got.dtype}{tuple(got.shape)} vs plain "
+                                 f"{want.dtype}{tuple(want.shape)}")
+        e, ok = within(got, want, atol, rtol)
+        if not ok:
+            raise AssertionError(f"{inst} {what}: max abs err {e} over tolerance")
+        worst[inst] = max(worst.get(inst, 0.0), e)
+
+    def routed(inst, calls, what):
+        """run calls(), which launches inst's large-M body `n` times"""
+        before = build.body_counts().get(inst, 0)
+        out, n = calls()
+        torch.cuda.synchronize()
+        if build.body_counts().get(inst, 0) != before + n:
+            raise AssertionError(f"{inst} {what}: not launched on the large-M body")
+        return out
+
+    for label, b, c in MP_SHAPES:
+        f = 4 * c
+        for n, x_dtype in ((321, b16), (361, torch.float32)):
+            xt = "fp32" if x_dtype == torch.float32 else "bf16"
+            xdt = x_dtype
+            m, xb = b * n, x_dtype.itemsize
+            what = f"{label} B={b} N={n} C={c}"
+            tab = times.setdefault(label, {}).setdefault(f"N{n}", {})
+            x = arr(rng.normal(size=(b, n, c)), x_dtype)
+            g, be = arr(1 + 0.1 * rng.normal(size=c)), arr(0.1 * rng.normal(size=c))
+            # ---- kernel #7, bf16 W
+            w1 = arr(rng.normal(size=(f, c)) / np.sqrt(c), b16)
+            w2 = arr(rng.normal(size=(c, f)) / np.sqrt(f), b16)
+            b1, b2 = arr(0.02 * rng.normal(size=f)), arr(0.02 * rng.normal(size=c))
+            hidden = torch.empty((m, f), dtype=b16, device=dev)
+            out = torch.empty((b, n, c), dtype=b16, device=dev)
+            h3 = hidden.view(b, n, f)
+            inst = f"ln_mlp[{xt}x-bf16w-lm]"
+            if not lqa.takes_large_m(m, b16):
+                raise AssertionError(f"{inst} {what}: the rows take the 64-row body")
+
+            def stage(name, o=out):
+                return lambda: lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, o,
+                                                stages=name)
+
+            again = torch.empty_like(out)
+
+            def pair_twice():
+                stage("pair")()
+                stage("pair", again)()
+                return None, 2
+
+            routed(inst, pair_twice, what)
+            h_lm = hidden.clone()
+            record(inst, f"{what} ln_fc1_gelu", h_lm, lm.ln_fc1_gelu_plain(
+                x, g, be, w1, b1).to(b16).view(m, f), KERNEL_ATOL["ln_fc1_gelu"], KERNEL_RTOL)
+            record(inst, f"{what} fc2_bias", out, lm.fc2_bias_plain(h3, w2, b2),
+                   KERNEL_ATOL["fc2_bias"], KERNEL_RTOL)
+            record(inst, f"{what} pair", out, lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2),
+                   KERNEL_ATOL["ln_mlp"], KERNEL_RTOL)
+            if not torch.equal(out, again):
+                raise AssertionError(f"{inst} {what}: a second call differs")
+            hidden64, out64 = torch.empty_like(hidden), torch.empty_like(out)
+            on_64row(lambda: lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden64, out64))()
+            bitwise_64[f"{inst} ln_fc1_gelu"] = (bitwise_64.get(f"{inst} ln_fc1_gelu", 0)
+                                                 + int(torch.equal(hidden64, h_lm)))
+            bitwise_64[inst] = bitwise_64.get(inst, 0) + int(torch.equal(out64, out))
+            checks += 1
+
+            def fc1_lib():
+                y = F.layer_norm(x.float(), (c,), g, be, 1e-6).to(b16)
+                return F.gelu(F.linear(y, w1, b1.to(b16)))
+
+            vecs = (f + 3 * c) * 4
+            mlp = {"pair": (stage("pair"), lambda: lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2),
+                            lambda: F.linear(fc1_lib(), w2, b2.to(b16)),
+                            (4 * m * c * f, m * c * xb + 2 * c * f * 2 + vecs + m * c * 2),
+                            "F.layer_norm + F.linear + F.gelu + F.linear, 4 calls"),
+                   "ln_fc1_gelu": (stage("ln_fc1_gelu"),
+                                   lambda: lm.ln_fc1_gelu_plain(x, g, be, w1, b1).to(b16),
+                                   fc1_lib,
+                                   (2 * m * c * f, m * c * xb + c * f * 2 + (f + 2 * c) * 4
+                                    + m * f * 2), "F.layer_norm + F.linear + F.gelu, 3 calls"),
+                   "fc2_bias": (stage("fc2_bias"), lambda: lm.fc2_bias_plain(h3, w2, b2),
+                                lambda: F.linear(h3, w2, b2.to(b16)),
+                                (2 * m * f * c, m * f * 2 + c * f * 2 + c * 4 + m * c * 2),
+                                "F.linear")}
+            main = MP_ROW_SHAPE[inst] == (label, n)
+            for launch, (kern, plain, lib, work, lib_what) in mlp.items():
+                if launch != "pair" and not (main or label == "B16"):
+                    continue
+                b_ms, b_by = bound(*work)
+                t = full(kern, plain, lib) if main and launch == "pair" else \
+                    light(kern, plain, lib)
+                tab[inst if launch == "pair" else f"{inst} {launch}"] = {
+                    **t, "library": lib_what, "bound_ms": b_ms, "bound_by": b_by}
+            # ---- proj_residual, bf16 W (#4) and int8 W (#6)
+            wp = arr(rng.normal(size=(c, c)) / np.sqrt(c), b16)
+            bp = arr(0.02 * rng.normal(size=c))
+            wpq = quant.quantize_weight(wp)
+            wpd = wpq.materialize(xdt)
+            attn = arr(0.3 * rng.normal(size=(b, n, c)), xdt)
+            a16 = attn.to(b16)
+            z = torch.zeros_like(x)
+            f32_rule = x_dtype == torch.float32
+            projs = {
+                f"proj_residual[{xt}x-bf16a-bf16w-lm]": (
+                    lambda xx: lqp.proj_residual(xx, a16, wp, bp),
+                    lambda xx: lqp.proj_residual_plain(xx, a16, wp, bp),
+                    lambda: torch.add(x, F.linear(a16, wp, bp.to(b16))),
+                    (2 * m * c * c, 2 * m * c * xb + m * c * 2 + c * c * 2 + c * 4), False),
+                f"proj_residual[{xt}x-{xt}a-int8w-lm]": (
+                    lambda xx: lqp.proj_residual(xx, attn, wpq.q, bp, wpq.scale),
+                    lambda xx: lqp.proj_residual_plain(xx, attn, wpq, bp),
+                    lambda: torch.add(x, F.linear(attn, wpd, bp.to(xdt))),
+                    ((2 if f32_rule else 1) * 2 * m * c * c, 3 * m * c * xb + c * c + 8 * c),
+                    f32_rule)}
+            for inst, (kern, plain, lib, work, fp32_out) in projs.items():
+                got, again, alone = routed(
+                    inst, lambda: ((kern(x), kern(x), kern(z)), 3), what)
+                if fp32_out:
+                    record(inst, what, got, plain(x), F32_ATOL, F32_RTOL)
+                    record(inst, f"{what} proj only", alone, plain(z), F32_ATOL, F32_RTOL)
+                else:
+                    record(inst, what, got, plain(x), Q8_KERNEL_ATOL["proj_residual"],
+                           KERNEL_RTOL)
+                    record(inst, f"{what} proj only", alone, plain(z), Q8_KERNEL_ATOL["proj"],
+                           KERNEL_RTOL)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{inst} {what}: a second call differs")
+                bitwise_64[inst] = bitwise_64.get(inst, 0) + int(torch.equal(
+                    got, on_64row(lambda: kern(x))()))
+                checks += 1
+                b_ms, b_by = bound(*work)
+                t = (full if MP_ROW_SHAPE[inst] == (label, n) else light)(
+                    lambda: kern(x), lambda: plain(x), lib)
+                tab[inst] = {**t, "bound_ms": b_ms, "bound_by": b_by,
+                             "library": ("F.linear + add, 2 calls" if "bf16w" in inst else
+                                         "F.linear + add, dequantized W in x's dtype")}
+    emit({"phase": "large_m_mlp_proj_check", "shapes": MP_SHAPES, "checks": checks,
+          "tolerance": {"ln_mlp": {k: f"{KERNEL_ATOL[k]} + {KERNEL_RTOL}*|plain|"
+                                   for k in ("ln_fc1_gelu", "fc2_bias", "ln_mlp")},
+                        "proj_residual bf16 out": "Q8_KERNEL_ATOL['proj_residual'] (with the "
+                        "residual), ['proj'] (alone) + KERNEL_RTOL*|plain|",
+                        "proj_residual fp32 out (fp32x-fp32a-int8w)":
+                            f"{F32_ATOL} + {F32_RTOL}*|plain|"},
+          "repeatable": "bitwise, two calls at every shape",
+          "bitwise_vs_64row_body": {k: f"{v} of {len(MP_SHAPES)}"
+                                    for k, v in sorted(bitwise_64.items())},
+          "max_abs_err": worst})
+    emit({"phase": "large_m_mlp_proj_times", "timer": TIMER,
+          "light": "away from each row's shape: device ms of kernel, plain, library and the "
+                   "64-row body (a CUDA graph of 20 calls), eager ms of kernel and 64-row "
+                   "body (50 calls)",
+          "row_shapes": MP_ROW_SHAPE, "times": times})
+    return worst, times
+
 
 # ------------------------------------------------------------------ phase 3
 def frame_work(model, nt: int) -> dict:
@@ -1659,13 +1932,16 @@ class ProfileWindow:
     """torch.profiler from its construction to close(n, unit), a stretch of
     n units of work, the last ending in a read-back: the device's own
     events (kernels, copies, memsets) summed over the host-clock window,
-    per unit, and the 12 that take most of it."""
+    per unit, and the 12 that take most of it. It traces the device alone:
+    tracing the host's operators as well added its own host time to every
+    eager step inside the window (so the busy share read low) and took
+    seconds to summarize at each close, and no figure here reads them."""
 
     def __init__(self):
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.prof.__enter__()
         torch.cuda.synchronize()
         self.t0 = time.perf_counter()
@@ -1825,8 +2101,8 @@ def checked_step(bt, single, batch, tallies) -> None:
     """One lockstep step, checked: from the same state, the batch on the
     plain backend, then on the kernels (whose state goes on); each active
     row of the kernel step against (b) the plain step's row and (a) a
-    single Tracker stepped from that row's state on the kernels, under
-    paired_ab's rule."""
+    single Tracker stepped from that row's state on the kernels (single
+    None: (b) alone), under paired_ab's rule."""
     from uvltrack_tpu_torch.ops import attention
 
     st = bt.state
@@ -1839,6 +2115,8 @@ def checked_step(bt, single, batch, tallies) -> None:
     for i in map(int, st.active.nonzero()[0]):
         crop = crop_side(st.box[i].tolist(), bt.search_factor)
         tallies["kernel_vs_plain"].add(p[i, :4], pm[i, 2], k[i, :4], km[i, 2], crop)
+        if single is None:
+            continue
         load_row(single, bt, st, i)
         r = single.track_debug(batch[i])
         tallies["batch_vs_single"].add(r["target_bbox"], r["merged_map"], k[i, :4], km[i, 2],
@@ -2601,6 +2879,156 @@ def compiled_pool(cfg, jt, seqs, languages, tokenizer, per_fwd, remine_fwd) -> d
     return out
 
 
+# the fused lockstep cells: both knobs on the bf16 model (#4 and #7 in every
+# block), the projection's on the int8 one (#6; int8 MLP weights stay plain)
+FUSED_KNOBS = {"B-S8-FUSED": {"UVLTRACK_FUSED_MLP": "1", "UVLTRACK_FUSED_PROJ": "1"},
+               "B-S4-Q8-FUSED": {"UVLTRACK_FUSED_PROJ": "1"}}
+# their launches per batched forward by body (build.body_counts): every
+# weight kernel on the large-M body at B.N rows, none on the 64-row one
+FUSED_BODIES = {
+    "B-S8-FUSED": {"ln_qkv[bf16x-bf16w-lm]": 6, "ln_qkv[fp32x-bf16w-lm]": 6,
+                   "proj_residual[bf16x-bf16a-bf16w-lm]": 6,
+                   "proj_residual[fp32x-bf16a-bf16w-lm]": 6,
+                   "ln_mlp[bf16x-bf16w-lm]": 6, "ln_mlp[fp32x-bf16w-lm]": 6},
+    "B-S4-Q8-FUSED": {"ln_qkv[bf16x-int8w-lm]": 6, "ln_qkv[fp32x-int8w-lm]": 6,
+                      "proj_residual[bf16x-bf16a-int8w-lm]": 6,
+                      "proj_residual[fp32x-fp32a-int8w-lm]": 6}}
+
+
+def eager_steps(cell) -> tuple:
+    """The cell's steps on its eager BatchTracker from a fresh initialize:
+    (launches by instantiation, launches by body) over the steps alone."""
+    import torch
+
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.ops import build
+
+    attention.force_backend("cuda")
+    cell.initialize()
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    before = build.body_counts()
+    for batch, active in zip(cell.batches, cell.actives):
+        cell.bt.set_active(active)
+        cell.bt.step(batch)
+    torch.cuda.synchronize()
+    attention.force_backend(None)
+    bodies = {k: v - before.get(k, 0) for k, v in build.body_counts().items()
+              if v != before.get(k, 0)}
+    return build.instantiation_counts(), bodies
+
+
+def fused_lockstep(label, cell, jt, per_fwd, remine_fwd) -> dict:
+    """A lockstep cell under FUSED_KNOBS[label] (kernels #4/#6 and #7 at B.N
+    rows): (a) its eager steps' launches per batched forward, by
+    instantiation (per_fwd) and by body (FUSED_BODIES[label]); (b) every row
+    of every step on the kernels against the plain backend from the shared
+    state (checked_step, paired_ab's rule); (c) compiled_lockstep under the
+    knobs (their own graphs on jt: graph_knobs keys them): the graph step
+    against the eager step in turns, the bitwise rows counted, the captures
+    checked, profiler windows. Returns compiled_lockstep's line."""
+    from uvltrack_tpu_torch.ops import attention
+
+    knobs, T = FUSED_KNOBS[label], cell.T
+    with knob_env(knobs):
+        inst, bodies = eager_steps(cell)
+        expect_launches(per_fwd, T, inst, f"{label}: {T} eager steps")
+        expect_launches(FUSED_BODIES[label], T, bodies, f"{label}: {T} eager steps by body")
+        tally = {"kernel_vs_plain": AbTally(f"{label} kernel/plain")}
+        attention.force_backend("cuda")
+        cell.initialize()
+        for batch, active in zip(cell.batches, cell.actives):
+            cell.bt.set_active(active)
+            checked_step(cell.bt, None, batch, tally)
+        attention.force_backend(None)
+        out = compiled_lockstep(label, cell, jt, per_fwd, remine_fwd)
+    emit({"phase": f"compiled_{label}_checks", "knobs": knobs, "S": cell.S, "steps": T,
+          "launches_per_step": {k: v / T for k, v in inst.items()},
+          "launches_per_step_by_body": {k: v / T for k, v in bodies.items()},
+          "paired_kernel_vs_plain": tally["kernel_vs_plain"].summary()})
+    return out
+
+
+def fused_turns(cell, jt, jt64, tokenizer) -> dict:
+    """Three graph steps of B-S8's streams in turns (A B C C B A): the
+    default S8 step, B-S8-FUSED's, and B-S8-FUSED's on the 64-row bodies
+    (jt64's graphs, captured with LARGE_M_ROWS above M: the parent's route at
+    these rows). Step p50/p90 on the host clock over the cell's steps, and
+    device ms a step over 8 steps (profile_window) each; one eager step of
+    the 64-row route counted by body."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.track.batch import BatchTracker
+
+    knobs = FUSED_KNOBS["B-S8-FUSED"]
+    routes = {"S8": ({}, jt), "B-S8-FUSED": (knobs, jt), "B-S8-FUSED_64row": (knobs, jt64)}
+    bts = {name: BatchTracker(cell.cfg, None, cell.S, tokenizer=tokenizer, jit_tracker=j)
+           for name, (_, j) in routes.items()}
+
+    def init(bt):
+        return bt.initialize(cell.frames0, cell.boxes0, languages=cell.languages,
+                             modes=cell.modes)
+
+    def run(name):
+        bt = bts[name]
+        with knob_env(routes[name][0]):
+            init(bt)
+            torch.cuda.synchronize()
+            lat = []
+            for batch, active in zip(cell.batches, cell.actives):
+                bt.set_active(active)
+                t0 = time.perf_counter()
+                bt.step(batch)
+                lat.append(time.perf_counter() - t0)
+        return np.asarray(lat)
+
+    attention.force_backend("cuda")
+    # the forced route's eager launches are set aside: the kernels line's
+    # 64-row rows count the main path's launches on that body alone
+    bodies = build.body_counts()
+    try:
+        with large_m_from(1 << 62):
+            run("B-S8-FUSED_64row")  # captures jt64's graphs on the 64-row bodies
+            with knob_env(knobs):
+                init(cell.bt)
+                torch.cuda.synchronize()
+                before = build.body_counts()
+                cell.bt.step(cell.batches[0])
+                torch.cuda.synchronize()
+                route64 = {k: v - before.get(k, 0) for k, v in build.body_counts().items()
+                           if v != before.get(k, 0)}
+    finally:
+        build.reset_body_counts(bodies)
+    want64 = {k.replace("-lm]", "-64]"): v for k, v in FUSED_BODIES["B-S8-FUSED"].items()}
+    if route64 != want64:
+        raise AssertionError(f"the forced 64-row route's eager step launched {route64}, not "
+                             f"{want64}")
+    lats = {name: [] for name in routes}
+    order = list(routes)
+    for name in order + order[::-1]:
+        lats[name].append(run(name))
+    prof = {}
+    for name in order:
+        bt = bts[name]
+        with knob_env(routes[name][0]):
+            init(bt)
+            bt.step(cell.batches[0])
+            prof[name] = profile_window(lambda j, bt=bt: bt.step(cell.batches[1 + j]),
+                                        min(8, cell.T - 1), "step")
+    attention.force_backend(None)
+    out = {"phase": "compiled_B-S8-FUSED_turns", "order": order + order[::-1],
+           "timer": COMPILED_TIMER, "route_64row_eager_step_by_body": route64,
+           **{name: {**lat_stats(np.concatenate(lats[name]), "step"),
+                     "p50_ms_by_run": [float(np.percentile(r, 50) * 1e3) for r in lats[name]],
+                     "device_ms_per_step": prof[name].get("device_ms_per_step"),
+                     "device_profile": prof[name]} for name in order}}
+    emit(out)
+    return out
+
+
 def shared_and_knob(cfg, model, jt, frames, boxes) -> dict:
     """A second Tracker on jt captures no graph, and its boxes equal a fresh
     Tracker's (its own JitTracker, its own captures); then
@@ -2674,6 +3102,19 @@ def compiled_phase(model, cfg, model_q8, cfg_q8, tokenizer, language, frames, bo
                           [33, 33, 25] + [33] * 5, tokenizer, per_fwd_fp)]
     for cell in cells:
         summary[cell.label] = compiled_lockstep(cell.label, cell, jt, per_fwd_fp, remine)
+    # kernels #4 and #7 at B.N rows: B-S8's streams under both fused knobs,
+    # then beside the default step and the 64-row route in turns; #6 at B=4
+    fused_fwd = dict(per_fwd_fp, **{"proj_residual[bf16x-bf16a-bf16w]": 6,
+                                    "proj_residual[fp32x-bf16a-bf16w]": 6,
+                                    "ln_mlp[bf16x-bf16w]": 6, "ln_mlp[fp32x-bf16w]": 6})
+    summary["B-S8-FUSED"] = fused_lockstep("B-S8-FUSED", cells[1], jt, fused_fwd, remine)
+    fused_turns(cells[1], jt, JitTracker(cfg, model), tokenizer)
+    q8_cell = LockstepCell("S4_q8", model_q8, cfg_q8, seqs, mix[:4], langs[:4],
+                           [17, 17, 9, 17], tokenizer, per_fwd_q8)
+    summary["B-S4-Q8-FUSED"] = fused_lockstep(
+        "B-S4-Q8-FUSED", q8_cell, jt_q8,
+        dict(per_fwd_q8, **{"proj_residual[bf16x-bf16a-int8w]": 6,
+                            "proj_residual[fp32x-fp32a-int8w]": 6}), remine)
     summary["pool"] = compiled_pool(cfg, jt, seqs, [None, language, language, None],
                                     tokenizer, per_fwd_fp, remine)
     emit({"phase": "compiled_summary", "seconds": time.perf_counter() - t0,
@@ -3514,12 +3955,32 @@ def gate_probes(k_model, p_model, batch, cfg, seed: int, counted):
     return probes, sens, max(TRAIN_NORM_REL, 2 * sens), flips
 
 
+def step1_rels(k1: dict, p1: dict):
+    """(loss, grad_norm) of step 1 on the kernels (k1) relative to plain (p1)."""
+    return (abs(k1["loss"] - p1["loss"]) / abs(p1["loss"]),
+            abs(k1["grad_norm"] - p1["grad_norm"]) / abs(p1["grad_norm"]))
+
+
+def batch_digest(batch: dict) -> str:
+    """sha256 of a batch's arrays (names, dtypes, shapes and bytes, by name),
+    flags included: one batch from one seed gives one digest."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        a = np.ascontiguousarray(batch[k])
+        h.update(f"{k}:{a.dtype}:{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
 def step1_gate(k1: dict, p1: dict, norm_bound: float, what: str):
     """Step 1 on the kernels (k1) against plain (p1), from one init: the
     loss within TRAIN_LOSS_REL and grad_norm within norm_bound (relative);
     returns (loss_rel, grad_norm_rel)."""
-    loss_rel = abs(k1["loss"] - p1["loss"]) / abs(p1["loss"])
-    norm_rel = abs(k1["grad_norm"] - p1["grad_norm"]) / abs(p1["grad_norm"])
+    loss_rel, norm_rel = step1_rels(k1, p1)
     if loss_rel > TRAIN_LOSS_REL or norm_rel > norm_bound:
         raise AssertionError(f"{what} step 1, kernels vs plain: loss {k1['loss']} vs "
                              f"{p1['loss']} ({loss_rel}), grad_norm {k1['grad_norm']} vs "
@@ -3908,7 +4369,7 @@ def data_phase(args, dev, tmp: Path) -> dict:
     import numpy as np
     import torch
 
-    from uvltrack_tpu_torch.data.loader import build_train_loader
+    from uvltrack_tpu_torch.data.loader import first_batch
     from uvltrack_tpu_torch.data.synthetic import synthetic_batch_from_cfg
     from uvltrack_tpu_torch.ops import build
     from uvltrack_tpu_torch.train.step import setup_training
@@ -4036,29 +4497,33 @@ def data_phase(args, dev, tmp: Path) -> dict:
           "val_per_epoch": {r["epoch"]: r["val"] for r in recs},
           "loss_per_epoch": [r["train"]["Loss/total"] for r in recs], "checkpoints": ck})
 
-    # (d) step 1 on one real batch from one init, kernels against plain
+    # (d) step 1 on one real batch from one init, kernels against plain: the
+    # loader's first batch drawn in order by one thread (first_batch), the
+    # same in every call from one --seed
     before = build.instantiation_counts()
     _, k_state, k_step = setup_training(cfg, 1, device=dev, seed=args.seed)
     _, p_state, p_step = setup_training(cfg, 1, device=dev, seed=args.seed)
-    cfg.TPU.LOADER_WORKER_MODE = "thread"
-    cfg.DATA.TRAIN.SAMPLE_PER_EPOCH = bsz
-    batch = next(iter(build_train_loader(cfg, bsz, seed=args.seed)))
+    batch = first_batch(cfg, bsz, seed=args.seed)
     real = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
     probes, sens, norm_bound, flips = gate_probes(k_state.model, p_state.model, real, cfg,
                                                   args.seed, lambda fn: fn())
     _, k1 = _train_run(k_state, k_step, real, "cuda", 1)
     _, p1 = _train_run(p_state, p_step, real, "plain", 1)
-    loss_rel, norm_rel = step1_gate(k1[0], p1[0], norm_bound, "B-TRAIN-REAL")
     total.update(launches_since(before))
+    loss_rel, norm_rel = step1_rels(k1[0], p1[0])
+    # the line first, so a call whose gate fails still says why
     emit({"phase": "data_step1", "batch_flags": batch["flag"].tolist(),
+          "batch_digest": batch_digest(batch), "batch_from": "first_batch: one thread worker",
           "gate": f"loss within {TRAIN_LOSS_REL}, grad_norm within max({TRAIN_NORM_REL}, 2 x "
           f"the plain backend's move under a {TRAIN_PROBE_EPS:g} input change) = {norm_bound}",
+          "gate_passes": loss_rel <= TRAIN_LOSS_REL and norm_rel <= norm_bound,
           "loss_rel": loss_rel, "grad_norm_rel": norm_rel, "plain_grad_norm_move_at_eps": sens,
           "supervised_cells_differing_from_plain": flips,
           "step1": {"cuda": k1[0], "plain": p1[0]},
           "probes": {k: {"loss": v["loss"], "grad_norm": v["grad_norm"]}
                      for k, v in probes.items()}})
+    step1_gate(k1[0], p1[0], norm_bound, "B-TRAIN-REAL")
     del k_state, k_step, p_state, p_step, real
     gc.collect()
     torch.cuda.empty_cache()
@@ -4073,13 +4538,17 @@ def data_phase(args, dev, tmp: Path) -> dict:
 # every block): launches per backbone forward of UVLTrack-B, by knob, and
 # the fp32 weights whose hi/lo planes split_hilo writes once per model
 F32_PER_FWD = {"ln_qkv[fp32x-fp32w]": 12, "qkv_attention[fp32]": 12}
+# the parity runs by knob: plain, and both fused knobs at once, whose
+# forward holds every fp32-weight kernel (rows 1b, 4b and 7c); the export
+# runs under both knobs alone
 F32_KNOBS = {  # label -> (environment, extra launches a forward, exported ops, weights split)
     "": ({}, {}, {"ln_qkv": 12, "qkv_attention": 12}, 12),
-    "fused_proj": ({"UVLTRACK_FUSED_PROJ": "1"}, {"proj_residual[fp32x-fp32a-fp32w]": 12},
-                   {"ln_qkv": 12, "qkv_attention": 12, "proj_residual": 12}, 24),
-    "fused_mlp": ({"UVLTRACK_FUSED_MLP": "1"}, {"ln_mlp[fp32x-fp32w]": 12},
-                  {"ln_qkv": 12, "qkv_attention": 12, "ln_mlp": 12}, 36),
+    "fused_proj_mlp": ({"UVLTRACK_FUSED_PROJ": "1", "UVLTRACK_FUSED_MLP": "1"},
+                       {"proj_residual[fp32x-fp32a-fp32w]": 12, "ln_mlp[fp32x-fp32w]": 12},
+                       {"ln_qkv": 12, "qkv_attention": 12, "proj_residual": 12, "ln_mlp": 12},
+                       48),
 }
+F32_EXPORT = {k: F32_KNOBS[k] for k in ("fused_proj_mlp",)}
 F32W_NAMES = ("ln_qkv[fp32x-fp32w]", "proj_residual[fp32x-fp32a-fp32w]", "ln_mlp[fp32x-fp32w]",
               "split_hilo[fp32w]")
 F32W_GRID_DOC = ("B in {1, 8} x N in {321, 361} x C in {768, 1024} (H = C/64) x 3 masks, "
@@ -4358,10 +4827,10 @@ def trace_kernels(path: Path) -> dict:
 
 def cli_phase(args, dev, vocab: Path, tmp: Path) -> dict:
     """The `cli` group: (a) the fp32-weight instantiations; (b) cli.profile;
-    (c) cli.export --check at fp32 compute, plain and under each fused knob
-    (F32_KNOBS), the exported graph's kernel ops counted by name; (d)
+    (c) cli.export --check at fp32 compute under both fused knobs
+    (F32_EXPORT), the exported graph's kernel ops counted by name; (d)
     cli.parity on a .pth.tar of the seeded model, on the kernels and on the
-    plain backend, in fp32 (plain and under each knob) and with --quant
+    plain backend, in fp32 (plain and under both knobs) and with --quant
     int8, the dumps held key by key to the fp32 rule; (e) cli.demo on a 48-frame 720p
     video against a direct Tracker over the same decoded frames; (f)
     cli.test on a trainer checkpoint (ep0001.pt) against a direct replay.
@@ -4403,8 +4872,8 @@ def cli_phase(args, dev, vocab: Path, tmp: Path) -> dict:
           "seed 0", "argv": CLI_PROFILE, "timer": CLI_TIMER, **recs})
 
     # (c) export at fp32 compute, --check: the loaded program against the
-    # direct call; plain, then under each fused knob (kernels #4 and #7 with
-    # fp32 weights)
+    # direct call, under both fused knobs (kernels #1, #4 and #7 with fp32
+    # weights in one graph)
     planes, peak = hilo.planes, [0]
 
     def planes_peak(w):  # the planes cache's largest size during the run
@@ -4412,7 +4881,7 @@ def cli_phase(args, dev, vocab: Path, tmp: Path) -> dict:
         peak[0] = max(peak[0], hilo.cache_bytes())
         return got
 
-    for label, (env, extra, ops, splits) in F32_KNOBS.items():
+    for label, (env, extra, ops, splits) in F32_EXPORT.items():
         out_pt2 = tmp / "uvltrack_b.pt2"
         os.environ.update(env)
         hilo.planes, peak[0] = planes_peak, 0
@@ -5309,7 +5778,7 @@ def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--frames", type=int, default=64)
+    ap.add_argument("--frames", type=int, default=33)
     ap.add_argument("--only", default="", help="comma-separated groups of phases to run "
                     f"({', '.join(GROUPS)}; all by default); a partial run prints no "
                     "kernels line")
@@ -5358,6 +5827,7 @@ def main() -> int:
         fused_worst, fused_times = fused_kernel_phase(dev, args.seed)
         tp_kern = tp_kernel_phase(dev, args.seed)
         lm_kern = large_m_qkv_phase(dev, args.seed)
+        mp_kern = large_m_mlp_proj_phase(dev, args.seed)
         emit({"phase": "kernels_group", "seconds": time.perf_counter() - t0})
     # ln_qkv's launches by body on the paths below (the kernels line's rows
     # of its bf16 and int8 weights); the kernel checks of later groups are
@@ -5505,7 +5975,7 @@ def main() -> int:
     lb = f"B{LOCKSTEP_B}_"
     return finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst,
                   q8_times, fused_worst, fused_times, large, train_counts, cli_counts["f32w"],
-                  tp_kern, lm_kern, build.body_counts())
+                  tp_kern, lm_kern, mp_kern, build.body_counts())
 
 
 def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, language,
@@ -5544,7 +6014,7 @@ def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, langu
 
 
 def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst, q8_times,
-           fused_worst, fused_times, large, train_counts, f32w, tp_kern, lm_kern,
+           fused_worst, fused_times, large, train_counts, f32w, tp_kern, lm_kern, mp_kern,
            bodies) -> int:
     """The kernels line, the compositions and per-launch lines, the total,
     the nvidia-smi line and the ok line. `large`: the kernel checks and
@@ -5557,9 +6027,11 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
     instantiations on the tp=2 step carry under "tp" (TP_SHAPES), and the
     two fc2 fp32-out rows, whose only path is that step, at B_tp2; `lm_kern`:
     large_m_qkv_phase's checks and times, the rows of ln_qkv's large-M
-    instantiations (`-lm`); `bodies`: build.body_counts() over every path
-    run (the kernel checks set aside), the launches of ln_qkv's bf16- and
-    int8-weight rows by body (`-64`, `-lm`)."""
+    instantiations (`-lm`); `mp_kern`: large_m_mlp_proj_phase's, the rows
+    of ln_mlp's and proj_residual's (`-lm`); `bodies`: build.body_counts()
+    over every path run (the kernel checks set aside), the launches of the
+    bf16- and int8-weight rows of ln_qkv, proj_residual and ln_mlp by body
+    (`-64`, `-lm`)."""
     def at(table, shape, name):
         """A kernel's times at one shape, at B=1 and (under its key) at the
         lockstep batch."""
@@ -5589,7 +6061,7 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                               ("proj_residual[bf16x-bf16a-int8w]", 489, "N321_bf16x_open"),
                               ("proj_residual[fp32x-fp32a-int8w]", 489, "N361_fp32x_flag0")):
         source = f"{src}/{name.split('[')[0]}.cu"
-        n = on_64row(name) if name.startswith("ln_qkv[") else launches.get(name, 0)
+        n = launches.get(name, 0) if name.startswith("qkv_attention") else on_64row(name)
         rows.append((name, source, line, n, q8_worst[name], at(q8_times, shape, name)))
     # fp32 compute (the fp32 weights of export and parity): kernel #1's
     # prefix, #4's epilogue, #7, and the planes' split (the pre-pass of the
@@ -5603,7 +6075,8 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
     for name, line, shape, err in (("attention[bf16]", 78, "N40_bert", "attention"),
                                    ("ln_mlp[bf16x-bf16w]", 551, "N321_bf16x", "ln_mlp"),
                                    ("ln_mlp[fp32x-bf16w]", 551, "N361_fp32x", "ln_mlp")):
-        rows.append((name, f"{src}/{name.split('[')[0]}.cu", line, launches.get(name, 0),
+        n = on_64row(name) if name.startswith("ln_mlp") else launches.get(name, 0)
+        rows.append((name, f"{src}/{name.split('[')[0]}.cu", line, n,
                      fused_worst[err], at(fused_times, shape, name)))
     # a tensor-parallel rank's shares of #4's projection and of #7 (the
     # large-M body): the tp=2 train step is their main path, so their
@@ -5626,6 +6099,15 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
         lm_rows.append((name, f"{src}/ln_qkv.cu", 433 if "int8w" in tag else 167,
                         bodies.get(name, 0), lm_worst[name],
                         {k: v for k, v in lm_times[label][f"N{n}"][name].items()
+                         if k != "library"}))
+    # kernel #7 and proj_residual at B.N rows on the large-M body (rows 7m,
+    # 4m, 6m), each at its MP_ROW_SHAPE, its other shapes under "shapes"
+    mp_worst, mp_times = mp_kern
+    for name, (label, n) in MP_ROW_SHAPE.items():
+        lm_rows.append((name, f"{src}/{name.split('[')[0]}.cu",
+                        551 if name.startswith("ln_mlp") else 489 if "int8w" in name else 291,
+                        bodies.get(name, 0), mp_worst[name],
+                        {k: v for k, v in mp_times[label][f"N{n}"][name].items()
                          if k != "library"}))
     rows += lm_rows
     kernels = [{"name": name, "route": "cuda", "source": source,
@@ -5674,16 +6156,17 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                          "main path; times at B_tp2 (K=384, F=1536)")
     for k in kernels:
         if k["name"].endswith("-lm]"):
-            k["shapes"] = {f"{label}_{n}": {q: v for q, v in t[k["name"]].items()
-                                            if q != "library"}
-                           for label, by_n in lm_times.items() for n, t in by_n.items()
-                           if k["name"] in t}
-            k["note"] = ("the large-M body at B.N rows (M >= LARGE_M_ROWS); launches: every "
+            table = lm_times if k["name"].startswith("ln_qkv") else mp_times
+            k["shapes"] = {f"{label}_{n}{name[len(k['name']):]}": {
+                q: v for q, v in t[name].items() if q != "library"}
+                for label, by_n in table.items() for n, t in by_n.items()
+                for name in t if name.startswith(k["name"])}
+            k["note"] = ("the large-M body at B.N rows (M >= its LARGE_M_ROWS); launches: every "
                          "path's eager calls on it (build.body_counts); graph_launches and "
                          "train_launches: the instantiation's tag, both bodies")
-        elif k["name"].startswith("ln_qkv[") and "fp32w" not in k["name"] or \
-                k["name"] == "ln_qkv":
-            k["note"] = (f"the 64-row body (M < LARGE_M_ROWS); launches: every path's eager "
+        elif k["name"].startswith(("ln_qkv[", "ln_mlp[", "proj_residual[")) and \
+                "fp32w" not in k["name"] and "fp32o" not in k["name"] or k["name"] == "ln_qkv":
+            k["note"] = (f"the 64-row body (M < its LARGE_M_ROWS); launches: every path's eager "
                          f"calls on it (build.body_counts); graph_launches and train_launches: "
                          f"the tag's, both bodies; the {lb.rstrip('_')} times: the large-M "
                          f"body, which those rows take")

@@ -677,10 +677,11 @@ def test_proj_partial_refuses_before_a_launch(spied_launches):
 def test_ln_mlp_partial_launches_the_fp32o_pair(c, heads, tp, spied_launches,
                                                 spied_allocations):
     """ln_mlp_partial with bf16 weights, a bf16 and an fp32 x: one `-fp32o`
-    launch of uvl_ln_mlp_partial, both stages (mask 3) at M = B*N, C, F =
-    4C/tp, with no b2 (a null pointer), into the (B*N, F) bf16 hidden tensor,
-    the (B, N, C) fp32 out and the (B*N, C) bf16 normalized rows it
-    allocates, and nothing else."""
+    launch of the large-M MLP entry uvl_ln_mlp_large_m with its fp32 out
+    kind (1), both stages (mask 3) at M = B*N, C, F = 4C/tp, with no b2 (a
+    null pointer), into the (B*N, F) bf16 hidden tensor, the (B, N, C) fp32
+    out and the (B*N, C) bf16 normalized rows it allocates, and nothing
+    else."""
     from uvltrack_tpu_torch.ops import ln_mlp as lm
 
     b, n, f = 16, 321, 4 * c // tp
@@ -694,9 +695,9 @@ def test_ln_mlp_partial_launches_the_fp32o_pair(c, heads, tp, spied_launches,
         out = lm.ln_mlp_partial(x, *ln, w1, b1, w2)
         assert spied_launches == [("ln_mlp", tag)]
         _, _, args, kw = spied_launches.args[0]
-        assert kw["entry"] == "uvl_ln_mlp_partial" and len(args) == 17
+        assert kw["entry"] == "uvl_ln_mlp_large_m" and len(args) == 18
         assert args[2] == int(x_dtype == torch.float32) and args[8] is None  # b2
-        assert args[12:] == (b * n, c, f, 1e-6, 3)
+        assert args[12:] == (1, b * n, c, f, 1e-6, 3)
         assert out.shape == (b, n, c) and out.dtype == torch.float32
         assert spied_allocations == [((b * n, f), b16), ((b, n, c), torch.float32),
                                      ((b * n, c), b16)]

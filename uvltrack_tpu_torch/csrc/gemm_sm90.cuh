@@ -24,10 +24,13 @@
 //   - SPLITK_RESIDUAL (proj_residual): A is the attention output (M, K), bf16
 //     or fp32, and out = x + TX(proj) in x's type TX;
 //   - GEMM_F32OUT: out = A . W^T (+ b) in fp32, bf16 A; with LN_BIAS and
-//     LN_BIAS_GELU on rows normalized beforehand, the kinds of the large-M
-//     body (its own section below): ln_qkv at B.N rows (a lockstep step's,
-//     a training step's), and a tensor-parallel rank's shares of #4's
-//     projection and of #7.
+//     LN_BIAS_GELU on rows normalized beforehand, and LM_RESIDUAL, the kinds
+//     of the large-M body (its own section below): ln_qkv, both launches of
+//     ln_mlp and proj_residual at B.N rows (a lockstep step's, a training
+//     step's), and a tensor-parallel rank's shares of #4's projection and
+//     of #7;
+//   - LM_RESIDUAL (proj_residual at B.N rows, on the large-M body): out =
+//     x + TX(A . W^T (* s) + b) in x's type TX, as SPLITK_RESIDUAL.
 //
 // Bound on the H100: at the tracking step's shapes (M = 321/361 tokens, C =
 // 768) every one of these products moves 0.6-10 MB and needs 0.4-3.4 GFLOP of
@@ -115,7 +118,14 @@
 namespace uvl {
 namespace sm90 {
 
-enum Kind { LN_BIAS = 0, LN_BIAS_GELU = 1, SPLITK_BIAS = 2, SPLITK_RESIDUAL = 3, GEMM_F32OUT = 4 };
+enum Kind {
+  LN_BIAS = 0,
+  LN_BIAS_GELU = 1,
+  SPLITK_BIAS = 2,
+  SPLITK_RESIDUAL = 3,
+  GEMM_F32OUT = 4,
+  LM_RESIDUAL = 5
+};
 
 constexpr int BM = 64;              // output rows per block (one wgmma M)
 constexpr int BK = 64;              // k-tile depth: 64 bf16 = one 128-byte swizzle row
@@ -420,6 +430,13 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
+}
+// two consecutive values of a row as fp32
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
@@ -1198,10 +1215,25 @@ ln_hilo_kernel(const __grid_constant__ CUtensorMap map_x,
 //     as hi and lo bf16 halves (ALO: A is (M, 2K), hi | lo, and each k-tile
 //     runs hi.W then lo.W, 16 deep at a time, the 64-row body's order);
 //   - LN_BIAS_GELU: out (M, N_out) bf16 = gelu(A . W^T + b), A the rows
-//     normalized once by ln_rows_kernel (fc1 of a rank's MLP share);
+//     normalized once by ln_rows_kernel (fc1 of kernel #7 and of a rank's
+//     MLP share);
+//   - fc2 of kernel #7 (ln_mlp at M >= LARGE_M_ROWS) is LN_BIAS with a bf16
+//     out on the hidden tensor: nothing in that kind normalizes, the rows
+//     were normalized before it (ln_qkv) or are the GELU's (fc2), and its
+//     epilogue, bf16(A . W^T + b), is fc2_bias's;
+//   - LM_RESIDUAL: out (M, N_out) = x + TX(A . W^T (* s) + b) in x's type
+//     TX (proj_residual at M >= its LARGE_M_ROWS, kernels #4 and #6): the
+//     product rounded once to TX, then the residual x (M, N_out) added in
+//     TX, read at the accumulator fragments' own positions in the epilogue
+//     (SPLITK_RESIDUAL's order of operations); an int8 W converted once a
+//     call, s its scale; an fp32 A (#6 at an fp32 x) as hi | lo rows (ALO),
+//     written once a call by split_rows_kernel;
 // A (M, K) and W (N_out, K) bf16. At that M the output tiles alone fill the
-// card, so K is not split: each tile sums its k-tiles in order, and two
-// calls give the same bits. At B.N rows the 64-row LN body above lost
+// card, so K is not split over blocks: each tile sums its k-tiles in order,
+// and two calls give the same bits. fc2 and LM_RESIDUAL sum them in the
+// parts of the 64-row body's split-K clusters (PARTS), each from zero, and
+// add the parts in its rank order, so their outputs are that body's bit for
+// bit; the kernel's fc1 takes that body's GELU (erfcf, ERF) for the same. At B.N rows the 64-row LN body above lost
 // 2.5-3.3x to this one (device time, ln_qkv at B = 4-16): its every column
 // tile normalizes its 64 rows again (F/128 = 18 times at F = 2,304), and its
 // 828 tiles at B=8 run in waves with no product under the next tile's
@@ -1251,7 +1283,8 @@ constexpr int LM_THREADS = CONSUMERS + 128;  // + a producer warpgroup (one lane
 template <int KIND, typename TO, int BN, int STAGES, bool ALO>
 struct LargeMPlan {
   static constexpr bool GELU = KIND == LN_BIAS_GELU;
-  static constexpr bool B16OUT = KIND == LN_BIAS && std::is_same<TO, bf16>::value;
+  static constexpr bool B16OUT =
+      (KIND == LN_BIAS || KIND == LM_RESIDUAL) && std::is_same<TO, bf16>::value;
   static constexpr int A_TILE = LBM * BK * 2;  // one 128-row A k-tile
   static constexpr int A_STAGE = (ALO ? 2 : 1) * A_TILE;
   static constexpr int W_STAGE = BN * BK * 2;
@@ -1302,9 +1335,10 @@ __device__ __forceinline__ float gelu_rational(float v) {
 // accumulators, which are dead by then: the registers they held carry many
 // GELUs at once, where applying it to the fragments one by one left the
 // epilogue slower than the tile's products.
-template <int WIDTH>
+template <int WIDTH, bool ERF>
 __device__ __forceinline__ void gelu_staged(const uint8_t* __restrict__ f32,
                                             uint8_t* __restrict__ b16, int t) {
+  auto gelu = [](float v) { return ERF ? gelu_erf(v) : gelu_rational(v); };
   constexpr int Q = WIDTH / 16;  // 8-value groups a thread
   const int r = t & 63;
   float4 v[Q][2];
@@ -1321,11 +1355,27 @@ __device__ __forceinline__ void gelu_staged(const uint8_t* __restrict__ f32,
     const float4 lo = v[q][0], hi = v[q][1];
     uint8_t* dst = b16 + (cg >> 3) * (BM * 128) + r * 128 + (((cg & 7) ^ (r & 7)) << 4);
     *reinterpret_cast<uint4*>(dst) =
-        make_uint4(pack_bf16(gelu_rational(lo.x), gelu_rational(lo.y)),
-                   pack_bf16(gelu_rational(lo.z), gelu_rational(lo.w)),
-                   pack_bf16(gelu_rational(hi.x), gelu_rational(hi.y)),
-                   pack_bf16(gelu_rational(hi.z), gelu_rational(hi.w)));
+        make_uint4(pack_bf16(gelu(lo.x), gelu(lo.y)), pack_bf16(gelu(lo.z), gelu(lo.w)),
+                   pack_bf16(gelu(hi.x), gelu(hi.y)), pack_bf16(gelu(hi.z), gelu(hi.w)));
   }
+}
+
+// The rows of an fp32 A (M, K) -> their hi and lo bf16 halves (split_bf16)
+// side by side, y (M, 2K), the hi half of a row in columns 0..K-1 and its lo
+// half after it: the ALO operand of LM_RESIDUAL (#6's projection of an fp32
+// attention output). 8 values a thread, one 32-byte load and two 16-byte
+// stores.
+__global__ void __launch_bounds__(256)
+split_rows_kernel(const float* __restrict__ a, bf16* __restrict__ y, int M, int K) {
+  const int per_row = K / 8;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(M) * per_row) return;
+  const size_t row = i / per_row;
+  const int ch = static_cast<int>(i % per_row);
+  float v[8];
+  load8(a + row * K + ch * 8, v);
+  uint8_t* hi = reinterpret_cast<uint8_t*>(y + row * 2 * K);
+  store_split8(v, hi, hi + K * 2, ch * 16);
 }
 
 // The LN of the rows of x (M, C) into y (M, C) bf16, one warp a row, with
@@ -1535,23 +1585,31 @@ namespace {
 // 128 x BN tiles. Internal linkage, as the launchers: proj_residual.cu and
 // ln_mlp.cu both instantiate GEMM_F32OUT, and each library registers and
 // launches its own copy. SCALE: an int8 W's per-row scale multiplies the
-// accumulator (wscale); ALO: A is (M, 2K), hi | lo halves of fp32 rows.
-template <int KIND, typename TO, int BN, int STAGES, bool SCALE, bool ALO>
+// accumulator (wscale); ALO: A is (M, 2K), hi | lo halves of fp32 rows;
+// PARTS: K summed in that many parts, each from zero, added in order (the
+// 64-row body's split-K reduction); ERF: LN_BIAS_GELU's GELU with erfcf, as
+// the 64-row body's (gelu_erf), else the rational erf; resid: LM_RESIDUAL's
+// x (M, N_out), in the out's type.
+template <int KIND, typename TO, int BN, int STAGES, bool SCALE, bool ALO, int PARTS, bool ERF>
 __global__ void __launch_bounds__(LM_THREADS, 1)
 large_m_kernel(const __grid_constant__ CUtensorMap map_a,
                const __grid_constant__ CUtensorMap map_w,
                const __grid_constant__ CUtensorMap map_out, const float* __restrict__ wscale,
-               const float* __restrict__ bias, int M, int K, int N_out) {
+               const float* __restrict__ bias, const TO* __restrict__ resid, int M, int K,
+               int N_out) {
   using P = LargeMPlan<KIND, TO, BN, STAGES, ALO>;
   constexpr bool GELU = P::GELU;
   constexpr bool B16OUT = P::B16OUT;
+  constexpr bool RESID = KIND == LM_RESIDUAL;
   constexpr int OUT_BOX = 128 / sizeof(TO);  // columns of one 128-byte output box
   static_assert(BN % 64 == 0 && P::OUT_CH % 64 == 0 && BN <= 256,
                 "BN: wgmma's n, whole output boxes of either type");
   static_assert(GELU ? std::is_same<TO, bf16>::value
-                     : KIND == LN_BIAS || (KIND == GEMM_F32OUT && std::is_same<TO, float>::value),
-                "GEMM_F32OUT: an fp32 out; LN_BIAS_GELU: a bf16 out; LN_BIAS: either");
-  static_assert(!(SCALE || ALO) || KIND == LN_BIAS, "an int8 W's scale, hi/lo A: LN_BIAS");
+                     : KIND == LN_BIAS || RESID ||
+                           (KIND == GEMM_F32OUT && std::is_same<TO, float>::value),
+                "GEMM_F32OUT: an fp32 out; LN_BIAS_GELU: a bf16 out; LN_BIAS, LM_RESIDUAL: either");
+  static_assert(!(SCALE || ALO) || KIND == LN_BIAS || RESID,
+                "an int8 W's scale, hi/lo A: LN_BIAS, LM_RESIDUAL");
   static_assert(!ALO || std::is_same<TO, float>::value, "hi/lo rows: an fp32 out");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
@@ -1615,28 +1673,56 @@ large_m_kernel(const __grid_constant__ CUtensorMap map_a,
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int n0 = (tile % tiles_n) * BN;
     const int r0 = (tile / tiles_n) * LBM + wg * BM;
-    float acc[BN / 2];
+    // PARTS > 1: the k-tiles of each part r (r kt/PARTS .. (r+1) kt/PARTS - 1,
+    // the 64-row body's split-K ranks) summed from zero into `part`, and the
+    // parts added into acc in order, as that body's cluster adds its ranks'
+    // partials: every output bit for bit the 64-row body's
+    float acc[BN / 2], part[PARTS > 1 ? BN / 2 : 1];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (PARTS > 1 ? BN / 2 : 1); ++i) part[i] = 0.f;
+    auto ktile = [&](float(&d)[BN / 2], uint32_t a_tile, uint32_t w_tile) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma<BN>(d, desc_sw128(a_tile + kk * 32), desc_sw128(w_tile + kk * 32));
+        if constexpr (ALO)
+          wgmma<BN>(d, desc_sw128(a_tile + P::A_TILE + kk * 32), desc_sw128(w_tile + kk * 32));
+      }
+    };
+    int r = 0, part_end = kt_all / PARTS;
     for (int kt = 0; kt < kt_all; ++kt, ++g) {
       const int s = g % STAGES;
       mbar_wait(smem_u32(full + s), (g / STAGES) & 1);
       const uint32_t a_tile = smem_u32(a_ring + s * P::A_STAGE + wg * A_TILE_BYTES);
       const uint32_t w_tile = smem_u32(w_ring + s * P::W_STAGE);
       fence_operands(acc);
+      if constexpr (PARTS > 1) fence_operands(part);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wgmma<BN>(acc, desc_sw128(a_tile + kk * 32), desc_sw128(w_tile + kk * 32));
-        if constexpr (ALO)
-          wgmma<BN>(acc, desc_sw128(a_tile + P::A_TILE + kk * 32), desc_sw128(w_tile + kk * 32));
-      }
+      if constexpr (PARTS > 1)
+        ktile(part, a_tile, w_tile);
+      else
+        ktile(acc, a_tile, w_tile);
       wgmma_commit();
       // one k-tile's products stay in flight: the one before is done, and
       // its ring stage is free
       wgmma_wait<1>();
       fence_operands(acc);
+      if constexpr (PARTS > 1) fence_operands(part);
       if (kt > 0) mbar_arrive(smem_u32(empty + (g - 1) % STAGES));
+      if constexpr (PARTS > 1) {
+        if (kt + 1 == part_end) {  // the part is complete once its products are
+          wgmma_wait<0>();
+          fence_operands(part);
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) {
+            acc[i] = r == 0 ? part[i] : __fadd_rn(acc[i], part[i]);
+            part[i] = 0.f;
+          }
+          ++r;
+          part_end = (r + 1) * kt_all / PARTS;
+        }
+      }
     }
     wgmma_wait<0>();
     fence_operands(acc);
@@ -1667,6 +1753,14 @@ large_m_kernel(const __grid_constant__ CUtensorMap map_a,
           }
           v0 = __fadd_rn(v0, b.x);
           v1 = __fadd_rn(v1, b.y);
+          if constexpr (RESID) {
+            // the product rounded to bf16, then x + it, rounded again
+            if (r0 + r < M && n0 + col < N_out) {
+              const float2 xr = load2(resid + static_cast<size_t>(r0 + r) * N_out + n0 + col);
+              v0 = xr.x + round_to(v0, resid);
+              v1 = xr.y + round_to(v1, resid);
+            }
+          }
           *reinterpret_cast<uint32_t*>(staged + (byte >> 7) * (BM * 128) + r * 128 +
                                        ((((byte & 127) >> 4) ^ (r & 7)) << 4) + (byte & 15)) =
               pack_bf16(v0, v1);
@@ -1710,6 +1804,13 @@ large_m_kernel(const __grid_constant__ CUtensorMap map_a,
             v0 = __fadd_rn(v0, b.x);
             v1 = __fadd_rn(v1, b.y);
           }
+          if constexpr (RESID) {  // an fp32 x: x + the product, exactly as fp32 adds
+            if (r0 + r < M && n0 + col < N_out) {
+              const float2 xr = load2(resid + static_cast<size_t>(r0 + r) * N_out + n0 + col);
+              v0 = xr.x + v0;
+              v1 = xr.y + v1;
+            }
+          }
           store2(reinterpret_cast<float*>(staged + (byte >> 7) * (BM * 128) + r * 128 +
                                           ((((byte & 127) >> 4) ^ (r & 7)) << 4) + (byte & 15)),
                  v0, v1);
@@ -1718,9 +1819,9 @@ large_m_kernel(const __grid_constant__ CUtensorMap map_a,
       if constexpr (GELU) {
         named_barrier_sync(wg_bar, 128);
         if (cw == P::OUT_CH)
-          gelu_staged<P::OUT_CH>(staged, staged16, t);
+          gelu_staged<P::OUT_CH, ERF>(staged, staged16, t);
         else if constexpr (BN % P::OUT_CH != 0)  // BN = 192's last 64 columns
-          gelu_staged<BN % P::OUT_CH>(staged, staged16, t);
+          gelu_staged<BN % P::OUT_CH, ERF>(staged, staged16, t);
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_barrier_sync(wg_bar, 128);
@@ -1823,21 +1924,30 @@ inline int launch_ln_hilo(const float* x, const float* gamma, const float* beta,
 
 // The large-M body's tile width for (M, N_out), up to `widest`: the fewest
 // rounds of tiles over the SMs times the width (a round's time grows with
-// the width), the widest on a tie (fewer passes over A)
-inline int pick_bn(int M, int N_out, int widest) {
+// the width), the widest on a tie (fewer passes over A), or with
+// narrow_on_tie the narrowest. The C-wide outputs of fc2 and proj_residual,
+// whose K runs in parts (two accumulator sets: at 192 columns ptxas keeps
+// part of them on the stack), took the narrower width on their tie of
+// rounds on one H100 (tools/gemm_ab.py --mlp/--proj at B=16, N=361, the
+// only such tie of their shapes: fc2 63.2 us at 128 against 68.2 at 192,
+// proj_residual 44.6 against 53.6); ln_qkv's 3C-wide output keeps the
+// widest.
+inline int pick_bn(int M, int N_out, int widest, bool narrow_on_tie = false) {
   const int sms = sm_count();
   const long long rows = (M + LBM - 1) / LBM;
   auto cost = [&](int bn) { return (rows * ((N_out + bn - 1) / bn) + sms - 1) / sms * bn; };
   int best = widest;
   for (int bn : {192, 128})
-    if (bn < widest && cost(bn) < cost(best)) best = bn;
+    if (bn < widest && (cost(bn) < cost(best) || (narrow_on_tie && cost(bn) == cost(best))))
+      best = bn;
   return best;
 }
 
-template <int KIND, typename TO, int BN, int STAGES, bool SCALE = false, bool ALO = false>
+template <int KIND, typename TO, int BN, int STAGES, bool SCALE = false, bool ALO = false,
+          int PARTS = 1, bool ERF = false>
 inline int launch_large_m_bn(const bf16* a, const bf16* w, const float* wscale,
                              const float* bias, TO* out, int M, int K, int N_out,
-                             cudaStream_t stream) {
+                             cudaStream_t stream, const TO* resid) {
   using P = LargeMPlan<KIND, TO, BN, STAGES, ALO>;
   static_assert(P::total <= SMEM_LIMIT, "the ring and the staging fit a block's shared memory");
   CUtensorMap map_a, map_w, map_out;
@@ -1846,13 +1956,13 @@ inline int launch_large_m_bn(const bf16* a, const bf16* w, const float* wscale,
   if (!err) err = store_map(out, M, N_out, &map_out);
   if (err) return err;
   static int allowed = 0;
-  auto* kernel = large_m_kernel<KIND, TO, BN, STAGES, SCALE, ALO>;
+  auto* kernel = large_m_kernel<KIND, TO, BN, STAGES, SCALE, ALO, PARTS, ERF>;
   if ((err = allow_smem(kernel, P::total, allowed))) return err;
   const int tiles = ((N_out + BN - 1) / BN) * ((M + LBM - 1) / LBM);
   const int sms = sm_count();
   const int grid = tiles < sms ? tiles : sms;
-  kernel<<<grid, LM_THREADS, P::total, stream>>>(map_a, map_w, map_out, wscale, bias, M, K,
-                                                 N_out);
+  kernel<<<grid, LM_THREADS, P::total, stream>>>(map_a, map_w, map_out, wscale, bias, resid, M,
+                                                 K, N_out);
   return 0;
 }
 
@@ -1860,49 +1970,42 @@ inline int launch_large_m_bn(const bf16* a, const bf16* w, const float* wscale,
 // may be null); LN_BIAS_GELU, out (M, N_out) bf16 = gelu(A . W^T + b), A the
 // rows ln_rows_kernel normalized; LN_BIAS, out (M, N_out) = TO(A . W^T (* s)
 // + b), s (SCALE) an int8 W's per-row scale, A (ALO) the hi | lo halves of
-// fp32 normalized rows, (M, 2K), with an fp32 out. A (M, K), W (N_out, K)
-// bf16.
-template <int KIND, typename TO, bool SCALE = false, bool ALO = false>
+// fp32 rows, (M, 2K), with an fp32 out; LM_RESIDUAL, out (M, N_out) =
+// resid + TO(A . W^T (* s) + b), resid the residual x (M, N_out) in TO. A
+// (M, K), W (N_out, K) bf16. PARTS > 1: K summed in PARTS parts added in
+// order (the 64-row body's split-K order: fc2 and proj_residual give its
+// bits); ERF: the 64-row body's GELU (the kernel's fc1). The tile width is
+// pick_bn's: 128, 192 or 256 (LN_BIAS_GELU and PARTS > 1: 128 or 192), ties
+// to the narrower width for PARTS > 1.
+template <int KIND, typename TO, bool SCALE = false, bool ALO = false, int PARTS = 1,
+          bool ERF = false>
 inline int launch_large_m(const bf16* a, const bf16* w, const float* wscale, const float* bias,
-                          TO* out, int M, int K, int N_out, cudaStream_t stream) {
+                          TO* out, int M, int K, int N_out, cudaStream_t stream,
+                          const TO* resid = nullptr) {
   if (K % BK != 0 || K <= 0 || N_out % 8 != 0 || M <= 0 || (KIND != GEMM_F32OUT && !bias) ||
-      (SCALE && !wscale))
+      (SCALE && !wscale) || ((KIND == LM_RESIDUAL) != (resid != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  // two accumulator sets (PARTS > 1) leave no registers for 256 columns
+  constexpr int WIDEST = KIND == LN_BIAS_GELU || PARTS > 1 ? 192 : 256;
+  const int bn = pick_bn(M, N_out, WIDEST, PARTS > 1);
   // four stages of 32 or 40 KB at BN = 128 or 192, three of 48 KB at 256,
-  // beside 64 KB of staging (a bf16 LN_BIAS out stages 2 x 64 x BN bf16, at
-  // most the same 64 KB); LN_BIAS_GELU's 96 KB of staging leave room for
-  // four at 128, three at 192; ALO's stages hold two A tiles (32 KB), so
-  // three at 128, two at 192 and 256
-  if constexpr (KIND == LN_BIAS_GELU) {
-    return pick_bn(M, N_out, 192) == 128
-               ? launch_large_m_bn<KIND, TO, 128, 4>(a, w, wscale, bias, out, M, K, N_out, stream)
-               : launch_large_m_bn<KIND, TO, 192, 3>(a, w, wscale, bias, out, M, K, N_out,
-                                                     stream);
-  } else if constexpr (ALO) {
-    switch (pick_bn(M, N_out, 256)) {
-      case 128:
-        return launch_large_m_bn<KIND, TO, 128, 3, SCALE, ALO>(a, w, wscale, bias, out, M, K,
-                                                               N_out, stream);
-      case 192:
-        return launch_large_m_bn<KIND, TO, 192, 2, SCALE, ALO>(a, w, wscale, bias, out, M, K,
-                                                               N_out, stream);
-      default:
-        return launch_large_m_bn<KIND, TO, 256, 2, SCALE, ALO>(a, w, wscale, bias, out, M, K,
-                                                               N_out, stream);
-    }
-  } else {
-    switch (pick_bn(M, N_out, 256)) {
-      case 128:
-        return launch_large_m_bn<KIND, TO, 128, 4, SCALE>(a, w, wscale, bias, out, M, K, N_out,
-                                                          stream);
-      case 192:
-        return launch_large_m_bn<KIND, TO, 192, 4, SCALE>(a, w, wscale, bias, out, M, K, N_out,
-                                                          stream);
-      default:
-        return launch_large_m_bn<KIND, TO, 256, 3, SCALE>(a, w, wscale, bias, out, M, K, N_out,
-                                                          stream);
-    }
+  // beside 64 KB of staging (a bf16 LN_BIAS or LM_RESIDUAL out stages 2 x
+  // 64 x BN bf16, at most the same 64 KB); LN_BIAS_GELU's 96 KB of staging
+  // leave room for four at 128, three at 192; ALO's stages hold two A tiles
+  // (32 KB), so three at 128, two at 192 and 256
+  constexpr bool GELU = KIND == LN_BIAS_GELU;
+  if (bn == 128)
+    return launch_large_m_bn<KIND, TO, 128, ALO ? 3 : 4, SCALE, ALO, PARTS, ERF>(
+        a, w, wscale, bias, out, M, K, N_out, stream, resid);
+  if (bn == 192)
+    return launch_large_m_bn<KIND, TO, 192, GELU ? 3 : ALO ? 2 : 4, SCALE, ALO, PARTS, ERF>(
+        a, w, wscale, bias, out, M, K, N_out, stream, resid);
+  if constexpr (WIDEST == 256) {
+    if (bn == 256)
+      return launch_large_m_bn<KIND, TO, 256, ALO ? 2 : 3, SCALE, ALO, PARTS, ERF>(
+          a, w, wscale, bias, out, M, K, N_out, stream, resid);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // y (M, C) bf16 = LN(x) of x (M, C) bf16 or fp32 (ln_rows_kernel); HILO:
@@ -1912,6 +2015,15 @@ inline int launch_ln_rows(const TX* x, const float* gamma, const float* beta, bf
                           int C, float eps, cudaStream_t stream) {
   if (C % 8 != 0 || C > MAX_C || M <= 0) return static_cast<int>(cudaErrorInvalidValue);
   ln_rows_kernel<TX, HILO><<<(M + 7) / 8, 256, 0, stream>>>(x, gamma, beta, y, M, C, eps);
+  return 0;
+}
+
+// y (M, 2K) bf16 = the hi | lo halves of the fp32 rows of a (M, K)
+// (split_rows_kernel)
+inline int launch_split_rows(const float* a, bf16* y, int M, int K, cudaStream_t stream) {
+  if (K % 8 != 0 || K <= 0 || M <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t threads = static_cast<size_t>(M) * (K / 8);
+  split_rows_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(a, y, M, K);
   return 0;
 }
 

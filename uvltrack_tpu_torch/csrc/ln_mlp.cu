@@ -68,12 +68,33 @@
 // (fc1 135 us: every column tile read its fp32 rows again, and each row
 // block's statistics pass waited on device memory with no product running),
 // and the GELU applied to the accumulator fragments (fc1 88 us).
+// The kernel itself takes the same three launches at the B.N rows of a
+// lockstep or training step (M >= LARGE_M_ROWS of ops/ln_qkv_attention.py;
+// uvl_ln_mlp_large_m below, out kind 0), and gives the 64-row launches'
+// bits: its fc1 takes the GELU with erfcf (gelu_erf), and fc2 + b2 (the
+// large-M body's LN_BIAS kind with a bf16 out, on the hidden tensor) sums K
+// = F in the FC2_SPLIT parts of fc2_bias's clusters, each from zero, added
+// in rank order. So a row's MLP output is the same whichever rows it is
+// batched with. There the 64-row launches lost to their library calls: at
+// B=8, N=361, fp32 x, 105.5 us for fc1 and 67.3 for fc2 against 53.6 and
+// 20.5 (tools/gemm_ab.py --mlp on one H100; PERF.md section 6 row 7m has
+// the large-M pair's times). fc2's tile width is pick_bn's up to 192 (its
+// two accumulator sets, the running sum and the part, leave no registers for
+// 256). Not built, for a later PR: fc2 split over K in clusters on the
+// persistent grid, or a fixed-order stream-K; at B=8, N=361 fc2's 92 tiles
+// of 192 leave 40 of 132 SMs idle in its one round.
 // The old kernels (PR 4) ran one 32-deep shared-memory stage with WMMA and
 // paid one device-memory latency a k-step (24 steps for fc1, 96 for fc2 on
 // 144 blocks of 4 warps); the TMA ring keeps the loads in flight instead.
 #include "gemm_sm90.cuh"
 
 using uvl::bf16;
+
+namespace {
+// fc2's K split four ways: over the 64-row body's clusters, and in the
+// large-M body's parts (the same sums in the same order, the same bits)
+constexpr int FC2_SPLIT = 4;
+}  // namespace
 
 // x_is_f32: 1 when x is fp32 (the joint blocks' stream), 0 when bf16;
 // w_is_f32: 1 for fp32 weights given as their hi/lo planes, W1 (2, F, C)
@@ -114,38 +135,51 @@ extern "C" int uvl_ln_mlp(const void* x, int x_is_f32, const float* gamma, const
                        eps, s);
   }
   if (!err && (stages & 2))
-    err = launch_splitk_gemm<SPLITK_BIAS, bf16, bf16, bf16, 192, 4, 4>(
+    err = launch_splitk_gemm<SPLITK_BIAS, bf16, bf16, bf16, 192, 4, FC2_SPLIT>(
         h, static_cast<const bf16*>(w2), nullptr, nullptr, b2, static_cast<bf16*>(out), M, F, C,
         s);
   return err ? err : static_cast<int>(cudaGetLastError());
 }
 
-// A tensor-parallel rank's share, out (M, C) fp32 = gelu(LN(x) . W1^T + b1)
-// (rounded to bf16) . W2^T (+ b2, null for the share itself): x (M, C) bf16
-// or fp32 (x_is_f32), W1 (F, C) and W2 (C, F) bf16 (F = the rank's hidden
-// columns), b1 (F,) and b2 (C,) fp32; normed (M, C) and hidden (M, F) bf16
-// scratch. stages: 1 LN and fc1 (x -> hidden), 2 fc2 (hidden -> out), 3
-// both. Requires C % 64 == 0, C <= 1024, F % 64 == 0 and 16-byte aligned
-// tensors (checked by the Python wrapper).
-extern "C" int uvl_ln_mlp_partial(const void* x, int x_is_f32, const float* gamma,
+// The large-M entry (kernel #7 at M >= LARGE_M_ROWS, and a tensor-parallel
+// rank's share at any M): ln_rows_kernel x -> normed (M, C) bf16, fc1 + GELU
+// (LN_BIAS_GELU) into the hidden (M, F) bf16, then fc2 on the core's large-M
+// body. out_kind 0: the kernel's function, bit for bit uvl_ln_mlp's, out
+// (M, C) bf16 = bf16(h . W2^T + b2) (the GELU with erfcf; fc2 of kind
+// LN_BIAS, a bf16 out, K summed in FC2_SPLIT parts added in order); 1: a
+// share, out (M, C) fp32 = h . W2^T (+ b2; null for the share itself; kind
+// GEMM_F32OUT, K unsplit; the rational erf in the GELU). x (M, C) bf16 or
+// fp32 (x_is_f32), W1 (F, C) and W2 (C, F) bf16, b1 (F,) and b2 (C,) fp32.
+// stages: 1 LN and fc1 (x -> hidden), 2 fc2 (hidden -> out), 3 both. fc2's
+// tile width is pick_bn's. Requires C % 64 == 0, C <= 1024, F % 64 == 0 and
+// 16-byte aligned tensors (checked by the Python wrapper).
+extern "C" int uvl_ln_mlp_large_m(const void* x, int x_is_f32, const float* gamma,
                                   const float* beta, const void* w1, const float* b1,
                                   const void* w2, const float* b2, void* normed, void* hidden,
-                                  float* out, int M, int C, int F, float eps, int stages,
-                                  void* stream) {
+                                  void* out, int out_kind, int M, int C, int F, float eps,
+                                  int stages, void* stream) {
   using namespace uvl::sm90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* y = static_cast<bf16*>(normed);
   bf16* h = static_cast<bf16*>(hidden);
+  const bf16* w2b = static_cast<const bf16*>(w2);
+  if (out_kind != 0 && out_kind != 1) return static_cast<int>(cudaErrorInvalidValue);
   int err = 0;
   if (stages & 1) {
     err = x_is_f32 ? launch_ln_rows(static_cast<const float*>(x), gamma, beta, y, M, C, eps, s)
                    : launch_ln_rows(static_cast<const bf16*>(x), gamma, beta, y, M, C, eps, s);
+    const bf16* w1b = static_cast<const bf16*>(w1);
     if (!err)
-      err = launch_large_m<LN_BIAS_GELU, bf16>(y, static_cast<const bf16*>(w1), nullptr, b1, h,
-                                               M, C, F, s);
+      err = out_kind == 0
+                ? launch_large_m<LN_BIAS_GELU, bf16, false, false, 1, true>(y, w1b, nullptr, b1,
+                                                                            h, M, C, F, s)
+                : launch_large_m<LN_BIAS_GELU, bf16>(y, w1b, nullptr, b1, h, M, C, F, s);
   }
   if (!err && (stages & 2))
-    err = launch_large_m<GEMM_F32OUT, float>(h, static_cast<const bf16*>(w2), nullptr, b2, out,
-                                             M, F, C, s);
+    err = out_kind == 0
+              ? launch_large_m<LN_BIAS, bf16, false, false, FC2_SPLIT>(
+                    h, w2b, nullptr, b2, static_cast<bf16*>(out), M, F, C, s)
+              : launch_large_m<GEMM_F32OUT, float>(h, w2b, nullptr, b2, static_cast<float*>(out),
+                                                   M, F, C, s);
   return err ? err : static_cast<int>(cudaGetLastError());
 }

@@ -52,6 +52,23 @@
 // its latency (the first TMA round trip, the cluster barriers), not by the
 // bytes.
 //
+// At the B.N rows of a lockstep or training step (M >= LARGE_M_ROWS of
+// ops/ln_qkv_attn_proj.py, 896) the four bf16- and int8-weight instantiations run
+// uvl_proj_residual_large_m below instead, on the core's large-M body (kind
+// LM_RESIDUAL): at that M the split-K tiles above alone fill the card three
+// times over (B=8, N=361: 46 x 6 x 3 = 828 blocks), and the 64-row body took
+// 26.1-28.5 us at B=8 against 11.7-18.1 for F.linear + add (tools/gemm_ab.py
+// --proj on one H100; PERF.md section 6 rows 4m, 6m have the large-M
+// entry's). Its tiles are 128 x 128-192 on a persistent grid, each tile's K
+// summed in the SPLIT parts above, added in their rank order, so the output
+// is the split-K body's bit for bit; the epilogue adds the
+// bias (and the int8 scale), rounds once to x's type, reads x at the
+// accumulator fragments' positions and adds it in x's type, then stores by
+// TMA. An int8 W is converted to bf16 once a call; #6's fp32 A at an fp32 x
+// is written once a call as hi | lo bf16 rows (split_rows_kernel) and each
+// k-tile runs hi.W then lo.W (two passes, the rows written and read once
+// more, two ring stages at BN = 192): its time is more than twice the bf16
+// W's, and still a third of its library call's (fp32 F.linear).
 // A tensor-parallel rank's share of #4's projection, attn_r . Wp_r^T in fp32
 // (no bias, no residual; the model group sums the shares, then adds both
 // once), runs uvl_proj_partial below on the core's large-M body (kind
@@ -120,5 +137,59 @@ extern "C" int uvl_proj_partial(const void* a, const void* w, float* out, int M,
   const int err = launch_large_m<GEMM_F32OUT, float>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(w), nullptr, nullptr, out, M, K, C,
       static_cast<cudaStream_t>(stream));
+  return err ? err : static_cast<int>(cudaGetLastError());
+}
+
+// The large-M entry: uvl_proj_residual's function at M >= LARGE_M_ROWS
+// (ops/ln_qkv_attn_proj.py), bit for bit, on the core's large-M body (kind
+// LM_RESIDUAL: 128-row tiles on a persistent grid, K summed in the SPLIT
+// parts of the split-K body above, added in its order, the residual read in
+// the epilogue and the out stored by TMA), for four of its
+// instantiations (x, A, Wp): (bf16, bf16, bf16) and (fp32, bf16, bf16) (#4);
+// (bf16, bf16, int8), the payload converted to bf16 once a call into w16
+// (C, K) by i8_to_bf16_kernel, its scale in the epilogue (#6); (fp32, fp32,
+// int8), converted the same way, the fp32 A written once a call as hi | lo
+// bf16 rows into a_split (M, 2K) by split_rows_kernel, each k-tile run as
+// hi.W then lo.W. The tile width is pick_bn's. Requires K % 64 == 0, C % 8
+// == 0 and 16-byte aligned tensors (checked by the Python wrapper).
+extern "C" int uvl_proj_residual_large_m(const void* x, int x_is_f32, const void* a,
+                                         int a_is_f32, const void* w, int w_kind,
+                                         const float* w_scale, const float* bias,
+                                         void* a_split, void* w16, void* out, int M, int K,
+                                         int C, void* stream) {
+  using namespace uvl::sm90;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_kind != 0 && w_kind != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool w_is_i8 = w_kind == 1;
+  const bf16* wc = static_cast<const bf16*>(w);
+  int err = 0;
+  if (w_is_i8) {
+    err = launch_i8_to_bf16(static_cast<const int8_t*>(w), static_cast<bf16*>(w16),
+                            static_cast<size_t>(C) * K, s);
+    wc = static_cast<const bf16*>(w16);
+  }
+  if (err) return err;
+  const bf16* a16 = static_cast<const bf16*>(a);
+  if (x_is_f32 && a_is_f32 && w_is_i8) {
+    bf16* split = static_cast<bf16*>(a_split);
+    err = launch_split_rows(static_cast<const float*>(a), split, M, K, s);
+    if (!err)
+      err = launch_large_m<LM_RESIDUAL, float, true, true, SPLIT>(
+          split, wc, w_scale, bias, static_cast<float*>(out), M, K, C, s,
+          static_cast<const float*>(x));
+  } else if (x_is_f32 && !a_is_f32 && !w_is_i8) {
+    err = launch_large_m<LM_RESIDUAL, float, false, false, SPLIT>(
+        a16, wc, nullptr, bias, static_cast<float*>(out), M, K, C, s,
+        static_cast<const float*>(x));
+  } else if (!x_is_f32 && !a_is_f32) {
+    err = w_is_i8 ? launch_large_m<LM_RESIDUAL, bf16, true, false, SPLIT>(
+                        a16, wc, w_scale, bias, static_cast<bf16*>(out), M, K, C, s,
+                        static_cast<const bf16*>(x))
+                  : launch_large_m<LM_RESIDUAL, bf16, false, false, SPLIT>(
+                        a16, wc, nullptr, bias, static_cast<bf16*>(out), M, K, C, s,
+                        static_cast<const bf16*>(x));
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return err ? err : static_cast<int>(cudaGetLastError());
 }

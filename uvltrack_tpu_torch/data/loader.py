@@ -194,6 +194,24 @@ def build_train_loader(cfg: CfgNode, global_batch: int, seed: int = 42):
                                                  "thread")))
 
 
+def first_batch(cfg: CfgNode, global_batch: int, seed: int = 42) -> dict:
+    """The first batch of build_train_loader(cfg, global_batch, seed) drawn
+    in order by one thread worker: the same arrays for one seed in every
+    call. The config's own loader, TRAIN.NUM_WORKER threads that each spawn
+    their generators from the sampler's and the processing's seed in the
+    order they first draw, gives a batch that varies from call to call. cfg
+    is left as it was."""
+    one = cfg.clone()
+    one.TRAIN.NUM_WORKER = 1
+    one.TPU.LOADER_WORKER_MODE = "thread"
+    one.DATA.TRAIN.SAMPLE_PER_EPOCH = global_batch
+    batches = iter(build_train_loader(one, global_batch, seed=seed))
+    try:
+        return next(batches)
+    finally:
+        batches.close()
+
+
 def build_val_loaders(cfg: CfgNode, global_batch: int, seed: int = 7):
     """Three validation families: tracking / grounding / vl (base_functions.py:150-191)."""
     from ..core.tokenizer import BertTokenizer

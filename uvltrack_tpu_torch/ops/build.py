@@ -136,8 +136,9 @@ LAUNCHES: Counter = Counter()
 # (track/tracker.py::JitTracker)
 CAPTURED: Counter = Counter()
 # "kernel[instantiation-body]" -> eager launches of an instantiation that
-# has more than one body (ln_qkv's bf16 and int8 weights: the 64-row body
-# "-64" and the large-M body "-lm"), which LAUNCHES counts under the
+# has more than one body (ln_qkv's and proj_residual's bf16 and int8
+# weights, ln_mlp's bf16 weights: the 64-row body "-64" and the large-M body
+# "-lm"), which LAUNCHES counts under the
 # instantiation itself; reset only by reset_body_counts, so a caller can
 # count the bodies over runs that reset LAUNCHES
 BODIES: Counter = Counter()

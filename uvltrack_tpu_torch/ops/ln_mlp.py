@@ -30,6 +30,16 @@ as `_xla_ln_mlp` with fp32 weights, :601-613), whose hidden tensor and
 output are fp32 and whose weights go to the kernels as their hi/lo bf16
 planes (ops/hilo.py), three passes a product. The output is in w2's dtype.
 
+That is the 64-row body, which bf16 weights take below LARGE_M_ROWS rows
+(ops/ln_qkv_attention.py; the tracking step's B=1). From it (the B.N rows
+of a lockstep step, a training step's 16 rows) they take the large-M entry
+`uvl_ln_mlp_large_m` (counted under the same tags; build.body_counts()
+counts the bodies apart as `ln_mlp[*-64]` and `ln_mlp[*-lm]`): x's rows
+normalized once into a bf16 scratch, then fc1 + GELU and fc2 + b2 (a bf16
+out) on the core's persistent large-M body, 128-row tiles, fc1's GELU and
+fc2's four K parts the 64-row launches', so its output is theirs bit for
+bit (a row's output does not depend on the rows batched with it).
+
 A CPU tensor takes the plain version, which is also the plain backend's
 MLP (ops/attention.py::ln_mlp_core) and takes int8 QuantizedTensor weights
 through quant_dot.
@@ -37,10 +47,8 @@ through quant_dot.
 Under tensor parallelism (parallel/tp.py) a rank holds F/tp of fc1's output
 columns and of fc2's input rows, and `ln_mlp_partial` computes its share of
 fc2 before the bias: h_r . W2_r^T in fp32. With bf16 weights (the
-instantiations tagged `-fp32o`, csrc/ln_mlp.cu's `uvl_ln_mlp_partial`) x's
-rows are normalized once into a bf16 scratch, then fc1 + GELU and fc2 run
-on the core's large-M body at the training step's B.N rows (128-row tiles,
-K unsplit; fc2 with an fp32 out and no bias). The caller sums the shares
+instantiations tagged `-fp32o`) the share runs the same large-M entry at
+every M, with fc2's fp32 out kind and no bias. The caller sums the shares
 over the model group, adds b2 and rounds once to w2's dtype, so the bias is
 added once and the product rounds where the single-device kernel rounds it.
 """
@@ -52,6 +60,7 @@ import torch.nn.functional as F
 
 from ..utils.costs import counted, nbytes
 from . import build, hilo, library
+from . import ln_qkv_attention as lqa
 from .build import FLOAT, INT, PTR, check_cuda, no_grad_through, require
 from .ln_qkv_attention import LN_MAX_C, layer_norm_fast_var
 from .quant import quant_dot
@@ -90,6 +99,15 @@ def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6):
     return fc2_bias_plain(ln_fc1_gelu_plain(x, ln_scale, ln_bias, w1, b1, eps), w2, b2)
 
 
+def ln_mlp_large_m_plain(normed, w1, b1, w2, b2):
+    """Plain version of the large-M entry's products on ln_rows_plain's rows
+    (M, C) bf16: the hidden tensor h = bf16(gelu(rows . W1^T + b1)) (kind
+    LN_BIAS_GELU) and out = fc2_bias_plain(h, w2, b2) (kind LN_BIAS, a bf16
+    out); returns (h, out), out (M, C)."""
+    h = F.gelu(quant_dot(normed, w1) + b1.float()).to(w2.dtype)
+    return h, fc2_bias_plain(h, w2, b2)
+
+
 def ln_mlp_partial_plain(x, ln_scale, ln_bias, w1, b1, w2, eps: float = 1e-6):
     """A tensor-parallel rank's share of kernel #7's function before the
     bias: ln_fc1_gelu in w2's dtype, times its W2 columns, in fp32."""
@@ -101,11 +119,14 @@ def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float 
                   stages: str = "pair"):
     """Launch csrc/ln_mlp.cu into the caller's hidden (M, F) and out
     (B, N, C), both in w2's dtype; or out fp32 with bf16 weights, a
-    tensor-parallel share (uvl_ln_mlp_partial, tagged `-fp32o`: LN into a
-    bf16 scratch, then the large-M pair; b2 None adds no bias). stages
+    tensor-parallel share (tagged `-fp32o`; b2 None adds no bias). stages
     "pair" (both launches, the kernel's function), or "ln_fc1_gelu" /
-    "fc2_bias" alone (chip_smoke.py times each launch). Counts one `ln_mlp`
-    launch per call."""
+    "fc2_bias" alone (chip_smoke.py times each launch). The body by the rows
+    M = B*N (ln_qkv_attention.takes_large_m) for bf16 weights: below
+    LARGE_M_ROWS uvl_ln_mlp's 64-row launches; from it, and for every share,
+    the large-M entry uvl_ln_mlp_large_m (LN into a bf16 scratch, then fc1 +
+    GELU and fc2 on the large-M body). fp32 weights run
+    uvl_ln_mlp at every M. Counts one `ln_mlp` launch per call."""
     b, n, c = x.shape
     f = w1.shape[0]
     out32 = out.dtype == torch.float32 and w1.dtype == torch.bfloat16  # a share
@@ -124,8 +145,10 @@ def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float 
             and tuple(b1.shape) == (f,) and (b2 is None or tuple(b2.shape) == (c,))
             and tuple(ln_scale.shape) == (c,) and tuple(ln_bias.shape) == (c,),
             f"ln_mlp: bad shapes for C={c}, F={f}")
-    # fc2's K = F: split four ways in 64-deep tiles, or unsplit in a share
-    f_rule = 64 if out32 else 256
+    large = out32 or lqa.takes_large_m(b * n, w1.dtype)
+    # fc2's K = F: split four ways in 64-deep tiles on the 64-row body,
+    # unsplit on the large-M body
+    f_rule = 64 if large else 256
     require(c % 64 == 0 and c <= LN_MAX_C and f % f_rule == 0,
             f"ln_mlp: C must be a multiple of 64 up to {LN_MAX_C} and F of {f_rule}, got "
             f"C={c}, F={f}")
@@ -135,18 +158,19 @@ def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float 
     no_grad_through("ln_mlp", (x, *vecs, w1, w2), "call it through ops/autograd.py (LnMlp)")
     check_cuda("ln_mlp", x, *vecs, w1, w2, hidden, out)
     tag = f"{build.dtype_tag(x)}x-{build.dtype_tag(w1)}w"
-    if out32:
-        # the share's entry: LN once into `normed`, then the large-M pair
+    if large:
+        # LN once into `normed` (scratch of this call), then the large-M pair
         normed = (torch.empty((b * n, c), dtype=torch.bfloat16, device=x.device)
                   if STAGES[stages] & 1 else hidden)
-        build.launch("ln_mlp", tag + "-fp32o",
-                     [PTR, INT, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT,
+        build.launch("ln_mlp", tag + "-fp32o" if out32 else tag,
+                     [PTR, INT, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
                       FLOAT, INT],
                      x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(),
                      ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                      None if b2 is None else b2.data_ptr(), normed.data_ptr(),
-                     hidden.data_ptr(), out.data_ptr(), b * n, c, f, eps, STAGES[stages],
-                     stream_of=x, entry="uvl_ln_mlp_partial")
+                     hidden.data_ptr(), out.data_ptr(), int(out32), b * n, c, f, eps,
+                     STAGES[stages], stream_of=x, entry="uvl_ln_mlp_large_m",
+                     body="" if out32 else "lm")
         return out
     # fp32 weights go to the kernels as their cached hi/lo planes
     p1, p2 = (hilo.planes(w1), hilo.planes(w2)) if w32 else (w1, w2)
@@ -156,7 +180,7 @@ def launch_ln_mlp(x, ln_scale, ln_bias, w1, b1, w2, b2, hidden, out, eps: float 
                  x.data_ptr(), int(x.dtype == torch.float32), ln_scale.data_ptr(),
                  ln_bias.data_ptr(), p1.data_ptr(), b1.data_ptr(), p2.data_ptr(),
                  b2.data_ptr(), int(w32), hidden.data_ptr(), out.data_ptr(), b * n, c, f, eps,
-                 STAGES[stages], stream_of=x)
+                 STAGES[stages], stream_of=x, body="" if w32 else "64")
     return out
 
 

@@ -71,7 +71,11 @@ W_KIND = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 # every M, 2.2-2.9x at B=2 and 2.5-3.3x from B=4, and 1.4x at B=1 (9.2 against
 # 12.8 us); B >= 2 takes the large-M body, and B=1 keeps the 64-row body and
 # its bits for now: the large-M body is two launches there (three with int8)
-# in place of one, which the eager step pays in host time (PERF.md, section 7)
+# in place of one, which the eager step pays in host time (PERF.md, section 7).
+# Kernel #7 (`ln_mlp`, bf16 W) takes the same threshold: tools/gemm_ab.py
+# --mlp puts its crossover between B=1 (the 64-row pair 27.5-28.0 us against
+# 34.1-34.4) and B=2 (39.6-40.1 against 53.3-54.5; PERF.md row 7m).
+# `proj_residual` has its own (ln_qkv_attn_proj.LARGE_M_ROWS)
 LARGE_M_ROWS = 512
 # the int8 launches' answer under autograd: kernels #5/#6 have no VJP
 INT8_NO_GRAD = ("weight-only int8 (TPU.WEIGHT_QUANT) is inference-only, as in the JAX "
@@ -188,12 +192,14 @@ def ln_qkv_attention_q8_plain(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, key_bia
 
 
 # ---------------------------------------------------------------- kernels
-def takes_large_m(rows: int, w_dtype: torch.dtype) -> bool:
-    """Whether `ln_qkv` / `ln_qkv_q8` at `rows` rows with a weight of
-    w_dtype runs on the large-M body: from LARGE_M_ROWS rows (read at each
-    call: chip_smoke.py and tools/gemm_ab.py set it to time both bodies at
-    one shape), never for an fp32 weight."""
-    return w_dtype != torch.float32 and rows >= LARGE_M_ROWS
+def takes_large_m(rows: int, w_dtype: torch.dtype, rows_from: int | None = None) -> bool:
+    """Whether a launch at `rows` rows with a weight of w_dtype runs on the
+    large-M body: from rows_from rows (`proj_residual`'s own threshold), or
+    by default from LARGE_M_ROWS (`ln_qkv` / `ln_qkv_q8`, `ln_mlp`); never
+    for an fp32 weight. Both thresholds are read at each call: chip_smoke.py
+    and tools/gemm_ab.py set them to time both bodies at one shape."""
+    return w_dtype != torch.float32 and rows >= (LARGE_M_ROWS if rows_from is None
+                                                 else rows_from)
 
 
 def _launch_ln_qkv(x, ln_scale, ln_bias, w, w_scale, b_qkv, eps, out_dtype):

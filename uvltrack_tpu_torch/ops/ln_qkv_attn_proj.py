@@ -23,11 +23,22 @@ int8}, {fp32, fp32, int8} (#6) and {fp32, fp32, fp32}: #4 in an
 fp32-compute model (TPU.COMPUTE_DTYPE=float32), everything fp32, Wp as its
 hi/lo bf16 planes cached by ops/hilo.py, three passes a product.
 
-`proj_residual` runs on the TMA + wgmma core of csrc/gemm_sm90.cuh, with K
-split over clusters of PROJ_SPLIT blocks (one 64-deep k-tile each at the
-least) and summed in rank order, so two calls give the same bits. The
-wrapper checks, launches and counts through ops/build.py, as the prefix
-wrappers do; a CPU tensor takes the plain version.
+`proj_residual` runs on the TMA + wgmma core of csrc/gemm_sm90.cuh, on one
+of two bodies by the rows M = B*N (ln_qkv_attention.takes_large_m, as
+`ln_qkv`, from this module's own LARGE_M_ROWS): below it (the tracking
+step's B=1 and a lockstep batch of 2) the 64-row body, with K split over
+clusters of PROJ_SPLIT blocks (one 64-deep k-tile each at the least) and
+summed in rank order; from it, with a bf16 or int8 weight (the B.N rows of a
+lockstep or training step), the large-M entry `uvl_proj_residual_large_m`:
+128-row tiles on a persistent grid, K summed in the split-K body's
+PROJ_SPLIT parts in its order (so its output is that body's bit for bit),
+the residual added in the epilogue, an int8 W converted to bf16 once a call
+and an fp32 A written once a call as hi | lo bf16 rows. Both give the same
+bits on two calls. The instantiations keep their tags; build.body_counts()
+counts the bodies apart (`proj_residual[*-64]`, `proj_residual[*-lm]`). An
+fp32 weight keeps the split body at every M. The wrapper checks, launches
+and counts through ops/build.py, as the prefix wrappers do; a CPU tensor
+takes the plain version.
 
 Under tensor parallelism (parallel/tp.py) a rank's share of the projection,
 `proj_partial`, is attn_r . Wp_r^T in fp32 before the bias and the
@@ -48,6 +59,16 @@ from .build import INT, PTR, check_cuda, no_grad_through, require
 from .quant import QuantizedTensor, quant_dot
 
 PROJ_SPLIT = 3  # blocks of a cluster that split K (csrc/proj_residual.cu SPLIT)
+# rows M = B*N from which `proj_residual` with a bf16 or int8 weight runs on
+# the large-M body (uvl_proj_residual_large_m), above ln_qkv's and ln_mlp's
+# 512. Measured with tools/gemm_ab.py --proj at B in {1, 2, 3, 4, 8, 16}, N=321
+# bf16 x and N=361 fp32 x (PERF.md, section 6, rows 4m and 6m): the large-M
+# entry's device time is flat from B=1 to B=4 (one round of tiles: 11.3-12.2
+# us with a bf16 W), the 64-row body's grows with M (6.1-6.4 us at B=1, 8.4-8.5
+# at B=2, 13.6-14.1 at B=3); the 64-row body is the faster up to B=2 (M <=
+# 722) and the large-M entry from B=3 (M >= 963) in all four instantiations,
+# crossing at 830-940 rows by linear interpolation
+LARGE_M_ROWS = 896
 _OK = {  # (x, A, Wp) dtypes the kernel is instantiated for
     (torch.bfloat16, torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.bfloat16, torch.bfloat16),
@@ -71,6 +92,23 @@ def proj_residual_plain(x, attn, w_proj, b_proj):
     """x + (attn @ w_proj.T (scaled) + b_proj) rounded to x's dtype; w_proj
     a dense weight or a QuantizedTensor."""
     return x + (quant_dot(attn, w_proj) + b_proj.float()).to(x.dtype)
+
+
+def split_rows_plain(attn):
+    """Plain version of split_rows_kernel: fp32 rows (M, K) as their hi and
+    lo bf16 halves side by side, (M, 2K), hi = bf16(a), lo = bf16(a - hi)."""
+    a = attn.reshape(-1, attn.shape[-1]).float()
+    hi = a.to(torch.bfloat16)
+    return torch.cat([hi, (a - hi.float()).to(torch.bfloat16)], dim=-1)
+
+
+def proj_residual_large_m_plain(x, rows, w, w_scale, b_proj):
+    """Plain version of the large-M entry's product (kind LM_RESIDUAL): x
+    (M, C) + x.dtype(rows . W^T (* s) + b), rows (M, K) bf16 or split (M,
+    2K, which contract hi + lo as the body's hi.W + lo.W passes do); W (C, K)
+    bf16, an int8 payload's bf16 conversion (exact) with its scale s."""
+    c = x.shape[-1]
+    return x.reshape(-1, c) + lqa.ln_qkv_large_m_plain(rows, w, w_scale, b_proj, x.dtype)
 
 
 def proj_partial_plain(attn, w_proj):
@@ -128,16 +166,34 @@ def proj_residual(x, attn, w_proj, b_proj, wp_scale=None):
     no_grad_through("proj_residual", (x, attn, w_proj, b_proj, *scale),
                     lqa.INT8_NO_GRAD if scale else "call it through ops/autograd.py (LnQkvAttnProj)")
     check_cuda("proj_residual", x, attn, w_proj, b_proj, *scale)
-    # an fp32 weight goes to the kernel as its cached hi/lo planes
-    w_arg = hilo.planes(w_proj) if w_proj.dtype == torch.float32 else w_proj
     out = torch.empty_like(x)
     tag = build.dtype_tag
-    build.launch("proj_residual", f"{tag(x)}x-{tag(attn)}a-{tag(w_proj)}w",
+    inst = f"{tag(x)}x-{tag(attn)}a-{tag(w_proj)}w"
+    x32, a32 = int(x.dtype == torch.float32), int(attn.dtype == torch.float32)
+    if lqa.takes_large_m(b * n, w_proj.dtype, LARGE_M_ROWS):
+        # an fp32 A as hi | lo bf16 rows and an int8 W converted to bf16,
+        # once a call: scratch of this call (from the CUDA graph's pool under
+        # capture, so a graph's replays reuse its addresses)
+        a_split = (torch.empty((b * n, 2 * k), dtype=torch.bfloat16, device=x.device)
+                   if a32 else None)
+        w16 = (torch.empty((c, k), dtype=torch.bfloat16, device=x.device) if scale else None)
+        build.launch("proj_residual", inst,
+                     [PTR, INT, PTR, INT, PTR, INT, PTR, PTR, PTR, PTR, PTR, INT, INT, INT],
+                     x.data_ptr(), x32, attn.data_ptr(), a32, w_proj.data_ptr(),
+                     lqa.W_KIND[w_proj.dtype], wp_scale.data_ptr() if scale else None,
+                     b_proj.data_ptr(), None if a_split is None else a_split.data_ptr(),
+                     None if w16 is None else w16.data_ptr(), out.data_ptr(), b * n, k, c,
+                     stream_of=x, entry="uvl_proj_residual_large_m", body="lm")
+        return out
+    # an fp32 weight goes to the kernel as its cached hi/lo planes
+    w32 = w_proj.dtype == torch.float32
+    w_arg = hilo.planes(w_proj) if w32 else w_proj
+    build.launch("proj_residual", inst,
                  [PTR, INT, PTR, INT, PTR, INT, PTR, PTR, PTR, INT, INT, INT],
-                 x.data_ptr(), int(x.dtype == torch.float32), attn.data_ptr(),
-                 int(attn.dtype == torch.float32), w_arg.data_ptr(), lqa.W_KIND[w_proj.dtype],
-                 wp_scale.data_ptr() if scale else None,
-                 b_proj.data_ptr(), out.data_ptr(), b * n, k, c, stream_of=x)
+                 x.data_ptr(), x32, attn.data_ptr(), a32, w_arg.data_ptr(),
+                 lqa.W_KIND[w_proj.dtype], wp_scale.data_ptr() if scale else None,
+                 b_proj.data_ptr(), out.data_ptr(), b * n, k, c, stream_of=x,
+                 body="" if w32 else "64")
     return out
 
 

@@ -17,6 +17,8 @@ and, as controls, of `ln_qkv` and `proj_residual` alone.
         [--dump FILE.npz] [--cmp FILE.npz]
     python uvltrack_tpu_torch/tools/gemm_ab.py --qkv [--root DIR] [--label NAME]
         [--check-only] [--dump FILE.npz] [--cmp FILE.npz]
+    python uvltrack_tpu_torch/tools/gemm_ab.py --mlp|--proj [--root DIR] [--label NAME]
+        [--check-only] [--dump FILE.npz] [--cmp FILE.npz]
 
 --root: the checkout whose uvltrack_tpu_torch is timed (default: the one
 holding this script), built into DIR/build/kernels. The timers are
@@ -43,7 +45,16 @@ checkout's only body), each body forced where the checkout has both ("lm",
 "ln64"), and F.layer_norm + F.linear (int8: the dequantized W in x's
 dtype); it also holds "lm" against the plain version (chip_smoke.py's
 rules), bitwise on a second call and against "ln64" (--check-only: the
-checks alone, no times). In
+checks alone, no times). --mlp does the same for kernel #7 with bf16
+weights (`ln_fc1_gelu`, `fc2_bias` and the pair) and --proj for the four
+bf16- and int8-weight `proj_residual` instantiations, at MLP_SHAPES (B at
+lockstep batches 1-4 and 8, L at 8, B-TRAIN's 16 rows; N=321 with a bf16 x,
+N=361 with an fp32 x: the crossover of the two bodies and the cells' shapes):
+"auto", "lm" and "ln64" where the checkout has both bodies, and the library
+calls (LN + linear + GELU + linear, or its part; linear +
+add, the dequantized W in x's dtype); "lm" against the plain version
+(`fc2_bias` against fc2_bias_plain on the hidden tensor "lm" wrote), bitwise
+on a second call and against "ln64". In
 every mode --dump saves the kernels' outputs (the same seeded inputs in
 every checkout) and --cmp reports, output by output, whether they are
 bitwise those of another checkout's dump. Prints one JSON line; times in ms.
@@ -95,6 +106,8 @@ def main() -> int:
     ap.add_argument("--f32w", action="store_true")
     ap.add_argument("--tp", action="store_true")
     ap.add_argument("--qkv", action="store_true")
+    ap.add_argument("--mlp", action="store_true")
+    ap.add_argument("--proj", action="store_true")
     ap.add_argument("--check-only", action="store_true")
     ap.add_argument("--dump", default="")
     ap.add_argument("--cmp", default="")
@@ -106,6 +119,8 @@ def main() -> int:
         return tp_ab(args)
     if args.qkv:
         return qkv_ab(args)
+    if args.mlp or args.proj:
+        return mlp_proj_ab(args)
 
     import numpy as np
     import torch
@@ -412,6 +427,166 @@ def qkv_ab(args) -> int:
                         "max_abs_vs_ln64": float((got.float() - small.float()).abs().max())}
                 if not args.check_only:
                     times.update({f"{name} {k}": graph_time_ms(fn)[0] for k, fn in fns.items()})
+            out["times"][key] = times
+    dump_and_compare(args, dumps, out)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+# (label, B, C): B at lockstep batches S1-S4 (M = 321 .. 1,444: where the
+# bodies cross) and S8, L at S8, B-TRAIN's rows
+MLP_SHAPES = (("B_S1", 1, 768), ("B_S2", 2, 768), ("B_S3", 3, 768), ("B_S4", 4, 768),
+              ("B_S8", 8, 768), ("L_S8", 8, 1024), ("B16", 16, 768))
+
+
+def mlp_proj_ab(args) -> int:
+    """Kernel #7 (--mlp) or `proj_residual` (--proj) at B.N rows (PERF.md
+    rows 7m, 4m and 6m): device ms (a CUDA graph of 20 calls) of the
+    wrapper's choice, of each body forced where this checkout has both, and
+    of the library calls; the
+    large-M outputs against the plain versions, a second call and (fc1) the
+    64-row body's."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("gemm_ab: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from chip_smoke import (F32_ATOL, F32_RTOL, KERNEL_ATOL, KERNEL_RTOL, Q8_KERNEL_ATOL,
+                            graph_time_ms, nvidia_smi)
+    from uvltrack_tpu_torch.ops import ln_mlp as lm
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+    from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
+    from uvltrack_tpu_torch.ops import quant
+
+    # a checkout before the large-M entries: the 64-row body alone
+    two_bodies = hasattr(lqp, "proj_residual_large_m_plain")
+
+    def body(fn, rows_from):
+        """fn with both large-M thresholds (ln_mlp's, proj_residual's) at
+        rows_from (0: the large-M body; 1 << 62: the 64-row body)"""
+        def call():
+            rows = lqa.LARGE_M_ROWS, lqp.LARGE_M_ROWS
+            lqa.LARGE_M_ROWS = lqp.LARGE_M_ROWS = rows_from
+            try:
+                return fn()
+            finally:
+                lqa.LARGE_M_ROWS, lqp.LARGE_M_ROWS = rows
+        return call
+
+    def variants(kern, lib):
+        fns = {"auto": kern, "library": lib}
+        if two_bodies:
+            fns.update({"lm": body(kern, 0), "ln64": body(kern, 1 << 62)})
+        return fns
+
+    def check(name, got, again, want, atol, rtol, small=None):
+        d = (got.float() - want.float()).abs()
+        r = {"max_abs_err": float(d.max()),
+             "ok": bool((d <= atol + rtol * want.float().abs()).all()),
+             "bitwise_second_call": bool(torch.equal(got, again))}
+        if small is not None:
+            r["bitwise_vs_ln64"] = bool(torch.equal(got, small))
+            r["max_abs_vs_ln64"] = float((got.float() - small.float()).abs().max())
+        out["checks"][name] = r
+
+    dev, b16 = torch.device("cuda"), torch.bfloat16
+    out = {"label": args.label, "root": args.root, "device": nvidia_smi(), "times": {},
+           "checks": {}, "two_bodies": two_bodies, "what": "mlp" if args.mlp else "proj"}
+    dumps = {}
+    for label, b, c in MLP_SHAPES:
+        f = 4 * c
+        for n, xdt in ((321, b16), (361, torch.float32)):
+            rng = np.random.default_rng(args.seed + b + n + c)
+
+            def arr(a, dt=torch.float32):
+                return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dt)
+
+            xt = "bf16" if xdt == b16 else "fp32"
+            key = f"{label}_M{b * n}_{xt}x"
+            x = arr(rng.normal(size=(b, n, c)), xdt)
+            times = {}
+            if args.mlp:
+                g, be = arr(1 + 0.1 * rng.normal(size=c)), arr(0.1 * rng.normal(size=c))
+                w1 = arr(rng.normal(size=(f, c)) / np.sqrt(c), b16)
+                w2 = arr(rng.normal(size=(c, f)) / np.sqrt(f), b16)
+                b1, b2 = arr(0.02 * rng.normal(size=f)), arr(0.02 * rng.normal(size=c))
+                hidden = torch.empty((b * n, f), dtype=b16, device=dev)
+                o = torch.empty((b, n, c), dtype=b16, device=dev)
+                h3 = hidden.view(b, n, f)
+
+                def fc1_lib():
+                    y = F.layer_norm(x.float(), (c,), g, be, 1e-6).to(b16)
+                    return F.gelu(F.linear(y, w1, b1.to(b16)))
+
+                def stage(name):
+                    return lambda: lm.launch_ln_mlp(x, g, be, w1, b1, w2, b2, hidden, o,
+                                                    stages=name)
+
+                name = f"ln_mlp[{xt}x-bf16w]"
+                launches = {
+                    "ln_fc1_gelu": (stage("ln_fc1_gelu"), fc1_lib),
+                    "fc2_bias": (stage("fc2_bias"), lambda: F.linear(h3, w2, b2.to(b16))),
+                    "pair": (stage("pair"), lambda: F.linear(fc1_lib(), w2, b2.to(b16)))}
+                stage("pair")()  # the hidden tensor fc2_bias reads
+                for launch, (kern, lib) in launches.items():
+                    fns = variants(kern, lib)
+                    if two_bodies and launch == "ln_fc1_gelu":
+                        fns["lm"]()
+                        got = hidden.clone()
+                        fns["lm"]()
+                        again = hidden.clone()
+                        fns["ln64"]()
+                        check(f"{key} {name} {launch}", got, again,
+                              lm.ln_fc1_gelu_plain(x, g, be, w1, b1).to(b16).view(b * n, f),
+                              KERNEL_ATOL["ln_fc1_gelu"], KERNEL_RTOL, hidden.clone())
+                    elif two_bodies:
+                        fns["lm"]()
+                        got = o.clone()
+                        fns["lm"]()
+                        again = o.clone()
+                        fns["ln64"]()
+                        plain = (lm.fc2_bias_plain(h3, w2, b2) if launch == "fc2_bias" else
+                                 lm.ln_mlp_plain(x, g, be, w1, b1, w2, b2))
+                        check(f"{key} {name} {launch}", got, again, plain,
+                              KERNEL_ATOL[launch if launch == "fc2_bias" else "ln_mlp"],
+                              KERNEL_RTOL, o.clone())
+                    kern()
+                    dumps[f"{key} {name} {launch}"] = (
+                        hidden if launch == "ln_fc1_gelu" else o).float().cpu().numpy()
+                    if not args.check_only:
+                        times.update({f"{name} {launch} {k}": graph_time_ms(fn)[0]
+                                      for k, fn in fns.items()})
+            else:
+                wp = arr(rng.normal(size=(c, c)) / np.sqrt(c), b16)
+                bp = arr(0.02 * rng.normal(size=c))
+                wpq = quant.quantize_weight(wp)
+                wpd = wpq.materialize(xdt)
+                attn = arr(0.3 * rng.normal(size=(b, n, c)), xdt)  # #6's A: x's dtype
+                a16 = attn.to(b16)
+                insts = {
+                    f"proj_residual[{xt}x-bf16a-bf16w]": (
+                        lambda: lqp.proj_residual(x, a16, wp, bp),
+                        lambda: lqp.proj_residual_plain(x, a16, wp, bp),
+                        lambda: torch.add(x, F.linear(a16, wp, bp.to(b16))), "proj_residual"),
+                    f"proj_residual[{xt}x-{xt}a-int8w]": (
+                        lambda: lqp.proj_residual(x, attn, wpq.q, bp, wpq.scale),
+                        lambda: lqp.proj_residual_plain(x, attn, wpq, bp),
+                        lambda: torch.add(x, F.linear(attn, wpd, bp.to(xdt))),
+                        None if xdt == torch.float32 else "proj_residual")}
+                for name, (kern, plain, lib, tol_key) in insts.items():
+                    fns = variants(kern, lib)
+                    if two_bodies:
+                        got, again, small = fns["lm"](), fns["lm"](), fns["ln64"]()
+                        atol = F32_ATOL if tol_key is None else Q8_KERNEL_ATOL[tol_key]
+                        rtol = F32_RTOL if tol_key is None else KERNEL_RTOL
+                        check(f"{key} {name}", got, again, plain(), atol, rtol, small)
+                    dumps[f"{key} {name}"] = kern().float().cpu().numpy()
+                    if not args.check_only:
+                        times.update({f"{name} {k}": graph_time_ms(fn)[0]
+                                      for k, fn in fns.items()})
             out["times"][key] = times
     dump_and_compare(args, dumps, out)
     print(json.dumps(out), flush=True)
