@@ -155,13 +155,15 @@ Phases, one JSON line each:
                  bitwise count reported). (b) B-TRAIN: UVLTrack-B at full
                  width, batch 8 x 2 search frames, seed-0 init and one
                  synthetic batch, 6 steps on the kernels and 6 on the plain
-                 backend in turns: step 1 gated (loss within 1%, grad_norm
-                 within TRAIN_NORM_REL or twice the plain backend's move under
-                 a 2^-12 input change), losses, step p50, samples/s, peak
+                 backend in turns: step 1 gated (the train step-1 gate
+                 below), losses, step p50, samples/s, peak
                  memory, launches a step (12 + 12, none in the backward), a
                  profiler window of 2 steps. (c) 2 steps each under
                  UVLTRACK_FUSED_PROJ=1, UVLTRACK_FUSED_MLP=1 and
-                 UVLTRACK_FUSED_PREFIX=0 (#4, #7, #2 inside the model). (d)
+                 UVLTRACK_FUSED_PREFIX=0 (#4, #7, #2 inside the model), each
+                 knob's step 1 probed from the init and its cell accounting
+                 against the plain probe reported (no gate: the plain backend
+                 ignores the knobs). (d)
                  TPU.REMAT's gradients bitwise the plain step's from one
                  state; 2 REMAT and 2 TPU.GRAD_ACCUM=2 steps (24 + 24
                  launches a step), peak memory. (e) cli.train.main
@@ -192,7 +194,7 @@ Phases, one JSON line each:
                  steps in each long epoch and of 2 synthetic steps (busy
                  share, device ops), validation on all three families
                  every epoch. (d) Step 1 on one real batch from one init,
-                 kernels against plain, B-TRAIN's gate: the loader's first
+                 kernels against plain, the train step-1 gate: the loader's first
                  batch drawn in order by one thread worker (first_batch:
                  the same arrays in every call from one --seed, its digest
                  on the phase's line), the line printed before the gate
@@ -232,10 +234,15 @@ Phases, one JSON line each:
                  and on, and 16 samples x 1 search frame (the half-batch
                  rotation exchanged across the ranks), 3 steps each, against the
                  dp=1 step on the same 16 rows in turns (dp=1, dp=2, dp=1): step
-                 1 under B-TRAIN's gate, ZeRO-1's parameters against the
+                 1 under the train step-1 gate (rank 0's probe of the
+                 gathered rows against dp=1's), ZeRO-1's parameters against the
                  replicated update of the same gradients (rtol 1e-3 / atol
                  1e-4), each rank's Adam moment bytes, step ms, 12 + 12 launches
-                 a step on each rank. (b) cli.train.main --multihost at world
+                 a step on each rank; then tp=2 x dp=1 (tp_phase): two
+                 processes on cuda:0, each UVLTrack-B's slices, B-TRAIN's
+                 rows, 3 steps and 1 under each fused knob, against tp=1 on
+                 the same knobs in turns, under the train step-1 gate (rank
+                 0's probe against tp=1's kernels' probe). (b) cli.train.main --multihost at world
                  size 1 on NCCL (torchrun's environment set for this process):
                  2 synthetic steps and a checkpoint. (c) The stream mesh: two
                  replicas on cuda:0 (make_mesh(devices=[cuda:0, cuda:0]))
@@ -250,6 +257,18 @@ Phases, one JSON line each:
                  --multichip --lockstep 4 server (make_server on the CLI's mesh)
                  against a direct StreamPool, 12 rounds, bit for bit. On one
                  card the CLIs' mesh of the visible cards has one replica.
+The train step-1 gates (train_B, data_step1, parallel_dp, parallel_tp):
+step 1 of side b (kernels, dp=2, tp=2) against side a (plain, dp=1, tp=1)
+from one init, the loss within TRAIN_LOSS_REL, grad_norm within
+max(TRAIN_NORM_REL, 2 x the plain backend's move under a 2^-12 input
+change), and the per-row cell accounting of both sides' no-grad probes
+(probe_maps, cell_accounting): each row's argmax cell of cls x
+softmax(cont)[..., 0], which selects the row's box losses; for every row
+whose cell differs, its index, both cells, both margins and whether it is
+a near-tie under paired_ab's rule (tie_margins, AB_TIE), which it must be;
+both sides' loss terms. Each line is printed, for every case, before its
+gate can raise (step1_line). At tp=2 both ranks' probes must be bitwise
+equal.
 --only runs some groups (kernels = phase 2, track = 3-4 but the
 multistream ones, multistream, compiled, serve, eval, train, data, cli, parallel) and prints no kernels
 line; in a full run the kernels line counts the eval runs' launches, and
@@ -1640,12 +1659,56 @@ def crop_side(box, search_factor: float) -> int:
     return math.ceil(math.sqrt(box[2] * box[3]) * search_factor)
 
 
+def tie_margins(ma, mb, ia: int, ib: int):
+    """paired_ab's near-tie rule for two merged maps whose argmax cells
+    differ (ia of ma, ib of mb): (margin_a, margin_b, near_tie), the margin
+    in each map being how far the other side's pick falls below that map's
+    maximum, relative to it; a near-tie when the other pick scores within
+    AB_TIE of the maximum in both maps."""
+    tie = not (mb[ia] < (1 - AB_TIE) * mb[ib] or ma[ib] < (1 - AB_TIE) * ma[ia])
+    return float(1 - ma[ib] / ma[ia]), float(1 - mb[ia] / mb[ib]), tie
+
+
+def cell_accounting(maps_a, maps_b, boxes_a=None, boxes_b=None) -> dict:
+    """Per-row cell accounting of two sides' merged maps (rows, cells) of
+    one batch, cls x softmax(cont)[..., 0], whose argmax cell a row's box
+    losses read (models/head.py::convert2bbox): each side's cells; every
+    row whose cells differ with its index, both cells, both margins and
+    whether it is a near-tie (tie_margins: paired_ab's rule); with the rows'
+    pred_boxes (rows, 4) the largest box difference over the rows on the
+    same cell. `all_near_ties` is False when a differing cell is not a
+    near-tie: the gates that read this raise on it."""
+    import numpy as np
+
+    ma = np.asarray(maps_a, np.float64).reshape(len(maps_a), -1)
+    mb = np.asarray(maps_b, np.float64).reshape(len(maps_b), -1)
+    if ma.shape != mb.shape:
+        raise AssertionError(f"cell accounting: maps {ma.shape} vs {mb.shape}")
+    ca, cb = ma.argmax(1), mb.argmax(1)
+    rows = []
+    for i in np.flatnonzero(ca != cb):
+        m_a, m_b, tie = tie_margins(ma[i], mb[i], int(ca[i]), int(cb[i]))
+        rows.append({"row": int(i), "cell_a": int(ca[i]), "cell_b": int(cb[i]),
+                     "margin_a": m_a, "margin_b": m_b, "near_tie": tie})
+    out = {"rows": len(ca), "cells_a": ca.tolist(), "cells_b": cb.tolist(),
+           "rows_differing": len(rows), "differing": rows,
+           "all_near_ties": all(r["near_tie"] for r in rows),
+           "rule": f"a differing cell must be a near-tie: the other side's pick within "
+                   f"{AB_TIE:.0%} of the maximum in both maps (margins relative)"}
+    if boxes_a is not None and boxes_b is not None:
+        same = ca == cb
+        d = np.abs(np.asarray(boxes_a, np.float64).reshape(len(ca), -1)
+                   - np.asarray(boxes_b, np.float64).reshape(len(cb), -1)).max(1)
+        out["box_diff_max_same_cell"] = float(d[same].max()) if same.any() else 0.0
+    return out
+
+
 class AbTally:
     """paired_ab's rule, one frame at a time: two paths stepped from one
     state agree if they pick the same argmax cell of the merged map with
     boxes within AB_BOX_REL of the search crop's side, or pick cells that
-    are a near-tie (within AB_TIE of the maximum) in both maps. A miss
-    raises; `what` names the pair in the message."""
+    are a near-tie (within AB_TIE of the maximum) in both maps (tie_margins).
+    A miss raises; `what` names the pair in the message."""
 
     def __init__(self, what: str = "plain/kernel"):
         self.what, self.same, self.flips, self.px, self.rel = what, 0, 0, [], []
@@ -1665,7 +1728,7 @@ class AbTally:
                                      f"px crop (> {AB_BOX_REL} of its side)")
         else:
             self.flips += 1
-            if mb[ia] < (1 - AB_TIE) * mb[ib] or ma[ib] < (1 - AB_TIE) * ma[ia]:
+            if not tie_margins(ma, mb, ia, ib)[2]:
                 raise AssertionError(f"{self.what}: argmax flip that is not a near-tie: "
                                      f"{ma[ia]:.4g}/{ma[ib]:.4g} vs {mb[ib]:.4g}/{mb[ia]:.4g}")
 
@@ -1705,7 +1768,7 @@ def grounding_ab(tracker, frame):
     d = float((bp - bk).abs().max())
     if ip == ik and d > AB_BOX_REL:
         raise AssertionError(f"grounding: same cell, boxes {d} apart (> {AB_BOX_REL} of the side)")
-    if ip != ik and (mk[ip] < (1 - AB_TIE) * mk[ik] or mp[ik] < (1 - AB_TIE) * mp[ip]):
+    if ip != ik and not tie_margins(mp, mk, ip, ik)[2]:
         raise AssertionError(f"grounding: argmax flip that is not a near-tie: plain "
                              f"{float(mp[ip]):.4g}/{float(mp[ik]):.4g} kernel "
                              f"{float(mk[ik]):.4g}/{float(mk[ip]):.4g}")
@@ -3768,6 +3831,9 @@ TRAIN_KNOBS = (
 # seed 0: one row of 16 flips either way, the plain backend's grad_norm moves
 # 9.6% under the 2^-12 change, and the kernels' is 10.7% from plain's)
 TRAIN_LOSS_REL, TRAIN_NORM_REL, TRAIN_PROBE_EPS = 1e-2, 5e-2, 2.0 ** -12
+# the step-1 loss terms a gate's line shows for both sides, as
+# train/actor.py::forward_and_loss returns them
+LOSS_TERMS = ("Loss/total", "Loss/giou", "Loss/l1", "Loss/cls", "Loss/aux", "Loss/cont")
 TRAIN_TIMER = ("host clock per train_step (forward, backward, clip, AdamW on fp32 master "
                "parameters), each ending in a read of its loss; p50 over steps 2-6")
 
@@ -3882,7 +3948,8 @@ def _train_run(state, step, batch, backend: str, n: int, per_fwd=None, forwards:
             state, m = step(state, batch)
             loss = float(m["Loss/total"])
             out.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
-                        "grad_norm": float(m["grad_norm"])})
+                        "grad_norm": float(m["grad_norm"]),
+                        "terms": {k: float(m[k]) for k in LOSS_TERMS}})
             got = launches_since(before)
             if backend == "cuda":
                 expect_launches(per_fwd or TRAIN_PER_FWD, forwards, got, "train step")
@@ -3895,16 +3962,57 @@ def _train_run(state, step, batch, backend: str, n: int, per_fwd=None, forwards:
     return state, out
 
 
-def _probe(model, batch, cfg, backend: str, eps: float = 0.0, seed: int = 0) -> dict:
-    """One forward and backward of the train loss from the model's current
-    state, no update (BN running stats and gradients restored): loss,
-    grad_norm and each row's supervised cell (the argmax of cls x cont that
-    selects pred_boxes); eps > 0 scales the search images by 1 + eps * N(0, 1)."""
+def probe_maps(model, batch, backend: str, dp=None, tp=None) -> dict:
+    """The train forward of `batch` on `backend` without grad from the
+    model's current state (BN running stats restored), under the step's
+    data- and tensor-parallel contexts when given (a Megatron forward
+    reduces over the model group, so every rank of it takes part): each
+    row's merged map, cls x softmax(cont)[..., 0], whose argmax cell selects
+    the row's pred_boxes (models/head.py::convert2bbox), and the pred_boxes,
+    as float32 arrays (rows, cells) and (rows, 4); under dp the rows of
+    every rank in the global frame-major order (DataParallel.gather_rows)."""
     import torch
 
     from uvltrack_tpu_torch.core.geometry import anno2mask, rotate_half_batch
     from uvltrack_tpu_torch.ops import attention
-    from uvltrack_tpu_torch.train.actor import flatten_batch, forward_and_loss
+    from uvltrack_tpu_torch.parallel import tp as tpar
+    from uvltrack_tpu_torch.parallel.dp import scope
+    from uvltrack_tpu_torch.train.actor import flatten_batch
+
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    stats = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    attention.force_backend(backend)
+    try:
+        fb = flatten_batch(batch)
+        ws, wt = fb["search_images"].shape[2] // 16, fb["template_images"].shape[2] // 16
+        with torch.no_grad(), scope(dp, frames=batch["search_images"].shape[0]) as ctx, \
+                tpar.scope(tp):
+            out = model(fb["template_images"], fb["search_images"], fb["text"], fb["text_mask"],
+                        anno2mask(fb["template_anno"], wt),
+                        rotate_half_batch(anno2mask(fb["search_anno"], ws)), fb["flag"],
+                        train=True)
+            maps = out["cls_score"].float() * torch.softmax(
+                out["cont_score"].float(), -1)[:, :, 0]
+            boxes = out["pred_boxes"].float().reshape(maps.shape[0], 4)
+            if ctx is not None:
+                maps, boxes = ctx.gather_rows(maps), ctx.gather_rows(boxes)
+    finally:
+        attention.force_backend(None)
+        for m, (rm, rv) in zip(bns, stats):
+            m.running_mean.copy_(rm)
+            m.running_var.copy_(rv)
+    return {"maps": maps.cpu().numpy(), "boxes": boxes.cpu().numpy()}
+
+
+def _probe(model, batch, cfg, backend: str, eps: float = 0.0, seed: int = 0) -> dict:
+    """One forward and backward of the train loss from the model's current
+    state, no update (BN running stats and gradients restored): loss, its
+    terms, grad_norm, and each row's merged map and pred_boxes
+    (probe_maps); eps > 0 scales the search images by 1 + eps * N(0, 1)."""
+    import torch
+
+    from uvltrack_tpu_torch.ops import attention
+    from uvltrack_tpu_torch.train.actor import forward_and_loss
     from uvltrack_tpu_torch.train.optim import global_norm
 
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
@@ -3914,20 +4022,12 @@ def _probe(model, batch, cfg, backend: str, eps: float = 0.0, seed: int = 0) -> 
         gen = torch.Generator(device=b["search_images"].device).manual_seed(seed)
         b["search_images"] = b["search_images"] * (1 + eps * torch.randn(
             b["search_images"].shape, generator=gen, device=gen.device))
+    maps = probe_maps(model, b, backend)
     attention.force_backend(backend)
     try:
-        fb = flatten_batch(b)
-        ws, wt = fb["search_images"].shape[2] // 16, fb["template_images"].shape[2] // 16
-        with torch.no_grad():
-            out = model(fb["template_images"], fb["search_images"], fb["text"], fb["text_mask"],
-                        anno2mask(fb["template_anno"], wt),
-                        rotate_half_batch(anno2mask(fb["search_anno"], ws)), fb["flag"],
-                        train=True)
-            cells = torch.argmax(out["cls_score"] * torch.softmax(
-                out["cont_score"].float(), -1)[:, :, 0], -1).tolist()
         for p in model.parameters():
             p.grad = None
-        loss, _ = forward_and_loss(model, b, cfg, train=True)
+        loss, metrics = forward_and_loss(model, b, cfg, train=True)
         loss.backward()
         norm = float(global_norm([p.grad for p in model.parameters()]))
     finally:
@@ -3937,22 +4037,47 @@ def _probe(model, batch, cfg, backend: str, eps: float = 0.0, seed: int = 0) -> 
         for m, (rm, rv) in zip(bns, stats):
             m.running_mean.copy_(rm)
             m.running_var.copy_(rv)
-    return {"loss": float(loss), "grad_norm": norm, "cells": cells}
+    return {"loss": float(metrics["Loss/total"]), "grad_norm": norm,
+            "terms": {k: float(metrics[k]) for k in LOSS_TERMS}, **maps}
 
 
 def gate_probes(k_model, p_model, batch, cfg, seed: int, counted):
     """The step-1 gate's yardstick from a shared init: the probes (plain,
     plain under the 2^-12 input change, kernels), the plain backend's own
     relative grad_norm move, the grad_norm bound max(TRAIN_NORM_REL, 2 x
-    that move) and the supervised cells that differ from plain's."""
+    that move) and the cell accounting of each other probe against plain's
+    (the kernels' is the gate's; the input change's a yardstick)."""
     probes = {"plain": _probe(p_model, batch, cfg, "plain"),
               "plain_eps": _probe(p_model, batch, cfg, "plain", TRAIN_PROBE_EPS, seed),
               "cuda": counted(lambda: _probe(k_model, batch, cfg, "cuda"))}
     sens = abs(probes["plain_eps"]["grad_norm"] - probes["plain"]["grad_norm"]) / probes[
         "plain"]["grad_norm"]
-    flips = {k: sum(a != b for a, b in zip(probes[k]["cells"], probes["plain"]["cells"]))
-             for k in ("plain_eps", "cuda")}
-    return probes, sens, max(TRAIN_NORM_REL, 2 * sens), flips
+    cells = {k: accounting_of(probes["plain"], probes[k]) for k in ("plain_eps", "cuda")}
+    return probes, sens, max(TRAIN_NORM_REL, 2 * sens), cells
+
+
+def accounting_of(a: dict, b: dict) -> dict:
+    """cell_accounting of two probes (probe_maps or _probe results)."""
+    return cell_accounting(a["maps"], b["maps"], a["boxes"], b["boxes"])
+
+
+def save_probes(path: Path, probes: dict) -> None:
+    """{case: probe_maps result} into one .npz (keys case/maps, case/boxes)."""
+    import numpy as np
+
+    np.savez(path, **{f"{c}/{k}": v[k] for c, v in probes.items() for k in ("maps", "boxes")})
+
+
+def load_probes(path: Path) -> dict:
+    """save_probes' file back as {case: {"maps", "boxes"}}."""
+    import numpy as np
+
+    out = {}
+    with np.load(path) as z:
+        for key in z.files:
+            case, k = key.split("/")
+            out.setdefault(case, {})[k] = z[key]
+    return out
 
 
 def step1_rels(k1: dict, p1: dict):
@@ -3976,16 +4101,54 @@ def batch_digest(batch: dict) -> str:
     return h.hexdigest()
 
 
-def step1_gate(k1: dict, p1: dict, norm_bound: float, what: str):
-    """Step 1 on the kernels (k1) against plain (p1), from one init: the
-    loss within TRAIN_LOSS_REL and grad_norm within norm_bound (relative);
-    returns (loss_rel, grad_norm_rel)."""
-    loss_rel, norm_rel = step1_rels(k1, p1)
-    if loss_rel > TRAIN_LOSS_REL or norm_rel > norm_bound:
-        raise AssertionError(f"{what} step 1, kernels vs plain: loss {k1['loss']} vs "
-                             f"{p1['loss']} ({loss_rel}), grad_norm {k1['grad_norm']} vs "
-                             f"{p1['grad_norm']} ({norm_rel}, bound {norm_bound})")
-    return loss_rel, norm_rel
+def step1_case(b1: dict, a1: dict, cells: dict, norm_bound: float, names=("a", "b")) -> dict:
+    """One case of a train step-1 gate: step 1 of side b (kernels, dp=2,
+    tp=2) against side a (plain, dp=1, tp=1) from one init. The loss and
+    grad_norm relative moves and the bound; both sides' loss terms, named
+    by `names` (a's, b's); the cell accounting of their probes (`cells`,
+    cell_accounting); gate_passes: loss within TRAIN_LOSS_REL, grad_norm
+    within norm_bound and every differing cell a near-tie. Raises nothing:
+    the caller prints its line, then step1_gate raises."""
+    loss_rel, norm_rel = step1_rels(b1, a1)
+    return {"sides": {"a": names[0], "b": names[1]}, "loss_rel": loss_rel,
+            "grad_norm_rel": norm_rel, "grad_norm_bound": norm_bound,
+            "loss": {names[0]: a1["loss"], names[1]: b1["loss"]},
+            "grad_norm": {names[0]: a1["grad_norm"], names[1]: b1["grad_norm"]},
+            "loss_terms": {names[0]: a1.get("terms"), names[1]: b1.get("terms")},
+            "cells": cells,
+            "gate_passes": bool(loss_rel <= TRAIN_LOSS_REL and norm_rel <= norm_bound
+                                and cells["all_near_ties"])}
+
+
+def step1_doc(norm_bound) -> str:
+    """The step-1 gates' rule, as their lines state it."""
+    return (f"step 1 from one init (relative): loss within {TRAIN_LOSS_REL}, grad_norm within "
+            f"max({TRAIN_NORM_REL}, 2 x the plain backend's move under a {TRAIN_PROBE_EPS:g} "
+            f"input change){'' if norm_bound is None else f' = {norm_bound}'}; every row "
+            f"whose argmax cell differs a near-tie "
+            f"(within {AB_TIE:.0%} of the maximum in both maps)")
+
+
+def step1_gate(case: dict, what: str) -> None:
+    """Raise unless a step1_case passes: the loss within TRAIN_LOSS_REL, the
+    grad_norm within its bound, every differing cell a near-tie."""
+    if case["gate_passes"]:
+        return
+    far = [r for r in case["cells"]["differing"] if not r["near_tie"]]
+    ranks = case.get("ranks_probe_bitwise_equal", True)
+    raise AssertionError(
+        f"{what} step 1: loss {case['loss']} ({case['loss_rel']}, bound {TRAIN_LOSS_REL}), "
+        f"grad_norm {case['grad_norm']} ({case['grad_norm_rel']}, bound "
+        f"{case['grad_norm_bound']}), cells differing that are not near-ties: {far}"
+        + ("" if ranks else "; the ranks' probes differ"))
+
+
+def step1_line(line: dict, what: str) -> None:
+    """Print a train step-1 gate's line, then gate each of its cases
+    (line["step1"]: {case: step1_case}): a failing call still says why."""
+    emit(line)
+    for case, c in line["step1"].items():
+        step1_gate(c, f"{what} {case}")
 
 
 def _p50(xs):
@@ -4027,8 +4190,18 @@ def train_phase(args, dev, tmp: Path) -> dict:
     _, p_state, p_step = setup_training(cfg, 1, device=dev, seed=args.seed)
     build_s = time.perf_counter() - t0
     resident = torch.cuda.memory_allocated() / 2 ** 20
-    probes, sens, norm_bound, flips = gate_probes(k_state.model, p_state.model, batch, cfg,
+    t_probe = time.perf_counter()
+    probes, sens, norm_bound, cells = gate_probes(k_state.model, p_state.model, batch, cfg,
                                                   args.seed, counted)
+    # the knob steps' step 1, probed from the same init on the kernels under
+    # each knob, against the plain probe: a report, no gate (the plain
+    # backend ignores the knobs, so the two sides are different functions)
+    knob_probes = {}
+    for knob, value, _ in TRAIN_KNOBS:
+        with knob_env({knob: value}):
+            knob_probes[f"{knob}={value}"] = counted(
+                lambda: _probe(k_state.model, batch, cfg, "cuda"))
+    probe_s = time.perf_counter() - t_probe
     runs = {"cuda": [], "plain": []}
     torch.cuda.reset_peak_memory_stats()
     for i in range(6):
@@ -4040,31 +4213,30 @@ def train_phase(args, dev, tmp: Path) -> dict:
                 p_state, r = _train_run(p_state, p_step, batch, "plain", 1)
             runs[backend] += r
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    loss_rel, norm_rel = step1_gate(runs["cuda"][0], runs["plain"][0], norm_bound, "B-TRAIN")
+    step1 = {"kernels_vs_plain": step1_case(runs["cuda"][0], runs["plain"][0], cells["cuda"],
+                                            norm_bound, ("plain", "cuda"))}
     del p_state, p_step
     gc.collect()
     torch.cuda.empty_cache()
     prof = counted(lambda: profile_window(
         lambda i: _train_run(k_state, k_step, batch, "cuda", 1), 2, "step"))
     step_ms = {b: _p50([r["ms"] for r in runs[b][1:]]) for b in runs}
-    emit({"phase": "train_B", "cell": "B-TRAIN",
+    # the line first, so a call whose gate fails still says why
+    step1_line({"phase": "train_B", "cell": "B-TRAIN",
           "config": "experiments/uvltrack/baseline_base.yaml",
           "rows": f"{bsz} x {cfg.DATA.SEARCH.NUMBER} search frames = {TRAIN_B}",
           "params": sum(p.numel() for p in k_state.model.parameters()), "build_s": build_s,
-          "timer": TRAIN_TIMER, "gate": f"step 1, kernels vs plain (relative): loss within "
-          f"{TRAIN_LOSS_REL}, grad_norm within max({TRAIN_NORM_REL}, 2 x the plain backend's "
-          f"move under a {TRAIN_PROBE_EPS:g} input change) = {norm_bound}",
-          "step1": {"loss_rel": loss_rel, "grad_norm_rel": norm_rel,
-                    "plain_grad_norm_move_at_eps": sens,
-                    "supervised_cells_differing_from_plain": flips,
-                    "probes": {k: {"loss": v["loss"], "grad_norm": v["grad_norm"]}
-                               for k, v in probes.items()}},
+          "timer": TRAIN_TIMER, "gate": step1_doc(norm_bound), "step1": step1,
+          "plain_grad_norm_move_at_eps": sens,
+          "plain_eps_vs_plain_cells": cells["plain_eps"], "probe_s": probe_s,
+          "probes": {k: {"loss": v["loss"], "grad_norm": v["grad_norm"]}
+                     for k, v in {**probes, **knob_probes}.items()},
           "losses": {b: [r["loss"] for r in runs[b]] for b in runs},
           "grad_norms": {b: [r["grad_norm"] for r in runs[b]] for b in runs},
           "step_ms_p50": step_ms, "step_ms": {b: [r["ms"] for r in runs[b]] for b in runs},
           "samples_per_s": {b: TRAIN_B / (step_ms[b] / 1e3) for b in runs},
           "launches_per_step": TRAIN_PER_FWD, "resident_mb_two_models": resident,
-          "peak_mb_two_models": peak, "profile_kernels_2_steps": prof})
+          "peak_mb_two_models": peak, "profile_kernels_2_steps": prof}, "B-TRAIN")
 
     # (c) the knobs: #4, #7 and #2's Functions inside the model, 2 steps each
     knobs = {}
@@ -4075,9 +4247,17 @@ def train_phase(args, dev, tmp: Path) -> dict:
             k_state, r = counted(lambda: _train_run(k_state, k_step, batch, "cuda", 2, per_fwd))
         finally:
             os.environ.pop(knob) if old is None else os.environ.__setitem__(knob, old)
-        knobs[f"{knob}={value}"] = {"losses": [x["loss"] for x in r],
-                                    "ms": [x["ms"] for x in r], "launches_per_step": per_fwd}
-    emit({"phase": "train_knobs", "runs": knobs})
+        label = f"{knob}={value}"
+        kp = knob_probes[label]
+        report = step1_case(kp, probes["plain"], accounting_of(probes["plain"], kp), norm_bound,
+                            ("plain", "cuda"))
+        del report["gate_passes"]
+        knobs[label] = {"losses": [x["loss"] for x in r], "ms": [x["ms"] for x in r],
+                        "launches_per_step": per_fwd, "step1_probe_vs_plain": report}
+    emit({"phase": "train_knobs", "runs": knobs,
+          "step1_probe_vs_plain": "a report, no gate: each knob's probe from the shared init "
+                                  "on the kernels against the plain probe (the plain backend "
+                                  "ignores the knobs)"})
 
     # (d) TPU.REMAT: the same gradients, bitwise, from the same state; then
     # REMAT and GRAD_ACCUM=2 steps with their launches and peak memory
@@ -4369,10 +4549,8 @@ def data_phase(args, dev, tmp: Path) -> dict:
     import numpy as np
     import torch
 
-    from uvltrack_tpu_torch.data.loader import first_batch
     from uvltrack_tpu_torch.data.synthetic import synthetic_batch_from_cfg
     from uvltrack_tpu_torch.ops import build
-    from uvltrack_tpu_torch.train.step import setup_training
 
     t_group = time.perf_counter()
     vocab = write_data_fixtures(args, tmp)
@@ -4497,40 +4675,56 @@ def data_phase(args, dev, tmp: Path) -> dict:
           "val_per_epoch": {r["epoch"]: r["val"] for r in recs},
           "loss_per_epoch": [r["train"]["Loss/total"] for r in recs], "checkpoints": ck})
 
-    # (d) step 1 on one real batch from one init, kernels against plain: the
-    # loader's first batch drawn in order by one thread (first_batch), the
-    # same in every call from one --seed
+    # (d) step 1 on one real batch from one init, kernels against plain
+    total.update(data_step1(args, dev, cfg, bsz))
+    emit({"phase": "data_group", "seconds": time.perf_counter() - t_group,
+          "launches": dict(total)})
+    return dict(total)
+
+
+def data_step1(args, dev, cfg, bsz: int) -> dict:
+    """The data group's (d): step 1 on one real batch from one init, kernels
+    against plain, under the train step-1 gate (step1_line: the data_step1
+    line, then the gate). The batch is the loader's first, drawn in order by
+    one thread (first_batch): the same in every call from one --seed.
+    Returns the launches of the kernels' probe and step."""
+    import gc
+
+    import torch
+
+    from uvltrack_tpu_torch.data.loader import first_batch
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.train.step import setup_training
+
     before = build.instantiation_counts()
     _, k_state, k_step = setup_training(cfg, 1, device=dev, seed=args.seed)
     _, p_state, p_step = setup_training(cfg, 1, device=dev, seed=args.seed)
     batch = first_batch(cfg, bsz, seed=args.seed)
     real = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
-    probes, sens, norm_bound, flips = gate_probes(k_state.model, p_state.model, real, cfg,
+    t_probe = time.perf_counter()
+    probes, sens, norm_bound, cells = gate_probes(k_state.model, p_state.model, real, cfg,
                                                   args.seed, lambda fn: fn())
+    probe_s = time.perf_counter() - t_probe
     _, k1 = _train_run(k_state, k_step, real, "cuda", 1)
     _, p1 = _train_run(p_state, p_step, real, "plain", 1)
-    total.update(launches_since(before))
-    loss_rel, norm_rel = step1_rels(k1[0], p1[0])
+    launches = launches_since(before)
+    step1 = {"kernels_vs_plain": step1_case(k1[0], p1[0], cells["cuda"], norm_bound,
+                                            ("plain", "cuda"))}
     # the line first, so a call whose gate fails still says why
-    emit({"phase": "data_step1", "batch_flags": batch["flag"].tolist(),
-          "batch_digest": batch_digest(batch), "batch_from": "first_batch: one thread worker",
-          "gate": f"loss within {TRAIN_LOSS_REL}, grad_norm within max({TRAIN_NORM_REL}, 2 x "
-          f"the plain backend's move under a {TRAIN_PROBE_EPS:g} input change) = {norm_bound}",
-          "gate_passes": loss_rel <= TRAIN_LOSS_REL and norm_rel <= norm_bound,
-          "loss_rel": loss_rel, "grad_norm_rel": norm_rel, "plain_grad_norm_move_at_eps": sens,
-          "supervised_cells_differing_from_plain": flips,
-          "step1": {"cuda": k1[0], "plain": p1[0]},
-          "probes": {k: {"loss": v["loss"], "grad_norm": v["grad_norm"]}
-                     for k, v in probes.items()}})
-    step1_gate(k1[0], p1[0], norm_bound, "B-TRAIN-REAL")
+    step1_line({"phase": "data_step1", "batch_flags": batch["flag"].tolist(),
+                "batch_digest": batch_digest(batch),
+                "batch_from": "first_batch: one thread worker", "gate": step1_doc(norm_bound),
+                "step1": step1,
+                "plain_grad_norm_move_at_eps": sens,
+                "plain_eps_vs_plain_cells": cells["plain_eps"], "probe_s": probe_s,
+                "step_ms": {"cuda": k1[0]["ms"], "plain": p1[0]["ms"]},
+                "probes": {k: {"loss": v["loss"], "grad_norm": v["grad_norm"]}
+                           for k, v in probes.items()}}, "B-TRAIN-REAL")
     del k_state, k_step, p_state, p_step, real
     gc.collect()
     torch.cuda.empty_cache()
-    emit({"phase": "data_group", "seconds": time.perf_counter() - t_group,
-          "launches": dict(total)})
-    return dict(total)
-
+    return launches
 
 
 # ------------------------------------------------------------------ cli
@@ -5088,12 +5282,15 @@ def dp_worker(args) -> int:
     of DP_CASES from the seed's init on this rank's rows of the global
     batch, DP_STEPS steps; writes rank<R>.json (losses, grad_norms, step
     ms, launches, Adam moment bytes; step 1 under ZeRO-1 against the
-    replicated update of the same gradients)."""
+    replicated update of the same gradients); rank 0 also dp_probes.npz, each
+    case's probe of the global rows from the init (probe_maps: both ranks
+    take part, the rows gathered)."""
     import numpy as np
     import torch
 
     from uvltrack_tpu_torch.data.synthetic import synthetic_batch_from_cfg
     from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.parallel.dp import DataParallel
     from uvltrack_tpu_torch.parallel.mesh import init_distributed, make_mesh, shard_batch
     from uvltrack_tpu_torch.train.step import setup_sharded_training
 
@@ -5103,6 +5300,7 @@ def dp_worker(args) -> int:
     dev = init_distributed(torch.device("cuda"), backend=DP_BACKEND)
     mesh = make_mesh(data=-1, devices=[dev])
     res = {"rank": mesh.rank, "world": mesh.world, "device": str(dev), "backend": DP_BACKEND}
+    probes = {}
     for case, over, zero1 in DP_CASES:
         cfg = train_config(**over)
         batch = synthetic_batch_from_cfg(np.random.default_rng(args.seed), cfg,
@@ -5115,6 +5313,9 @@ def dp_worker(args) -> int:
             _, ref, _ = setup_sharded_training(cfg, mesh, 1, device=dev, seed=args.seed)
             z1_opt = state.optimizer
             state.optimizer = PairedOptimizer(state.model, z1_opt, ref.model, ref.optimizer)
+        t_probe = time.perf_counter()
+        probes[case] = probe_maps(state.model, local, "cuda", dp=DataParallel.of(mesh))
+        probe_s = time.perf_counter() - t_probe
         before = build.instantiation_counts()
         runs = []
         for i in range(DP_STEPS):
@@ -5123,7 +5324,8 @@ def dp_worker(args) -> int:
             state, m = step(state, local)
             loss = float(m["Loss/total"])
             runs.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
-                         "grad_norm": float(m["grad_norm"])})
+                         "grad_norm": float(m["grad_norm"]),
+                         "terms": {k: float(m[k]) for k in LOSS_TERMS}})
             if ref is not None:
                 worst = max(float(((p - r).abs() - Z1_RTOL * r.abs()).max() / Z1_ATOL)
                             for p, r in zip(state.model.parameters(), ref.model.parameters()))
@@ -5139,10 +5341,13 @@ def dp_worker(args) -> int:
         res[case] = {"rows": int(local["flag"].shape[0] * local["search_images"].shape[0]),
                      "losses": [r["loss"] for r in runs],
                      "grad_norms": [r["grad_norm"] for r in runs], "ms": [r["ms"] for r in runs],
+                     "step1_terms": runs[0]["terms"], "probe_s": probe_s,
                      "launches": launches_since(before),
                      "moment_bytes": state.optimizer.moment_bytes()}
         del state, step, local
         torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        save_probes(out_dir / "dp_probes.npz", probes)
     (out_dir / f"rank{mesh.rank}.json").write_text(json.dumps(res))
     import torch.distributed as dist
 
@@ -5178,14 +5383,19 @@ def dp_phase(args, dev, tmp: Path) -> dict:
 
     total = Counter()
 
-    def dp1(case_over, n):
+    def dp1(case, case_over, n, probe=True):
         cfg = train_config(**case_over)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch_from_cfg(
             np.random.default_rng(args.seed), cfg, int(cfg.TRAIN.BATCH_SIZE)).items()}
         _, state, step = setup_training(cfg, 1, device=dev, seed=args.seed)
-        probes = {"plain": _probe(state.model, batch, cfg, "plain"),
-                  "plain_eps": _probe(state.model, batch, cfg, "plain", TRAIN_PROBE_EPS,
-                                      args.seed)}
+        sens = maps = None
+        if probe:  # the yardstick and the kernels' probe, from the init
+            t_probe = time.perf_counter()
+            p0 = _probe(state.model, batch, cfg, "plain")
+            p1 = _probe(state.model, batch, cfg, "plain", TRAIN_PROBE_EPS, args.seed)
+            maps = probe_maps(state.model, batch, "cuda")
+            probe_s[case] = time.perf_counter() - t_probe
+            sens = abs(p1["grad_norm"] - p0["grad_norm"]) / p0["grad_norm"]
         before = build.instantiation_counts()
         state, runs = _train_run(state, step, batch, "cuda", n)
         total.update(launches_since(before))
@@ -5193,12 +5403,11 @@ def dp_phase(args, dev, tmp: Path) -> dict:
         del state, step, batch
         gc.collect()
         torch.cuda.empty_cache()
-        sens = abs(probes["plain_eps"]["grad_norm"] - probes["plain"]["grad_norm"]) / probes[
-            "plain"]["grad_norm"]
-        return runs, sens, moments
+        return runs, sens, moments, maps
 
     t0 = time.perf_counter()
-    first = {case: dp1(over, DP_STEPS) for case, over, _ in DP_CASES if case != "zero1"}
+    probe_s = {}
+    first = {case: dp1(case, over, DP_STEPS) for case, over, _ in DP_CASES if case != "zero1"}
     port = free_port()
     procs = []
     for rank in range(2):
@@ -5221,11 +5430,13 @@ def dp_phase(args, dev, tmp: Path) -> dict:
         if p.returncode != 0:
             raise AssertionError(f"dp=2 rank {rank} exited {p.returncode}:\n{log[-3000:]}")
     ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
-    second = {case: dp1(over, 2) for case, over, _ in DP_CASES if case != "zero1"}
+    dp2_probes = load_probes(tmp / "dp_probes.npz")
+    second = {case: dp1(case, over, 2, probe=False) for case, over, _ in DP_CASES
+              if case != "zero1"}
     gates = {}
     for case, _, _ in DP_CASES:
         ref_case = "replicated" if case == "zero1" else case
-        runs, sens, _ = first[ref_case]
+        runs, sens, _, maps1 = first[ref_case]
         bound = max(TRAIN_NORM_REL, 2 * sens)
         for r in ranks:
             for k in r[case]["launches"]:
@@ -5235,14 +5446,12 @@ def dp_phase(args, dev, tmp: Path) -> dict:
                                      f"{[x[case]['losses'] for x in ranks]}")
             expect_launches(TRAIN_PER_FWD, DP_STEPS, r[case]["launches"],
                             f"dp=2 {case} rank {r['rank']}")
-        loss_rel, norm_rel = step1_gate(
-            {"loss": ranks[0][case]["losses"][0], "grad_norm": ranks[0][case]["grad_norms"][0]},
-            runs[0], bound, f"dp=2 {case} vs dp=1")
-        gates[case] = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel, "grad_norm_bound": bound,
-                       "plain_grad_norm_move_at_eps": sens}
+        cells = accounting_of(maps1, dp2_probes[case])
+        gates[case] = step1_case(
+            {"loss": ranks[0][case]["losses"][0], "grad_norm": ranks[0][case]["grad_norms"][0],
+             "terms": ranks[0][case]["step1_terms"]}, runs[0], cells, bound, ("dp1", "dp2"))
+        gates[case]["plain_grad_norm_move_at_eps"] = sens
     z = ranks[0]["zero1_vs_replicated_step1"]
-    if z["max_excess_over_atol"] > 1.0:
-        raise AssertionError(f"ZeRO-1 vs replicated after step 1: {z}")
     dp1_ms = {case: _p50([r["ms"] for r in first[case][0][1:] + second[case][0]])
               for case in first}
     dp2_ms = {case: _p50(sum((r[case]["ms"][1:] for r in ranks), [])) for case, _, _ in DP_CASES}
@@ -5254,10 +5463,11 @@ def dp_phase(args, dev, tmp: Path) -> dict:
            "cases": {case: {"over": over, "zero1": z1, "global_rows": TRAIN_B,
                             "rows_per_rank": ranks[0][case]["rows"]}
                      for case, over, z1 in DP_CASES},
-           "gate": f"step 1, dp=2 vs dp=1 on the same rows (relative): loss within "
-                   f"{TRAIN_LOSS_REL}, grad_norm within max({TRAIN_NORM_REL}, 2 x the plain "
-                   "backend's move under a 2^-12 input change)",
+           "gate": "dp=2 (rank 0's gathered probe) vs dp=1 (its kernels' probe) on the same "
+                   "rows: " + step1_doc(None) + " (the bound per case)",
            "step1": gates, "zero1_vs_replicated_step1": z,
+           "probe_s": {"dp1": probe_s, "dp2": [r[c]["probe_s"] for r in ranks
+                                               for c, _, _ in DP_CASES]},
            "losses": {"dp1": {c: [r["loss"] for r in first[c][0]] for c in first},
                       "dp2": {c: ranks[0][c]["losses"] for c, _, _ in DP_CASES}},
            "grad_norms": {"dp1": {c: [r["grad_norm"] for r in first[c][0]] for c in first},
@@ -5271,7 +5481,9 @@ def dp_phase(args, dev, tmp: Path) -> dict:
                   for c in ("replicated", "zero1")}},
            "launches_per_step_per_rank": TRAIN_PER_FWD, "dp2_wall_s": t_dp2,
            "seconds": time.perf_counter() - t0}
-    emit(out)
+    step1_line(out, "dp=2 vs dp=1")
+    if z["max_excess_over_atol"] > 1.0:
+        raise AssertionError(f"ZeRO-1 vs replicated after step 1: {z}")
     return dict(total)
 
 
@@ -5313,12 +5525,15 @@ def tp_worker(args) -> int:
     """One rank of the tp=2 run (a child of the parallel group): every case
     of TP_CASES from the seed's init on B-TRAIN's rows; writes
     tp_rank<R>.json (losses, grad_norms, step ms, launches, the split
-    blocks' shapes, parameter and Adam moment bytes)."""
+    blocks' shapes, parameter and Adam moment bytes) and, next to it,
+    tp_rank<R>.npz: each case's probe from the init under its knobs
+    (probe_maps under the model group's context, both ranks taking part)."""
     import numpy as np
     import torch
 
     from uvltrack_tpu_torch.data.synthetic import synthetic_batch_from_cfg
     from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.parallel import tp as tpar
     from uvltrack_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from uvltrack_tpu_torch.train.step import setup_sharded_training
 
@@ -5328,6 +5543,7 @@ def tp_worker(args) -> int:
     dev = init_distributed(torch.device("cuda"), backend=DP_BACKEND)
     mesh = make_mesh(data=1, model=2, devices=[dev])
     res = {"rank": mesh.rank, "model_index": mesh.model_index, "device": str(dev)}
+    probes = {}
     for case, env, steps in TP_CASES:
         cfg = train_config()
         batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch_from_cfg(
@@ -5336,10 +5552,14 @@ def tp_worker(args) -> int:
                                                     tensor_parallel=True)
         blk = model.backbone.vit.blocks[0]
         with knob_env(env):
+            t_probe = time.perf_counter()
+            probes[case] = probe_maps(model, batch, "cuda", tp=tpar.TensorParallel.of(mesh))
+            probe_s = time.perf_counter() - t_probe
             before = build.instantiation_counts()
             state, runs = _train_run(state, step, batch, "cuda", steps, TP_PER_FWD[case])
         res[case] = {"losses": [r["loss"] for r in runs],
                      "grad_norms": [r["grad_norm"] for r in runs], "ms": [r["ms"] for r in runs],
+                     "step1_terms": runs[0]["terms"], "probe_s": probe_s,
                      "launches": launches_since(before),
                      "block_shapes": {"heads": blk.attn.num_heads,
                                       "qkv": list(blk.attn.qkv.weight.shape),
@@ -5351,6 +5571,7 @@ def tp_worker(args) -> int:
                      "moment_bytes": state.optimizer.moment_bytes()}
         del model, state, step, batch
         torch.cuda.empty_cache()
+    save_probes(out_dir / f"tp_rank{mesh.rank}.npz", probes)
     (out_dir / f"tp_rank{mesh.rank}.json").write_text(json.dumps(res))
     import torch.distributed as dist
 
@@ -5382,14 +5603,19 @@ def tp_phase(args, dev, tmp: Path) -> dict:
     batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch_from_cfg(
         np.random.default_rng(args.seed), cfg, int(cfg.TRAIN.BATCH_SIZE)).items()}
 
-    def tp1(case, env, n, probe=False):
+    def tp1(case, env, n, first_turn=False):
         model, state, step = setup_training(cfg, 1, device=dev, seed=args.seed)
-        sens = None
-        if probe:  # the plain backend ignores the knobs: one yardstick for every case
+        sens = maps = None
+        t_probe = time.perf_counter()
+        if first_turn and case == "default":
+            # the plain backend ignores the knobs: one yardstick for every case
             p0 = _probe(state.model, batch, cfg, "plain")
             p1 = _probe(state.model, batch, cfg, "plain", TRAIN_PROBE_EPS, args.seed)
             sens = abs(p1["grad_norm"] - p0["grad_norm"]) / p0["grad_norm"]
         with knob_env(env):
+            if first_turn:  # the kernels' probe under the case's knobs
+                maps = probe_maps(state.model, batch, "cuda")
+                probe_s[case] = time.perf_counter() - t_probe
             before = build.instantiation_counts()
             state, runs = _train_run(state, step, batch, "cuda", n, TP1_PER_FWD[case])
             total.update(launches_since(before))
@@ -5398,10 +5624,11 @@ def tp_phase(args, dev, tmp: Path) -> dict:
         del model, state, step
         gc.collect()
         torch.cuda.empty_cache()
-        return runs, sens, sizes
+        return runs, sens, sizes, maps
 
     t0 = time.perf_counter()
-    first = {case: tp1(case, env, n, probe=case == "default") for case, env, n in TP_CASES}
+    probe_s = {}
+    first = {case: tp1(case, env, n, first_turn=True) for case, env, n in TP_CASES}
     sens = first["default"][1]
     port = free_port()
     procs = []
@@ -5425,6 +5652,7 @@ def tp_phase(args, dev, tmp: Path) -> dict:
         if p.returncode != 0:
             raise AssertionError(f"tp=2 rank {rank} exited {p.returncode}:\n{log[-3000:]}")
     ranks = [json.loads((tmp / f"tp_rank{r}.json").read_text()) for r in range(2)]
+    rank_probes = [load_probes(tmp / f"tp_rank{r}.npz") for r in range(2)]
     second = {case: tp1(case, env, n) for case, env, n in TP_CASES}
     bound = max(TRAIN_NORM_REL, 2 * sens)
     gates = {}
@@ -5437,9 +5665,14 @@ def tp_phase(args, dev, tmp: Path) -> dict:
                                      f"{[x[case]['losses'] for x in ranks]}")
             if r[case]["block_shapes"]["heads"] != VIT_VARIANTS["base"]["num_heads"] // 2:
                 raise AssertionError(f"tp=2 {case}: {r[case]['block_shapes']}")
-        gates[case] = dict(zip(("loss_rel", "grad_norm_rel"), step1_gate(
-            {"loss": ranks[0][case]["losses"][0], "grad_norm": ranks[0][case]["grad_norms"][0]},
-            first[case][0][0], bound, f"tp=2 {case} vs tp=1")))
+        gates[case] = step1_case(
+            {"loss": ranks[0][case]["losses"][0], "grad_norm": ranks[0][case]["grad_norms"][0],
+             "terms": ranks[0][case]["step1_terms"]}, first[case][0][0],
+            accounting_of(first[case][3], rank_probes[0][case]), bound, ("tp1", "tp2"))
+        same = all(np.array_equal(rank_probes[1][case][k], rank_probes[0][case][k])
+                   for k in ("maps", "boxes"))
+        gates[case]["ranks_probe_bitwise_equal"] = same
+        gates[case]["gate_passes"] = gates[case]["gate_passes"] and same
         gates[case]["tp1_turns_loss"] = [first[case][0][0]["loss"], second[case][0][0]["loss"]]
     tp1_ms = _p50([r["ms"] for r in first["default"][0][1:] + second["default"][0][1:]])
     tp2_ms = _p50(sum((r["default"]["ms"][1:] for r in ranks), []))
@@ -5449,10 +5682,11 @@ def tp_phase(args, dev, tmp: Path) -> dict:
            "device": ranks[0]["device"], "timer": TP_TIMER, "global_rows": TRAIN_B,
            "cases": {case: {"env": env, "steps": n} for case, env, n in TP_CASES},
            "block_shapes_per_rank": ranks[0]["default"]["block_shapes"],
-           "gate": f"step 1, tp=2 vs tp=1 on the same rows and knobs (relative): loss within "
-                   f"{TRAIN_LOSS_REL}, grad_norm within max({TRAIN_NORM_REL}, 2 x the plain "
-                   "backend's move under a 2^-12 input change)",
+           "gate": "tp=2 (rank 0's probe) vs tp=1 (its kernels' probe) on the same rows and "
+                   "knobs, both ranks' probes bitwise equal: " + step1_doc(bound),
            "grad_norm_bound": bound, "plain_grad_norm_move_at_eps": sens, "step1": gates,
+           "probe_s": {"tp1": probe_s, "tp2": [r[c]["probe_s"] for r in ranks
+                                               for c, _, _ in TP_CASES]},
            "losses": {"tp1": {c: [r["loss"] for r in first[c][0]] for c in first},
                       "tp2": {c: ranks[0][c]["losses"] for c, _, _ in TP_CASES}},
            "grad_norms": {"tp1": {c: [r["grad_norm"] for r in first[c][0]] for c in first},
@@ -5466,7 +5700,7 @@ def tp_phase(args, dev, tmp: Path) -> dict:
                                                for r in ranks]},
            "bytes_ratio_tp2_over_tp1": ranks[0]["default"]["param_bytes"] / p1,
            "tp2_wall_s": t_tp2, "seconds": time.perf_counter() - t0}
-    emit(out)
+    step1_line(out, "tp=2 vs tp=1")
     return dict(total)
 
 
