@@ -39,6 +39,14 @@ Phases, one JSON line each:
                  bitwise on a second call, beside the 64-row body; device
                  times beside the plain version, the library call and the
                  64-row body at every shape.
+     attn_batch -- qkv_attention in bf16 and fp32 at every shape of
+                 AB_SHAPES (B S4/S8, L S8, B-TRAIN, the tp ranks' heads;
+                 N=321 and 361) under the tail, random and all-masked key
+                 biases: routed by takes_attn_batch (the batch body where
+                 the split rule splits the keys), against its plain
+                 version, bitwise on a second call, the batch body forced
+                 bitwise the split entry forced; device times in turns of
+                 both bodies, the plain version and SDPA.
   3. track    -- UVLTrack-B (experiments/uvltrack/baseline_base.yaml, full
                  width, seeded random weights) tracks a synthetic 720p
                  sequence in BBOX, NLBBOX, then NL mode (32 frames each,
@@ -111,14 +119,17 @@ Phases, one JSON line each:
                  (kernels #4 and #7 at B.N rows), and B-S4-Q8-FUSED: S4's
                  streams, int8 weights, UVLTRACK_FUSED_PROJ=1 (#6 at B=4), 16
                  steps: their eager launches per forward by instantiation
-                 and by body (every weight kernel on the large-M body:
-                 FUSED_BODIES), every row of every step against the plain
-                 backend from the shared state, the graph step under the
-                 knobs (its own capture) against the eager step as above;
-                 then, in turns A B C C B A, the default S8 graph step,
-                 B-S8-FUSED's and B-S8-FUSED's on the 64-row bodies (a
-                 JitTracker captured with LARGE_M_ROWS above M): step
-                 p50/p90 and device ms a step each.
+                 and by body (every weight kernel on the large-M body and
+                 the attention on the batch body: fused_bodies), every row
+                 of every step against the plain backend from the shared
+                 state, the graph step under the knobs (its own capture)
+                 against the eager step as above; then, in turns A B C D
+                 D C B A, the default S8 graph step, B-S8-FUSED's,
+                 B-S8-FUSED's with the split attention
+                 (attn_batch_from(1 << 62)) and B-S8-FUSED's on the 64-row
+                 bodies and the split attention (large_m_from(1 << 62)),
+                 each forced route a JitTracker of its own: step p50/p90
+                 and device ms a step each.
   6. serve    -- cli/serve.py's make_server in this process on 127.0.0.1
                  over the compiled step: per-stream (a BBOX and an NLBBOX
                  stream, 32 720p npy frames each, two client threads) and
@@ -1193,19 +1204,34 @@ def tp_kernel_phase(dev, seed: int):
 
 @contextlib.contextmanager
 def large_m_from(rows_from: int):
-    """Every kernel's large-M threshold at rows_from while the block runs
-    (0: the large-M bodies at any rows; 1 << 62: the 64-row bodies):
-    ln_qkv's and ln_mlp's (ln_qkv_attention.LARGE_M_ROWS) and
-    proj_residual's (ln_qkv_attn_proj.LARGE_M_ROWS)."""
+    """Every kernel's batch threshold at rows_from while the block runs (0:
+    the large-M and batch bodies at any rows; 1 << 62: the 64-row bodies and
+    qkv_attention's split body, the route B.N rows took before either):
+    ln_qkv's and ln_mlp's (ln_qkv_attention.LARGE_M_ROWS), proj_residual's
+    (ln_qkv_attn_proj.LARGE_M_ROWS) and qkv_attention's (b, h) pairs
+    (ln_qkv_attention.ATTN_BATCH_PAIRS)."""
     from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
     from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
 
-    rows = lqa.LARGE_M_ROWS, lqp.LARGE_M_ROWS
-    lqa.LARGE_M_ROWS = lqp.LARGE_M_ROWS = rows_from
+    rows = lqa.LARGE_M_ROWS, lqp.LARGE_M_ROWS, lqa.ATTN_BATCH_PAIRS
+    lqa.LARGE_M_ROWS = lqp.LARGE_M_ROWS = lqa.ATTN_BATCH_PAIRS = rows_from
     try:
         yield
     finally:
-        lqa.LARGE_M_ROWS, lqp.LARGE_M_ROWS = rows
+        lqa.LARGE_M_ROWS, lqp.LARGE_M_ROWS, lqa.ATTN_BATCH_PAIRS = rows
+
+
+@contextlib.contextmanager
+def attn_batch_from(pairs: int):
+    """qkv_attention's batch threshold (ln_qkv_attention.ATTN_BATCH_PAIRS)
+    alone at `pairs` while the block runs (1 << 62: the split body)."""
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+
+    was, lqa.ATTN_BATCH_PAIRS = lqa.ATTN_BATCH_PAIRS, pairs
+    try:
+        yield
+    finally:
+        lqa.ATTN_BATCH_PAIRS = was
 
 
 # ln_qkv's large-M body (csrc/ln_qkv.cu's uvl_ln_qkv_large_m, at M >=
@@ -1291,11 +1317,11 @@ def large_m_qkv_phase(dev, seed: int):
                 inst = f"ln_qkv[{xt}x-{wt}-lm]"
                 if not lqa.takes_large_m(b * n, torch.int8 if wt == "int8w" else b16):
                     raise AssertionError(f"{inst} {what}: the rows take the 64-row body")
-                before = build.body_counts().get(inst, 0)
-                got, again = kern(), kern()
-                small = on_64row(kern)()
+                with build.body_delta() as moved:
+                    got, again = kern(), kern()
+                    small = on_64row(kern)()
                 torch.cuda.synchronize()
-                if build.body_counts().get(inst, 0) != before + 2:
+                if moved.get(inst, 0) != 2:
                     raise AssertionError(f"{inst} {what}: not launched on the large-M body")
                 want = plain()
                 if got.dtype != want.dtype or got.shape != want.shape:
@@ -1422,10 +1448,10 @@ def large_m_mlp_proj_phase(dev, seed: int):
 
     def routed(inst, calls, what):
         """run calls(), which launches inst's large-M body `n` times"""
-        before = build.body_counts().get(inst, 0)
-        out, n = calls()
+        with build.body_delta() as moved:
+            out, n = calls()
         torch.cuda.synchronize()
-        if build.body_counts().get(inst, 0) != before + n:
+        if moved.get(inst, 0) != n:
             raise AssertionError(f"{inst} {what}: not launched on the large-M body")
         return out
 
@@ -1564,6 +1590,158 @@ def large_m_mlp_proj_phase(dev, seed: int):
                    "64-row body (a CUDA graph of 20 calls), eager ms of kernel and 64-row "
                    "body (50 calls)",
           "row_shapes": MP_ROW_SHAPE, "times": times})
+    return worst, times
+
+
+# qkv_attention's batch body (csrc/attention.cuh's attention_ranges_kernel:
+# from ATTN_BATCH_PAIRS (b, h) pairs where the split rule splits the keys):
+# every shape of the B.N-row paths, (label, B, H) -- the lockstep steps of B
+# (S4, S8) and L (S8), B-TRAIN's 16 rows, a tensor-parallel rank's H/tp heads
+# at B-TRAIN's rows -- each at N=321 and N=361, in both types, under each key
+# bias of ATTN_MASKS. L-S8 and B-TRAIN in bf16 are kept whole by the rule and
+# stay on the split entry (the same grid either way)
+AB_SHAPES = (("B_S4", 4, 12), ("B_S8", 8, 12), ("L_S8", 8, 16), ("B_TRAIN", 16, 12),
+             ("B_tp2", 16, 6), ("B_tp4", 16, 3))
+# tail: the last 40 (text) keys of every row masked (flag 0); random: 30% of
+# the keys and the text masked; all: row 0's every key masked (it averages
+# v), the rest random
+ATTN_MASKS = ("tail", "random", "all")
+# the main-path shape of each instantiation's kernels-line row: (label, N);
+# fp32 runs only in the int8 model's joint blocks (B-S4-Q8, N=361)
+AB_ROW_SHAPE = {"qkv_attention[bf16-lm]": ("B_S8", 361),
+                "qkv_attention[fp32-lm]": ("B_S4", 361)}
+
+
+def attn_batch_phase(dev, seed: int):
+    """qkv_attention's batch body (`qkv_attention[*-lm]`, both types) at
+    every shape of AB_SHAPES under every mask of ATTN_MASKS: each call routed
+    by takes_attn_batch (build.body_delta: the batch body wherever the split
+    rule splits the keys, no fallback; the split entry elsewhere), against
+    its plain version (the KERNEL_* rule in bf16, the fp32 rule in fp32),
+    bitwise on a second call, and the batch body forced bitwise the split
+    entry forced on the same inputs (large_m_from; the same key ranges,
+    attn_split, summed in the same order). Then device times in turns
+    (batch, split, plain, SDPA, then back) at every shape in bf16 and at
+    fp32's B-S4 and B-S8, N=361, and eager times at each AB_ROW_SHAPE.
+    Inputs are drawn on the card from a seeded generator. Returns
+    ({instantiation: worst error}, {label: {N: {instantiation: times}}})."""
+    import torch
+    import torch.nn.functional as F
+
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 8)
+
+    def case(b, n, heads, mask, dt):
+        qkv = torch.randn((b, n, 3 * heads * 64), generator=gen, device=dev).to(dt)
+        masked = torch.rand((b, n), generator=gen, device=dev) < 0.3
+        masked[:, 0] = False
+        if mask == "tail":
+            masked[:] = False
+        masked[:, n - 40:] = True
+        if mask == "all":
+            masked[0] = True
+        return qkv, torch.where(masked, -1e10, 0.0)
+
+    def on(body, fn):
+        """fn on the batch body ("lm") or the split entry ("64") at any shape"""
+        def call():
+            with large_m_from(0 if body == "lm" else 1 << 62):
+                return fn()
+        return call
+
+    worst, times, checks, routed = {}, {}, 0, {}
+    for label, b, heads in AB_SHAPES:
+        for n in (321, 361):
+            for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+                inst = f"qkv_attention[{tag}-lm]"
+                what = f"{label} B={b} H={heads} N={n} {tag}"
+                body = "lm" if lqa.takes_attn_batch(b, n, heads, tag == "fp32") else "64"
+                routed[what] = {"body": body, "split": lqa.attn_split(b, n, heads, tag == "fp32")}
+                for mask in ATTN_MASKS:
+                    qkv, kb = case(b, n, heads, mask, dt)
+
+                    def kern():
+                        return lqa.qkv_attention(qkv, kb, heads)
+
+                    with build.body_delta() as moved:
+                        got, again = kern(), kern()
+                        batch, split = on("lm", kern)(), on("64", kern)()
+                    torch.cuda.synchronize()
+                    other = "64" if body == "lm" else "lm"
+                    want_moved = {f"qkv_attention[{tag}-{body}]": 3,
+                                  f"qkv_attention[{tag}-{other}]": 1}
+                    if moved != want_moved:
+                        raise AssertionError(f"{what} {mask}: launched {moved}, not {want_moved} "
+                                             f"(routed to the {body} body)")
+                    want = lqa.qkv_attention_plain(qkv, kb, heads)
+                    atol, rtol = ((F32_ATOL, F32_RTOL) if tag == "fp32" else
+                                  (KERNEL_ATOL["qkv_attention"], KERNEL_RTOL))
+                    d = (batch.float() - want.float()).abs()
+                    e = float(d.max())
+                    if batch.dtype != want.dtype or batch.shape != want.shape or not bool(
+                            (d <= atol + rtol * want.float().abs()).all()):
+                        raise AssertionError(f"{inst} {what} {mask}: max abs err {e} over "
+                                             "tolerance")
+                    if not (torch.equal(got, again) and torch.equal(got, batch)):
+                        raise AssertionError(f"{what} {mask}: a second call differs")
+                    if not torch.equal(batch, split):
+                        raise AssertionError(
+                            f"{inst} {what} {mask}: not bitwise the split entry (max abs "
+                            f"{float((batch.float() - split.float()).abs().max())})")
+                    worst[inst] = max(worst.get(inst, 0.0), e)
+                    checks += 1
+    emit({"phase": "attn_batch_check", "shapes": AB_SHAPES, "masks": ATTN_MASKS,
+          "checks": checks, "routed": routed,
+          "tolerance": {"bf16": f"KERNEL_ATOL['qkv_attention'] + {KERNEL_RTOL}*|plain|",
+                        "fp32": f"{F32_ATOL} + {F32_RTOL}*|plain|"},
+          "repeatable": "bitwise: two routed calls and the batch body forced, at every check",
+          "bitwise_vs_split_entry": f"{checks} of {checks}", "max_abs_err": worst})
+
+    for label, b, heads in AB_SHAPES:
+        for n in (321, 361):
+            for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+                inst = f"qkv_attention[{tag}-lm]"
+                if tag == "fp32" and (label, n) not in (("B_S4", 361), ("B_S8", 361)):
+                    continue
+                qkv, kb = case(b, n, heads, "tail", dt)
+                mask = kb.to(dt)[:, None, None, :]
+
+                def kern(qkv=qkv, kb=kb, heads=heads):
+                    return lqa.qkv_attention(qkv, kb, heads)
+
+                def sdpa(qkv=qkv, mask=mask, b=b, n=n, heads=heads):
+                    q, k, v = qkv.view(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+                    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+                fns = {"device_ms": on("lm", kern), "split_device_ms": on("64", kern),
+                       "plain_device_ms": lambda qkv=qkv, kb=kb, heads=heads:
+                           lqa.qkv_attention_plain(qkv, kb, heads),
+                       "library_device_ms": sdpa}
+                runs = {k: [] for k in fns}
+                for k in list(fns) + list(fns)[::-1]:
+                    runs[k].append(graph_time_ms(fns[k])[0])
+                m, es = b * n, qkv.element_size()
+                passes = 3 if tag == "fp32" else 1  # hi.hi + hi.lo + lo.hi a product
+                b_ms, b_by = bound(passes * 4 * heads * m * n * 64,
+                                   m * 3 * heads * 64 * es + m * 4 + m * heads * 64 * es)
+                t = {**{k: sum(v) / 2 for k, v in runs.items()},
+                     **{f"{k}_turns": v for k, v in runs.items()},
+                     "split": lqa.attn_split(b, n, heads, tag == "fp32"),
+                     "routed": "lm" if lqa.takes_attn_batch(b, n, heads, tag == "fp32") else "64",
+                     "bound_ms": b_ms, "bound_by": b_by, "library": "SDPA (device)"}
+                if AB_ROW_SHAPE[inst] == (label, n):  # the kernels line's eager times
+                    t.update({"ms": cuda_time_ms(fns["device_ms"]),
+                              "plain_ms": cuda_time_ms(fns["plain_device_ms"]),
+                              "library_ms": cuda_time_ms(sdpa)})
+                times.setdefault(label, {}).setdefault(f"N{n}", {})[inst] = t
+    emit({"phase": "attn_batch_times", "timer": TIMER,
+          "turns": "device ms (a CUDA graph of 20 calls) of the batch body and the split entry, "
+                   "each forced, the plain version and SDPA, then back: each the mean of its "
+                   "two runs, both under *_turns; key bias: tail",
+          "row_shapes": AB_ROW_SHAPE, "times": times})
     return worst, times
 
 
@@ -2956,6 +3134,28 @@ FUSED_BODIES = {
     "B-S4-Q8-FUSED": {"ln_qkv[bf16x-int8w-lm]": 6, "ln_qkv[fp32x-int8w-lm]": 6,
                       "proj_residual[bf16x-bf16a-int8w-lm]": 6,
                       "proj_residual[fp32x-fp32a-int8w-lm]": 6}}
+# the attention's launches per forward in each cell, by type and (N=321
+# visual blocks, N=361 joint blocks), at batch S: B-S8's 6 + 6 in bf16; with
+# int8 weights 6 bf16 (visual) and 6 fp32 (joint)
+FUSED_ATTENTION = {"B-S8-FUSED": (8, {"bf16": (6, 6)}),
+                   "B-S4-Q8-FUSED": (4, {"bf16": (6, 0), "fp32": (0, 6)})}
+
+
+def fused_bodies(label) -> dict:
+    """FUSED_BODIES[label] and the attention's launches by body: the batch
+    body (`-lm`) where takes_attn_batch takes the cell's batch at 12 heads,
+    else the split entry (`-64`)."""
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+
+    s, per_type = FUSED_ATTENTION[label]
+    out = dict(FUSED_BODIES[label])
+    for t, (n_321, n_361) in per_type.items():
+        for n, count in ((321, n_321), (361, n_361)):
+            if count:
+                key = (f"qkv_attention[{t}-"
+                       f"{'lm' if lqa.takes_attn_batch(s, n, 12, t == 'fp32') else '64'}]")
+                out[key] = out.get(key, 0) + count
+    return out
 
 
 def eager_steps(cell) -> tuple:
@@ -2970,21 +3170,19 @@ def eager_steps(cell) -> tuple:
     cell.initialize()
     torch.cuda.synchronize()
     build.reset_launch_counts()
-    before = build.body_counts()
-    for batch, active in zip(cell.batches, cell.actives):
-        cell.bt.set_active(active)
-        cell.bt.step(batch)
+    with build.body_delta() as bodies:
+        for batch, active in zip(cell.batches, cell.actives):
+            cell.bt.set_active(active)
+            cell.bt.step(batch)
     torch.cuda.synchronize()
     attention.force_backend(None)
-    bodies = {k: v - before.get(k, 0) for k, v in build.body_counts().items()
-              if v != before.get(k, 0)}
     return build.instantiation_counts(), bodies
 
 
 def fused_lockstep(label, cell, jt, per_fwd, remine_fwd) -> dict:
     """A lockstep cell under FUSED_KNOBS[label] (kernels #4/#6 and #7 at B.N
     rows): (a) its eager steps' launches per batched forward, by
-    instantiation (per_fwd) and by body (FUSED_BODIES[label]); (b) every row
+    instantiation (per_fwd) and by body (fused_bodies(label)); (b) every row
     of every step on the kernels against the plain backend from the shared
     state (checked_step, paired_ab's rule); (c) compiled_lockstep under the
     knobs (their own graphs on jt: graph_knobs keys them): the graph step
@@ -2996,7 +3194,7 @@ def fused_lockstep(label, cell, jt, per_fwd, remine_fwd) -> dict:
     with knob_env(knobs):
         inst, bodies = eager_steps(cell)
         expect_launches(per_fwd, T, inst, f"{label}: {T} eager steps")
-        expect_launches(FUSED_BODIES[label], T, bodies, f"{label}: {T} eager steps by body")
+        expect_launches(fused_bodies(label), T, bodies, f"{label}: {T} eager steps by body")
         tally = {"kernel_vs_plain": AbTally(f"{label} kernel/plain")}
         attention.force_backend("cuda")
         cell.initialize()
@@ -3012,13 +3210,16 @@ def fused_lockstep(label, cell, jt, per_fwd, remine_fwd) -> dict:
     return out
 
 
-def fused_turns(cell, jt, jt64, tokenizer) -> dict:
-    """Three graph steps of B-S8's streams in turns (A B C C B A): the
-    default S8 step, B-S8-FUSED's, and B-S8-FUSED's on the 64-row bodies
-    (jt64's graphs, captured with LARGE_M_ROWS above M: the parent's route at
-    these rows). Step p50/p90 on the host clock over the cell's steps, and
-    device ms a step over 8 steps (profile_window) each; one eager step of
-    the 64-row route counted by body."""
+def fused_turns(cell, jt, jt64, jt_sa, tokenizer) -> dict:
+    """Four graph steps of B-S8's streams in turns (A B C D D C B A): the
+    default S8 step, B-S8-FUSED's, B-S8-FUSED's with the attention on its
+    split body (jt_sa's graphs, captured under attn_batch_from(1 << 62): the
+    parent's route of the attention alone) and B-S8-FUSED's on the 64-row
+    bodies and the split attention (jt64's, captured under large_m_from(1 <<
+    62): the route before the B.N-row bodies). Step p50/p90 on the host
+    clock over the cell's steps, and device ms a step over 8 steps
+    (profile_window) each; one eager step of each forced route counted by
+    body."""
     import numpy as np
     import torch
 
@@ -3027,7 +3228,8 @@ def fused_turns(cell, jt, jt64, tokenizer) -> dict:
     from uvltrack_tpu_torch.track.batch import BatchTracker
 
     knobs = FUSED_KNOBS["B-S8-FUSED"]
-    routes = {"S8": ({}, jt), "B-S8-FUSED": (knobs, jt), "B-S8-FUSED_64row": (knobs, jt64)}
+    routes = {"S8": ({}, jt), "B-S8-FUSED": (knobs, jt),
+              "B-S8-FUSED_split_attn": (knobs, jt_sa), "B-S8-FUSED_64row": (knobs, jt64)}
     bts = {name: BatchTracker(cell.cfg, None, cell.S, tokenizer=tokenizer, jit_tracker=j)
            for name, (_, j) in routes.items()}
 
@@ -3049,26 +3251,29 @@ def fused_turns(cell, jt, jt64, tokenizer) -> dict:
         return np.asarray(lat)
 
     attention.force_backend("cuda")
-    # the forced route's eager launches are set aside: the kernels line's
-    # 64-row rows count the main path's launches on that body alone
-    bodies = build.body_counts()
-    try:
-        with large_m_from(1 << 62):
-            run("B-S8-FUSED_64row")  # captures jt64's graphs on the 64-row bodies
+    fused = fused_bodies("B-S8-FUSED")
+    forced = {  # route: (its context, the launches by body of its eager step)
+        "B-S8-FUSED_split_attn": (attn_batch_from(1 << 62), {
+            k.replace("-lm]", "-64]") if k.startswith("qkv_attention") else k: v
+            for k, v in fused.items()}),
+        "B-S8-FUSED_64row": (large_m_from(1 << 62),
+                             {k.replace("-lm]", "-64]"): v for k, v in fused.items()})}
+    by_body = {}
+    for name, (ctx, want) in forced.items():
+        # the forced route's eager launches are set aside: the kernels line's
+        # rows count the main path's launches on each body alone
+        with build.body_delta(set_aside=True), ctx:
+            run(name)  # captures the route's graphs
             with knob_env(knobs):
                 init(cell.bt)
                 torch.cuda.synchronize()
-                before = build.body_counts()
-                cell.bt.step(cell.batches[0])
+                with build.body_delta() as got:
+                    cell.bt.step(cell.batches[0])
                 torch.cuda.synchronize()
-                route64 = {k: v - before.get(k, 0) for k, v in build.body_counts().items()
-                           if v != before.get(k, 0)}
-    finally:
-        build.reset_body_counts(bodies)
-    want64 = {k.replace("-lm]", "-64]"): v for k, v in FUSED_BODIES["B-S8-FUSED"].items()}
-    if route64 != want64:
-        raise AssertionError(f"the forced 64-row route's eager step launched {route64}, not "
-                             f"{want64}")
+        if got != want:
+            raise AssertionError(f"the forced route {name}'s eager step launched {got}, not "
+                                 f"{want}")
+        by_body[name] = got
     lats = {name: [] for name in routes}
     order = list(routes)
     for name in order + order[::-1]:
@@ -3083,7 +3288,7 @@ def fused_turns(cell, jt, jt64, tokenizer) -> dict:
                                         min(8, cell.T - 1), "step")
     attention.force_backend(None)
     out = {"phase": "compiled_B-S8-FUSED_turns", "order": order + order[::-1],
-           "timer": COMPILED_TIMER, "route_64row_eager_step_by_body": route64,
+           "timer": COMPILED_TIMER, "forced_routes_eager_step_by_body": by_body,
            **{name: {**lat_stats(np.concatenate(lats[name]), "step"),
                      "p50_ms_by_run": [float(np.percentile(r, 50) * 1e3) for r in lats[name]],
                      "device_ms_per_step": prof[name].get("device_ms_per_step"),
@@ -3171,7 +3376,7 @@ def compiled_phase(model, cfg, model_q8, cfg_q8, tokenizer, language, frames, bo
                                     "proj_residual[fp32x-bf16a-bf16w]": 6,
                                     "ln_mlp[bf16x-bf16w]": 6, "ln_mlp[fp32x-bf16w]": 6})
     summary["B-S8-FUSED"] = fused_lockstep("B-S8-FUSED", cells[1], jt, fused_fwd, remine)
-    fused_turns(cells[1], jt, JitTracker(cfg, model), tokenizer)
+    fused_turns(cells[1], jt, JitTracker(cfg, model), JitTracker(cfg, model), tokenizer)
     q8_cell = LockstepCell("S4_q8", model_q8, cfg_q8, seqs, mix[:4], langs[:4],
                            [17, 17, 9, 17], tokenizer, per_fwd_q8)
     summary["B-S4-Q8-FUSED"] = fused_lockstep(
@@ -6062,6 +6267,7 @@ def main() -> int:
         tp_kern = tp_kernel_phase(dev, args.seed)
         lm_kern = large_m_qkv_phase(dev, args.seed)
         mp_kern = large_m_mlp_proj_phase(dev, args.seed)
+        ab_kern = attn_batch_phase(dev, args.seed)
         emit({"phase": "kernels_group", "seconds": time.perf_counter() - t0})
     # ln_qkv's launches by body on the paths below (the kernels line's rows
     # of its bf16 and int8 weights); the kernel checks of later groups are
@@ -6145,12 +6351,11 @@ def main() -> int:
         import tempfile
 
         # kernels #1, #2 and #5 at UVLTrack-L's width, then the eval runs
-        bodies = build.body_counts()
-        l_worst, l_times = kernel_phase(dev, args.seed, L_WIDTH, L_HEADS, l_grid(), "_L")
-        l_q8_worst, l_q8_times = q8_kernel_phase(
-            dev, args.seed, L_WIDTH, L_HEADS, l_grid(), "_L",
-            names=("ln_qkv[", "#5", "qkv_attention[fp32]"))
-        build.reset_body_counts(bodies)
+        with build.body_delta(set_aside=True):
+            l_worst, l_times = kernel_phase(dev, args.seed, L_WIDTH, L_HEADS, l_grid(), "_L")
+            l_q8_worst, l_q8_times = q8_kernel_phase(
+                dev, args.seed, L_WIDTH, L_HEADS, l_grid(), "_L",
+                names=("ln_qkv[", "#5", "qkv_attention[fp32]"))
         large = {"worst": l_worst, "times": l_times, "q8_worst": l_q8_worst,
                  "q8_times": l_q8_times}
         write_vocab(vocab, list(EVAL_WORDS) + language.split(), args.seed)
@@ -6162,9 +6367,8 @@ def main() -> int:
         import tempfile
 
         # the Functions alone, then B-TRAIN (counts from 0 just before it)
-        bodies = build.body_counts()
-        function_phase(dev, args.seed)
-        build.reset_body_counts(bodies)
+        with build.body_delta(set_aside=True):
+            function_phase(dev, args.seed)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
             train_counts = train_phase(args, dev, Path(tmp))
     if "data" in only:
@@ -6209,7 +6413,7 @@ def main() -> int:
     lb = f"B{LOCKSTEP_B}_"
     return finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst,
                   q8_times, fused_worst, fused_times, large, train_counts, cli_counts["f32w"],
-                  tp_kern, lm_kern, mp_kern, build.body_counts())
+                  tp_kern, lm_kern, mp_kern, ab_kern, build.body_counts())
 
 
 def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, language,
@@ -6249,7 +6453,7 @@ def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, langu
 
 def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst, q8_times,
            fused_worst, fused_times, large, train_counts, f32w, tp_kern, lm_kern, mp_kern,
-           bodies) -> int:
+           ab_kern, bodies) -> int:
     """The kernels line, the compositions and per-launch lines, the total,
     the nvidia-smi line and the ok line. `large`: the kernel checks and
     times at UVLTrack-L's width, which the rows of the instantiations on
@@ -6262,10 +6466,11 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
     two fc2 fp32-out rows, whose only path is that step, at B_tp2; `lm_kern`:
     large_m_qkv_phase's checks and times, the rows of ln_qkv's large-M
     instantiations (`-lm`); `mp_kern`: large_m_mlp_proj_phase's, the rows
-    of ln_mlp's and proj_residual's (`-lm`); `bodies`: build.body_counts()
-    over every path run (the kernel checks set aside), the launches of the
-    bf16- and int8-weight rows of ln_qkv, proj_residual and ln_mlp by body
-    (`-64`, `-lm`)."""
+    of ln_mlp's and proj_residual's (`-lm`); `ab_kern`: attn_batch_phase's,
+    the rows of qkv_attention's batch body (`-lm`); `bodies`:
+    build.body_counts() over every path run (the kernel checks set aside),
+    the launches of the bf16- and int8-weight rows of ln_qkv, proj_residual
+    and ln_mlp and of both qkv_attention rows by body (`-64`, `-lm`)."""
     def at(table, shape, name):
         """A kernel's times at one shape, at B=1 and (under its key) at the
         lockstep batch."""
@@ -6284,7 +6489,7 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
          on_64row("ln_qkv[bf16x-bf16w]") + on_64row("ln_qkv[fp32x-bf16w]"),
          worst["ln_qkv"], at(times, "N361_fp32x_flag0", "ln_qkv")),
         ("qkv_attention", f"{src}/qkv_attention.cu", 119,
-         launches.get("qkv_attention[bf16]", 0), worst["qkv_attention"],
+         on_64row("qkv_attention[bf16]"), worst["qkv_attention"],
          at(times, "N361_fp32x_flag0", "qkv_attention")),
     ]
     for name, line, shape in (("ln_qkv[bf16x-int8w]", 433, "N321_bf16x_open"),
@@ -6295,8 +6500,8 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                               ("proj_residual[bf16x-bf16a-int8w]", 489, "N321_bf16x_open"),
                               ("proj_residual[fp32x-fp32a-int8w]", 489, "N361_fp32x_flag0")):
         source = f"{src}/{name.split('[')[0]}.cu"
-        n = launches.get(name, 0) if name.startswith("qkv_attention") else on_64row(name)
-        rows.append((name, source, line, n, q8_worst[name], at(q8_times, shape, name)))
+        rows.append((name, source, line, on_64row(name), q8_worst[name],
+                     at(q8_times, shape, name)))
     # fp32 compute (the fp32 weights of export and parity): kernel #1's
     # prefix, #4's epilogue, #7, and the planes' split (the pre-pass of the
     # three, counted under #1, whose fp32 path needed it first)
@@ -6342,6 +6547,14 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                         551 if name.startswith("ln_mlp") else 489 if "int8w" in name else 291,
                         bodies.get(name, 0), mp_worst[name],
                         {k: v for k, v in mp_times[label][f"N{n}"][name].items()
+                         if k != "library"}))
+    # qkv_attention at B.H >= ATTN_BATCH_PAIRS on the batch body, each type
+    # at its AB_ROW_SHAPE, its other timed shapes under "shapes"
+    ab_worst, ab_times = ab_kern
+    for name, (label, n) in AB_ROW_SHAPE.items():
+        lm_rows.append((name, f"{src}/qkv_attention.cu", 119 if "bf16" in name else 433,
+                        bodies.get(name, 0), ab_worst[name],
+                        {k: v for k, v in ab_times[label][f"N{n}"][name].items()
                          if k != "library"}))
     rows += lm_rows
     kernels = [{"name": name, "route": "cuda", "source": source,
@@ -6390,20 +6603,27 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                          "main path; times at B_tp2 (K=384, F=1536)")
     for k in kernels:
         if k["name"].endswith("-lm]"):
-            table = lm_times if k["name"].startswith("ln_qkv") else mp_times
+            attn = k["name"].startswith("qkv_attention")
+            table = (ab_times if attn else lm_times if k["name"].startswith("ln_qkv") else
+                     mp_times)
             k["shapes"] = {f"{label}_{n}{name[len(k['name']):]}": {
                 q: v for q, v in t[name].items() if q != "library"}
                 for label, by_n in table.items() for n, t in by_n.items()
                 for name in t if name.startswith(k["name"])}
-            k["note"] = ("the large-M body at B.N rows (M >= its LARGE_M_ROWS); launches: every "
-                         "path's eager calls on it (build.body_counts); graph_launches and "
-                         "train_launches: the instantiation's tag, both bodies")
-        elif k["name"].startswith(("ln_qkv[", "ln_mlp[", "proj_residual[")) and \
-                "fp32w" not in k["name"] and "fp32o" not in k["name"] or k["name"] == "ln_qkv":
-            k["note"] = (f"the 64-row body (M < its LARGE_M_ROWS); launches: every path's eager "
-                         f"calls on it (build.body_counts); graph_launches and train_launches: "
-                         f"the tag's, both bodies; the {lb.rstrip('_')} times: the large-M "
-                         f"body, which those rows take")
+            k["note"] = (("the batch body at B.H >= ATTN_BATCH_PAIRS" if attn else
+                          "the large-M body at B.N rows (M >= its LARGE_M_ROWS)")
+                         + "; launches: every path's eager calls on it (build.body_counts); "
+                         "graph_launches and train_launches: the instantiation's tag, both "
+                         "bodies")
+        elif k["name"].startswith(("ln_qkv[", "ln_mlp[", "proj_residual[", "qkv_attention[")) \
+                and "fp32w" not in k["name"] and "fp32o" not in k["name"] or \
+                k["name"] in ("ln_qkv", "qkv_attention"):
+            what = ("the split body (B.H < ATTN_BATCH_PAIRS)" if "qkv_attention" in k["name"]
+                    else "the 64-row body (M < its LARGE_M_ROWS)")
+            k["note"] = (f"{what}; launches: every path's eager calls on it (build.body_counts); "
+                         f"graph_launches and train_launches: the tag's, both bodies; the "
+                         f"{lb.rstrip('_')} times: the large-M or batch body, which those "
+                         f"rows take")
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

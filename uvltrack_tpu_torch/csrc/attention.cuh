@@ -60,6 +60,19 @@
 // rank r sums its share of the 64 rows over the SPLIT partials through
 // distributed shared memory, in rank order 0, 1, ...: the same output on
 // every run (no atomics). Rows past N are not stored.
+//
+// At B.N rows (a lockstep or training step: tiles.H.B blocks) the rule, timed
+// at B=1, still picks a split of 3 from 48 (b, h) pairs on (B-S4, B-S8, a tp
+// rank's heads at B=16), and there each block does two key tiles between its
+// launch, its load round trip and two cluster barriers. The batch body
+// (attention_ranges_kernel, launch_attention_batch) keeps the split's order
+// and drops the cluster: one block does all its query tile's keys, in the
+// split's ranges, each range into a fresh fp32 O and row sums, the ranges
+// added in rank order ((O_0 + O_1) + O_2, as the partials are summed through
+// distributed shared memory; O's running total in shared memory, the row
+// sums in registers), so its bits are the split launch's. On one H100 it
+// takes 0.73-0.80 of the split launch's time at those shapes in bf16 and
+// 0.73-0.87 in fp32 (PERF.md, rows 2m and 5bm).
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -92,10 +105,12 @@ constexpr int MAX_SPLIT = 3;
 //         x LDO) and row sums (64) of a split
 //   bar:  full[STAGES], empty[STAGES], q_full
 // About 73 KB (bf16) and 81 KB (fp32): two blocks an SM either way.
-template <typename T>
+template <typename T, bool RANGES = false>
 struct Plan {
   static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int STAGES = F32 ? 2 : 4;
+  // the batch body's bf16 ring has a stage less, for the range totals: at
+  // 73 KB three blocks fit an SM (at 89 KB two, 1.3x slower)
+  static constexpr int STAGES = F32 ? 2 : RANGES ? 3 : 4;
   static constexpr int TILE = BKV * D * static_cast<int>(sizeof(T));
   static constexpr int q = 0;
   static constexpr int ring = TILE;
@@ -104,6 +119,10 @@ struct Plan {
   static constexpr int bar = ring + STAGES * 2 * TILE;
   static constexpr int total = 1024 + bar + (2 * STAGES + 1) * 8;  // + the alignment slack
   static_assert(rsum + BQ * 4 <= bar, "the partials fit over the ring");
+  // the batch body: each thread's O over the ranges before the current one,
+  // value e of consumer thread t at float e * CONSUMERS + t (conflict-free)
+  static constexpr int tot = (bar + (2 * STAGES + 1) * 8 + 15) & ~15;
+  static constexpr int total_ranges = 1024 + tot + 32 * CONSUMERS * 4;
 };
 
 // The fp32 tile at `tile` (64 rows of 64 values, 256 bytes a row, as TMA
@@ -191,15 +210,30 @@ __device__ __forceinline__ void load_bias(const float* __restrict__ kb, int j0, 
   }
 }
 
+// the row sums of rows frow and frow + 8 over the four threads that share
+// them (after it every one of the four holds the same bits)
+__device__ __forceinline__ void reduce_row_sums(float (&rs)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+  }
+}
+
 // ------------------------------------------------------------ the body
 // Grid (ceil(N/64) * SPLIT, H, B), clusters of SPLIT blocks along x: block
-// x is query tile x / SPLIT, cluster rank x % SPLIT.
-template <typename T, int SPLIT>
+// x is query tile x / SPLIT, cluster rank x % SPLIT. RANGES (the batch body,
+// SPLIT 1): the block's keys in `ranges` contiguous ranges of tiles, range r
+// tiles r.T/ranges .. (r+1).T/ranges - 1 (rank r's of a split of `ranges`),
+// each summed from zero, the ranges added in order.
+template <typename T, int SPLIT, bool RANGES = false>
 __device__ __forceinline__ void attention_body(const CUtensorMap* map_q, const CUtensorMap* map_k,
                                                const CUtensorMap* map_v,
                                                const float* __restrict__ key_bias,
-                                               T* __restrict__ out, int N, int H, float scale) {
-  using P = Plan<T>;
+                                               T* __restrict__ out, int N, int H, float scale,
+                                               int ranges = 1) {
+  static_assert(SPLIT == 1 || !RANGES, "the ranges of a split are its ranks");
+  using P = Plan<T, RANGES>;
   constexpr bool F32 = P::F32;
   constexpr int STAGES = P::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -265,9 +299,30 @@ __device__ __forceinline__ void attention_body(const CUtensorMap* map_q, const C
     const uint32_t q_hi = smem_u32(base + P::q);
     const uint32_t q_lo = q_hi + TILE16;
     if constexpr (F32) split_tile_in_place(base + P::q, t);
+    // RANGES: the sums of the ranges before the current one (O's in shared
+    // memory: in registers it took two blocks an SM to one)
+    float* tot = reinterpret_cast<float*>(base + P::tot) + t;
+    float den[2];
+    int range = 0, range_end = tiles / ranges;  // the current range's end
     for (int it = 0; it < ntiles; ++it) {
       const int s = it % STAGES;
       const int j0 = (tile0 + it) * BKV;
+      if constexpr (RANGES) {
+        if (it == range_end) {  // a range starts: the last one's sums into the totals
+          range_end = (++range + 1) * tiles / ranges;
+          reduce_row_sums(rs);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            tot[e * CONSUMERS] = range == 1 ? o[e] : tot[e * CONSUMERS] + o[e];
+            o[e] = 0.f;
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            den[r] = range == 1 ? rs[r] : den[r] + rs[r];
+            rs[r] = 0.f;
+          }
+        }
+      }
 #pragma unroll
       for (int i = 0; i < 16; ++i) kbias[i] = next[i];
       if (it + 1 < ntiles) load_bias(kb, j0 + BKV, fcol, N, next);
@@ -347,10 +402,14 @@ __device__ __forceinline__ void attention_body(const CUtensorMap* map_q, const C
       sm90::fence_operands(o);
       sm90::mbar_arrive(smem_u32(empty + s));  // K and V read
     }
+    reduce_row_sums(rs);
+    if constexpr (RANGES) {
+      if (range > 0) {  // the last range after the others: ((O_0 + O_1) + O_2)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        for (int e = 0; e < 32; ++e) o[e] = tot[e * CONSUMERS] + o[e];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) rs[r] = den[r] + rs[r];
+      }
     }
   }
 
@@ -433,6 +492,18 @@ qkv_attention_f32_kernel(const __grid_constant__ CUtensorMap map_q,
   attention_body<float, SPLIT>(&map_q, &map_k, &map_v, key_bias, out, N, H, scale);
 }
 
+// The batch body: the grid of SPLIT 1, the keys in the ranges of a split of
+// `ranges` (bf16 and fp32); three bf16 blocks an SM (136 registers), two fp32
+template <typename T>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 3 : 2)
+attention_ranges_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const float* __restrict__ key_bias, T* __restrict__ out, int N, int H,
+                        float scale, int ranges) {
+  attention_body<T, 1, true>(&map_q, &map_k, &map_v, key_bias, out, N, H, scale, ranges);
+}
+
 // --------------------------------------------------------------- host side
 // The 4-D TMA descriptor (d, n, h, b) of q, k or v with element strides
 // (1, sn, sh, sb), read in boxes of 64 keys x 64 values of one head (the
@@ -511,6 +582,30 @@ inline int launch_attention(const T* q, const T* k, const T* v, long long sb, lo
     default:
       return launch_split<T, 3>(mq, mk, mv, key_bias, out, B, N, H, scale, stream);
   }
+}
+
+// launch_attention's function on the batch body: the same operands and
+// refusals; the ranges are the split choose_split gives launch_attention at
+// this (B, N, H), so the bits are the same
+template <typename T>
+inline int launch_attention_batch(const T* q, const T* k, const T* v, long long sb, long long sn,
+                                  long long sh, const float* key_bias, T* out, int B, int N,
+                                  int H, float scale, cudaStream_t stream) {
+  if (N <= 0 || B <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  int err = head_map(q, B, N, H, sb, sn, sh, &mq);
+  if (!err) err = head_map(k, B, N, H, sb, sn, sh, &mk);
+  if (!err) err = head_map(v, B, N, H, sb, sn, sh, &mv);
+  if (err) return err;
+  const int tiles = (N + BKV - 1) / BKV;
+  static int allowed = 0;
+  auto* kernel = attention_ranges_kernel<T>;
+  const int smem = Plan<T, true>::total_ranges;
+  err = sm90::allow_smem(kernel, smem, allowed);
+  if (err) return err;
+  kernel<<<dim3(tiles, H, B), THREADS, smem, stream>>>(mq, mk, mv, key_bias, out, N, H, scale,
+                                                       choose_split<T>(tiles * H * B, tiles));
+  return 0;
 }
 
 }  // namespace

@@ -6,7 +6,10 @@
 // _ln_qkv_attn_proj_kernel_q8 :489). Two instantiations of the TMA + wgmma
 // body in csrc/attention.cuh (design and bounds in its note), which kernel #3
 // shares: bf16 (attention_bf16_kernel) and fp32 (qkv_attention_f32_kernel,
-// every product as three bf16 hi/lo passes, fp32-accurate).
+// every product as three bf16 hi/lo passes, fp32-accurate); at B.N rows
+// where the split rule splits the keys, the batch body of the same header
+// (attention_ranges_kernel: one block a query tile, the split's key ranges
+// added in its order in registers), with the same bits.
 //
 //   e   = exp(clip(q . k * D^-1/2 + key_bias, -80, 80))
 //   out = (T(e) . v) * (1 / sum_k e)        T = bf16 or fp32, the late division
@@ -18,15 +21,30 @@
 
 namespace {
 
-template <typename T>
+template <typename T, bool BATCH>
 int launch_qkv(const void* qkv, const float* key_bias, void* out, int B, int N, int H,
                float scale, cudaStream_t s) {
   const T* base = static_cast<const T*>(qkv);
   const int C = H * uvl::attn::D;
-  return uvl::attn::launch_attention<T>(base, base + C, base + 2 * C,
-                                        static_cast<long long>(N) * 3 * C, 3 * C,
-                                        uvl::attn::D, key_bias, static_cast<T*>(out), B, N, H,
-                                        scale, s);
+  const long long sb = static_cast<long long>(N) * 3 * C;
+  if constexpr (BATCH)
+    return uvl::attn::launch_attention_batch<T>(base, base + C, base + 2 * C, sb, 3 * C,
+                                                uvl::attn::D, key_bias, static_cast<T*>(out), B,
+                                                N, H, scale, s);
+  else
+    return uvl::attn::launch_attention<T>(base, base + C, base + 2 * C, sb, 3 * C, uvl::attn::D,
+                                          key_bias, static_cast<T*>(out), B, N, H, scale, s);
+}
+
+template <bool BATCH>
+int entry(const void* qkv, int qkv_is_f32, const float* key_bias, void* out, int B, int N, int H,
+          int head_dim, float scale, void* stream) {
+  if (head_dim != uvl::attn::D) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = qkv_is_f32
+                      ? launch_qkv<float, BATCH>(qkv, key_bias, out, B, N, H, scale, s)
+                      : launch_qkv<uvl::bf16, BATCH>(qkv, key_bias, out, B, N, H, scale, s);
+  return err ? err : static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -37,9 +55,13 @@ int launch_qkv(const void* qkv, const float* key_bias, void* out, int B, int N, 
 extern "C" int uvl_qkv_attention(const void* qkv, int qkv_is_f32, const float* key_bias,
                                  void* out, int B, int N, int H, int head_dim,
                                  float scale, void* stream) {
-  if (head_dim != uvl::attn::D) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = qkv_is_f32 ? launch_qkv<float>(qkv, key_bias, out, B, N, H, scale, s)
-                             : launch_qkv<uvl::bf16>(qkv, key_bias, out, B, N, H, scale, s);
-  return err ? err : static_cast<int>(cudaGetLastError());
+  return entry<false>(qkv, qkv_is_f32, key_bias, out, B, N, H, head_dim, scale, stream);
+}
+
+// The same on the batch body (csrc/attention.cuh): the same arguments, the
+// same bits; the wrapper picks it (takes_attn_batch).
+extern "C" int uvl_qkv_attention_batch(const void* qkv, int qkv_is_f32, const float* key_bias,
+                                       void* out, int B, int N, int H, int head_dim,
+                                       float scale, void* stream) {
+  return entry<true>(qkv, qkv_is_f32, key_bias, out, B, N, H, head_dim, scale, stream);
 }

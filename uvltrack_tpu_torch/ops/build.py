@@ -21,6 +21,7 @@ and this machine class has no nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -138,9 +139,10 @@ CAPTURED: Counter = Counter()
 # "kernel[instantiation-body]" -> eager launches of an instantiation that
 # has more than one body (ln_qkv's and proj_residual's bf16 and int8
 # weights, ln_mlp's bf16 weights: the 64-row body "-64" and the large-M body
-# "-lm"), which LAUNCHES counts under the
-# instantiation itself; reset only by reset_body_counts, so a caller can
-# count the bodies over runs that reset LAUNCHES
+# "-lm"; qkv_attention's split body "-64" and batch body "-lm"), which
+# LAUNCHES counts under the instantiation itself; reset only by
+# reset_body_counts, so a caller can count the bodies over runs that reset
+# LAUNCHES
 BODIES: Counter = Counter()
 _FNS: Dict[str, object] = {}  # entry point name -> the bound entry point
 
@@ -169,11 +171,25 @@ def body_counts() -> dict:
     return {k: n for k, n in sorted(BODIES.items()) if n}
 
 
-def reset_body_counts(to: Optional[dict] = None) -> None:
-    """Zero the body counts, or set them back to `to` (a body_counts()
-    taken before launches that should not count)."""
+def reset_body_counts() -> None:
     BODIES.clear()
-    BODIES.update(to or {})
+
+
+@contextlib.contextmanager
+def body_delta(set_aside: bool = False):
+    """The eager launches by body that the block makes: yields a dict that
+    holds, once the block has ended, {"kernel[instantiation-body]": launches
+    in the block} (those that moved). set_aside: the block's launches are
+    then taken back out of the body counts, as if it had launched none."""
+    before = Counter(BODIES)
+    delta: Dict[str, int] = {}
+    try:
+        yield delta
+    finally:
+        delta.update({k: n - before[k] for k, n in sorted(BODIES.items()) if n != before[k]})
+        if set_aside:
+            BODIES.clear()
+            BODIES.update(before)
 
 
 def captured_counts() -> dict:

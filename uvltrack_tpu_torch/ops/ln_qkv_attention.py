@@ -24,7 +24,12 @@ of the H100's 132 SMs, so the port splits each in two kernels
   one block per (64-row query tile, head, batch element), the keys split
   over a cluster of up to 3 blocks: exp(clip(q.k*D^-1/2 + key_bias, +-80)),
   fp32 row sums, P.V, division at the end; out (B, N, C) before the output
-  projection. In fp32 every product runs as three bf16 hi/lo passes.
+  projection. In fp32 every product runs as three bf16 hi/lo passes. At B.N
+  rows where the split rule splits the keys (takes_attn_batch) the same
+  function runs on the header's batch body (uvl_qkv_attention_batch): one
+  block a query tile holds all its keys, summed in the split's ranges and
+  added in its order, so its bits are the split launch's
+  (build.body_counts() counts the two bodies apart, as `-64` and `-lm`).
 
 Compute dtype, as in the Pallas kernels: kernel #1 computes in the weight's
 dtype: bf16 for a bf16 weight, whatever x is; fp32 for the fp32 weight of a
@@ -77,6 +82,19 @@ W_KIND = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 # 34.1-34.4) and B=2 (39.6-40.1 against 53.3-54.5; PERF.md row 7m).
 # `proj_residual` has its own (ln_qkv_attn_proj.LARGE_M_ROWS)
 LARGE_M_ROWS = 512
+# (b, h) pairs B*H from which `qkv_attention` runs on the batch body
+# (uvl_qkv_attention_batch) wherever the split rule would split the keys
+# (attn_split > 1: B-S4, B-S8, a tp rank's heads at B=16); fewer pairs (B=1:
+# 12 or 16) and the shapes the rule keeps whole (B-TRAIN, L-S8: the same
+# grid either way) keep the split entry (uvl_qkv_attention). Both give the
+# same bits. Measured with tools/gemm_ab.py --attn (PERF.md, section 6,
+# rows 2m and 5bm): where the rule splits from 48 pairs on (B=4 at 12 heads,
+# B=3 at 16) the batch body takes 0.73-0.80 of the split launch's device
+# time in bf16 and 0.73-0.87 in fp32; at B=1 (12 and 16 pairs, split 3 at
+# N=321/361) it is 1.2x slower, and where the rule keeps the keys whole the
+# two are the same grid. Read at each call; 0 puts every shape on the batch
+# body (chip_smoke.py and tools/gemm_ab.py time both bodies at one shape).
+ATTN_BATCH_PAIRS = 48
 # the int8 launches' answer under autograd: kernels #5/#6 have no VJP
 INT8_NO_GRAD = ("weight-only int8 (TPU.WEIGHT_QUANT) is inference-only, as in the JAX "
                 "package: train with TPU.WEIGHT_QUANT unset")
@@ -202,6 +220,30 @@ def takes_large_m(rows: int, w_dtype: torch.dtype, rows_from: int | None = None)
                                                  else rows_from)
 
 
+def attn_split(b: int, n: int, heads: int, fp32: bool = False) -> int:
+    """The cluster split csrc/attention.cuh's choose_split gives the split
+    body at (B, N, H): a cost in key tiles a block, waves of two blocks on
+    each of 132 SMs times the tiles a block, plus 3 tiles (bf16) or 2 (fp32)
+    for a split over a cluster; the smaller split on a tie, at most 3."""
+    tiles = -(-n // 64)
+    blocks, slots, split_cost = tiles * heads * b, 2 * 132, 2 if fp32 else 3
+    best, best_cost = 1, 0
+    for split in range(1, min(3, tiles) + 1):
+        waves = -(-blocks * split // slots)
+        cost = waves * -(-tiles // split) + (split_cost if split > 1 else 0)
+        if split == 1 or cost < best_cost:
+            best, best_cost = split, cost
+    return best
+
+
+def takes_attn_batch(b: int, n: int, heads: int, fp32: bool = False) -> bool:
+    """Whether `qkv_attention` at (B, N, H) runs on the batch body: from
+    ATTN_BATCH_PAIRS (b, h) pairs where the split rule splits the keys, or
+    everywhere when ATTN_BATCH_PAIRS is 0 (read at each call)."""
+    return ATTN_BATCH_PAIRS == 0 or (b * heads >= ATTN_BATCH_PAIRS
+                                     and attn_split(b, n, heads, fp32) > 1)
+
+
 def _launch_ln_qkv(x, ln_scale, ln_bias, w, w_scale, b_qkv, eps, out_dtype):
     """W (F, C): F = 3C, or a tensor-parallel rank's 3C/tp rows (its heads'
     q, k and v; parallel/tp.py). The body by takes_large_m."""
@@ -291,7 +333,7 @@ def ln_qkv_q8(x, ln_scale, ln_bias, w_q, w_scale, b_qkv, eps: float = 1e-6):
 @counted(qkv_attention_work)
 def qkv_attention(qkv, key_bias, heads: int):
     """qkv (B, N, 3*H*64) bf16|fp32; key_bias (B, N) fp32 additive ->
-    (B, N, H*64) in qkv's dtype."""
+    (B, N, H*64) in qkv's dtype. The body by takes_attn_batch."""
     if torch.compiler.is_exporting():
         return library.qkv_attention(qkv, key_bias, heads)
     if qkv.device.type == "cpu":
@@ -306,10 +348,13 @@ def qkv_attention(qkv, key_bias, heads: int):
                     "call it through ops/autograd.py (QkvAttention, LnQkvAttention)")
     check_cuda("qkv_attention", qkv, key_bias)
     out = torch.empty((b, n, f // 3), dtype=qkv.dtype, device=qkv.device)
+    batch = takes_attn_batch(b, n, heads, qkv.dtype == torch.float32)
     build.launch("qkv_attention", build.dtype_tag(qkv),
                  [PTR, INT, PTR, PTR, INT, INT, INT, INT, FLOAT],
                  qkv.data_ptr(), int(qkv.dtype == torch.float32), key_bias.data_ptr(),
-                 out.data_ptr(), b, n, heads, 64, 64 ** -0.5, stream_of=qkv)
+                 out.data_ptr(), b, n, heads, 64, 64 ** -0.5, stream_of=qkv,
+                 entry="uvl_qkv_attention_batch" if batch else "",
+                 body="lm" if batch else "64")
     return out
 
 

@@ -19,6 +19,8 @@ and, as controls, of `ln_qkv` and `proj_residual` alone.
         [--check-only] [--dump FILE.npz] [--cmp FILE.npz]
     python uvltrack_tpu_torch/tools/gemm_ab.py --mlp|--proj [--root DIR] [--label NAME]
         [--check-only] [--dump FILE.npz] [--cmp FILE.npz]
+    python uvltrack_tpu_torch/tools/gemm_ab.py --attn [--root DIR] [--label NAME]
+        [--check-only] [--dump FILE.npz] [--cmp FILE.npz]
 
 --root: the checkout whose uvltrack_tpu_torch is timed (default: the one
 holding this script), built into DIR/build/kernels. The timers are
@@ -54,8 +56,14 @@ N=361 with an fp32 x: the crossover of the two bodies and the cells' shapes):
 calls (LN + linear + GELU + linear, or its part; linear +
 add, the dequantized W in x's dtype); "lm" against the plain version
 (`fc2_bias` against fc2_bias_plain on the hidden tensor "lm" wrote), bitwise
-on a second call and against "ln64". In
-every mode --dump saves the kernels' outputs (the same seeded inputs in
+on a second call and against "ln64". --attn times `qkv_attention` at
+ATTN_SHAPES (the lockstep and training shapes: B S4/S8, L S8, B-TRAIN, the
+tp ranks' heads; N=321 open and N=361 with the text masked; fp32 at B S4
+and B S8, N=361) and over ATTN_SWEEP (B=1-4 at H=12 and 16, where the split
+and batch bodies cross: ATTN_BATCH_PAIRS): "auto", "batch" and "split" (each
+body forced where the checkout has both) and SDPA ("library"); "batch"
+against the plain version, bitwise on a second call and against "split".
+In every mode --dump saves the kernels' outputs (the same seeded inputs in
 every checkout) and --cmp reports, output by output, whether they are
 bitwise those of another checkout's dump. Prints one JSON line; times in ms.
 """
@@ -108,6 +116,7 @@ def main() -> int:
     ap.add_argument("--qkv", action="store_true")
     ap.add_argument("--mlp", action="store_true")
     ap.add_argument("--proj", action="store_true")
+    ap.add_argument("--attn", action="store_true")
     ap.add_argument("--check-only", action="store_true")
     ap.add_argument("--dump", default="")
     ap.add_argument("--cmp", default="")
@@ -121,6 +130,8 @@ def main() -> int:
         return qkv_ab(args)
     if args.mlp or args.proj:
         return mlp_proj_ab(args)
+    if args.attn:
+        return attn_ab(args)
 
     import numpy as np
     import torch
@@ -588,6 +599,91 @@ def mlp_proj_ab(args) -> int:
                         times.update({f"{name} {k}": graph_time_ms(fn)[0]
                                       for k, fn in fns.items()})
             out["times"][key] = times
+    dump_and_compare(args, dumps, out)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+# (label, B, H): the shapes whose (b, h) pairs take the batch body
+# (chip_smoke.py's AB_SHAPES), then the sweep of B=1-4 at B's and L's heads
+ATTN_SHAPES = (("B_S4", 4, 12), ("B_S8", 8, 12), ("L_S8", 8, 16), ("B_TRAIN", 16, 12),
+               ("B_tp2", 16, 6), ("B_tp4", 16, 3))
+ATTN_SWEEP = tuple((f"H{h}_B{b}", b, h) for h in (12, 16) for b in (1, 2, 3, 4))
+
+
+def attn_ab(args) -> int:
+    """qkv_attention's bodies (PERF.md rows 2m and 5bm): device ms (a CUDA
+    graph of 20 calls) of the wrapper's choice, of each body forced where
+    this checkout has both, and of SDPA on the same inputs; the batch body
+    against the plain version, a second call and the split body."""
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("gemm_ab: no CUDA device", file=sys.stderr)
+        return 2
+    from chip_smoke import F32_ATOL, F32_RTOL, KERNEL_ATOL, KERNEL_RTOL, graph_time_ms, nvidia_smi
+    from uvltrack_tpu_torch.ops import ln_qkv_attention as lqa
+
+    two_bodies = hasattr(lqa, "ATTN_BATCH_PAIRS")
+
+    def body(fn, pairs):
+        """fn with the batch threshold at `pairs` (0: the batch body; 1 << 62:
+        the split body)"""
+        def call():
+            was, lqa.ATTN_BATCH_PAIRS = lqa.ATTN_BATCH_PAIRS, pairs
+            try:
+                return fn()
+            finally:
+                lqa.ATTN_BATCH_PAIRS = was
+        return call
+
+    dev = torch.device("cuda")
+    out = {"label": args.label, "root": args.root, "device": nvidia_smi(), "times": {},
+           "checks": {}, "two_bodies": two_bodies, "split": {},
+           "masks": "N=321 open, N=361 the last 40 (text) keys masked"}
+    dumps = {}
+    cases = [(label, b, h, n, dt) for label, b, h in ATTN_SHAPES + ATTN_SWEEP
+             for n in (321, 361) for dt in (torch.bfloat16,)]
+    cases += [(label, b, h, 361, torch.float32) for label, b, h in
+              (("B_S4", 4, 12), ("B_S8", 8, 12)) + ATTN_SWEEP[:4]]
+    for label, b, heads, n, dt in cases:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 97 * b + 31 * heads + n)
+        qkv = torch.randn((b, n, 3 * heads * 64), generator=gen, device=dev).to(dt)
+        kb = torch.zeros((b, n), device=dev)
+        if n == 361:
+            kb[:, 321:] = -1e10
+        mask = kb.to(dt)[:, None, None, :]
+        tag = "bf16" if dt == torch.bfloat16 else "fp32"
+        key = f"{label}_N{n}_{tag}"
+
+        def kern(qkv=qkv, kb=kb, heads=heads):
+            return lqa.qkv_attention(qkv, kb, heads)
+
+        def sdpa(qkv=qkv, mask=mask, b=b, n=n, heads=heads):
+            q, k, v = qkv.view(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4).unbind(0)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        fns = {"auto": kern, "library": sdpa}
+        if two_bodies:
+            fns.update({"batch": body(kern, 0), "split": body(kern, 1 << 62)})
+            got, again, split = fns["batch"](), fns["batch"](), fns["split"]()
+            want = lqa.qkv_attention_plain(qkv, kb, heads).float()
+            torch.cuda.synchronize()
+            diff = (got.float() - want).abs()
+            atol, rtol = ((F32_ATOL, F32_RTOL) if tag == "fp32" else
+                          (KERNEL_ATOL["qkv_attention"], KERNEL_RTOL))
+            out["checks"][key] = {
+                "max_abs_err": float(diff.max()),
+                "ok": bool((diff <= atol + rtol * want.abs()).all()),
+                "bitwise_second_call": bool(torch.equal(got, again)),
+                "bitwise_vs_split": bool(torch.equal(got, split)),
+                "max_abs_vs_split": float((got.float() - split.float()).abs().max())}
+            out["split"][key] = lqa.attn_split(b, n, heads, tag == "fp32")
+        dumps[key] = kern().float().cpu().numpy()
+        if not args.check_only:
+            out["times"][key] = {k: graph_time_ms(fn)[0] for k, fn in fns.items()}
     dump_and_compare(args, dumps, out)
     print(json.dumps(out), flush=True)
     return 0
