@@ -34,6 +34,7 @@ from uvltrack_tpu_torch.track import pipeline
 from uvltrack_tpu_torch.track.batch import BatchTracker
 from uvltrack_tpu_torch.track.pool import StreamPool
 from uvltrack_tpu_torch.track.tracker import JitTracker, Tracker, frame_cost, graph_knobs
+from uvltrack_tpu_torch.utils import tracing
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 H, W = 80, 100
@@ -294,8 +295,9 @@ KNOBS = [("UVLTRACK_FUSED_PREFIX", "0"), ("UVLTRACK_FUSED_PROJ", "1"),
 
 
 def test_graph_key_changes_with_each_knob(built, monkeypatch):
-    """Every call-time knob that changes the ops of a step, and the
-    backend, changes the key; the frame size and S do too."""
+    """Every call-time knob that changes the ops of a step, the backend and
+    the tracer (its graphs record the region timers) change the key; the
+    frame size and S do too."""
     for name, _ in KNOBS:
         monkeypatch.delenv(name, raising=False)
     jt = JitTracker(_cfg(built), built[2])
@@ -310,8 +312,13 @@ def test_graph_key_changes_with_each_knob(built, monkeypatch):
         keys.add(jt.graph_key((H, W), 1))
     finally:
         tattn.force_backend(None)
+    tracing.start()
+    try:
+        keys.add(jt.graph_key((H, W), 1))
+    finally:
+        tracing.stop()
     keys |= {jt.graph_key((H + 1, W), 1), jt.graph_key((H, W), 2)}
-    assert len(keys) == 1 + len(KNOBS) + 3
+    assert len(keys) == 1 + len(KNOBS) + 4
     assert jt.graph_key((H, W), 1) == base
     # the default spelled out is the default: no second graph for it
     monkeypatch.setenv("UVLTRACK_FUSED_PREFIX", "1")

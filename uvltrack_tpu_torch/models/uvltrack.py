@@ -17,6 +17,7 @@ from torch import nn
 
 from .. import registry
 from ..ops import attention, quant
+from ..utils import tracing
 from .bert import bert_config_from_type
 from .head import MABH
 from .mufe import MUFE
@@ -56,6 +57,7 @@ class UVLTrack(nn.Module):
 
     def forward_test(self, template, search, text_ids, text_mask, prompt, flag):
         out = self.backbone(template, search, text_ids, text_mask, flag)
+        tracing.mark("head")
         return self.box_head(out, prompt)
 
     def encode_text(self, text_ids, text_mask):
@@ -68,6 +70,7 @@ class UVLTrack(nn.Module):
         per-frame step runs no BERT layer."""
         out = self.backbone.forward_cached_text(template, search, txt_feat,
                                                 text_mask, flag)
+        tracing.mark("head")
         return self.box_head(out, prompt)
 
 
@@ -102,15 +105,17 @@ def prepare_inference_model(cfg, model: nn.Module) -> nn.Module:
     the bf16 cast per cfg.TPU.COMPUTE_DTYPE, then weight-only int8 per
     cfg.TPU.WEIGHT_QUANT (ops/quant.py quantize_vit_params at its default
     min_dim, from the cast values). Idempotent: the Tracker calls it again
-    on a prepared model, and a quantized weight is left as it is."""
-    if str(cfg.TPU.COMPUTE_DTYPE) == "bfloat16":
-        cast_inference_params(model)
-    wq = str(cfg.TPU.WEIGHT_QUANT or "")
-    if wq:
-        if wq != "int8":
-            raise ValueError(f"TPU.WEIGHT_QUANT={wq!r}: only 'int8'")
-        quant.quantize_vit_params(model)
-    return model.eval()
+    on a prepared model, and a quantized weight is left as it is. Traced as
+    the span setup.prepare."""
+    with tracing.span("setup.prepare"):
+        if str(cfg.TPU.COMPUTE_DTYPE) == "bfloat16":
+            cast_inference_params(model)
+        wq = str(cfg.TPU.WEIGHT_QUANT or "")
+        if wq:
+            if wq != "int8":
+                raise ValueError(f"TPU.WEIGHT_QUANT={wq!r}: only 'int8'")
+            quant.quantize_vit_params(model)
+        return model.eval()
 
 
 def configure_attention(cfg) -> None:

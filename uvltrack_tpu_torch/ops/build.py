@@ -35,6 +35,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from ..utils import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ln_qkv", "qkv_attention", "proj_residual", "attention", "ln_mlp", "split_hilo")
 # -lcuda: csrc/gemm_sm90.cuh encodes its TMA descriptors with the driver's
@@ -119,8 +121,9 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name`, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        with tracing.span("setup.kernels"):
+            build([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
         lib.uvl_error_string.argtypes = [ctypes.c_int]
         lib.uvl_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

@@ -55,6 +55,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .tracker import BatchState, JitTracker, LockstepTracker, frame_cost
 
 
@@ -112,6 +113,7 @@ class BatchTracker(LockstepTracker):
 
     # ------------------------------------------------------------------ init
     @torch.no_grad()
+    @tracing.spanned("setup.initialize")
     def initialize(self, frames, boxes, languages: Optional[List[Optional[str]]] = None,
                    modes: Optional[List[str]] = None) -> np.ndarray:
         """frames: S first frames (one resolution); boxes: (S, 4) xywh.

@@ -40,6 +40,10 @@ makes its one host read, max_score > threshold, on due steps, as before
 (UVLTRACK_BATCH_COND_REMINE=0 re-mines every step, where-selected, with no
 read: the same boxes). `track` reads the packed (box, score) back each
 frame; `track_many` once per chunk of frames.
+
+utils/tracing.py traces the host side (the `step` span, the graph replays,
+the re-mine's computed and due rows) and, through marks in the bodies, the
+device regions of the crop, the backbone, the head and the re-mine.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from ..core.geometry import anno2mask, crop_box_normalized, map_box_back
 from ..core.hann import hanning2d_flat
 from ..models.uvltrack import UVLTrack, prepare_inference_model
 from ..ops import attention, build
+from ..utils import tracing
 from ..utils.pinned import PinnedStage
 from .pipeline import grounding_letterbox, sample_target_device
 
@@ -90,11 +95,14 @@ class BatchState:
 def graph_knobs() -> tuple:
     """The call-time settings that change which ops a step runs
     (ops/attention.py): the backend, UVLTRACK_FUSED_PREFIX,
-    UVLTRACK_FUSED_PROJ, UVLTRACK_FUSED_MLP and UVLTRACK_PALLAS_MIN_N. A
-    graph freezes the path it captured, so each setting gets its own."""
+    UVLTRACK_FUSED_PROJ, UVLTRACK_FUSED_MLP and UVLTRACK_PALLAS_MIN_N; and
+    whether the tracer is on (its graphs hold the region timers' event
+    records, utils/tracing.py). A graph freezes the path it captured, so
+    each setting gets its own."""
     return (attention.get_backend(), attention.fused_prefix(),
             os.environ.get("UVLTRACK_FUSED_PROJ", "0") == "1",
-            os.environ.get("UVLTRACK_FUSED_MLP", "0") == "1", attention.min_seq_len())
+            os.environ.get("UVLTRACK_FUSED_MLP", "0") == "1", attention.min_seq_len(),
+            tracing.active())
 
 
 class _GraphSet:
@@ -116,6 +124,7 @@ class _GraphSet:
         self.step_out = self.remine_out = None
         self.captured = {"step": {}, "remine": {}}
         self.replays = {"step": 0, "remine": 0}
+        self.regions = {"step": None, "remine": None}  # a capture's region marks
         self.capture_s = 0.0
 
     def load(self, tracker: "LockstepTracker") -> None:
@@ -186,7 +195,9 @@ class JitTracker:
         lib/test/tracker/uvltrack.py:155-157)."""
         S, sz = frames.shape[0], self.search_size
         h, w = frames.shape[1], frames.shape[2]
+        tracing.mark("crop")
         search, resize_factor = sample_target_device(frames, st["box"], self.search_factor, sz)
+        tracing.mark("backbone")
         test = self.model.forward_test_cached if self.cache_text else self.model.forward_test
         out = test(c["template"], search, c["txt"], c["text_mask"], st["prompt"], c["flags"])
         cls = out["cls_score_test"].reshape(S, -1).float()
@@ -218,6 +229,7 @@ class JitTracker:
                "packed": torch.cat([new_box, score[:, None]], dim=-1)}
         if debug:
             res["maps"] = torch.stack([cls, cont, merged], dim=1)
+        tracing.mark("end")
         return res
 
     @torch.no_grad()
@@ -227,6 +239,7 @@ class JitTracker:
         best frame's features, each refreshed row's prompt replaced and its
         max_score zeroed. Returns prompt, max_score and refresh. What the
         JAX step's lax.cond decides, row by row."""
+        tracing.mark("remine")
         refresh = due & (st["max_score"] > self.threshold)
         ctx_mask = anno2mask(box_cxcywh_to_xywh(st["best_box_net"]), self.map_size)
         feats = {"search": st["best_search"], "template": st["best_template"],
@@ -234,10 +247,12 @@ class JitTracker:
                  "flag": c["flags"]}
         new_prompt = self.model.forward_prompt(feats, c["template_mask"], ctx_mask)
         prompt = st["prompt"]
-        return {"prompt": torch.where(refresh[:, None, None], new_prompt.to(prompt.dtype), prompt),
-                "max_score": torch.where(refresh, torch.zeros_like(st["max_score"]),
-                                         st["max_score"]),
-                "refresh": refresh}
+        out = {"prompt": torch.where(refresh[:, None, None], new_prompt.to(prompt.dtype), prompt),
+               "max_score": torch.where(refresh, torch.zeros_like(st["max_score"]),
+                                        st["max_score"]),
+               "refresh": refresh}
+        tracing.mark("end")
+        return out
 
     # ---------------------------------------------------------------- graphs
     def graph_key(self, hw, S: int) -> tuple:
@@ -273,10 +288,17 @@ class JitTracker:
         return graph.replay, out
 
     def _captured(self, gs: _GraphSet, name: str, fn):
+        """The capture of graph `name` of gs: capture_s and the tracer's span
+        setup.capture from the same two clock reads, the region marks the
+        capture recorded (while the tracer is on) and the kernel calls."""
         before = build.captured_counts()
-        t0 = time.perf_counter()
-        replay, out = self._capture(fn)
-        gs.capture_s += time.perf_counter() - t0
+        t0 = time.time_ns()
+        with tracing.regions(name, self.device, graph=True) as regions:
+            replay, out = self._capture(fn)
+        t1 = time.time_ns()
+        gs.capture_s += (t1 - t0) / 1e9
+        tracing.add("setup.capture", t0, t1)
+        gs.regions[name] = regions
         after = build.captured_counts()
         gs.captured[name] = {k: n - before.get(k, 0) for k, n in after.items()
                              if n != before.get(k, 0)}
@@ -286,7 +308,7 @@ class JitTracker:
         if gs.step is None:  # the maps too: graph_maps() reads them for an A/B
             gs.step, gs.step_out = self._captured(gs, "step", lambda: self.step_body(
                 gs.frames, gs.masks[0], gs.state, gs.consts, debug=True))
-        gs.step()
+        tracing.replay("replay.step", gs.regions["step"], gs.step)
         gs.replays["step"] += 1
         return gs.step_out
 
@@ -299,7 +321,7 @@ class JitTracker:
 
         if gs.remine is None:
             gs.remine, gs.remine_out = self._captured(gs, "remine", fn)
-        gs.remine()
+        tracing.replay("replay.remine", gs.regions["remine"], gs.remine)
         gs.replays["remine"] += 1
         return gs.remine_out
 
@@ -468,6 +490,7 @@ class LockstepTracker:
         return self._active_dev
 
     @torch.no_grad()
+    @tracing.spanned("step")
     def _eager_step(self, frames: torch.Tensor, always_remine: bool, debug: bool):
         st, jt = self.state, self.jt
         frame_id, due = self._host_masks()
@@ -476,14 +499,19 @@ class LockstepTracker:
         active = self._active_device()
         due_dev = self.to_device(due) if jt.remine_on and always_remine else None
         state, consts = self._tensors()
-        out = jt.step_body(frames, active, state, consts, debug=debug)
+        with tracing.regions("step", self.device):
+            out = jt.step_body(frames, active, state, consts, debug=debug)
         prompt, max_score = st.prompt, out["max_score"]
         if jt.remine_on:
+            n_due = int(due.sum()) if tracing.active() else 0
             if not always_remine and due.any():  # the one host read
                 due &= (max_score > self.threshold).cpu().numpy()
                 due_dev = self.to_device(due) if due.any() else None
             if due_dev is not None:
-                r = jt.remine_body(due_dev, dict(out, prompt=prompt), consts)
+                with tracing.regions("remine", self.device):
+                    r = jt.remine_body(due_dev, dict(out, prompt=prompt), consts)
+                tracing.count("remine.rows_computed", self.S)
+                tracing.count("remine.rows_due", n_due)
                 prompt, max_score = r["prompt"], r["max_score"]
                 self._remines += r["refresh"]
         self.state = BatchState(prompt=prompt, max_score=max_score, frame_id=frame_id,
@@ -495,6 +523,7 @@ class LockstepTracker:
         return out["packed"]
 
     @torch.no_grad()
+    @tracing.spanned("step")
     def _graph_step(self, load_frames, hw, always_remine: bool):
         """One replay of the step graph (and of the re-mine graph on due
         steps): frames and the active/due masks in through pinned buffers,
@@ -512,6 +541,9 @@ class LockstepTracker:
         new["prompt"] = st.prompt
         if jt.remine_on and (always_remine or due.any()):
             r = jt.replay_remine(gs)
+            if tracing.active():
+                tracing.count("remine.rows_computed", self.S)
+                tracing.count("remine.rows_due", due.sum())
             new["prompt"], new["max_score"] = r["prompt"].clone(), r["max_score"].clone()
             self._remines += r["refresh"]
         packed = out["packed"].clone()
@@ -612,6 +644,7 @@ class Tracker(LockstepTracker):
         return self.ground(self._frame(image), self.text_ids, self.text_mask)
 
     @torch.no_grad()
+    @tracing.spanned("setup.initialize")
     def initialize(self, image: np.ndarray, info: dict):
         """Flags follow the single JAX Tracker: NL and NLBBOX get flag 2,
         with or without a sentence; any other mode tracks as BBOX."""

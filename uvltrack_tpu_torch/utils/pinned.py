@@ -1,5 +1,6 @@
 """Host-to-device uploads through pinned host buffers, shared by the
-tracker's frame uploads and the trainer's batch uploads."""
+tracker's frame uploads and the trainer's batch uploads (traced as the
+spans stage.wait, stage.fill and stage.copy, utils/tracing.py)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from . import tracing
 
 
 class PinnedStage:
@@ -22,8 +25,9 @@ class PinnedStage:
         """Copy `rows` -- an array, or a sequence of arrays, one per index
         of out's first dimension -- into the device tensor `out`."""
         if out.device.type != "cuda":
-            arr = np.stack(rows) if isinstance(rows, (list, tuple)) else rows
-            out.copy_(torch.from_numpy(np.ascontiguousarray(arr)).reshape(out.shape))
+            with tracing.span("stage.fill"):
+                arr = np.stack(rows) if isinstance(rows, (list, tuple)) else rows
+                out.copy_(torch.from_numpy(np.ascontiguousarray(arr)).reshape(out.shape))
             return
         key = (tuple(out.shape), out.dtype)
         slots = self._slots.get(key)
@@ -38,12 +42,15 @@ class PinnedStage:
                 for _ in range(2)] + [0]
         buf, ev = slots[slots[2]]
         slots[2] ^= 1
-        ev.synchronize()  # the copy that read this buffer last has finished
-        host = buf.numpy()
-        if isinstance(rows, (list, tuple)):
-            for i, row in enumerate(rows):
-                host[i] = row
-        else:
-            host[...] = np.asarray(rows).reshape(host.shape)
-        out.copy_(buf, non_blocking=True)
-        ev.record(torch.cuda.current_stream(out.device))
+        with tracing.span("stage.wait"):
+            ev.synchronize()  # the copy that read this buffer last has finished
+        with tracing.span("stage.fill"):
+            host = buf.numpy()
+            if isinstance(rows, (list, tuple)):
+                for i, row in enumerate(rows):
+                    host[i] = row
+            else:
+                host[...] = np.asarray(rows).reshape(host.shape)
+        with tracing.span("stage.copy"):
+            out.copy_(buf, non_blocking=True)
+            ev.record(torch.cuda.current_stream(out.device))
