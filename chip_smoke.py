@@ -343,8 +343,12 @@ Q8_KERNEL_ATOL = {"ln_qkv": KERNEL_ATOL["ln_qkv"], "qkv_attention": KERNEL_ATOL[
 # |kernel - plain| <= F32_ATOL + F32_RTOL*|plain|
 F32_ATOL, F32_RTOL = 2e-4, 2e-4
 # launches per UVLTrack-B backbone forward: bf16 weights (blocks 0-5 on the
-# bf16 stream, 6-11 on the fp32 one), int8 weights
-PER_FWD_FP = {"ln_qkv[bf16x-bf16w]": 6, "ln_qkv[fp32x-bf16w]": 6, "qkv_attention[bf16]": 12}
+# bf16 stream, 6-11 on the fp32 one; each block's projection, fc1 and fc2 on
+# `dense`, the default path's products), int8 weights (their products keep
+# the upcast)
+DENSE = "dense[bf16a-bf16w-fp32o]"
+PER_FWD_FP = {"ln_qkv[bf16x-bf16w]": 6, "ln_qkv[fp32x-bf16w]": 6, "qkv_attention[bf16]": 12,
+              DENSE: 36}
 PER_FWD_Q8 = {"ln_qkv[bf16x-int8w]": 6, "ln_qkv[fp32x-int8w]": 6, "qkv_attention[bf16]": 6,
               "qkv_attention[fp32]": 6}
 
@@ -1593,6 +1597,78 @@ def large_m_mlp_proj_phase(dev, seed: int):
     return worst, times
 
 
+# the default path's weight products on the GEMM core (PERF.md row D), one
+# kernels-line row a body, at its main-path shape (label_product of
+# tools/gemm_ab.py's DOT_SHAPES): the 64-row body at the tracking step's
+# rows (B=1's projection), the large-M body at the lockstep step's (B-S8's fc1)
+DENSE_ROW_SHAPE = {DENSE[:-1] + "-64]": "B_M321_proj", DENSE[:-1] + "-lm]": "B_M2568_fc1"}
+
+
+def dense_phase(dev, seed: int):
+    """The default path's weight products (ops/ln_qkv_attn_proj.py::dense_f32,
+    `uvl_dense`) at tools/gemm_ab.py's DOT_SHAPES (the four cells' rows for B
+    and L; the projection, fc1 and fc2): each call on the body dense_parts
+    picks (build.body_counts(); no fallback), against the upcast plain
+    product ops/quant.py::dot_f32 within DOT_RTOL of sum_k |a||w| (fp32 sums
+    of exact products in two orders), bitwise on a second call. Then at
+    every shape the full timings() of the product, dot_f32 and torch.mm with
+    an fp32 out_dtype (the library yardstick), and the bound. Returns
+    ({body row: worst error}, {label_product: times})."""
+    import numpy as np
+    import torch
+
+    from uvltrack_tpu_torch.ops import build
+    from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
+    from uvltrack_tpu_torch.ops import quant
+    from uvltrack_tpu_torch.tools.gemm_ab import DOT_RTOL, DOT_SHAPES
+
+    b16, f32 = torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, gaps, times = {}, {}, {}
+    fallbacks = build.fallback_counts()
+    for label, m, c in DOT_SHAPES:
+        for prod, k, n in (("proj", c, c), ("fc1", c, 4 * c), ("fc2", 4 * c, c)):
+            rng = np.random.default_rng(seed + m + k + n)
+            a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev, b16)
+            w = torch.from_numpy((rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
+                                 ).to(dev, b16)
+            parts = lqp.dense_parts(m, k, n, sms)
+            row = DENSE[:-1] + ("-64]" if parts else "-lm]")
+            key = f"{label}_{prod}"
+            before = build.body_counts().get(row, 0)
+            got, again = lqp.dense_f32(a, w), lqp.dense_f32(a, w)
+            ref = quant.dot_f32(a, w)
+            torch.cuda.synchronize()
+            if build.body_counts().get(row, 0) != before + 2:
+                raise AssertionError(f"dense {key}: not launched on {row}: "
+                                     f"{build.body_counts()}")
+            if got.dtype != f32 or got.shape != ref.shape:
+                raise AssertionError(f"dense {key}: {got.dtype}{tuple(got.shape)}")
+            diff = (got - ref).abs()
+            gap = float((diff / (DOT_RTOL * (a.float().abs() @ w.float().abs().t()))).max())
+            if gap > 1:
+                raise AssertionError(f"dense {key}: |diff| at {gap} of DOT_RTOL.sum|a||w|")
+            if not torch.equal(got, again):
+                raise AssertionError(f"dense {key}: a second call differs")
+            worst[row] = max(worst.get(row, 0.0), float(diff.max()))
+            gaps[row] = max(gaps.get(row, 0.0), gap)
+            b_ms, b_by = bound(2 * m * k * n, (m * k + n * k) * 2 + m * n * 4)
+            times[key] = {
+                **timings(lambda: lqp.dense_f32(a, w), lambda: quant.dot_f32(a, w),
+                          lambda: torch.mm(a, w.t(), out_dtype=f32)),
+                "library": "torch.mm(out_dtype=fp32)", "M": m, "K": k, "N": n,
+                "parts": parts, "row": row, "bound_ms": b_ms, "bound_by": b_by}
+    if build.fallback_counts() != fallbacks:
+        raise AssertionError(f"dense fell back: {fallbacks} -> {build.fallback_counts()}")
+    emit({"phase": "dense_check", "shapes": DOT_SHAPES, "sms": sms,
+          "tolerance": f"|core - dot_f32| <= {DOT_RTOL} * sum_k |a||w|",
+          "repeatable": "bitwise, two calls at every shape", "max_abs_err": worst,
+          "max_gap_over_bound": gaps})
+    emit({"phase": "dense_times", "timer": TIMER, "plain": "ops/quant.py::dot_f32 (the "
+          "upcast cuBLAS product)", "row_shapes": DENSE_ROW_SHAPE, "times": times})
+    return worst, times
+
+
 # qkv_attention's batch body (csrc/attention.cuh's attention_ranges_kernel:
 # from ATTN_BATCH_PAIRS (b, h) pairs where the split rule splits the keys):
 # every shape of the B.N-row paths, (label, B, H) -- the lockstep steps of B
@@ -2006,8 +2082,9 @@ def track_phase(mode: str, model, cfg, frames, boxes, tokenizer, language,
     if build.launch_counts() != {k: 2 * v for k, v in counts.items()}:
         raise AssertionError("the plain backend launched a kernel")
     # kernels #3 and #7 (attention, ln_mlp) stay off with their knobs unset
+    dense = (expect or {}).get(DENSE, 0) * forwards
     if counts != dict(dict.fromkeys(build.SOURCES, 0), ln_qkv=12 * forwards,
-                      qkv_attention=12 * forwards):
+                      qkv_attention=12 * forwards, **({"dense": dense} if dense else {})):
         raise AssertionError(f"launches {counts} != 12 x {forwards} backbone forwards")
     if expect is not None and inst != {k: v * forwards for k, v in expect.items()}:
         raise AssertionError(f"launches {inst} != {expect} x {forwards} backbone forwards")
@@ -3326,7 +3403,7 @@ def shared_and_knob(cfg, model, jt, frames, boxes) -> dict:
     finally:
         del os.environ["UVLTRACK_FUSED_PREFIX"]
         attention.force_backend(None)
-    if cap != {"qkv_attention[bf16]": 12}:
+    if cap != {"qkv_attention[bf16]": 12, DENSE: 36}:
         raise AssertionError(f"UVLTRACK_FUSED_PREFIX=0 graph captured {cap}")
     out = {"phase": "compiled_shared", "second_tracker_frames": len(got),
            "second_tracker_new_graphs": 0, "boxes_equal_a_fresh_trackers": True,
@@ -3372,9 +3449,10 @@ def compiled_phase(model, cfg, model_q8, cfg_q8, tokenizer, language, frames, bo
         summary[cell.label] = compiled_lockstep(cell.label, cell, jt, per_fwd_fp, remine)
     # kernels #4 and #7 at B.N rows: B-S8's streams under both fused knobs,
     # then beside the default step and the 64-row route in turns; #6 at B=4
-    fused_fwd = dict(per_fwd_fp, **{"proj_residual[bf16x-bf16a-bf16w]": 6,
-                                    "proj_residual[fp32x-bf16a-bf16w]": 6,
-                                    "ln_mlp[bf16x-bf16w]": 6, "ln_mlp[fp32x-bf16w]": 6})
+    fused_fwd = dict({k: v for k, v in per_fwd_fp.items() if k != DENSE},
+                     **{"proj_residual[bf16x-bf16a-bf16w]": 6,
+                        "proj_residual[fp32x-bf16a-bf16w]": 6,
+                        "ln_mlp[bf16x-bf16w]": 6, "ln_mlp[fp32x-bf16w]": 6})
     summary["B-S8-FUSED"] = fused_lockstep("B-S8-FUSED", cells[1], jt, fused_fwd, remine)
     fused_turns(cells[1], jt, JitTracker(cfg, model), JitTracker(cfg, model), tokenizer)
     q8_cell = LockstepCell("S4_q8", model_q8, cfg_q8, seqs, mix[:4], langs[:4],
@@ -3596,7 +3674,8 @@ EVAL_WORDS = ("the", "red", "checkered", "box", "moving", "left", "right", "targ
               "textured", "patch", "on", "a", "busy", "background")
 # UVLTrack-L's launches per backbone forward: 12 visual blocks (bf16 stream)
 # and 12 joint blocks (fp32 stream) through kernel #1, every block through #2
-L_PER_FWD = {"ln_qkv[bf16x-bf16w]": 12, "ln_qkv[fp32x-bf16w]": 12, "qkv_attention[bf16]": 24}
+L_PER_FWD = {"ln_qkv[bf16x-bf16w]": 12, "ln_qkv[fp32x-bf16w]": 12, "qkv_attention[bf16]": 24,
+             DENSE: 72}
 EVAL_TIMER = ("host clock: runner FPS as the CLI prints it (frames over the summed sequence "
               "times, decode overlapped by the prefetcher at S=1, inline at S>1); step p50/p90 "
               "of the direct replay of the same run (Tracker.track / BatchTracker.step on the "
@@ -3892,7 +3971,7 @@ def eval_phase(args, vocab: Path, tmp: Path) -> dict:
               "--set", f"MODEL.BACKBONE.LANGUAGE.VOCAB_PATH={vocab}"]
     q8 = {"ln_qkv[bf16x-int8w]": 6, "ln_qkv[fp32x-int8w]": 6, "qkv_attention[bf16]": 6,
           "qkv_attention[fp32]": 6}
-    b_fwd = {"ln_qkv[bf16x-bf16w]": 6, "ln_qkv[fp32x-bf16w]": 6, "qkv_attention[bf16]": 12}
+    b_fwd = PER_FWD_FP
     runs = [  # (label, param, extra args, report dir, streams, launches per forward)
         ("a_B_BBOX_chunk16", "baseline_base", ["--set", "TEST.MODE=BBOX", "--chunk", "16"],
          "baseline_base/otb99_BBOX_0300", 1, b_fwd),
@@ -6268,6 +6347,7 @@ def main() -> int:
         lm_kern = large_m_qkv_phase(dev, args.seed)
         mp_kern = large_m_mlp_proj_phase(dev, args.seed)
         ab_kern = attn_batch_phase(dev, args.seed)
+        dense_kern = dense_phase(dev, args.seed)
         emit({"phase": "kernels_group", "seconds": time.perf_counter() - t0})
     # ln_qkv's launches by body on the paths below (the kernels line's rows
     # of its bf16 and int8 weights); the kernel checks of later groups are
@@ -6413,7 +6493,7 @@ def main() -> int:
     lb = f"B{LOCKSTEP_B}_"
     return finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst,
                   q8_times, fused_worst, fused_times, large, train_counts, cli_counts["f32w"],
-                  tp_kern, lm_kern, mp_kern, ab_kern, build.body_counts())
+                  tp_kern, lm_kern, mp_kern, ab_kern, dense_kern, build.body_counts())
 
 
 def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, language,
@@ -6430,17 +6510,18 @@ def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, langu
     fused = frames[:9]
     add(knob_phase("fused_proj_bf16", "UVLTRACK_FUSED_PROJ", "1", model, cfg, fused, boxes,
                    dict(per_fwd_fp, **{"proj_residual[bf16x-bf16a-bf16w]": 6,
-                                       "proj_residual[fp32x-bf16a-bf16w]": 6})))
+                                       "proj_residual[fp32x-bf16a-bf16w]": 6, DENSE: 24})))
     add(knob_phase("fused_proj_q8", "UVLTRACK_FUSED_PROJ", "1", model_q8, cfg_q8, fused, boxes,
                    dict(per_fwd_q8, **{"proj_residual[bf16x-bf16a-int8w]": 6,
                                        "proj_residual[fp32x-fp32a-int8w]": 6})))
     # LN + qkv plain, the attention alone on kernel #2 (qkv_attention) in
     # every block: the JAX package's "step 3" A/B
     add(knob_phase("fused_prefix_off", "UVLTRACK_FUSED_PREFIX", "0", model, cfg, fused, boxes,
-                   {"qkv_attention[bf16]": 12}))
+                   {"qkv_attention[bf16]": 12, DENSE: 36}))
     # kernel #7 in every block of the bf16 model; int8 weights stay plain
     add(knob_phase("fused_mlp_bf16", "UVLTRACK_FUSED_MLP", "1", model, cfg, fused, boxes,
-                   dict(per_fwd_fp, **{"ln_mlp[bf16x-bf16w]": 6, "ln_mlp[fp32x-bf16w]": 6})))
+                   dict(per_fwd_fp, **{"ln_mlp[bf16x-bf16w]": 6, "ln_mlp[fp32x-bf16w]": 6,
+                                       DENSE: 12})))
     add(knob_phase("fused_mlp_q8", "UVLTRACK_FUSED_MLP", "1", model_q8, cfg_q8, fused, boxes,
                    per_fwd_q8))
     # kernel #3 in BERT's 40-token layers: 6 layers each in the grounding
@@ -6453,7 +6534,7 @@ def track_q8_and_knobs(model, cfg, model_q8, cfg_q8, frames, boxes, vocab, langu
 
 def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_worst, q8_times,
            fused_worst, fused_times, large, train_counts, f32w, tp_kern, lm_kern, mp_kern,
-           ab_kern, bodies) -> int:
+           ab_kern, dense_kern, bodies) -> int:
     """The kernels line, the compositions and per-launch lines, the total,
     the nvidia-smi line and the ok line. `large`: the kernel checks and
     times at UVLTrack-L's width, which the rows of the instantiations on
@@ -6467,7 +6548,9 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
     large_m_qkv_phase's checks and times, the rows of ln_qkv's large-M
     instantiations (`-lm`); `mp_kern`: large_m_mlp_proj_phase's, the rows
     of ln_mlp's and proj_residual's (`-lm`); `ab_kern`: attn_batch_phase's,
-    the rows of qkv_attention's batch body (`-lm`); `bodies`:
+    the rows of qkv_attention's batch body (`-lm`); `dense_kern`:
+    dense_phase's, the rows of the default path's products by body (`-64`,
+    `-lm`); `bodies`:
     build.body_counts() over every path run (the kernel checks set aside),
     the launches of the bf16- and int8-weight rows of ln_qkv, proj_residual
     and ln_mlp and of both qkv_attention rows by body (`-64`, `-lm`)."""
@@ -6624,6 +6707,24 @@ def finish(t_start, smi, torch, launches, glaunch, src, lb, worst, times, q8_wor
                          f"graph_launches and train_launches: the tag's, both bodies; the "
                          f"{lb.rstrip('_')} times: the large-M or batch body, which those "
                          f"rows take")
+    # the default path's products on the core: a row a body, its launches
+    # the main path's eager ones on it, its times at DENSE_ROW_SHAPE, the
+    # body's other shapes under "shapes"
+    dense_worst, dense_times = dense_kern
+    for name, shape in DENSE_ROW_SHAPE.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}/proj_residual.cu",
+            "replaces": f"{TPU_KERNEL}:359", "launches": bodies.get(name, 0),
+            "graph_launches": glaunch.get(DENSE, 0), "train_launches": train_counts.get(DENSE, 0),
+            "max_abs_err": dense_worst[name], "shape": shape,
+            **{q: v for q, v in dense_times[shape].items() if q != "row"},
+            "shapes": {key: {q: v for q, v in t.items() if q != "row"}
+                       for key, t in dense_times.items() if t["row"] == name},
+            "note": ("no TPU kernel: the XLA dots of _xla_proj (359) and _xla_ln_mlp (601); "
+                     + ("the 64-row body, K split in `parts`" if name.endswith("-64]") else
+                        "the large-M body") + "; launches: every path's eager calls on it "
+                     "(build.body_counts); graph_launches and train_launches: the tag's, both "
+                     "bodies; max_abs_err against dot_f32")})
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

@@ -442,7 +442,8 @@ def test_cli_modules_import_no_jax():
 
 # ------------------------------------------------------------- on the card
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-L_PER_FWD = {"ln_qkv[bf16x-bf16w]": 12, "ln_qkv[fp32x-bf16w]": 12, "qkv_attention[bf16]": 24}
+L_PER_FWD = {"ln_qkv[bf16x-bf16w]": 12, "ln_qkv[fp32x-bf16w]": 12, "qkv_attention[bf16]": 24,
+             "dense[bf16a-bf16w-fp32o]": 72}  # + the default path's products
 
 
 def _on_card():

@@ -374,7 +374,9 @@ def card_model():
     return cfg, prepare_inference_model(cfg, build_model(cfg, device="cuda", seed=0))
 
 
-PER_FWD = {"ln_qkv[bf16x-bf16w]": 6, "ln_qkv[fp32x-bf16w]": 6, "qkv_attention[bf16]": 12}
+# the prefix kernels and the default path's projection, fc1 and fc2 (`dense`)
+PER_FWD = {"ln_qkv[bf16x-bf16w]": 6, "ln_qkv[fp32x-bf16w]": 6, "qkv_attention[bf16]": 12,
+           "dense[bf16a-bf16w-fp32o]": 36}
 
 
 @pytest.mark.gpu
@@ -412,7 +414,8 @@ def test_cuda_graphs_equal_the_eager_step(card_model, S):
 def test_cuda_second_tracker_captures_nothing(card_model, monkeypatch):
     """A second Tracker on the same JitTracker captures no graph, and its
     boxes equal a fresh Tracker's; UVLTRACK_FUSED_PREFIX=0 set after the
-    capture gets its own graph, with 12 qkv_attention and no ln_qkv."""
+    capture gets its own graph, with 12 qkv_attention and no ln_qkv (and the
+    36 products on `dense`)."""
     cfg, model = card_model
     frames = _frames(5, 7, 480, 854)
     info = {"init_bbox": [300.0, 200.0, 96.0, 64.0]}
@@ -430,4 +433,5 @@ def test_cuda_second_tracker_captures_nothing(card_model, monkeypatch):
     t2.track(frames[1])
     key = t1.jt.graph_key(frames[0].shape[:2], 1)
     assert len(t1.jt.keys()) == 2
-    assert t1.jt.captured_launches(key)["step"] == {"qkv_attention[bf16]": 12}
+    assert t1.jt.captured_launches(key)["step"] == {"qkv_attention[bf16]": 12,
+                                                     "dense[bf16a-bf16w-fp32o]": 36}

@@ -492,7 +492,9 @@ def test_cuda_fc2_bias_is_deterministic(cuda, b):
 @pytest.mark.gpu
 def test_cuda_dispatch_follows_the_knobs(cuda, monkeypatch):
     """attention_core launches #3 only past UVLTRACK_PALLAS_MIN_N; ln_mlp_core
-    launches #7 only under UVLTRACK_FUSED_MLP=1 and for bf16 weights."""
+    launches #7 only under UVLTRACK_FUSED_MLP=1 and for bf16 weights, and
+    without it, on the "cuda" backend, its fc1 and fc2 on `dense` (int8
+    weights and the plain backend: the upcast, no launch)."""
     monkeypatch.delenv("UVLTRACK_PALLAS_MIN_N", raising=False)
     monkeypatch.delenv("UVLTRACK_FUSED_MLP", raising=False)
     q, k, v = _bert_qkv(40, cuda)
@@ -518,7 +520,8 @@ def test_cuda_dispatch_follows_the_knobs(cuda, monkeypatch):
         tattn.ln_mlp_core(*args)
     finally:
         tattn.force_backend(None)
-    assert build.instantiation_counts() == {"attention[bf16]": 1, "ln_mlp[bf16x-bf16w]": 1}
+    assert build.instantiation_counts() == {"attention[bf16]": 1, "ln_mlp[bf16x-bf16w]": 1,
+                                            "dense[bf16a-bf16w-fp32o]": 2}
 
 
 @pytest.mark.gpu

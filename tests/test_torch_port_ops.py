@@ -539,10 +539,11 @@ print(build.launch_counts())
 
 @pytest.mark.gpu
 def test_model_built_without_build_model_launches_the_kernels(cuda):
-    """4 blocks x 2 backbone passes (forward_prompt_init, forward_test);
-    BERT's 8-token layers stay plain."""
+    """4 blocks x 2 backbone passes (forward_prompt_init, forward_test): the
+    prefix kernels, and each block's projection, fc1 and fc2 on `dense` (the
+    default path's products); BERT's 8-token layers stay plain."""
     out = subprocess.run([sys.executable, "-c", _FRESH_MODEL.format(dev="cuda")],
                          cwd=REPO, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     counts = ast.literal_eval(out.stdout.strip().splitlines()[-1])
-    assert counts == dict(dict.fromkeys(build.SOURCES, 0), ln_qkv=8, qkv_attention=8)
+    assert counts == dict(dict.fromkeys(build.SOURCES, 0), ln_qkv=8, qkv_attention=8, dense=24)

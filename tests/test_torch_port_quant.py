@@ -645,7 +645,8 @@ def test_cuda_proj_residual_is_deterministic(cuda, b, inst):
 def test_cuda_dispatch_launch_counts(cuda, quantized, fused, monkeypatch):
     """One visual block (bf16 stream, N=321) and one joint block (fp32
     stream, N=361) through attention_block_core on the "cuda" backend:
-    each dispatch launches its instantiations once."""
+    each dispatch launches its instantiations once; unfused, a bf16
+    projection runs on `dense` (an int8 one keeps the upcast)."""
     monkeypatch.setenv("UVLTRACK_FUSED_PROJ", fused)
     x, g, be, w16, wq, wb, wp16, wpq, bp, kb = _gpu_q8_case(361, "tail", cuda)
     wqkv, wproj = (wq, wpq) if quantized else (w16, wp16)
@@ -669,6 +670,8 @@ def test_cuda_dispatch_launch_counts(cuda, quantized, fused, monkeypatch):
         want.update({"proj_residual[bf16x-bf16a-int8w]": 1, "proj_residual[fp32x-fp32a-int8w]": 1}
                     if quantized else
                     {"proj_residual[bf16x-bf16a-bf16w]": 1, "proj_residual[fp32x-bf16a-bf16w]": 1})
+    elif not quantized:
+        want["dense[bf16a-bf16w-fp32o]"] = 2
     assert build.instantiation_counts() == want
 
 

@@ -233,7 +233,8 @@ def test_a_kernel_counts_as_its_plain_version():
              (lqp.proj_residual_plain, (x, t(b, n, c), t(c, c), t(c)), lqp.proj_residual_work, 0),
              (lm.ln_mlp_plain, (x, g, be, w1, b1, w2, b2), lm.ln_mlp_work, hidden),
              (fa.fused_attention_plain, (q, k, v, kb), fa.attention_work, 0),
-             (tattn.plain_attention, (q, k, v, kb[:, None, None, :]), fa.attention_work, 0)]
+             (tattn.plain_attention, (q, k, v, kb[:, None, None, :]), fa.attention_work, 0),
+             (tattn.weight_dot, (t(b, n, c), t(c, c)), tattn.weight_dot_work, 0)]
     for fn, a, work, extra in cases:
         with FlopCounterMode(display=False) as fc:
             out = fn(*a)

@@ -634,8 +634,8 @@ def spied_allocations(monkeypatch):
 @pytest.mark.parametrize("c,heads,tp", TP_KERNEL_SHAPES)
 def test_proj_partial_launches_the_large_m_entry(c, heads, tp, spied_launches,
                                                  spied_allocations):
-    """proj_partial on bf16 operands: one launch of uvl_proj_partial with M =
-    B*N, K = C/tp and N_out = C, into the one (B, N, C) fp32 tensor it
+    """proj_partial on bf16 operands: one launch of uvl_dense's large-M body
+    (parts 0) with M = B*N, K = C/tp and N_out = C, into the one (B, N, C) fp32 tensor it
     allocates (no zero stream, no zero bias)."""
     from uvltrack_tpu_torch.ops import build
     from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
@@ -646,10 +646,10 @@ def test_proj_partial_launches_the_large_m_entry(c, heads, tp, spied_launches,
     out = lqp.proj_partial(attn, wp)
     assert spied_launches == [("proj_residual", "bf16a-bf16w-fp32o")]
     kernel, inst, args, kw = spied_launches.args[0]
-    assert kw["entry"] == "uvl_proj_partial" and kw["stream_of"] is attn
+    assert kw["entry"] == "uvl_dense" and kw["stream_of"] is attn
     types, ptrs, shape = args[0], args[1:4], args[4:]
-    assert types == [build.PTR] * 3 + [build.INT] * 3 and len(ptrs) == 3
-    assert shape == (b * n, k, c)
+    assert types == [build.PTR] * 3 + [build.INT] * 4 and len(ptrs) == 3
+    assert shape == (b * n, k, c, 0)
     assert out.shape == (b, n, c) and out.dtype == torch.float32
     assert spied_allocations == [((b, n, c), torch.float32)]
 

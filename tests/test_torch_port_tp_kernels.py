@@ -1,6 +1,6 @@
 """The tensor-parallel shares of kernels #4 and #7 on the card: a rank's
 fp32 share of the projection (ops/ln_qkv_attn_proj.py::proj_partial, the
-large-M entry uvl_proj_partial of csrc/proj_residual.cu) and of the MLP
+large-M body of csrc/proj_residual.cu's uvl_dense) and of the MLP
 (ops/ln_mlp.py::ln_mlp_partial, ln_mlp's `-fp32o` pair on the same body)
 against their plain versions at a rank's widths (K = C/tp, F = 4C/tp for B
 and L at tp 2, 4 and 8), at B*N rows that end inside a 128-row tile, and

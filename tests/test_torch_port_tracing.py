@@ -16,8 +16,9 @@ tests/test_torch_port_tracing.py -m gpu --noconftest`): boxes bitwise equal
 with the tracer on and off at S=1 and S=8; the H2D copy after its
 stage.copy span starts and a replay's first kernel after its replay span
 starts, on the one clock; the regions' sum of each replay within 5% of the
-time between events recorded around its launch, and the profiled
-replays' busy union under it and not far under it.
+time between events recorded around its launch (the device held busy
+while the host launches it), and the profiled replays' busy union under
+it and not far under it.
 """
 
 import pathlib
@@ -341,13 +342,20 @@ def test_cuda_tracer_keeps_the_boxes(card_model, S):
                      ("remine", "remine"): 3}
 
 
+SPIN_CYCLES = 2_000_000  # about 1 ms at the H100's 1.7-2.0 GHz
+
+
 @pytest.fixture(scope="module")
 def profiled(card_model):
     """16 steps of the S=1 graph step with the tracer on, the last 10
     profiled, each graph launch between two CUDA events of the test's own:
     the tracer's export, the profiler's events (name, start_ns, end_ns,
     correlation id, on the device), the profile's start on time.time_ns()
-    and the ms between each launch's own events, in launch order."""
+    and the ms between each launch's own events, in launch order. A spin of
+    about 1 ms (SPIN_CYCLES) ahead of the first event keeps the device busy
+    while the host reads the last times and launches the graph, so the
+    events time the graph on the device: with the device idle the first
+    event would also hold the host's 0.1-0.2 ms between it and the launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -356,6 +364,7 @@ def profiled(card_model):
 
     def timed_replay(name, regions, fn):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         replay(name, regions, fn)
         b.record()
@@ -395,10 +404,10 @@ def _launched(events, span, api):
 @pytest.mark.gpu
 def test_cuda_regions_cover_each_replay(profiled):
     """Each unprofiled step-graph replay's regions add up to within 5% of
-    the time between two events recorded around its launch: the marks
-    inside the graph time all of it (a re-mine replay's, ~0.3 ms, under it:
-    the launch's own latency before the graph's first node is outside the
-    regions). Each profiled replay's kernels (their busy union) fit inside
+    the time between two events recorded around its launch on a busy
+    device: the marks inside the graph time all of it (a re-mine replay's,
+    ~0.3 ms, under it: the graph's nodes before its first mark are outside
+    the regions). Each profiled replay's kernels (their busy union) fit inside
     the mean of those sums, no kernel running outside the regions, and fill
     most of it: the sum holds the gaps between a graph's kernels, but a mark
     out of place would add more. The re-mine graph's ~0.2 ms of small

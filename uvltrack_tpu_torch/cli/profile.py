@@ -52,8 +52,10 @@ def main(argv=None):
     p.add_argument("--quant", default=None, choices=("int8",),
                    help="weight-only int8 on the ViT matmul kernels "
                         "(cfg.TPU.WEIGHT_QUANT): the cost line then counts the "
-                        "int8 weights and the fp32 upcasts of the plain products "
-                        "(ops/quant.py::dot_f32)")
+                        "int8 weights; on every backend and weight type the "
+                        "projection, fc1 and fc2 count as their operands read "
+                        "once and their fp32 results written once "
+                        "(ops/attention.py::weight_dot_work), no upcast copies")
     p.add_argument("--xla", action="store_true",
                    help="force the plain PyTorch backend (the JAX package's XLA "
                         "backend's counterpart: no kernel launches)")

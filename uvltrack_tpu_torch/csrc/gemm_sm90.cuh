@@ -23,7 +23,8 @@
 //     or fp32 with an fp32 W (and then an fp32 out);
 //   - SPLITK_RESIDUAL (proj_residual): A is the attention output (M, K), bf16
 //     or fp32, and out = x + TX(proj) in x's type TX;
-//   - GEMM_F32OUT: out = A . W^T (+ b) in fp32, bf16 A; with LN_BIAS and
+//   - GEMM_F32OUT: out = A . W^T (+ b) in fp32, bf16 A (on the SPLITK body:
+//     no bias, the default path's products of few rows); with LN_BIAS and
 //     LN_BIAS_GELU on rows normalized beforehand, and LM_RESIDUAL, the kinds
 //     of the large-M body (its own section below): ln_qkv, both launches of
 //     ln_mlp and proj_residual at B.N rows (a lockstep step's, a training
@@ -656,8 +657,8 @@ __device__ __forceinline__ void store_tile(const float (&acc)[WN / 2],
   for (int j = 0; j < WN / 8; ++j) {
     const int col = n0 + fcol + j * 8;
     if (col >= N_out) continue;
-    const float2 b = *reinterpret_cast<const float2*>(bias + col);
-    float2 sc = make_float2(1.f, 1.f);
+    float2 b = make_float2(0.f, 0.f), sc = make_float2(1.f, 1.f);
+    if constexpr (KIND != GEMM_F32OUT) b = *reinterpret_cast<const float2*>(bias + col);
     if constexpr (W8) sc = *reinterpret_cast<const float2*>(wscale + col);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -668,8 +669,10 @@ __device__ __forceinline__ void store_tile(const float (&acc)[WN / 2],
         v0 = __fmul_rn(v0, sc.x);
         v1 = __fmul_rn(v1, sc.y);
       }
-      v0 = __fadd_rn(v0, b.x);
-      v1 = __fadd_rn(v1, b.y);
+      if constexpr (KIND != GEMM_F32OUT) {
+        v0 = __fadd_rn(v0, b.x);
+        v1 = __fadd_rn(v1, b.y);
+      }
       if constexpr (KIND == LN_BIAS_GELU) {
         v0 = gelu_erf(v0);
         v1 = gelu_erf(v1);
@@ -1015,9 +1018,12 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap* map_a, const CUtens
           sum = make_float4(__fmul_rn(sum.x, sc.x), __fmul_rn(sum.y, sc.y),
                             __fmul_rn(sum.z, sc.z), __fmul_rn(sum.w, sc.w));
         }
-        const float4 b = *reinterpret_cast<const float4*>(bias + col);
-        float4 v = make_float4(__fadd_rn(sum.x, b.x), __fadd_rn(sum.y, b.y),
-                               __fadd_rn(sum.z, b.z), __fadd_rn(sum.w, b.w));
+        float4 v = sum;
+        if constexpr (KIND != GEMM_F32OUT) {
+          const float4 b = *reinterpret_cast<const float4*>(bias + col);
+          v = make_float4(__fadd_rn(sum.x, b.x), __fadd_rn(sum.y, b.y), __fadd_rn(sum.z, b.z),
+                          __fadd_rn(sum.w, b.w));
+        }
         const size_t i = static_cast<size_t>(row) * N_out + col;
         if constexpr (KIND == SPLITK_RESIDUAL) {
           // the projection rounded once to x's type, then the residual add
@@ -1544,12 +1550,12 @@ inline int weight_map(const TW* w, uint64_t n_out, uint64_t k, uint32_t box_rows
     return tensor_map(w, n_out, k, box_rows, map);
 }
 
-// the output type of the SPLITK kinds: x's for the residual; fp32 with a
-// HiLo W (an fp32-compute model's fc2), else bf16
+// the output type of the SPLITK kinds: x's for the residual; fp32 for
+// GEMM_F32OUT and with a HiLo W (an fp32-compute model's fc2), else bf16
 template <int KIND, typename TX, typename TW>
-using splitk_out_t =
-    std::conditional_t<KIND == SPLITK_RESIDUAL, TX,
-                       std::conditional_t<std::is_same<TW, HiLo>::value, float, bf16>>;
+using splitk_out_t = std::conditional_t<
+    KIND == SPLITK_RESIDUAL, TX,
+    std::conditional_t<KIND == GEMM_F32OUT || std::is_same<TW, HiLo>::value, float, bf16>>;
 
 // SMs of the current device (the persistent grid's size)
 inline int sm_count() {
@@ -1867,6 +1873,7 @@ inline int launch_ln_gemm(const TX* x, const float* gamma, const float* beta, co
 // fp32 A);
 //   SPLITK_BIAS:     out = TO(A . W^T + b), TO = fp32 for a HiLo W, else bf16
 //   SPLITK_RESIDUAL: out = x + TX(A . W^T (* s) + b), in x's type TX
+//   GEMM_F32OUT:     out = A . W^T in fp32, bf16 A and W, no bias
 template <int KIND, typename TX, typename TA, typename TW, int BN, int STAGES, int SPLIT>
 inline int launch_splitk_gemm(const TA* a, const TW* w, const float* wscale, const TX* x,
                               const float* bias, splitk_out_t<KIND, TX, TW>* out, int M, int K,

@@ -71,7 +71,7 @@
 // W's, and still a third of its library call's (fp32 F.linear).
 // A tensor-parallel rank's share of #4's projection, attn_r . Wp_r^T in fp32
 // (no bias, no residual; the model group sums the shares, then adds both
-// once), runs uvl_proj_partial below on the core's large-M body (kind
+// once), runs uvl_dense below (parts 0) on the core's large-M body (kind
 // GEMM_F32OUT, gemm_sm90.cuh): at a training step's M = B.N = 5,776 rows
 // and C = 768 its 128 x 192 tiles are 46 x 4 = 184, two rounds on 132 SMs,
 // with K unsplit (K = C/tp = 128-512: 2-8 k-tiles a tile), on a persistent
@@ -80,6 +80,19 @@
 // fp32 out, 6.8 us at 3.35 TB/s, against 3.4 GFLOP (3.4 us): the bytes,
 // mostly the output. (Before, the share ran the fp32-x instantiation above
 // on a zero fp32 stream, read back and split over clusters of 3: 50 us.)
+//
+// The default path's weight products, the projection, fc1 and fc2 of every
+// ViT block outside the fused knobs (ops/ln_qkv_attn_proj.py::dense_f32),
+// run uvl_dense below: the same function, A . W^T in fp32 from bf16
+// operands, the exact products summed in fp32 in another order than
+// cuBLAS's. The caller picks the schedule from the shape: at a lockstep
+// step's B.N rows the large-M body above (GEMM_F32OUT, 128-row tiles, K
+// unsplit); at the tracking step's 321/361 rows, where 128-row tiles would
+// leave most of the 132 SMs idle (fc2 at C = 768: 3 x 6 tiles, 48 k-tiles
+// each), the 64-row split-K body (64 x 128 tiles, K split over a cluster of
+// `parts` blocks, the partials summed in rank order through distributed
+// shared memory, as the projection above sums its SPLIT). Both give the same
+// bits on every call.
 #include "gemm_sm90.cuh"
 
 using uvl::bf16;
@@ -89,6 +102,14 @@ namespace {
 constexpr int BN = 128;
 constexpr int STAGES = 4;
 constexpr int SPLIT = 3;
+
+template <int PARTS>
+int launch_dense_split(const bf16* a, const bf16* w, float* out, int M, int K, int N,
+                       cudaStream_t s) {
+  using namespace uvl::sm90;
+  return launch_splitk_gemm<GEMM_F32OUT, float, bf16, bf16, BN, STAGES, PARTS>(
+      a, w, nullptr, nullptr, nullptr, out, M, K, N, s);
+}
 
 template <typename TX, typename TA, typename TW>
 int launch(const void* x, const void* a, const void* w, const float* wscale, const float* bias,
@@ -125,18 +146,6 @@ extern "C" int uvl_proj_residual(const void* x, int x_is_f32, const void* a, int
     err = launch<float, float, int8_t>(x, a, w, w_scale, bias, out, M, K, C, s);
   else if (w_is_i8 && !x_is_f32 && !a_is_f32)
     err = launch<bf16, bf16, int8_t>(x, a, w, w_scale, bias, out, M, K, C, s);
-  return err ? err : static_cast<int>(cudaGetLastError());
-}
-
-// A tensor-parallel rank's share of the projection: out (M, C) fp32 =
-// A (M, K) . W (C, K)^T, bf16 A and W. Requires K % 64 == 0, C % 8 == 0 and
-// 16-byte aligned A, W and out (checked by the Python wrapper).
-extern "C" int uvl_proj_partial(const void* a, const void* w, float* out, int M, int K, int C,
-                                void* stream) {
-  using namespace uvl::sm90;
-  const int err = launch_large_m<GEMM_F32OUT, float>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(w), nullptr, nullptr, out, M, K, C,
-      static_cast<cudaStream_t>(stream));
   return err ? err : static_cast<int>(cudaGetLastError());
 }
 
@@ -191,5 +200,29 @@ extern "C" int uvl_proj_residual_large_m(const void* x, int x_is_f32, const void
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return err ? err : static_cast<int>(cudaGetLastError());
+}
+
+// The default path's products and a tensor-parallel rank's share of the
+// projection: out (M, N) fp32 = A (M, K) . W (N, K)^T, bf16 A and W, no
+// bias. parts 0: the large-M body; 1-3: the 64-row body, K split over a
+// cluster of `parts` blocks. Requires
+// K % 64 == 0, K / 64 >= parts, N % 8 == 0 and 16-byte aligned A, W and out
+// (checked by the Python wrapper).
+extern "C" int uvl_dense(const void* a, const void* w, float* out, int M, int K, int N,
+                         int parts, void* stream) {
+  using namespace uvl::sm90;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* a16 = static_cast<const bf16*>(a);
+  const bf16* w16 = static_cast<const bf16*>(w);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (parts == 0)
+    err = launch_large_m<GEMM_F32OUT, float>(a16, w16, nullptr, nullptr, out, M, K, N, s);
+  else if (parts == 1)
+    err = launch_dense_split<1>(a16, w16, out, M, K, N, s);
+  else if (parts == 2)
+    err = launch_dense_split<2>(a16, w16, out, M, K, N, s);
+  else if (parts == 3)
+    err = launch_dense_split<3>(a16, w16, out, M, K, N, s);
   return err ? err : static_cast<int>(cudaGetLastError());
 }

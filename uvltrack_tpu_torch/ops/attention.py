@@ -34,6 +34,12 @@ below uses it; CPU tensors take the plain math.
 - ln_mlp_core: kernel #7 when UVLTRACK_FUSED_MLP=1 (read at call time,
   default off) for fp weights; int8 weights stay plain, as in the JAX
   package.
+- Outside the fused knobs (the default path), the projection of
+  attn_proj_core and fc1 and fc2 of ln_mlp_core's plain version are fp32
+  products of compute-dtype operands: on the "cuda" backend
+  ops/ln_qkv_attn_proj.py::dense_f32 (the GEMM core for bf16 operands on the
+  card that need no gradient; else quant_dot), on the plain backend
+  quant_dot. The rounding points around them are the plain version's.
 
 Under autograd (grad mode on and an input that needs a gradient) every
 entry above takes the kernel through its torch.autograd.Function of
@@ -83,7 +89,7 @@ from . import fused_attention as fa
 from . import ln_mlp as lm
 from . import ln_qkv_attention as lqa
 from . import ln_qkv_attn_proj as lqp
-from ..utils.costs import counted
+from ..utils.costs import counted, nbytes
 from .build import grad_needed
 from .quant import is_quantized, quant_dot
 
@@ -229,11 +235,27 @@ def attention_ln_qkv_core(x, ln_scale, ln_bias, w_qkv, b_qkv, heads: int,
                                       key_bias, heads, eps)
 
 
+def weight_dot_work(a, w):
+    """(FLOPs, bytes) of a . w^T (utils/costs.py): the products, a and w
+    read once, the fp32 result written once."""
+    k, n = a.shape[-1], w.shape[0]
+    m = a.numel() // k
+    return 2 * m * k * n, nbytes(a, w) + 4 * m * n
+
+
+@counted(weight_dot_work)
+def weight_dot(a, w):
+    """The default path's fp32 product a . w^T (quant_dot's function):
+    lqp.dense_f32 on the "cuda" backend, quant_dot on the plain one. One
+    unit of utils/costs.py, so both count the same work."""
+    return lqp.dense_f32(a, w) if _BACKEND == "cuda" else quant_dot(a, w)
+
+
 def attn_proj_core(attn, w_proj, b_proj, compute_dtype=None):
     """Output projection (pallas_attention._xla_proj): compute-dtype operands,
     fp32 accumulation and bias, result in the compute dtype."""
     w = w_proj.to(compute_dtype or attn.dtype)
-    return (quant_dot(attn.to(w.dtype), w) + b_proj.float()).to(w.dtype)
+    return (weight_dot(attn.to(w.dtype), w) + b_proj.float()).to(w.dtype)
 
 
 def _fused_proj(x, key_bias) -> bool:
@@ -309,7 +331,8 @@ def ln_mlp_core(x, ln_scale, ln_bias, w1, b1, w2, b2, compute_dtype=None,
     """Pre-LN LayerNorm + fc1 + exact GELU + fc2: the (B, N, C) MLP output
     before the residual, in the compute dtype; fp or int8 weights. Kernel
     #7 under UVLTRACK_FUSED_MLP=1 for fp weights past the gate, else its
-    plain version (pallas_attention._xla_ln_mlp)."""
+    plain version (pallas_attention._xla_ln_mlp) with weight_dot's
+    products."""
     compute_dtype = compute_dtype or x.dtype
     w1, w2 = w1.to(compute_dtype), w2.to(compute_dtype)
     if (_on_kernels(x, x.shape[1]) and os.environ.get("UVLTRACK_FUSED_MLP", "0") == "1"
@@ -318,4 +341,4 @@ def ln_mlp_core(x, ln_scale, ln_bias, w1, b1, w2, b2, compute_dtype=None,
         if grad_needed(x, ln_scale, ln_bias, w1, b1, w2, b2):
             return ag.LnMlp.apply(*args)
         return lm.ln_mlp(*args)
-    return lm.ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    return lm.ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, dot=weight_dot)

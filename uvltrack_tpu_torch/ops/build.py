@@ -10,7 +10,10 @@ starts one nvcc per source, all at once, and waits for all of them.
 
 Every wrapper under ops/ launches its kernel through `launch()`, which
 calls the library's `uvl_<name>` entry point, raises on the CUDA error code
-it returns and counts the launch in LAUNCHES per kernel and instantiation;
+it returns and counts the launch in LAUNCHES per kernel and instantiation
+(a kernel that is not a source of its own, `dense`, the default path's
+weight products of ops/ln_qkv_attn_proj.py::dense_f32, names the library it
+launches from);
 `require()` and `check_cuda()` are the wrappers' argument checks, and
 `no_grad_through()` refuses a launch that autograd would need a gradient
 through (ops/autograd.py holds the kernels that have a backward).
@@ -147,15 +150,20 @@ CAPTURED: Counter = Counter()
 # reset_body_counts, so a caller can count the bodies over runs that reset
 # LAUNCHES
 BODIES: Counter = Counter()
+# "kernel[reason]" -> calls on CUDA tensors that a kernel's entry handed to
+# its plain version (ops/ln_qkv_attn_proj.py::dense_f32: "dense[dtype]",
+# "dense[int8w]", "dense[grad]", ...), eager or under capture alike; never
+# reset (a caller takes the difference)
+FALLBACKS: Counter = Counter()
 _FNS: Dict[str, object] = {}  # entry point name -> the bound entry point
 
 
 def launch_counts() -> dict:
     """{kernel: launches since the last reset, over all its instantiations}
-    for every kernel source."""
+    for every kernel source, and for `dense` once it has launched."""
     out = dict.fromkeys(SOURCES, 0)
     for (kernel, _), n in LAUNCHES.items():
-        out[kernel] += n
+        out[kernel] = out.get(kernel, 0) + n
     return out
 
 
@@ -193,6 +201,11 @@ def body_delta(set_aside: bool = False):
         if set_aside:
             BODIES.clear()
             BODIES.update(before)
+
+
+def fallback_counts() -> dict:
+    """{"kernel[reason]": calls handed to the plain version} so far."""
+    return {k: n for k, n in sorted(FALLBACKS.items()) if n}
 
 
 def captured_counts() -> dict:
@@ -237,23 +250,24 @@ def no_grad_through(name: str, tensors, remedy: str) -> None:
 
 
 def launch(kernel: str, inst: str, argtypes, *args, stream_of: torch.Tensor,
-           entry: str = "", body: str = "") -> None:
+           entry: str = "", body: str = "", lib: str = "") -> None:
     """Call `uvl_<kernel>` (or the library's other entry point `entry`) of
-    lib<kernel> with args and, as its last argument, PyTorch's current
-    stream on the device of `stream_of`; raise on the CUDA error code it
-    returns, and count one launch of kernel[inst] (in CAPTURED instead when
-    the stream is capturing a CUDA graph: nothing runs then); an eager
-    launch of a named `body` also counts in BODIES as kernel[inst-body]."""
+    lib<kernel> (or of lib<lib>) with args and, as its last argument,
+    PyTorch's current stream on the device of `stream_of`; raise on the CUDA
+    error code it returns, and count one launch of kernel[inst] (in CAPTURED
+    instead when the stream is capturing a CUDA graph: nothing runs then);
+    an eager launch of a named `body` also counts in BODIES as
+    kernel[inst-body]."""
     entry = entry or f"uvl_{kernel}"
     fn = _FNS.get(entry)
     if fn is None:
-        fn = getattr(library(kernel), entry)
+        fn = getattr(library(lib or kernel), entry)
         fn.argtypes = [*argtypes, PTR]
         fn.restype = ctypes.c_int
         _FNS[entry] = fn
     rc = fn(*args, torch.cuda.current_stream(stream_of.device).cuda_stream)
     if rc != 0:
-        msg = _LIBS[kernel].uvl_error_string(rc).decode()
+        msg = _LIBS[lib or kernel].uvl_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")
     capturing = torch.cuda.is_current_stream_capturing()
     (CAPTURED if capturing else LAUNCHES)[(kernel, inst)] += 1

@@ -69,19 +69,21 @@ STAGES = {"ln_fc1_gelu": 1, "fc2_bias": 2, "pair": 3}  # uvl_ln_mlp's launch mas
 
 
 # ----------------------------------------------------------------- plain
-def ln_fc1_gelu_plain(x, ln_scale, ln_bias, w1, b1, eps: float = 1e-6):
+def ln_fc1_gelu_plain(x, ln_scale, ln_bias, w1, b1, eps: float = 1e-6, dot=quant_dot):
     """The first launch's function: gelu(w1.dtype(LN(x)) . W1^T + b1) in
-    fp32, returned in fp32 (the caller rounds it to w2's dtype)."""
+    fp32, returned in fp32 (the caller rounds it to w2's dtype). dot: the
+    fp32 product (quant_dot's function; ops/attention.py::weight_dot on the
+    default path)."""
     y = layer_norm_fast_var(x, ln_scale, ln_bias, eps).to(w1.dtype)
-    return F.gelu(quant_dot(y, w1) + b1.float())
+    return F.gelu(dot(y, w1) + b1.float())
 
 
-def fc2_bias_plain(h, w2, b2):
+def fc2_bias_plain(h, w2, b2, dot=quant_dot):
     """The second launch's function: w2.dtype(h . W2^T + b2)."""
-    return (quant_dot(h.to(w2.dtype), w2) + b2.float()).to(w2.dtype)
+    return (dot(h.to(w2.dtype), w2) + b2.float()).to(w2.dtype)
 
 
-def ln_mlp_work(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6):
+def ln_mlp_work(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6, dot=None):
     """(FLOPs, bytes) of kernel #7's function (utils/costs.py), the kernel's
     and the plain version's: fc1 and fc2, the (M, F) hidden tensor written
     and read once in w2's dtype."""
@@ -92,11 +94,12 @@ def ln_mlp_work(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=1e-6):
 
 
 @counted(ln_mlp_work)
-def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6):
+def ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-6, dot=quant_dot):
     """Kernel #7's function (pallas_attention._xla_ln_mlp): x (B, N, C);
     w1 (F, C), w2 (C, F) in Linear layout, dense or QuantizedTensor ->
-    (B, N, C) in w2's dtype."""
-    return fc2_bias_plain(ln_fc1_gelu_plain(x, ln_scale, ln_bias, w1, b1, eps), w2, b2)
+    (B, N, C) in w2's dtype; dot as ln_fc1_gelu_plain's."""
+    return fc2_bias_plain(ln_fc1_gelu_plain(x, ln_scale, ln_bias, w1, b1, eps, dot), w2, b2,
+                          dot)
 
 
 def ln_mlp_large_m_plain(normed, w1, b1, w2, b2):

@@ -43,19 +43,35 @@ takes the plain version.
 Under tensor parallelism (parallel/tp.py) a rank's share of the projection,
 `proj_partial`, is attn_r . Wp_r^T in fp32 before the bias and the
 residual, at a training step's B.N rows: bf16 operands run the same source's
-`uvl_proj_partial` on the core's large-M body (128-row tiles on a
+`uvl_dense` on the core's large-M body (128-row tiles on a
 persistent grid, K unsplit, the fp32 output stored by TMA), tagged
 proj_residual[bf16a-bf16w-fp32o].
+
+The default path's weight products (the projection, fc1 and fc2 of every ViT
+block outside the fused knobs: ops/attention.py::attn_proj_core and
+ln_mlp_core) go through `dense_f32`, ops/quant.py::quant_dot's function on
+the GEMM core: a . w^T in fp32 from bf16 operands, whose products are exact
+in fp32, so only the order of the sum differs from the upcast cuBLAS product.
+It takes the core for CUDA bf16 operands that need no gradient, with K a
+multiple of 64 (`dense_fallback` says why not otherwise, and on the card
+build.FALLBACKS counts it); everything else takes quant_dot. The same
+source's `uvl_dense`, counted as dense[bf16a-bf16w-fp32o]: from
+LARGE_M_ROWS rows the large-M body of proj_partial; below it (the
+tracking step's B=1) fc1 stays there and the projection and fc2 take the
+64-row body, with K split over a cluster of `dense_parts` blocks;
+build.body_counts() counts the bodies apart (`dense[*-lm]`, `dense[*-64]`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..utils.costs import counted, nbytes
 from . import build, hilo, library
 from . import ln_qkv_attention as lqa
-from .build import INT, PTR, check_cuda, no_grad_through, require
+from .build import INT, PTR, check_cuda, grad_needed, no_grad_through, require
 from .quant import QuantizedTensor, quant_dot
 
 PROJ_SPLIT = 3  # blocks of a cluster that split K (csrc/proj_residual.cu SPLIT)
@@ -222,8 +238,9 @@ def proj_partial(attn, w_proj):
     (B, N, C) fp32, no bias, no residual; the caller sums the shares over
     the model group and adds the bias and the residual once. On a CUDA
     tensor, bf16 attn and w_proj: one launch of csrc/proj_residual.cu's
-    `uvl_proj_partial` (the core's large-M body, counted as
-    proj_residual[bf16a-bf16w-fp32o]), K a multiple of 64; fp32 ones (fp32
+    `uvl_dense` on the core's large-M body (dense_f32's product at M from
+    LARGE_M_ROWS, counted apart as proj_residual[bf16a-bf16w-fp32o]),
+    K a multiple of 64; fp32 ones (fp32
     compute): `proj_residual`'s fp32 instantiation on a zero fp32 stream
     with a zero bias."""
     if attn.device.type == "cpu":
@@ -244,7 +261,96 @@ def proj_partial(attn, w_proj):
                     "call it through ops/autograd.py (ProjPartial)")
     check_cuda("proj_partial", attn, w_proj)
     out = torch.empty((b, n, c), dtype=torch.float32, device=attn.device)
-    build.launch("proj_residual", "bf16a-bf16w-fp32o", [PTR, PTR, PTR, INT, INT, INT],
-                 attn.data_ptr(), w_proj.data_ptr(), out.data_ptr(), b * n, k, c,
-                 stream_of=attn, entry="uvl_proj_partial")
+    build.launch("proj_residual", "bf16a-bf16w-fp32o", [PTR, PTR, PTR, INT, INT, INT, INT],
+                 attn.data_ptr(), w_proj.data_ptr(), out.data_ptr(), b * n, k, c, 0,
+                 stream_of=attn, entry="uvl_dense")
     return out
+
+
+# dense_f32's schedule (tools/gemm_ab.py --dot on one H100, PERF.md section 6
+# row D): at a lockstep step's 2,568-2,888 rows the large-M body beat every
+# split of the 64-row body in all six products (B and L: 8.8-47 us against
+# 11-160); at the tracking step's 321/361 rows, fc1's wide output (N = 4K) ran
+# fastest on the large-M body (7.9 us B, 9.5-11 L), the projection unsplit on
+# the 64-row body (5.7 / 6.3 against 6.0-7.8 split), fc2 split in 3 (B, 10.1-10.7
+# us) and in 2 (L, 12.9-13.6). Its threshold is proj_residual's LARGE_M_ROWS
+# (read at each call): no cell runs between 361 and 2,568 rows.
+# A split's cost in 64-deep k-tiles of one block: the cluster's reduction
+# through distributed shared memory and its barriers
+DENSE_SPLIT_COST = 8
+
+
+def dense_parts(m: int, k: int, n: int, sms: int) -> int:
+    """dense_f32's schedule for (M, K) . (N, K)^T on a device of `sms` SMs: 0
+    for the large-M body (M from LARGE_M_ROWS, or an output at least twice
+    as wide as K), else the 1-3 blocks of a cluster that split K on the
+    64-row body: the fewest rounds of blocks over the SMs times the k-tiles
+    of a block (plus DENSE_SPLIT_COST when split), the fewer parts on a
+    tie."""
+    if m >= LARGE_M_ROWS or n >= 2 * k:
+        return 0
+    tiles, kt = -(-m // 64) * -(-n // 128), k // 64
+
+    def cost(p):
+        return -(-tiles * p // sms) * (-(-kt // p) + (DENSE_SPLIT_COST if p > 1 else 0))
+
+    return min(range(1, min(3, kt) + 1), key=lambda p: (cost(p), p))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def dense_fallback(a, w) -> str:
+    """Why dense_f32 hands a . w^T to quant_dot ("" when the core takes it):
+    "cpu" off the card, "int8w" for a QuantizedTensor, "dtype" unless both
+    are bf16, "grad" when autograd needs a gradient, "shape" unless K is
+    a multiple of 64, N of 8 and a holds rows, "export" under
+    torch.export."""
+    if not _on_card(a):
+        return "cpu"
+    if isinstance(w, QuantizedTensor):
+        return "int8w"
+    if not (a.dtype == w.dtype == torch.bfloat16):
+        return "dtype"
+    if grad_needed(a, w):
+        return "grad"
+    if (a.shape[-1] % 64 or w.shape[0] % 8 or tuple(w.shape[1:]) != (a.shape[-1],)
+            or a.numel() == 0):
+        return "shape"
+    if torch.compiler.is_exporting():
+        return "export"
+    return ""
+
+
+def launch_dense(a, w, parts: int):
+    """One launch of uvl_dense: a (..., K) . w (N, K)^T -> (..., N) fp32 on
+    the body `parts` names (dense_parts)."""
+    a = a.contiguous()
+    k, n = a.shape[-1], w.shape[0]
+    m = a.numel() // k
+    check_cuda("dense", a, w)
+    out = torch.empty((*a.shape[:-1], n), dtype=torch.float32, device=a.device)
+    build.launch("dense", "bf16a-bf16w-fp32o", [PTR, PTR, PTR, INT, INT, INT, INT],
+                 a.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, parts, stream_of=a,
+                 entry="uvl_dense", lib="proj_residual", body="64" if parts else "lm")
+    return out
+
+
+def dense_f32(a, w):
+    """quant_dot(a, w), a (..., K) and w (N, K) or a QuantizedTensor -> (...,
+    N) fp32: on the GEMM core where dense_fallback finds no reason against,
+    at dense_parts' schedule; else quant_dot, counted in build.FALLBACKS on
+    the card."""
+    why = dense_fallback(a, w)
+    if why:
+        if why != "cpu":
+            build.FALLBACKS[f"dense[{why}]"] += 1
+        return quant_dot(a, w)
+    k = a.shape[-1]
+    return launch_dense(a, w, dense_parts(a.numel() // k, k, w.shape[0], _sm_count(a.device)))

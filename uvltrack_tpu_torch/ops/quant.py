@@ -88,7 +88,11 @@ def dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a @ w.T with fp32 accumulation and an fp32 result, for a Linear-layout
     weight w (out, in): the port of preferred_element_type=f32. Products of
     bf16 or int8 values are exact in fp32, so upcasting first gives the same
-    numbers as a bf16 product that accumulates and returns in fp32."""
+    numbers as a bf16 product that accumulates and returns in fp32. On the
+    card the default path's bf16 products take
+    ops/ln_qkv_attn_proj.py::dense_f32 (the GEMM core) instead; this upcast
+    stays the product of the CPU, of int8 and fp32 weights and of training,
+    and the plain version the card's kernel checks read."""
     return torch.matmul(a.float(), w.float().t())
 
 

@@ -21,6 +21,8 @@ and, as controls, of `ln_qkv` and `proj_residual` alone.
         [--check-only] [--dump FILE.npz] [--cmp FILE.npz]
     python uvltrack_tpu_torch/tools/gemm_ab.py --attn [--root DIR] [--label NAME]
         [--check-only] [--dump FILE.npz] [--cmp FILE.npz]
+    python uvltrack_tpu_torch/tools/gemm_ab.py --dot [--root DIR] [--label NAME]
+        [--check-only] [--dump FILE.npz] [--cmp FILE.npz]
 
 --root: the checkout whose uvltrack_tpu_torch is timed (default: the one
 holding this script), built into DIR/build/kernels. The timers are
@@ -63,6 +65,15 @@ and B S8, N=361) and over ATTN_SWEEP (B=1-4 at H=12 and 16, where the split
 and batch bodies cross: ATTN_BATCH_PAIRS): "auto", "batch" and "split" (each
 body forced where the checkout has both) and SDPA ("library"); "batch"
 against the plain version, bitwise on a second call and against "split".
+--dot times the default path's weight products (the projection, fc1, fc2)
+at DOT_SHAPES (the four cells' M = 321, 361, 2,568, 2,888 for B and L):
+"default", the checkout's own product (ops/ln_qkv_attn_proj.py::dense_f32,
+or ops/quant.py::dot_f32 in a checkout without it), each schedule of
+`uvl_dense` forced where the checkout has it ("lm", the large-M body;
+"split1" .. "split3", the 64-row body with K in that many parts),
+"dot_f32" (the upcast cuBLAS product) and torch.mm with an fp32 out_dtype
+("library", the yardstick); each core output against dot_f32 (|diff| at
+most DOT_RTOL of |a|.|w| summed over K) and bitwise on a second call.
 In every mode --dump saves the kernels' outputs (the same seeded inputs in
 every checkout) and --cmp reports, output by output, whether they are
 bitwise those of another checkout's dump. Prints one JSON line; times in ms.
@@ -117,6 +128,7 @@ def main() -> int:
     ap.add_argument("--mlp", action="store_true")
     ap.add_argument("--proj", action="store_true")
     ap.add_argument("--attn", action="store_true")
+    ap.add_argument("--dot", action="store_true")
     ap.add_argument("--check-only", action="store_true")
     ap.add_argument("--dump", default="")
     ap.add_argument("--cmp", default="")
@@ -132,6 +144,8 @@ def main() -> int:
         return mlp_proj_ab(args)
     if args.attn:
         return attn_ab(args)
+    if args.dot:
+        return dot_ab(args)
 
     import numpy as np
     import torch
@@ -602,6 +616,67 @@ def mlp_proj_ab(args) -> int:
     dump_and_compare(args, dumps, out)
     print(json.dumps(out), flush=True)
     return 0
+
+
+# (label, M, C): the four cells' rows at B=1 (N = 321, 361) and B=8
+DOT_SHAPES = tuple((f"{model}_M{m}", m, c) for model, c in (("B", 768), ("L", 1024))
+                   for m in (321, 361, 2568, 2888))
+DOT_RTOL = 1e-5  # of sum_k |a||w|: fp32 sums of exact products in two orders
+
+
+def dot_ab(args) -> int:
+    """The default path's products at DOT_SHAPES (PERF.md row D): device ms
+    (a CUDA graph of 20 calls) of the checkout's product, of each core
+    schedule, of dot_f32 and of torch.mm with an fp32 out; the checks."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("gemm_ab: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from chip_smoke import graph_time_ms, nvidia_smi
+    from uvltrack_tpu_torch.ops import ln_qkv_attn_proj as lqp
+    from uvltrack_tpu_torch.ops import quant
+
+    dev, b16 = torch.device("cuda"), torch.bfloat16
+    core = getattr(lqp, "launch_dense", None)
+    default = getattr(lqp, "dense_f32", quant.dot_f32)
+    out = {"label": args.label, "root": args.root, "device": nvidia_smi(), "times": {},
+           "checks": {}}
+    dumps, failed = {}, []
+    for label, m, c in DOT_SHAPES:
+        for prod, k, n in (("proj", c, c), ("fc1", c, 4 * c), ("fc2", 4 * c, c)):
+            rng = np.random.default_rng(args.seed + m + k + n)
+            a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev, b16)
+            w = torch.from_numpy((rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
+                                 ).to(dev, b16)
+            fns = {"default": lambda: default(a, w)}
+            if core is not None:
+                fns["lm"] = lambda: core(a, w, 0)
+                for parts in range(1, 4):
+                    fns[f"split{parts}"] = lambda parts=parts: core(a, w, parts)
+            lib = {"dot_f32": lambda: quant.dot_f32(a, w),
+                   "library": lambda: torch.mm(a, w.t(), out_dtype=torch.float32)}
+            key = f"{label}_{prod}"
+            ref = quant.dot_f32(a, w)
+            bound = DOT_RTOL * (a.float().abs() @ w.float().abs().t())
+            checks = {}
+            for name, fn in fns.items():
+                r, again = fn(), fn()
+                gap = float(((r - ref).abs() / bound).max())
+                checks[name] = {"gap_over_bound": gap, "bitwise_again": bool(torch.equal(r, again))}
+                if gap > 1 or not checks[name]["bitwise_again"]:
+                    failed.append(f"{key} {name}")
+                dumps[f"{key} {name}"] = r.cpu().numpy()
+            out["checks"][key] = checks
+            if not args.check_only:
+                out["times"][key] = {name: graph_time_ms(fn)[0]
+                                     for name, fn in {**fns, **lib}.items()}
+    out["failed"] = failed
+    dump_and_compare(args, dumps, out)
+    print(json.dumps(out), flush=True)
+    return 1 if failed else 0
 
 
 # (label, B, H): the shapes whose (b, h) pairs take the batch body

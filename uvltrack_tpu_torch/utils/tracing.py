@@ -49,7 +49,7 @@ host's due mask over the same calls).
 Memory: at most CAPACITY spans, as many region times and as many counts
 are kept (1 << 17: a 20 s window of the single-stream step at ~200 steps/s
 records ~11 spans a step); what does not fit is counted in `dropped`. export() returns them with ops/build.py's counters as they stand
-(launches, captured calls, bodies, nvcc seconds): read there, not copied.
+(launches, captured calls, bodies, fallbacks, nvcc seconds): read there, not copied.
 """
 
 from __future__ import annotations
@@ -165,6 +165,7 @@ def export() -> dict:
     return {"spans": spans, "regions": regions, "counts": counts, "dropped": dropped,
             "build": {"launches": build.instantiation_counts(),
                       "captured": build.captured_counts(), "bodies": build.body_counts(),
+                      "fallbacks": build.fallback_counts(),
                       "nvcc_s": {n: r.seconds for n, r in build.RECORDS.items()
                                  if not r.cached}}}
 
